@@ -1,0 +1,293 @@
+"""Spec compiler: DSL config lists -> ``nn.Module`` trees (eval forward).
+
+Counterpart of ``snn_for_object_detection_tpu/models/compile.py`` for the
+TinyYolo menu: ``Conv``, eval-mode ``Norm``, ``LIF``/``LI``, ``Tanh``,
+``Pass``, ``Return`` taps, and ``Residual`` / ``Dense`` blocks. Shape
+inference runs once at build time, as in the JAX compiler. Each layer
+has two forms:
+
+- ``step(x, state, ctx)`` for one frame ``x [B, H, W, C]``;
+- ``seq(X, state, ctx)`` for a whole sequence ``X [T, B, H, W, C]``:
+  stateless layers fold T into the batch, cells run the whole time loop
+  in one ``temporal_cell_seq`` call with the truncation start
+  ``ctx.start_step``.
+
+Activations are NHWC at every boundary (the JAX layout). Submodules are
+named after the JAX pytree keys (``b0.l3.w`` for ``["b0"]["l3"]["w"]``),
+so ``models/convert.py`` maps weights one to one. Every other leaf and
+mode raises ``NotImplementedError`` naming its ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from snn_for_object_detection_tpu_torch.models import spec as S
+from snn_for_object_detection_tpu_torch.ops import neurons
+from snn_for_object_detection_tpu_torch.ops.cuda_kernels import (
+    temporal_cell_seq,
+)
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md, Queue 1: {item})"
+    )
+
+
+@dataclasses.dataclass
+class Ctx:
+    """Per-call context: ``taps`` collects ``Return`` outputs in config
+    order; ``start_step`` is the truncation start r of a sequence call
+    (state frozen for t < r)."""
+
+    taps: List[torch.Tensor] = dataclasses.field(default_factory=list)
+    start_step: int = 0
+
+
+class Layer(nn.Module):
+    """A compiled layer with static output shape."""
+
+    def __init__(self, out_channels: int, out_hw: Tuple[int, int]):
+        super().__init__()
+        self.out_channels = out_channels
+        self.out_hw = tuple(out_hw)
+
+    def init_state(self, batch: int, device) -> Any:
+        return ()
+
+    def step(self, x, state, ctx: Ctx):
+        raise NotImplementedError
+
+    def seq(self, X, state, ctx: Ctx):
+        """Default for stateless layers: fold T into the batch."""
+        t, b = X.shape[0], X.shape[1]
+        y, state = self.step(X.reshape((t * b,) + X.shape[2:]), state, ctx)
+        return y.reshape((t, b) + y.shape[1:]), state
+
+
+class Pass(Layer):
+    def step(self, x, state, ctx):
+        return x, state
+
+
+class Tanh(Layer):
+    def step(self, x, state, ctx):
+        return torch.tanh(x), state
+
+
+class Return(Layer):
+    """Pyramid tap; in sequence mode the tap is the whole sequence."""
+
+    def step(self, x, state, ctx):
+        ctx.taps.append(x)
+        return x, state
+
+    seq = step
+
+
+class Conv(Layer):
+    """Bias-free conv, symmetric padding ``k // 2``. The weight is kept
+    OIHW; activations stay NHWC (a channels-last view for the conv)."""
+
+    def __init__(self, in_ch, out_ch, k, s, in_hw):
+        pad = k // 2
+        super().__init__(
+            out_ch, tuple((d + 2 * pad - k) // s + 1 for d in in_hw)
+        )
+        self.stride, self.padding = s, pad
+        self.w = nn.Parameter(torch.empty(out_ch, in_ch, k, k))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Kaiming normal, fan_out mode, relu gain (compile.py:236-241)."""
+        out, _, kh, kw = self.w.shape
+        std = (2.0 / (kh * kw * out)) ** 0.5
+        with torch.no_grad():
+            self.w.copy_(
+                std * torch.randn(self.w.shape, generator=generator)
+            )
+
+    def step(self, x, state, ctx):
+        y = F.conv2d(
+            x.permute(0, 3, 1, 2), self.w.to(x.dtype),
+            stride=self.stride, padding=self.padding,
+        )
+        # cuDNN and oneDNN answer a channels-last input in channels-last,
+        # so this is a view; a backend that answers NCHW pays one copy
+        return y.permute(0, 2, 3, 1).contiguous(), state
+
+
+class Norm(Layer):
+    """Eval-mode BatchNorm: the folded affine ``x * k + b`` applied in
+    the activation dtype as two ops (compile.py:143-158)."""
+
+    def __init__(self, ch, hw, bias: bool, eps: float):
+        super().__init__(ch, hw)
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(ch))
+        if bias:
+            self.bias = nn.Parameter(torch.zeros(ch))
+        else:
+            self.bias = None
+        self.register_buffer("mean", torch.zeros(ch))
+        self.register_buffer("var", torch.ones(ch))
+
+    def step(self, x, state, ctx):
+        k = torch.rsqrt(self.var + self.eps) * self.scale
+        b = -self.mean * k
+        if self.bias is not None:
+            b = b + self.bias
+        return x * k.to(x.dtype) + b.to(x.dtype), state
+
+
+class Cell(Layer):
+    """LIF or LI layer. Both forms go through ``temporal_cell_seq``
+    (the step form with T = 1), so on the card no plain cell math runs."""
+
+    def __init__(self, kind: str, ch, hw, state_dtype):
+        super().__init__(ch, hw)
+        self.kind = kind
+        self.state_dtype = state_dtype
+
+    def init_state(self, batch, device):
+        init = neurons.lif_init if self.kind == "lif" else neurons.li_init
+        return init((batch, *self.out_hw, self.out_channels),
+                    dtype=self.state_dtype, device=device)
+
+    def step(self, x, state, ctx):
+        z, v, i = temporal_cell_seq(x[None], state.v, state.i, self.kind)
+        return z[0], type(state)(v, i)
+
+    def seq(self, X, state, ctx):
+        z, v, i = temporal_cell_seq(
+            X, state.v, state.i, self.kind, start=ctx.start_step
+        )
+        return z, type(state)(v, i)
+
+
+_NOT_PORTED_LEAVES = (
+    S.Pool, S.Up, S.ReLU, S.SiLU, S.PLIF, S.ALIF, S.SLI, S.Synapse, S.LSTM,
+)
+
+
+def _compile_leaf(layer: S.LayerSpec, in_ch: int, in_hw, state_dtype):
+    if isinstance(layer, S.Pass):
+        return Pass(in_ch, in_hw)
+    if isinstance(layer, S.Tanh):
+        return Tanh(in_ch, in_hw)
+    if isinstance(layer, S.Return):
+        return Return(in_ch, in_hw)
+    if isinstance(layer, S.Conv):
+        if layer.s2d:
+            raise not_ported("Conv(s2d=True)", "execution plans")
+        out = in_ch if layer.out_channels is None else layer.out_channels
+        return Conv(in_ch, out, layer.kernel_size, layer.stride, in_hw)
+    if isinstance(layer, S.Norm):
+        return Norm(in_ch, in_hw, layer.bias, layer.eps)
+    if isinstance(layer, (S.LIF, S.LI)):
+        if layer.state_storage:
+            raise not_ported("state recording (state_storage=True)",
+                             "recording")
+        kind = "lif" if isinstance(layer, S.LIF) else "li"
+        return Cell(kind, in_ch, in_hw, state_dtype)
+    if isinstance(layer, _NOT_PORTED_LEAVES):
+        raise not_ported(f"the {type(layer).__name__} leaf", "other leaves")
+    raise TypeError(f"Unknown layer spec: {layer!r}")
+
+
+class Block(Layer):
+    """A config list: one sequential branch, or ``Residual`` (branch
+    outputs summed) / ``Dense`` (concatenated on the channel axis)
+    branches. Branch ``bi`` is the child ``b{bi}``; its layer ``li`` is
+    ``b{bi}.l{li}``."""
+
+    def __init__(self, cfgs, in_ch, in_hw, returns=None,
+                 state_dtype=torch.float32):
+        if isinstance(cfgs, S.Residual):
+            mode, branch_cfgs = "residual", list(cfgs)
+        elif isinstance(cfgs, S.Dense):
+            mode, branch_cfgs = "dense", list(cfgs)
+        else:
+            mode, branch_cfgs = "plain", [list(cfgs)]
+        branches = []
+        out_channels, out_hw = 0, None
+        for branch_cfg in branch_cfgs:
+            layers = []
+            ch, hw = in_ch, tuple(in_hw)
+            for element in branch_cfg:
+                if isinstance(element, S.LayerSpec):
+                    layer = _compile_leaf(element, ch, hw, state_dtype)
+                    if isinstance(element, S.Return) and returns is not None:
+                        returns.append((ch, hw))
+                elif isinstance(element, (list, tuple)):
+                    layer = Block(element, ch, hw, returns, state_dtype)
+                else:
+                    raise TypeError(f"Bad config element: {element!r}")
+                layers.append(layer)
+                ch, hw = layer.out_channels, layer.out_hw
+            if mode == "residual" and out_channels and out_channels != ch:
+                raise ValueError(
+                    f"Residual branch channel mismatch: {out_channels} vs {ch}"
+                )
+            if mode != "plain" and out_hw is not None and out_hw != hw:
+                raise ValueError(f"Branch spatial mismatch: {out_hw} vs {hw}")
+            out_channels = out_channels + ch if mode == "dense" else ch
+            out_hw = hw
+            branches.append(layers)
+        super().__init__(out_channels, out_hw)
+        self.mode = mode
+        for bi, layers in enumerate(branches):
+            self.add_module(f"b{bi}", nn.ModuleDict(
+                {f"l{li}": layer for li, layer in enumerate(layers)}
+            ))
+        self.num_branches = len(branches)
+
+    def _branches(self):
+        return [getattr(self, f"b{bi}") for bi in range(self.num_branches)]
+
+    def init_state(self, batch, device):
+        return {
+            f"b{bi}": {
+                name: layer.init_state(batch, device)
+                for name, layer in branch.items()
+            }
+            for bi, branch in enumerate(self._branches())
+        }
+
+    def _run(self, x, state, ctx, seq: bool):
+        outs, new_state = [], {}
+        for bi, branch in enumerate(self._branches()):
+            y, st_b, new_b = x, state[f"b{bi}"], {}
+            for name, layer in branch.items():
+                fn = layer.seq if seq else layer.step
+                y, new_b[name] = fn(y, st_b[name], ctx)
+            outs.append(y)
+            new_state[f"b{bi}"] = new_b
+        if self.mode == "residual":
+            y = outs[0]
+            for o in outs[1:]:
+                y = y + o
+        elif self.mode == "dense":
+            y = torch.cat(outs, dim=-1)
+        else:
+            y = outs[0]
+        return y, new_state
+
+    def step(self, x, state, ctx):
+        return self._run(x, state, ctx, seq=False)
+
+    def seq(self, X, state, ctx):
+        return self._run(X, state, ctx, seq=True)
+
+
+def compile_block(cfgs, in_ch: int, in_hw, returns: Optional[list] = None,
+                  state_dtype=torch.float32) -> Block:
+    """Compile a config list into a :class:`Block`. ``Return`` leaf
+    ``(channels, hw)`` pairs are appended to ``returns`` in config
+    order."""
+    return Block(cfgs, in_ch, in_hw, returns, state_dtype)

@@ -1,0 +1,375 @@
+"""Detector core: backbone/neck/head composition, forwards, loss, decode.
+
+Counterpart of ``snn_for_object_detection_tpu/models/detector.py``
+(``SODa``, after the reference's models/soda.py) for evaluation. The
+module owns its parameters and BatchNorm running stats; the recurrent
+neuron state is a nested dict the caller passes in and gets back, in
+the JAX pytree layout.
+
+Two schedules give the same predictions:
+
+- :meth:`forward` runs one frame at a time; steps ``t < start_step``
+  are skipped entirely (the reference's ``X[r:]`` truncation);
+- :meth:`forward_seq` runs every stateless layer once over the folded
+  ``T*B`` batch and every LIF/LI cell as one ``temporal_cell_seq`` call
+  over the whole sequence, whose state commits only for ``t >= r``.
+
+The head's box/cls tails are stateless 1x1 convs, so both schedules
+apply them once, to the last step's stem activations.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from snn_for_object_detection_tpu_torch.models import compile as C
+from snn_for_object_detection_tpu_torch.models import spec as S
+from snn_for_object_detection_tpu_torch.ops import anchors as anchor_ops
+from snn_for_object_detection_tpu_torch.ops import matching, nms
+from snn_for_object_detection_tpu_torch.ops.cuda_kernels import (
+    STATE_DTYPES,
+    X_DTYPES,
+)
+
+Preds = Tuple[torch.Tensor, torch.Tensor]
+
+
+def as_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a dtype or its name ("bfloat16", ...)."""
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype.split(".")[-1])
+    if dtype == torch.float8_e4m3fn:
+        # torch saturates e4m3 overflow where JAX gives NaN
+        raise C.not_ported("float8_e4m3fn states", "e4m3 states")
+    return dtype
+
+
+class SODa(nn.Module):
+    """Abstract stateful-recurrent anchor detector.
+
+    Subclasses provide ``backbone_cfgs`` / ``neck_cfgs`` / ``head_cfgs``
+    DSL lists. Construction compiles the network for a static input
+    geometry, initializes it from ``seed`` and places it on ``device``.
+
+    :param num_classes: Number of foreground classes.
+    :param in_hw: Input frame geometry (H, W); (240, 304) for GEN1.
+    :param loss_ratio: GT-vs-background loss weighting.
+    :param time_window: Max random truncation of the sequence start.
+    :param iou_threshold: Anchor-assignment IoU threshold.
+    :param compute_dtype: Activation dtype, fp32 or bf16.
+    :param state_dtype: Neuron state storage dtype: fp32, bf16 or e5m2.
+    :param device: Where the model lives. ``"cuda"`` needs a card: there
+        is no fallback to the CPU.
+    :param seed: Seed of the ``torch.Generator`` that draws the weights.
+    """
+
+    def __init__(
+        self,
+        num_classes: int,
+        in_hw: Tuple[int, int] = (240, 304),
+        in_channels: int = 2,
+        loss_ratio: float = 0.04,
+        time_window: int = 16,
+        iou_threshold: float = 0.4,
+        state_storage: bool = False,
+        compute_dtype=torch.float32,
+        state_dtype=torch.float32,
+        device="cuda",
+        seed: int = 0,
+    ):
+        super().__init__()
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "device='cuda' but no CUDA device is available; pass "
+                "device='cpu' to run the plain PyTorch versions"
+            )
+        if state_storage:
+            raise C.not_ported("state recording (state_storage=True)",
+                               "recording")
+        self.num_classes = num_classes
+        self.in_hw = tuple(in_hw)
+        self.in_channels = in_channels
+        self.loss_ratio = loss_ratio
+        self.time_window = time_window
+        self.iou_threshold = iou_threshold
+        self.state_storage = state_storage
+        self.compute_dtype = as_dtype(compute_dtype)
+        self.state_dtype = as_dtype(state_dtype)
+        if self.compute_dtype not in X_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {X_DTYPES}")
+        if self.state_dtype not in STATE_DTYPES:
+            raise ValueError(f"state_dtype must be one of {STATE_DTYPES}")
+        self.device = device
+
+        sd = self.state_dtype
+        self.backbone = C.compile_block(
+            self.backbone_cfgs(), in_channels, self.in_hw, state_dtype=sd
+        )
+        neck_returns: List[Tuple[int, Tuple[int, int]]] = []
+        self.neck = C.compile_block(
+            self.neck_cfgs(), self.backbone.out_channels,
+            self.backbone.out_hw, returns=neck_returns, state_dtype=sd,
+        )
+        if not neck_returns:
+            raise ValueError("neck_cfgs must contain at least one Return()")
+        self.neck_out_shape = neck_returns
+
+        num_scales = len(neck_returns)
+        sizes = anchor_ops.default_scale_sizes(num_scales)
+        ratios = anchor_ops.DEFAULT_RATIOS
+        anchors_per_pixel = sizes.shape[1] * len(ratios)
+        self.num_box_out = anchors_per_pixel * 4
+        self.num_class_out = anchors_per_pixel * (num_classes + 1)
+        anchors = np.concatenate([
+            anchor_ops.generate_anchors(hw[0], hw[1], sizes[idx], ratios)
+            for idx, (_, hw) in enumerate(neck_returns)
+        ])
+        self.register_buffer("anchors", torch.from_numpy(anchors),
+                             persistent=False)
+        self.num_anchors = int(anchors.shape[0])
+
+        head_cfg = self.head_cfgs(self.num_box_out, self.num_class_out)
+        if len(head_cfg) != 3:
+            raise ValueError("head_cfgs must return [base, box, cls] lists")
+        self.num_heads = num_scales
+        for idx, (ch, hw) in enumerate(neck_returns):
+            base = C.compile_block(head_cfg[0], ch, hw, state_dtype=sd)
+            box = C.compile_block(head_cfg[1], base.out_channels,
+                                  base.out_hw, state_dtype=sd)
+            cls = C.compile_block(head_cfg[2], base.out_channels,
+                                  base.out_hw, state_dtype=sd)
+            if box.out_channels != self.num_box_out:
+                raise ValueError(
+                    f"head box branch must end with {self.num_box_out} "
+                    "channels"
+                )
+            if cls.out_channels != self.num_class_out:
+                raise ValueError(
+                    f"head cls branch must end with {self.num_class_out} "
+                    "channels"
+                )
+            for tail in (box, cls):
+                if any(isinstance(m, (C.Norm, C.Cell))
+                       for m in tail.modules()):
+                    raise C.not_ported(
+                        "head box/cls tails with state or BatchNorm",
+                        "other leaves",
+                    )
+            self.add_module(f"head{idx}", nn.ModuleDict(
+                {"base": base, "box": box, "cls": cls}
+            ))
+        self.init(torch.Generator().manual_seed(seed))
+        self.to(device)
+        self.eval()
+
+    # ----- config hooks -----
+
+    def backbone_cfgs(self) -> S.ListGen:
+        raise NotImplementedError
+
+    def neck_cfgs(self) -> S.ListGen:
+        raise NotImplementedError
+
+    def head_cfgs(self, box_out: int, cls_out: int) -> S.ListGen:
+        raise NotImplementedError
+
+    def heads(self) -> List[nn.ModuleDict]:
+        return [getattr(self, f"head{idx}") for idx in range(self.num_heads)]
+
+    # ----- init -----
+
+    def init(self, generator: torch.Generator) -> None:
+        """(Re)draw every conv weight from ``generator`` (a CPU
+        generator) and reset BatchNorm to identity."""
+        for m in self.modules():
+            if isinstance(m, C.Conv):
+                m.reset_parameters(generator)
+            elif isinstance(m, C.Norm):
+                with torch.no_grad():
+                    m.scale.fill_(1.0)
+                    if m.bias is not None:
+                        m.bias.zero_()
+                    m.mean.zero_()
+                    m.var.fill_(1.0)
+
+    def init_state(self, batch_size: int) -> Dict[str, Any]:
+        """Zero recurrent state for a batch, on the model's device."""
+        dev = self.device
+        state = {
+            "backbone": self.backbone.init_state(batch_size, dev),
+            "neck": self.neck.init_state(batch_size, dev),
+        }
+        for idx, head in enumerate(self.heads()):
+            state[f"head{idx}"] = {
+                part: head[part].init_state(batch_size, dev)
+                for part in ("base", "box", "cls")
+            }
+        return state
+
+    # ----- per-step pieces -----
+
+    def _trunk(self, x: torch.Tensor, state) -> Tuple[tuple, Dict]:
+        """Backbone + neck + head stems for one frame; the stateless
+        box/cls tails are left to :meth:`_tail_readout`."""
+        ctx = C.Ctx()
+        new_state = {}
+        y, new_state["backbone"] = self.backbone.step(
+            x.to(self.compute_dtype), state["backbone"], ctx
+        )
+        _, new_state["neck"] = self.neck.step(y, state["neck"], ctx)
+        base_outs = []
+        for idx, (head, fmap) in enumerate(zip(self.heads(), ctx.taps)):
+            hst = state[f"head{idx}"]
+            base_out, nst = head["base"].step(fmap, hst["base"], ctx)
+            new_state[f"head{idx}"] = {
+                "base": nst, "box": hst["box"], "cls": hst["cls"]
+            }
+            base_outs.append(base_out)
+        return tuple(base_outs), new_state
+
+    def _tail_readout(self, base_outs, state) -> Preds:
+        """Box/cls tails on stem activations, flattened in (h, w,
+        anchor) order and concatenated across scales, fp32."""
+        cls_list, box_list = [], []
+        for idx, (head, base_out) in enumerate(zip(self.heads(), base_outs)):
+            hst, ctx = state[f"head{idx}"], C.Ctx()
+            box_out, _ = head["box"].step(base_out, hst["box"], ctx)
+            cls_out, _ = head["cls"].step(base_out, hst["cls"], ctx)
+            b = box_out.shape[0]
+            box_list.append(box_out.reshape(b, -1, 4).float())
+            cls_list.append(
+                cls_out.reshape(b, -1, self.num_classes + 1).float()
+            )
+        return torch.cat(cls_list, dim=1), torch.cat(box_list, dim=1)
+
+    # ----- forwards -----
+
+    @torch.no_grad()
+    def step(self, x: torch.Tensor, state=None) -> Tuple[Preds, Dict]:
+        """One frame ``[B, H, W, C]`` -> ((cls_preds [B, A, C+1],
+        bbox_preds [B, A, 4]), new state)."""
+        if state is None:
+            state = self.init_state(x.shape[0])
+        base_outs, state = self._trunk(x, state)
+        return self._tail_readout(base_outs, state), state
+
+    @torch.no_grad()
+    def forward(self, X: torch.Tensor, start_step: int = 0,
+                state=None) -> Tuple[Preds, Dict]:
+        """Per-step schedule over ``X [T, B, H, W, C]``: last-step
+        predictions and the final state. Steps ``t < start_step`` are
+        skipped (state frozen)."""
+        T, B = X.shape[0], X.shape[1]
+        if state is None:
+            state = self.init_state(B)
+        base_outs = tuple(
+            torch.zeros((B, *h["base"].out_hw, h["base"].out_channels),
+                        dtype=self.compute_dtype, device=X.device)
+            for h in self.heads()
+        )
+        for t in range(max(int(start_step), 0), T):
+            base_outs, state = self._trunk(X[t], state)
+        return self._tail_readout(base_outs, state), state
+
+    @torch.no_grad()
+    def forward_seq(self, X: torch.Tensor, start_step: int = 0,
+                    state=None) -> Tuple[Preds, Dict]:
+        """Time-batched schedule, same results as :meth:`forward`."""
+        B = X.shape[1]
+        if state is None:
+            state = self.init_state(B)
+        ctx = C.Ctx(start_step=int(start_step))
+        new_state = {}
+        y, new_state["backbone"] = self.backbone.seq(
+            X.to(self.compute_dtype), state["backbone"], ctx
+        )
+        _, new_state["neck"] = self.neck.seq(y, state["neck"], ctx)
+        base_outs = []
+        for idx, (head, fmap_seq) in enumerate(zip(self.heads(), ctx.taps)):
+            hst = state[f"head{idx}"]
+            base_seq, nst = head["base"].seq(fmap_seq, hst["base"], ctx)
+            new_state[f"head{idx}"] = {
+                "base": nst, "box": hst["box"], "cls": hst["cls"]
+            }
+            base_outs.append(base_seq[-1])
+        return self._tail_readout(base_outs, new_state), new_state
+
+    def forward_fn(self, schedule):
+        """``Trainer(time_batched=...)`` flag -> forward: ``False`` ->
+        :meth:`forward`, ``True`` -> :meth:`forward_seq`."""
+        if schedule == "hybrid":
+            raise C.not_ported("the hybrid schedule", "other schedules")
+        if schedule is False:
+            return self.forward
+        if schedule is True:
+            return self.forward_seq
+        raise ValueError(
+            f"unknown schedule {schedule!r}; expected False or True"
+        )
+
+    # ----- loss -----
+
+    def loss(self, preds: Preds, labels: torch.Tensor) -> torch.Tensor:
+        """SSD loss: CE split into GT/background means weighted by
+        ``loss_ratio``, plus masked L1 on box offsets averaged over all
+        ``B*A*4`` elements.
+
+        :param labels: [B, N, 5] (class, x1, y1, x2, y2), -1-padded.
+        """
+        if labels.shape[-1] != 5:
+            raise ValueError(
+                f"loss expects [B, N, 5] single-target labels, got "
+                f"{tuple(labels.shape)}"
+            )
+        cls_preds, bbox_preds = preds
+        bbox_offset, bbox_mask, class_labels = matching.match_targets(
+            self.anchors, labels, self.iou_threshold
+        )
+        num_out = cls_preds.shape[-1]
+        logp = torch.log_softmax(cls_preds.reshape(-1, num_out), dim=-1)
+        flat_labels = class_labels.reshape(-1)
+        ce = -logp.gather(1, flat_labels[:, None])[:, 0]
+        pos = flat_labels > 0
+        n_pos = pos.sum().clamp(min=1)
+        n_neg = (~pos).sum().clamp(min=1)
+        gt_loss = torch.where(pos, ce, 0.0).sum() / n_pos
+        background_loss = torch.where(pos, 0.0, ce).sum() / n_neg
+        bbox_l1 = (bbox_preds * bbox_mask - bbox_offset * bbox_mask).abs()
+        return (
+            gt_loss * self.loss_ratio
+            + background_loss * (1 - self.loss_ratio)
+            + bbox_l1.mean()
+        )
+
+    # ----- detection post-processing -----
+
+    def detect(self, preds: Preds, max_out: int = 300) -> torch.Tensor:
+        """Softmax + NMS decode: [B, max_out, 6] (class, conf, xyxy)."""
+        cls_preds, bbox_preds = preds
+        probs = torch.softmax(cls_preds, dim=2)
+        return nms.multibox_detection(
+            probs, bbox_preds, self.anchors, max_out=max_out
+        )
+
+    @torch.no_grad()
+    def predict(self, x: torch.Tensor, state=None,
+                max_out: int = 300) -> Tuple[torch.Tensor, Dict]:
+        """Streaming single-frame inference.
+
+        :param x: One frame [H, W, C] (or [B, H, W, C]).
+        :return: (detections [max_out, 6] with boxes clamped to [0, 1],
+            new state). Padded rows have class -1.
+        """
+        squeeze = x.dim() == 3
+        if squeeze:
+            x = x[None]
+        preds, state = self.step(x, state)
+        dets = self.detect(preds, max_out=max_out)
+        dets = torch.cat([dets[..., :2], dets[..., 2:].clamp(0.0, 1.0)],
+                         dim=-1)
+        return (dets[0] if squeeze else dets), state

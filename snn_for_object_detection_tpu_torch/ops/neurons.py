@@ -1,0 +1,131 @@
+"""LIF / LI neuron cells as plain PyTorch functions (eval forward).
+
+Counterpart of ``snn_for_object_detection_tpu/ops/neurons.py``: the same
+norse cell semantics, ``step(x, state) -> (out, new_state)`` on tensors
+of any shape, Euler integration with ``dt = 1e-3``. These are the plain
+versions of the math that ``ops/cuda_kernels.temporal_cell_seq`` runs on
+the card; the surrogate gradient and the PLIF/ALIF/SLI/Synapse cells
+come with the training slice.
+
+Rounding. The JAX package computes ``v + dt*tau*(...)`` with a Python
+float factor, so the factor is the double product rounded once to fp32
+(``0.1f`` and ``0.2f``). XLA contracts each multiply-add of the update
+into one fused multiply-add (one rounding); :func:`fma` reproduces
+that exactly, so the cells agree bit for bit with the JAX package and
+with the CUDA kernel, which uses ``__fmaf_rn`` at the same places.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Tuple
+
+import torch
+
+
+def fma(a: torch.Tensor, b: float, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` for fp32 tensors, rounded once to fp32.
+
+    The product of two fp32 values is exact in fp64. The sum is then
+    rounded to odd (an inexact fp64 sum moves to whichever neighbour
+    has an odd last bit, using the exact TwoSum error), which keeps
+    the later rounding to fp32 correct: the result is what a hardware
+    fused multiply-add gives.
+    """
+    p = a.double() * b
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    inexact = (err != 0) & torch.isfinite(err)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, float("inf"), float("-inf")).to(s.dtype)
+    s = torch.where(inexact & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+@dataclasses.dataclass(frozen=True)
+class LIFParams:
+    """Static LIF parameters (norse defaults)."""
+
+    tau_syn_inv: float = 1.0 / 5e-3
+    tau_mem_inv: float = 1.0 / 1e-2
+    v_leak: float = 0.0
+    v_th: float = 1.0
+    v_reset: float = 0.0
+    dt: float = 1e-3
+
+
+class LIFState(NamedTuple):
+    v: torch.Tensor
+    i: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class LIParams:
+    tau_syn_inv: float = 1.0 / 5e-3
+    tau_mem_inv: float = 1.0 / 1e-2
+    v_leak: float = 0.0
+    dt: float = 1e-3
+
+
+class LIState(NamedTuple):
+    v: torch.Tensor
+    i: torch.Tensor
+
+
+def euler_factors(p) -> Tuple[float, float]:
+    """``(dt * tau_mem_inv, dt * tau_syn_inv)``: the double products
+    rounded once to fp32, as JAX rounds a weak-typed Python scalar."""
+    return tuple(
+        torch.tensor(f, dtype=torch.float32).item()
+        for f in (p.dt * p.tau_mem_inv, p.dt * p.tau_syn_inv)
+    )
+
+
+def lif_init(shape, dtype=torch.float32, device="cuda",
+             p: LIFParams = LIFParams()) -> LIFState:
+    return LIFState(
+        v=torch.full(shape, p.v_leak, dtype=dtype, device=device),
+        i=torch.zeros(shape, dtype=dtype, device=device),
+    )
+
+
+def li_init(shape, dtype=torch.float32, device="cuda",
+            p: LIParams = LIParams()) -> LIState:
+    return LIState(
+        v=torch.full(shape, p.v_leak, dtype=dtype, device=device),
+        i=torch.zeros(shape, dtype=dtype, device=device),
+    )
+
+
+def lif_step(
+    x: torch.Tensor, state: LIFState, p: LIFParams = LIFParams()
+) -> Tuple[torch.Tensor, LIFState]:
+    """One Euler step of a feed-forward LIF neuron, fp32.
+
+    norse ``lif_feed_forward_step`` order: decay (v, i), spike from the
+    decayed v (``v_dec - v_th > 0``), reset, then inject the input into
+    the current.
+    """
+    v, i = state
+    c_mem, c_syn = euler_factors(p)
+    v_dec = fma((p.v_leak - v) + i, c_mem, v)
+    i_dec = fma(i, -c_syn, i)
+    z = (v_dec - p.v_th) > 0
+    v_new = torch.where(z, torch.full_like(v_dec, p.v_reset), v_dec)
+    return z.to(v_dec.dtype), LIFState(v_new, i_dec + x)
+
+
+def li_step(
+    x: torch.Tensor, state: LIState, p: LIParams = LIParams()
+) -> Tuple[torch.Tensor, LIState]:
+    """One Euler step of a leaky integrator, fp32; output is the
+    membrane voltage. norse ``li_feed_forward_step``: the input current
+    jump comes *before* the voltage update (unlike LIF)."""
+    v, i = state
+    c_mem, c_syn = euler_factors(p)
+    i_jump = i + x
+    v_new = fma((p.v_leak - v) + i_jump, c_mem, v)
+    i_dec = fma(i_jump, -c_syn, i_jump)
+    return v_new, LIState(v_new, i_dec)

@@ -1,0 +1,81 @@
+"""Shape-static batched NMS and detection post-processing.
+
+Counterpart of ``snn_for_object_detection_tpu/ops/nms.py`` (reference
+utils/box.py:82-153): per-class greedy NMS by confidence, background =
+class -1, low-confidence predictions demoted to background with
+inverted confidence.
+
+1. select the top-K anchors by confidence, foreground-argmax anchors
+   ranked strictly first; ties go to the lower anchor index, as
+   ``lax.top_k`` breaks them;
+2. one ``[K, K]`` IoU matrix, then greedy suppression in sorted order
+   restricted to equal class ids, a loop of K masked steps over the
+   whole batch.
+
+Anchors outside the top-K are non-keep (class -1).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from snn_for_object_detection_tpu_torch.ops import boxes as box_ops
+
+
+def _greedy_nms_keep(sorted_boxes: torch.Tensor, sorted_cid: torch.Tensor,
+                     iou_threshold: float) -> torch.Tensor:
+    """``[B, K, 4]`` boxes sorted by confidence, ``[B, K]`` class ids ->
+    ``[B, K]`` bool keep mask (background never kept)."""
+    k = sorted_boxes.shape[1]
+    iou = box_ops.box_iou(sorted_boxes, sorted_boxes)  # [B, K, K]
+    later = torch.ones(k, k, dtype=torch.bool,
+                       device=sorted_boxes.device).triu(1)  # j > i
+    same_class = sorted_cid[:, :, None] == sorted_cid[:, None, :]
+    suppress_pair = later & same_class & (iou > iou_threshold)
+    valid = sorted_cid >= 0
+    keep = torch.ones_like(valid)
+    for i in range(k):
+        active = keep[:, i] & valid[:, i]
+        keep &= ~(active[:, None] & suppress_pair[:, i])
+    return keep & valid
+
+
+def multibox_detection(
+    cls_probs: torch.Tensor,
+    offset_preds: torch.Tensor,
+    anchors: torch.Tensor,
+    nms_threshold: float = 0.1,
+    pos_threshold: float = 0.009999999,
+    max_out: int = 300,
+) -> torch.Tensor:
+    """Decode + NMS detection head outputs into final detections.
+
+    :param cls_probs: [B, A, C+1] softmax class probabilities
+        (channel 0 = background).
+    :param offset_preds: [B, A, 4] predicted SSD offsets.
+    :param anchors: [A, 4] corner-format anchors.
+    :return: [B, max_out, 6] rows ``(class, conf, x1, y1, x2, y2)``;
+        suppressed / background rows have class -1, and rows below
+        ``pos_threshold`` carry ``1 - conf``.
+    """
+    conf = cls_probs.amax(dim=2)
+    cid = cls_probs.argmax(dim=2) - 1
+    decoded = box_ops.decode_offsets(anchors, offset_preds)
+
+    # background-argmax anchors can never become detections, so they
+    # must not crowd foreground anchors out of the static top-K
+    rank = torch.where(cid >= 0, conf, conf - 2.0)
+    k = min(max_out, conf.shape[1])
+    top_idx = torch.sort(rank, dim=1, descending=True, stable=True)[1][:, :k]
+    top_conf = conf.gather(1, top_idx)
+    top_cid = cid.gather(1, top_idx)
+    top_boxes = decoded.gather(1, top_idx[..., None].expand(-1, -1, 4))
+
+    keep = _greedy_nms_keep(top_boxes, top_cid, nms_threshold)
+    below = top_conf < pos_threshold
+    out_cid = torch.where(keep & ~below, top_cid, -1)
+    out_conf = torch.where(below, 1.0 - top_conf, top_conf)
+    return torch.cat(
+        [out_cid[..., None].to(decoded.dtype), out_conf[..., None], top_boxes],
+        dim=-1,
+    )
