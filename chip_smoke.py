@@ -9,10 +9,23 @@ Phases (any failure raises and the script exits non-zero):
    and power limit as ``nvidia-smi`` gives them;
 2. build: compiles every ``csrc/*.cu`` of the port with ``nvcc``, one
    process per source, all at once;
-3. kernels against their plain versions: ``temporal_cell_seq`` on the
-   main path's shapes (stage 1 and a head LI) must be bit-equal to
-   ``temporal_cell_seq_reference`` for LIF/LI, three dtype pairs and
-   two truncation starts; prints kernel ms, plain ms and the bound;
+3. kernels against their plain versions, each at fp32, bf16 and
+   bf16 activations with e5m2 states; prints kernel ms, plain ms and
+   the bound:
+   - ``temporal_cell_seq`` on the main path's shapes (stage 1 and a
+     head LI) must be bit-equal to ``temporal_cell_seq_reference`` for
+     LIF/LI and two truncation starts;
+   - ``spiking_conv_seq`` on five of the fused path's triples (stage-1,
+     -3 and -5 downsamples, a stage-1 bottleneck, the head-0 stem):
+     spike agreement >= 0.999 and at most 0.1% (fp32; 1% in bf16) of
+     final state elements outside rtol 1e-4, atol 1e-5 (fp32) or two
+     ulps of the storage dtype, since the kernel sums the conv in
+     another order than cuDNN; bit-equal with 1x1 identity weights;
+     also times the same triple on the unfused path (cuDNN conv, BN
+     affine, cell kernel);
+   - ``fused_pointwise_conv_bn_lif`` at 4*120*152 rows, 64->64, and
+     4*30*38 rows, 256->256: z and v' equal, i' within rtol 1e-5, atol
+     1e-6 (fp32) or two ulps (bf16). No path of the package calls it;
 4. main path: TinyYolo at GEN1 width (240x304, 2 classes, 4,228,544
    params, random weights from a seed) evaluated by ``Trainer(
    time_batched=True).test`` at B=4, T=42 over a few batches of seeded
@@ -21,7 +34,20 @@ Phases (any failure raises and the script exits non-zero):
    Then where one eval step's time goes: its parts on the host clock,
    device time by kernel kind, the device's idle share;
 5. schedules agree: ``forward_seq`` against the per-step ``forward``;
-6. streaming: ``predict`` frame by frame at B=1.
+6. streaming: ``predict`` frame by frame at B=1;
+7. fused path: TinyYolo(fuse_seq=True, time_window=0) through the same
+   ``Trainer.test`` on the same batches and weights as [4], in both
+   dtype configurations: exactly 22 ``spiking_conv_seq`` and no
+   ``temporal_cell_seq`` launches per eval step; its eval step timed
+   and profiled beside the unfused ``forward_seq`` at time_window 0.
+   Final-state spike agreement >= 0.99 for every cell against the
+   same fused schedule run with the plain versions on the card, and at
+   fp32 also against the unfused path (the kernel sums the conv in
+   another order than cuDNN; the untrained net at BatchNorm gain 8
+   amplifies flipped spikes). In bf16 the unfused path is another
+   function, as in the JAX package: it applies the BatchNorm affine in
+   bf16 with bf16 coefficients, the fused kernel in fp32 between two
+   roundings, so that agreement is printed, not asserted.
 
 Model and data values, with their source (the YAML files are not read:
 PyYAML is not a dependency of the port):
@@ -54,19 +80,64 @@ EVENT_DENSITY = 0.05  # share of pixels with an event per frame and polarity
 BN_GAIN = 8.0
 CELLS_PER_STEP = 22  # 19 LIF + 3 LI in TinyYolo
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 outside the
-# tensor cores
+# tensor cores (JAX's fp32 semantics forbid TF32), dense bf16
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 # fp32 operations per element-step of the cell update (LIF: sub, add,
 # fma, fma, sub, compare, select, add)
 CELL_OPS = 8
 DTYPE_PAIRS = (("float32", "float32"), ("bfloat16", "bfloat16"),
                ("bfloat16", "float8_e5m2"))
+# fused triples of TinyYolo GEN1 checked in [3]: (label, k, stride, cell,
+# Cin, Cout, input (H, W), share of input spikes)
+SPIKING_CONV_CASES = (
+    ("stage1_down", 3, 2, "lif", 2, 64, (240, 304), EVENT_DENSITY),
+    ("stage1_bottleneck", 3, 1, "lif", 32, 32, (120, 152), 0.2),
+    ("stage3_down", 3, 2, "lif", 128, 256, (60, 76), 0.2),
+    ("stage5_down", 3, 2, "lif", 256, 256, (15, 19), 0.2),
+    ("head0_stem", 1, 1, "li", 256, 256, (30, 38), 0.2),
+)
+POINTWISE_CASES = ((BATCH * 120 * 152, 64, 64), (BATCH * 30 * 38, 256, 256))
 
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def ulp(x, dtype):
+    """The spacing of ``dtype`` at each value of the fp32 tensor ``x``
+    (subnormal spacing below the smallest normal)."""
+    import torch
+
+    mantissa, emin = {
+        torch.float32: (23, -126), torch.bfloat16: (7, -126),
+        torch.float8_e5m2: (2, -14),
+    }[dtype]
+    e = torch.floor(torch.log2(x.abs().clamp_min(2.0 ** emin)))
+    return torch.exp2(e - mantissa)
+
+
+def outside_share(got, want, dtype) -> float:
+    """Share of the elements of ``got`` outside the spiking conv's gate
+    around ``want``: rtol 1e-4, atol 1e-5 at fp32, two ulps of
+    ``dtype`` (the storage dtype) otherwise. Equal values (inf
+    included) and NaN against NaN are inside."""
+    import torch
+
+    g, w = got.float(), want.float()
+    if dtype == torch.float32:
+        tol = 1e-5 + 1e-4 * w.abs()
+    else:
+        tol = 2 * ulp(w, dtype)
+    inside = ((g - w).abs() <= tol) | (g == w) | (g.isnan() & w.isnan())
+    return 1.0 - float(inside.float().mean())
+
+
+def spike_agreement(got, want) -> float:
+    """Share of equal spikes (z != 0) in two spike tensors."""
+    return float(((got.float() != 0) == (want.float() != 0)).float().mean())
 
 
 def nvidia_smi() -> str:
@@ -165,6 +236,210 @@ def phase_kernels(torch, cuda_kernels, dev):
     return rows, worst
 
 
+def triple_bound(k, cin, cout, in_hw, out_hw, x_bytes, state_bytes):
+    """Least time (ms) of one fused [conv -> BN -> cell] over STEPS x
+    BATCH frames, and what bounds it: the larger of 2 * MACs over the
+    peak of the activation type (fp32 lanes for fp32, tensor cores for
+    bf16) and, over the HBM rate, the bytes of x read once, z written
+    once, the state read and written once and the weights once."""
+    frames = STEPS * BATCH
+    macs = frames * out_hw[0] * out_hw[1] * cout * cin * k * k
+    peak = FP32_FLOPS if x_bytes == 4 else BF16_FLOPS
+    nbytes = (frames * (in_hw[0] * in_hw[1] * cin
+                        + out_hw[0] * out_hw[1] * cout) * x_bytes
+              + 4 * BATCH * out_hw[0] * out_hw[1] * cout * state_bytes
+              + k * k * cin * cout * x_bytes + 8 * cout)
+    ops_ms = 2 * macs / peak * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def max_abs_err(got, want) -> float:
+    g, w = got.float(), want.float()
+    finite = g.isfinite() & w.isfinite()
+    return float((g - w)[finite].abs().max()) if bool(finite.any()) else 0.0
+
+
+def unfused_triple(torch, C, neurons, k, stride, cell, cin, cout, in_hw,
+                   sd, w, a, b):
+    """The same triple on the port's unfused path: the compiler's Conv
+    (cuDNN), Norm (the affine in the activation dtype) and Cell
+    (``temporal_cell_seq``) modules, with BatchNorm set so that its
+    folded affine is exactly (a, b)."""
+    conv = C.Conv(cin, cout, k, stride, in_hw).to(w.device)
+    norm = C.Norm(cout, conv.out_hw, True, 0.0).to(w.device)
+    layer = C.Cell(cell, cout, conv.out_hw, sd)
+    state_t = neurons.LIFState if cell == "lif" else neurons.LIState
+    with torch.no_grad():
+        conv.w.copy_(w.permute(3, 2, 0, 1))
+        norm.scale.copy_(a)
+        norm.bias.copy_(b)
+    ctx = C.Ctx()
+
+    def run(x, v0, i0):
+        y, _ = conv.seq(x, (), ctx)
+        y, _ = norm.seq(y, (), ctx)
+        return layer.seq(y, state_t(v0, i0), ctx)
+
+    return run
+
+
+def phase_spiking_conv(torch, cuda_kernels, C, neurons, dev):
+    """Phase 3, spiking_conv_seq: the gates on five triples of the fused
+    path, the identity case bit-equal; returns per-case timings."""
+    rows, worst = [], 0.0
+    for label, k, stride, cell, cin, cout, hw, density in SPIKING_CONV_CASES:
+        gen = torch.Generator(device=dev).manual_seed(2)
+        pad = k // 2
+        out_hw = tuple((d + 2 * pad - k) // stride + 1 for d in hw)
+        x32 = (torch.rand((STEPS, BATCH, *hw, cin), generator=gen,
+                          device=dev) < density).float()
+        # conv output of about unit spread before the BN affine
+        w = torch.randn((k, k, cin, cout), generator=gen, device=dev) \
+            / (k * k * cin * density) ** 0.5
+        a = torch.rand(cout, generator=gen, device=dev) + 0.5
+        b = 0.1 * torch.randn(cout, generator=gen, device=dev)
+        state = (BATCH, *out_hw, cout)
+        v32 = 0.3 * torch.randn(state, generator=gen, device=dev)
+        i32 = 0.3 * torch.randn(state, generator=gen, device=dev)
+        for xd, sd in DTYPE_PAIRS:
+            xd, sd = getattr(torch, xd), getattr(torch, sd)
+            x, v0, i0 = x32.to(xd), v32.to(sd), i32.to(sd)
+            args = (x, w, a, b, v0, i0, cell, stride)
+            got = cuda_kernels.spiking_conv_seq(*args)
+            want = cuda_kernels.spiking_conv_seq_reference(*args)
+            torch.cuda.synchronize()
+            limit = 0.001 if xd == torch.float32 else 0.01
+            tag = f"{label} {xd}/{sd}"
+            if cell == "lif":
+                agree = spike_agreement(got[0], want[0])
+                check(agree >= 0.999, f"{tag}: spike agreement {agree}")
+                check(0 < float(want[0].float().mean()) < 1,
+                      f"{tag}: the plain version never or always spikes")
+            else:
+                agree = 1.0 - outside_share(got[0], want[0], xd)
+                check(agree >= 1.0 - limit, f"{tag}: LI output {agree}")
+            outside = [outside_share(g, w_, sd)
+                       for g, w_ in zip(got[1:], want[1:])]
+            check(max(outside) <= limit,
+                  f"{tag}: final state outside its tolerance on "
+                  f"{outside} (limit {limit})")
+            err = max(max_abs_err(g, w_) for g, w_ in zip(got, want))
+            worst = max(worst, err)
+            del got, want
+            ms = cuda_time_ms(lambda: cuda_kernels.spiking_conv_seq(*args),
+                              reps=10)
+            plain_ms = cuda_time_ms(
+                lambda: cuda_kernels.spiking_conv_seq_reference(*args),
+                reps=3, warmup=1)
+            unfused = unfused_triple(torch, C, neurons, k, stride, cell,
+                                     cin, cout, hw, sd, w, a, b)
+            with torch.inference_mode():
+                unfused_ms = cuda_time_ms(lambda: unfused(x, v0, i0),
+                                          reps=10)
+            bound_ms, bound_by = triple_bound(
+                k, cin, cout, hw, out_hw, x.element_size(),
+                v0.element_size())
+            rows.append(dict(shape=label, x=str(xd), state=str(sd),
+                             ms=ms, plain_ms=plain_ms, unfused_ms=unfused_ms,
+                             bound_ms=bound_ms, bound_by=bound_by))
+            print(f"  spiking_conv_seq {label:17s} {k}x{k} s{stride} {cell:3s} "
+                  f"{cin}->{cout} {str(xd)[6:]:8s}/{str(sd)[6:]:11s}: "
+                  f"{'spikes' if cell == 'lif' else 'LI out'} {agree:.6f}, "
+                  f"states outside {max(outside):.2e}, max abs err "
+                  f"{err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+                  f"unfused path {unfused_ms:.4f} ms, bound {bound_ms:.4f} "
+                  f"ms ({bound_by})", flush=True)
+            del x, v0, i0, args
+        del x32, v32, i32
+        torch.cuda.empty_cache()
+
+    # 1x1 identity weights: the conv is exact, so kernel == plain version
+    c = 256
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x32 = 2.0 * torch.randn((STEPS, BATCH, 30, 38, c), generator=gen,
+                            device=dev)
+    eye = torch.eye(c, device=dev)[None, None]
+    a = torch.rand(c, generator=gen, device=dev) + 0.5
+    b = 0.1 * torch.randn(c, generator=gen, device=dev)
+    v32 = 0.3 * torch.randn((BATCH, 30, 38, c), generator=gen, device=dev)
+    for xd, sd in DTYPE_PAIRS:
+        xd, sd = getattr(torch, xd), getattr(torch, sd)
+        for cell in ("lif", "li"):
+            args = (x32.to(xd), eye, a, b, v32.to(sd), v32.to(sd), cell)
+            got = cuda_kernels.spiking_conv_seq(*args)
+            want = cuda_kernels.spiking_conv_seq_reference(*args)
+            torch.cuda.synchronize()
+            for name, g, w_ in zip(("z", "v_T", "i_T"), got, want):
+                g, w_ = g.float(), w_.float()
+                check(bool(((g == w_) | (g.isnan() & w_.isnan())).all()),
+                      f"identity {cell} {xd}/{sd}: {name} differs from the "
+                      f"plain version (max abs err {max_abs_err(g, w_)})")
+    print("  spiking_conv_seq 1x1 identity [42,4,30,38,256]: bit-equal for "
+          "lif/li at fp32, bf16, bf16/e5m2", flush=True)
+    del x32, v32
+    torch.cuda.empty_cache()
+    return rows, worst
+
+
+def phase_pointwise(torch, cuda_kernels, dev):
+    """Phase 3, fused_pointwise_conv_bn_lif: z and v' equal, i' within
+    its tolerance; returns per-case timings."""
+    rows, worst = [], 0.0
+    for n, cin, cout in POINTWISE_CASES:
+        gen = torch.Generator(device=dev).manual_seed(4)
+        x32 = torch.randn((n, cin), generator=gen, device=dev)
+        w32 = torch.randn((cin, cout), generator=gen, device=dev) \
+            / cin ** 0.5
+        a = torch.rand(cout, generator=gen, device=dev) + 0.5
+        b = 0.1 * torch.randn(cout, generator=gen, device=dev)
+        v32 = 0.4 * torch.randn((n, cout), generator=gen, device=dev) + 0.5
+        i32 = 0.4 * torch.randn((n, cout), generator=gen, device=dev) + 0.5
+        for xd, sd in DTYPE_PAIRS:
+            xd, sd = getattr(torch, xd), getattr(torch, sd)
+            args = (x32.to(xd), w32.to(xd), a, b, v32.to(sd), i32.to(sd))
+            z, v, i = cuda_kernels.fused_pointwise_conv_bn_lif(*args)
+            wz, wv, wi = cuda_kernels.fused_pointwise_conv_bn_lif_reference(
+                *args)
+            torch.cuda.synchronize()
+            tag = f"pointwise {n}x{cin}->{cout} {xd}/{sd}"
+            check(0 < float(wz.float().mean()) < 1, f"{tag}: no spikes")
+            check(bool((z.float() == wz.float()).all()
+                       & (v.float() == wv.float()).all()),
+                  f"{tag}: z or v' differs from the plain version")
+            if sd == torch.float32:
+                i_ok = bool(torch.isclose(i, wi, rtol=1e-5, atol=1e-6).all())
+            else:
+                i_ok = outside_share(i, wi, sd) == 0.0
+            err = max_abs_err(i, wi)
+            check(i_ok, f"{tag}: i' outside its tolerance ({err})")
+            worst = max(worst, err)
+            ms = cuda_time_ms(
+                lambda: cuda_kernels.fused_pointwise_conv_bn_lif(*args),
+                reps=20)
+            plain_ms = cuda_time_ms(
+                lambda: cuda_kernels.fused_pointwise_conv_bn_lif_reference(
+                    *args), reps=5, warmup=1)
+            sx, ss = args[0].element_size(), args[4].element_size()
+            ops_ms = 2 * n * cin * cout / (
+                FP32_FLOPS if sx == 4 else BF16_FLOPS) * 1e3
+            bytes_ms = ((n * cin + cin * cout + n * cout) * sx
+                        + 4 * n * cout * ss + 8 * cout) \
+                / HBM_BYTES_PER_S * 1e3
+            rows.append(dict(n=n, cin=cin, x=str(xd), state=str(sd), ms=ms,
+                             plain_ms=plain_ms,
+                             bound_ms=max(ops_ms, bytes_ms),
+                             bound_by="operations" if ops_ms >= bytes_ms
+                             else "bytes"))
+            print(f"  fused_pointwise_conv_bn_lif {n}x{cin}->{cout} "
+                  f"{str(xd)[6:]:8s}/{str(sd)[6:]:11s}: z, v' equal, i' max "
+                  f"abs err {err:.3g}; kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.3f} ms, bound {rows[-1]['bound_ms']:.4f} ms "
+                  f"({rows[-1]['bound_by']})", flush=True)
+    return rows, worst
+
+
 def make_batches(n: int, seed: int):
     """Seeded Bernoulli event frames [T, B, H, W, 2] (uint8) and random
     valid boxes padded to MAX_LABELS rows with -1."""
@@ -184,7 +459,8 @@ def make_batches(n: int, seed: int):
     return batches
 
 
-def build_model(TinyYolo, compute_dtype, state_dtype, dev):
+def build_model(TinyYolo, compute_dtype, state_dtype, dev,
+                time_window=TIME_WINDOW, fuse_seq=False):
     """TinyYolo with seeded random conv weights. BatchNorm gains are set
     to BN_GAIN: at identity gains the untrained net never spikes on
     sparse frames, at 8 its LIF layers fire 0.2-16% of the time."""
@@ -192,9 +468,9 @@ def build_model(TinyYolo, compute_dtype, state_dtype, dev):
 
     model = TinyYolo(
         num_classes=NUM_CLASSES, in_hw=IN_HW, loss_ratio=LOSS_RATIO,
-        time_window=TIME_WINDOW, iou_threshold=IOU,
+        time_window=time_window, iou_threshold=IOU,
         compute_dtype=compute_dtype, state_dtype=state_dtype,
-        device=dev, seed=0,
+        fuse_seq=fuse_seq, device=dev, seed=0,
     )
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -258,10 +534,10 @@ def phase_main_path(torch, cuda_kernels, TinyYolo, Trainer, batches, dev):
     return total
 
 
-def time_step_parts(torch, model, trainer, X, lab, reps=5):
+def time_step_parts(torch, model, trainer, X, lab, start=5, reps=5):
     """Host-clock medians (after one warm-up) of the forward, the loss
-    (anchor matching), detect (softmax + NMS) and the whole eval step,
-    each ending in a synchronise."""
+    (anchor matching), detect (softmax + NMS) and the whole eval step
+    from truncation start ``start``, each ending in a synchronise."""
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -274,12 +550,12 @@ def time_step_parts(torch, model, trainer, X, lab, reps=5):
     parts = {"forward": [], "loss": [], "detect": [], "step": []}
     with torch.inference_mode():
         for _ in range(reps + 1):
-            (preds, _), ms = timed(lambda: fwd(X, start_step=5))
+            (preds, _), ms = timed(lambda: fwd(X, start_step=start))
             parts["forward"].append(ms)
             parts["loss"].append(timed(lambda: model.loss(preds, lab))[1])
             parts["detect"].append(timed(lambda: model.detect(preds))[1])
             parts["step"].append(
-                timed(lambda: trainer.eval_step(model, X, lab, 5))[1])
+                timed(lambda: trainer.eval_step(model, X, lab, start))[1])
     return {k: statistics.median(v[1:]) for k, v in parts.items()}
 
 
@@ -348,6 +624,7 @@ def phase_streaming(torch, cuda_kernels, TinyYolo, batch, dev, frames=8):
 
 KERNEL_KINDS = (  # (kind, substrings of a CUDA kernel's name), first match
     ("cell kernel", ("temporal_cell_kernel",)),
+    ("spiking conv kernel", ("spiking_conv_kernel",)),
     ("conv layout", ("nchwtonhwc", "nhwctonchw", "transpose", "permute")),
     ("conv", ("conv", "xmma", "gemm", "cutlass", "implicit", "fprop",
               "cudnn", "winograd", "fft", "complex", "nvjet", "sm90_",
@@ -367,19 +644,31 @@ def kernel_kind(name: str) -> str:
     return "other"
 
 
-def profile_step(torch, model, trainer, X, lab, step_ms, top=6):
+def fused_convs(Block, block):
+    """The Conv of every fused triple under ``block``, in the order
+    ``forward_seq`` runs them (branch by branch, nested blocks where
+    they stand)."""
+    for bi, starts in enumerate(block.fused_plan):
+        for li, layer in enumerate(getattr(block, f"b{bi}").values()):
+            if li in starts:
+                yield layer
+            elif isinstance(layer, Block):
+                yield from fused_convs(Block, layer)
+
+
+def profile_step(torch, model, trainer, X, lab, step_ms, start=5, top=6):
     """``torch.profiler`` over one eval step: device time by kernel kind
     and for the top kernels, the device's busy time (union of kernel
     intervals) and its idle share against the unprofiled ``step_ms``,
-    and the cell kernels' time against their bound."""
+    and the cell and spiking conv kernels' time against their bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from snn_for_object_detection_tpu_torch.models.compile import Cell
+    from snn_for_object_detection_tpu_torch.models.compile import Block, Cell
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        trainer.eval_step(model, X, lab, 5)
+        trainer.eval_step(model, X, lab, start)
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
@@ -406,10 +695,32 @@ def profile_step(torch, model, trainer, X, lab, step_ms, top=6):
                                    key=lambda kv: -kv[1][1])[:rows]:
             print(f"    {title:6s} {key[:64]:64s} {n:5d}x {us / 1e3:8.3f} ms "
                   f"({us / busy_us:.3f} of busy)")
-    # the cells' bound over the step: x read and z written at every
-    # step, (v, i) read and written once, per cell
     sx = torch.empty((), dtype=model.compute_dtype).element_size()
     ss = torch.empty((), dtype=model.state_dtype).element_size()
+    if model.fuse_seq:
+        # the fused triples in launch order, each kernel's time against
+        # its bound (triple_bound)
+        convs = [c for top in (model.backbone, model.neck,
+                               *(h["base"] for h in model.heads()))
+                 for c in fused_convs(Block, top)]
+        bounds = [triple_bound(c.w.shape[-1], c.w.shape[1], c.w.shape[0],
+                               c.in_hw, c.out_hw, sx, ss)[0] for c in convs]
+        launches = sorted((e for e in kernels
+                           if kernel_kind(e.name) == "spiking conv kernel"),
+                          key=lambda e: e.time_range.start)
+        conv_ms = by_kind.get("spiking conv kernel", (0, 0.0))[1] / 1e3
+        print(f"    spiking conv kernels: {conv_ms:.3f} ms against a bound "
+              f"of {sum(bounds):.3f} ms; per triple, kernel ms (bound ms):",
+              flush=True)
+        if len(launches) == len(convs):
+            print("      " + "; ".join(
+                f"{c.w.shape[-1]}x{c.w.shape[-1]} s{c.stride} "
+                f"{c.w.shape[1]}->{c.w.shape[0]} {c.out_hw[0]}x{c.out_hw[1]} "
+                f"{e.time_range.elapsed_us() / 1e3:.3f} ({b:.3f})"
+                for c, e, b in zip(convs, launches, bounds)), flush=True)
+        return
+    # the cells' bound over the step: x read and z written at every
+    # step, (v, i) read and written once, per cell
     cell_bytes = sum(
         (2 * STEPS * sx + 4 * ss) * BATCH * m.out_channels
         * m.out_hw[0] * m.out_hw[1]
@@ -420,15 +731,112 @@ def profile_step(torch, model, trainer, X, lab, step_ms, top=6):
           f"({cell_bytes / 1e9:.3f} GB at 3.35 TB/s)", flush=True)
 
 
+def state_leaves(s):
+    """Neuron state leaves in the JAX pytree order (sorted dict keys)."""
+    if isinstance(s, dict):
+        return [x for k in sorted(s) for x in state_leaves(s[k])]
+    return list(s)
+
+
+def spike_agreements(a, b):
+    """Per cell, the share of neurons whose final membrane is 0 (spiked
+    at the last step) in both states or in neither; and the largest
+    prediction difference."""
+    (ca, ba), sa = a
+    (cb, bb), sb = b
+    agree = [spike_agreement(x == 0, y == 0) for x, y in
+             zip(state_leaves(sa)[::2], state_leaves(sb)[::2])]
+    return agree, max(float((ca - cb).abs().max()),
+                      float((ba - bb).abs().max()))
+
+
+def phase_fused_path(torch, cuda_kernels, C, TinyYolo, Trainer, batches,
+                     dev):
+    """Phase 7: Trainer.test of the fused model (time_window 0) and of
+    the unfused one on the same batches and weights, in both dtype
+    configurations; each eval step timed and profiled; the fused final
+    states against the fused schedule on the plain versions and against
+    the unfused schedule. Returns the spiking conv kernel's launches
+    over the fused ``test`` runs."""
+    X = torch.as_tensor(batches[0][0], device=dev)
+    lab = torch.as_tensor(batches[0][1], device=dev)
+    total = 0
+    for xd, sd in (("float32", "float32"), ("bfloat16", "float8_e5m2")):
+        outs = {}
+        for fuse in (True, False):
+            name = f"{xd}/{sd} {'fused' if fuse else 'unfused'}"
+            model = build_model(TinyYolo, xd, sd, dev, time_window=0,
+                                fuse_seq=fuse)
+            trainer = Trainer(limit_test_batches=EVAL_BATCHES, seed=0,
+                              time_batched=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cuda_kernels.reset_launches()
+            metrics = trainer.test(model, iter(batches))
+            torch.cuda.synchronize()
+            launches = dict(cuda_kernels.LAUNCHES)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            want = {"spiking_conv_seq": CELLS_PER_STEP * EVAL_BATCHES * fuse,
+                    "temporal_cell_seq":
+                        CELLS_PER_STEP * EVAL_BATCHES * (not fuse),
+                    "fused_pointwise_conv_bn_lif": 0}
+            check(launches == want, f"{name}: launches {launches} over "
+                  f"{EVAL_BATCHES} eval steps, want {want}")
+            check(all(np.isfinite(v) for v in metrics.values()),
+                  f"{name}: non-finite metrics {metrics}")
+            if fuse:
+                total += launches["spiking_conv_seq"]
+            with torch.inference_mode():
+                outs[fuse] = model.forward_seq(X)
+                if fuse:  # the same schedule on the plain versions
+                    C.spiking_conv_seq = \
+                        cuda_kernels.spiking_conv_seq_reference
+                    try:
+                        outs["plain"] = model.forward_seq(X)
+                    finally:
+                        C.spiking_conv_seq = cuda_kernels.spiking_conv_seq
+            parts = time_step_parts(torch, model, trainer, X, lab, start=0)
+            step_ms = parts["step"]
+            print(f"  {name}: {metrics}")
+            print(f"  {name}: launches {launches}; eval step {step_ms:.1f} "
+                  f"ms (median of 5, host clock), "
+                  f"{STEPS * BATCH / (step_ms / 1e3):.0f} frames/s; peak "
+                  f"memory {peak_gb:.2f} GB; parts, synchronised apart: "
+                  + ", ".join(f"{k} {v:.2f} ms" for k, v in parts.items()
+                              if k != "step"), flush=True)
+            profile_step(torch, model, trainer, X, lab, step_ms, start=0)
+            del model
+            torch.cuda.empty_cache()
+        check(all(bool(torch.isfinite(t).all()) for t in outs[True][0]),
+              f"{xd}/{sd}: fused predictions not finite")
+        for other, gated in (("plain", True),
+                             (False, xd == "float32")):
+            agree, max_pred = spike_agreements(outs[True], outs[other])
+            what = ("the fused schedule on the plain versions"
+                    if other == "plain" else "the unfused schedule")
+            print(f"  {xd}/{sd}: fused kernels vs {what}: final-state "
+                  f"spike agreement (v == 0) min {min(agree):.6f}, mean "
+                  f"{statistics.mean(agree):.6f} over {len(agree)} cells; "
+                  f"max |pred diff| {max_pred:.3g}"
+                  f"{'' if gated else ' (not asserted)'}", flush=True)
+            check(len(agree) == CELLS_PER_STEP, "cell count")
+            check(not gated or min(agree) >= 0.99,
+                  f"{xd}/{sd}: fused vs {what}: spike agreement {agree}")
+        del outs
+        torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    from snn_for_object_detection_tpu_torch.models import compile as C
     from snn_for_object_detection_tpu_torch.models.tiny_yolo import TinyYolo
     from snn_for_object_detection_tpu_torch.ops import cuda_build
-    from snn_for_object_detection_tpu_torch.ops import cuda_kernels
+    from snn_for_object_detection_tpu_torch.ops import cuda_kernels, neurons
     from snn_for_object_detection_tpu_torch.train.loop import Trainer
 
     t_start = time.perf_counter()
@@ -451,6 +859,9 @@ def main() -> int:
 
     print("[3] kernels against their plain versions", flush=True)
     rows, worst = phase_kernels(torch, cuda_kernels, "cuda")
+    conv_rows, conv_worst = phase_spiking_conv(torch, cuda_kernels, C,
+                                               neurons, "cuda")
+    pw_rows, pw_worst = phase_pointwise(torch, cuda_kernels, "cuda")
 
     print(f"[4] main path: TinyYolo GEN1 {IN_HW}, B={BATCH}, T={STEPS}, "
           f"Trainer(time_batched=True).test over {EVAL_BATCHES} batches",
@@ -463,24 +874,49 @@ def main() -> int:
     phase_schedules(torch, cuda_kernels, TinyYolo, batches[0], "cuda")
     print("[6] streaming", flush=True)
     phase_streaming(torch, cuda_kernels, TinyYolo, batches[0], "cuda")
+    print(f"[7] fused path: TinyYolo(fuse_seq=True, time_window=0) "
+          f"through Trainer(time_batched=True).test, B={BATCH}, T={STEPS}",
+          flush=True)
+    conv_launches = phase_fused_path(torch, cuda_kernels, C, TinyYolo,
+                                     Trainer, batches, "cuda")
 
     ref = next(r for r in rows if (r["shape"], r["cell"], r["x"], r["start"])
                == ("stage1", "lif", "float32", 0))
-    kernels = [{
-        "name": "temporal_cell_seq",
-        "route": "cuda",
-        "source": "snn_for_object_detection_tpu_torch/csrc/temporal_cell.cu",
-        "replaces": "snn_for_object_detection_tpu/ops/pallas_kernels.py:207",
-        "launches": launches,
-        "max_abs_err": worst,
-        "ms": ref["ms"],
-        "plain_ms": ref["plain_ms"],
-        "bound_ms": ref["bound_ms"],
-        "bound_by": ref["bound_by"],
-        "library_ms": None,
-    }]
+    conv_ref = next(r for r in conv_rows
+                    if (r["shape"], r["x"]) == ("stage3_down", "torch.float32"))
+    pw_ref = next(r for r in pw_rows
+                  if (r["n"], r["x"]) == (BATCH * 120 * 152, "torch.float32"))
+    # no single PyTorch call computes any of the three functions (a conv
+    # alone has no BatchNorm and no cell): library_ms is null
+    kernels = []
+    for name, source, line, n, err, r in (
+        ("temporal_cell_seq", "temporal_cell.cu", 207, launches, worst, ref),
+        ("spiking_conv_seq", "spiking_conv.cu", 657, conv_launches,
+         conv_worst, conv_ref),
+        ("fused_pointwise_conv_bn_lif", "spiking_conv.cu", 88, 0, pw_worst,
+         pw_ref),
+    ):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"snn_for_object_detection_tpu_torch/csrc/{source}",
+            "replaces":
+                f"snn_for_object_detection_tpu/ops/pallas_kernels.py:{line}",
+            "launches": n,
+            "max_abs_err": err,
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": None,
+        })
     print(f"done in {time.perf_counter() - t_start:.1f} s; kernel times "
-          f"above are the stage-1 fp32 LIF case [42,4,120,152,64]")
+          f"below: temporal_cell_seq the stage-1 fp32 LIF case "
+          f"[42,4,120,152,64]; spiking_conv_seq the stage-3 downsample at "
+          f"fp32 (3x3 s2, 128->256, [42,4,60,76] -> [30,38]); "
+          f"fused_pointwise_conv_bn_lif {BATCH * 120 * 152} rows, 64->64, "
+          f"fp32. Launches: temporal_cell_seq in [4], spiking_conv_seq in "
+          f"[7]; fused_pointwise_conv_bn_lif has no path")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -24,61 +24,24 @@
 // second load in flight. The GSPMD partitioning rule of the TPU kernel
 // (`_partitioned_temporal`) has no counterpart on one card.
 //
-// Rounding matches the plain PyTorch version (ops/neurons.py): the two
-// multiply-adds of each update are fused (__fmaf_rn); every other op
-// rounds on its own (built with --fmad=false). bf16 and e5m2 stores
-// round to nearest even, and e5m2 overflow gives inf as in JAX and
-// PyTorch.
+// Rounding matches the plain PyTorch version (ops/neurons.py); the
+// update and the storage conversions are in cell_math.cuh, shared with
+// spiking_conv.cu.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_fp8.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "cell_math.cuh"
 
 namespace {
 
-struct E5M2 {
-  unsigned char bits;
-};
-
-__device__ __forceinline__ float to_f32(float a) { return a; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 a) {
-  return __bfloat162float(a);
-}
-__device__ __forceinline__ float to_f32(E5M2 a) {
-  // e5m2 is the top byte of an fp16: widening is exact
-  __half_raw h;
-  h.x = static_cast<unsigned short>(a.bits) << 8;
-  return __half2float(__half(h));
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float a);
-template <>
-__device__ __forceinline__ float from_f32<float>(float a) { return a; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float a) {
-  return __float2bfloat16_rn(a);
-}
-template <>
-__device__ __forceinline__ E5M2 from_f32<E5M2>(float a) {
-  // The hardware conversion (cvt.rn.satfinite) rounds to nearest even
-  // but saturates; the __NV_NOSAT form is a slow software path. Without
-  // saturation every |a| >= 61440 (halfway from the largest finite
-  // value 57344 to 2^16, a tie that rounds up to the even inf) is inf.
-  E5M2 r;
-  r.bits = __nv_cvt_float_to_fp8(a, __NV_SATFINITE, __NV_E5M2);
-  if (fabsf(a) >= 61440.0f) r.bits = (r.bits & 0x80) | 0x7C;
-  return r;
-}
+using cell_math::E5M2;
+using cell_math::from_f32;
+using cell_math::kLI;
+using cell_math::kLIF;
+using cell_math::to_f32;
 
 template <typename T, int N>
 struct alignas(sizeof(T) * N) Vec {
   T a[N];
 };
-
-enum Cell { kLIF = 0, kLI = 1 };
 
 template <int CELL, typename X, typename S, int V>
 __global__ void __launch_bounds__(256) temporal_cell_kernel(
@@ -112,25 +75,9 @@ __global__ void __launch_bounds__(256) temporal_cell_kernel(
     Vec<X, V> zo;
 #pragma unroll
     for (int k = 0; k < V; ++k) {
-      const float xx = to_f32(xc.a[k]);
-      float out, v_new, i_new;
-      if (CELL == kLIF) {
-        // decay -> spike -> reset -> inject
-        const float d = __fadd_rn(__fsub_rn(0.0f, v[k]), i[k]);
-        const float v_dec = __fmaf_rn(d, c_mem, v[k]);
-        const float i_dec = __fmaf_rn(i[k], -c_syn, i[k]);
-        const bool spike = __fsub_rn(v_dec, 1.0f) > 0.0f;
-        v_new = spike ? 0.0f : v_dec;
-        i_new = __fadd_rn(i_dec, xx);
-        out = spike ? 1.0f : 0.0f;
-      } else {
-        // current jump before the voltage update
-        const float i_jump = __fadd_rn(i[k], xx);
-        const float d = __fadd_rn(__fsub_rn(0.0f, v[k]), i_jump);
-        v_new = __fmaf_rn(d, c_mem, v[k]);
-        i_new = __fmaf_rn(i_jump, -c_syn, i_jump);
-        out = v_new;  // LI emits fp32 v before the state is quantized
-      }
+      float v_new = v[k], i_new = i[k];
+      const float out = cell_math::cell_step<CELL>(to_f32(xc.a[k]), v_new,
+                                                   i_new, c_mem, c_syn);
       zo.a[k] = from_f32<X>(out);
       if (active) {
         v[k] = to_f32(from_f32<S>(v_new));

@@ -10,7 +10,9 @@ has two forms:
 - ``seq(X, state, ctx)`` for a whole sequence ``X [T, B, H, W, C]``:
   stateless layers fold T into the batch, cells run the whole time loop
   in one ``temporal_cell_seq`` call with the truncation start
-  ``ctx.start_step``.
+  ``ctx.start_step``. With ``ctx.fuse`` and no truncation, a block runs
+  each ``[Conv k x k -> Norm -> LIF/LI]`` triple of a branch as one
+  ``spiking_conv_seq`` call instead (the JAX compiler's fused plan).
 
 Activations are NHWC at every boundary (the JAX layout). Submodules are
 named after the JAX pytree keys (``b0.l3.w`` for ``["b0"]["l3"]["w"]``),
@@ -30,6 +32,7 @@ from torch import nn
 from snn_for_object_detection_tpu_torch.models import spec as S
 from snn_for_object_detection_tpu_torch.ops import neurons
 from snn_for_object_detection_tpu_torch.ops.cuda_kernels import (
+    spiking_conv_seq,
     temporal_cell_seq,
 )
 
@@ -44,10 +47,13 @@ def not_ported(what: str, item: str) -> NotImplementedError:
 class Ctx:
     """Per-call context: ``taps`` collects ``Return`` outputs in config
     order; ``start_step`` is the truncation start r of a sequence call
-    (state frozen for t < r)."""
+    (state frozen for t < r); ``fuse`` lets a sequence call run its
+    fused triples (only at ``start_step == 0``: the fused kernel has no
+    truncation gate; the per-step ``step`` never fuses)."""
 
     taps: List[torch.Tensor] = dataclasses.field(default_factory=list)
     start_step: int = 0
+    fuse: bool = False
 
 
 class Layer(nn.Module):
@@ -101,6 +107,7 @@ class Conv(Layer):
             out_ch, tuple((d + 2 * pad - k) // s + 1 for d in in_hw)
         )
         self.stride, self.padding = s, pad
+        self.in_hw = tuple(in_hw)
         self.w = nn.Parameter(torch.empty(out_ch, in_ch, k, k))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -124,7 +131,8 @@ class Conv(Layer):
 
 class Norm(Layer):
     """Eval-mode BatchNorm: the folded affine ``x * k + b`` applied in
-    the activation dtype as two ops (compile.py:143-158)."""
+    the activation dtype as two ops (compile.py:143-158); the fused plan
+    hands the same fp32 ``(k, b)`` to ``spiking_conv_seq``."""
 
     def __init__(self, ch, hw, bias: bool, eps: float):
         super().__init__(ch, hw)
@@ -137,11 +145,17 @@ class Norm(Layer):
         self.register_buffer("mean", torch.zeros(ch))
         self.register_buffer("var", torch.ones(ch))
 
-    def step(self, x, state, ctx):
+    def coeffs(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The folded fp32 ``(k, b)`` of ``y = x * k + b``
+        (``_bn_eval_coeffs``), for this layer and the fused plan."""
         k = torch.rsqrt(self.var + self.eps) * self.scale
         b = -self.mean * k
         if self.bias is not None:
             b = b + self.bias
+        return k, b
+
+    def step(self, x, state, ctx):
+        k, b = self.coeffs()
         return x * k.to(x.dtype) + b.to(x.dtype), state
 
 
@@ -200,6 +214,23 @@ def _compile_leaf(layer: S.LayerSpec, in_ch: int, in_hw, state_dtype):
     raise TypeError(f"Unknown layer spec: {layer!r}")
 
 
+def _fused_groups(layers: List[Layer]) -> List[int]:
+    """Start indices of the ``[Conv k x k (k in {1, 3}, stride in {1,
+    2}) -> Norm -> LIF/LI]`` triples of a branch that the fused plan
+    runs as one ``spiking_conv_seq`` call (JAX ``_fused_groups``)."""
+    starts, li = [], 0
+    while li + 2 < len(layers):
+        conv, norm, cell = layers[li:li + 3]
+        if (isinstance(conv, Conv) and conv.w.shape[-1] in (1, 3)
+                and conv.stride in (1, 2) and isinstance(norm, Norm)
+                and isinstance(cell, Cell)):
+            starts.append(li)
+            li += 3
+        else:
+            li += 1
+    return starts
+
+
 class Block(Layer):
     """A config list: one sequential branch, or ``Residual`` (branch
     outputs summed) / ``Dense`` (concatenated on the channel axis)
@@ -246,6 +277,7 @@ class Block(Layer):
                 {f"l{li}": layer for li, layer in enumerate(layers)}
             ))
         self.num_branches = len(branches)
+        self.fused_plan = [_fused_groups(layers) for layers in branches]
 
     def _branches(self):
         return [getattr(self, f"b{bi}") for bi in range(self.num_branches)]
@@ -260,12 +292,21 @@ class Block(Layer):
         }
 
     def _run(self, x, state, ctx, seq: bool):
+        fuse = seq and ctx.fuse and ctx.start_step == 0
         outs, new_state = [], {}
         for bi, branch in enumerate(self._branches()):
             y, st_b, new_b = x, state[f"b{bi}"], {}
-            for name, layer in branch.items():
-                fn = layer.seq if seq else layer.step
-                y, new_b[name] = fn(y, st_b[name], ctx)
+            layers = list(branch.values())
+            fused = self.fused_plan[bi] if fuse else []
+            li = 0
+            while li < len(layers):
+                if li in fused:
+                    y = self._run_fused(layers[li:li + 3], li, y, st_b, new_b)
+                    li += 3
+                    continue
+                fn = layers[li].seq if seq else layers[li].step
+                y, new_b[f"l{li}"] = fn(y, st_b[f"l{li}"], ctx)
+                li += 1
             outs.append(y)
             new_state[f"b{bi}"] = new_b
         if self.mode == "residual":
@@ -277,6 +318,23 @@ class Block(Layer):
         else:
             y = outs[0]
         return y, new_state
+
+    @staticmethod
+    def _run_fused(triple, li, X, st_b, new_b):
+        """One fused ``[Conv -> Norm -> cell]`` over the sequence ``X``
+        (JAX ``_run_fused``): the Conv and Norm states pass through and
+        the cell state comes from the kernel."""
+        conv, norm, cell = triple
+        a, b = norm.coeffs()
+        st = st_b[f"l{li + 2}"]
+        z, v, i = spiking_conv_seq(
+            X, conv.w.permute(2, 3, 1, 0).to(X.dtype), a, b, st.v, st.i,
+            cell.kind, conv.stride,
+        )
+        new_b[f"l{li}"] = st_b[f"l{li}"]
+        new_b[f"l{li + 1}"] = st_b[f"l{li + 1}"]
+        new_b[f"l{li + 2}"] = type(st)(v, i)
+        return z
 
     def step(self, x, state, ctx):
         return self._run(x, state, ctx, seq=False)

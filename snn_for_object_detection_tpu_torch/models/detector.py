@@ -13,6 +13,10 @@ Two schedules give the same predictions:
 - :meth:`forward_seq` runs every stateless layer once over the folded
   ``T*B`` batch and every LIF/LI cell as one ``temporal_cell_seq`` call
   over the whole sequence, whose state commits only for ``t >= r``.
+  With ``fuse_seq=True`` and no truncation it runs each ``[Conv -> Norm
+  -> LIF/LI]`` triple as one ``spiking_conv_seq`` call instead; that
+  sums the convs in another order, so spikes near the threshold can
+  flip against the unfused schedule.
 
 The head's box/cls tails are stateless 1x1 convs, so both schedules
 apply them once, to the last step's stem activations.
@@ -62,6 +66,9 @@ class SODa(nn.Module):
     :param iou_threshold: Anchor-assignment IoU threshold.
     :param compute_dtype: Activation dtype, fp32 or bf16.
     :param state_dtype: Neuron state storage dtype: fp32, bf16 or e5m2.
+    :param fuse_seq: :meth:`forward_seq` fuses each ``[Conv -> Norm ->
+        LIF/LI]`` triple into one ``spiking_conv_seq`` call when no
+        truncation is in play (opt-in, as in the JAX package).
     :param device: Where the model lives. ``"cuda"`` needs a card: there
         is no fallback to the CPU.
     :param seed: Seed of the ``torch.Generator`` that draws the weights.
@@ -78,6 +85,7 @@ class SODa(nn.Module):
         state_storage: bool = False,
         compute_dtype=torch.float32,
         state_dtype=torch.float32,
+        fuse_seq: bool = False,
         device="cuda",
         seed: int = 0,
     ):
@@ -98,6 +106,7 @@ class SODa(nn.Module):
         self.time_window = time_window
         self.iou_threshold = iou_threshold
         self.state_storage = state_storage
+        self.fuse_seq = fuse_seq
         self.compute_dtype = as_dtype(compute_dtype)
         self.state_dtype = as_dtype(state_dtype)
         if self.compute_dtype not in X_DTYPES:
@@ -278,12 +287,25 @@ class SODa(nn.Module):
 
     @torch.no_grad()
     def forward_seq(self, X: torch.Tensor, start_step: int = 0,
-                    state=None) -> Tuple[Preds, Dict]:
-        """Time-batched schedule, same results as :meth:`forward`."""
+                    state=None, fuse=None) -> Tuple[Preds, Dict]:
+        """Time-batched schedule, same results as :meth:`forward`.
+
+        :param fuse: run the fused triples (``spiking_conv_seq``).
+            Default: ``fuse_seq`` when ``start_step == 0``, as the JAX
+            package fuses only for the Python int start 0. The fused
+            kernel has no truncation gate, so ``fuse=True`` with another
+            start raises.
+        """
+        start_step = int(start_step)
+        if fuse is None:
+            fuse = self.fuse_seq and start_step == 0
+        elif fuse and start_step != 0:
+            raise ValueError("the fused schedule has no truncation gate: "
+                             f"fuse=True needs start_step 0, not {start_step}")
         B = X.shape[1]
         if state is None:
             state = self.init_state(B)
-        ctx = C.Ctx(start_step=int(start_step))
+        ctx = C.Ctx(start_step=start_step, fuse=fuse)
         new_state = {}
         y, new_state["backbone"] = self.backbone.seq(
             X.to(self.compute_dtype), state["backbone"], ctx

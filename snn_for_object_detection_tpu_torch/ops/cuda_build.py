@@ -48,8 +48,13 @@ def _nvcc() -> str:
 
 
 def _target(source: str) -> str:
-    with open(os.path.join(CSRC, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    # the hash covers the shared headers (csrc/*.cuh) a source includes
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [source] + sorted(
+        f for f in os.listdir(CSRC) if f.endswith(".cuh")
+    ):
+        with open(os.path.join(CSRC, path), "rb") as f:
+            digest.update(f.read())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:16]}.so")
 

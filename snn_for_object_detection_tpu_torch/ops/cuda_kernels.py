@@ -9,15 +9,21 @@ from one to the other. Each wrapper counts its launches in
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from snn_for_object_detection_tpu_torch.ops import cuda_build, neurons
 
 # launches per kernel since the last reset_launches()
-LAUNCHES: Dict[str, int] = {"temporal_cell_seq": 0}
+LAUNCHES: Dict[str, int] = {
+    "temporal_cell_seq": 0,
+    "spiking_conv_seq": 0,
+    "fused_pointwise_conv_bn_lif": 0,
+}
 
 # type codes of the C entry points
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e5m2: 2}
@@ -46,16 +52,48 @@ def _temporal_lib():
     return fn
 
 
+def _spiking_conv_lib(name: str):
+    fn = getattr(cuda_build.load("spiking_conv.cu"), name)
+    if fn.argtypes is None:
+        pointers = [ctypes.c_void_p] * 9
+        if name == "spiking_conv_seq_launch":
+            # T, N, H, W, Cin, Ho, Wo, Cout, k, stride, cell, x and
+            # state type codes
+            sizes = [ctypes.c_int] * 13
+        else:
+            sizes = [ctypes.c_longlong] + [ctypes.c_int] * 4
+        fn.argtypes = (pointers + sizes + [ctypes.c_float] * 2
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _euler(cell: str) -> Tuple[float, float]:
+    return neurons.euler_factors(
+        neurons.LIFParams() if cell == "lif" else neurons.LIParams()
+    )
+
+
+def _require_contiguous(**tensors) -> None:
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_state_dtypes(v, i) -> None:
+    if v.dtype not in STATE_DTYPES or i.dtype != v.dtype:
+        raise TypeError(
+            f"state dtypes ({v.dtype}, {i.dtype}) must match and be one "
+            f"of {STATE_DTYPES}"
+        )
+
+
 def _check_cell_args(x_seq, v0, i0, cell):
     if cell not in _CELLS:
         raise ValueError(f"unsupported cell {cell!r}")
     if x_seq.dtype not in X_DTYPES:
         raise TypeError(f"x_seq dtype {x_seq.dtype} not in {X_DTYPES}")
-    if v0.dtype not in STATE_DTYPES or i0.dtype != v0.dtype:
-        raise TypeError(
-            f"state dtypes ({v0.dtype}, {i0.dtype}) must match and be one "
-            f"of {STATE_DTYPES}"
-        )
+    _check_state_dtypes(v0, i0)
     if x_seq.dim() < 1 or x_seq.shape[1:] != v0.shape \
             or v0.shape != i0.shape:
         raise ValueError(
@@ -112,15 +150,11 @@ def temporal_cell_seq(
         return temporal_cell_seq_reference(x_seq, v0, i0, cell, start)
     if x_seq.device.type != "cuda":
         raise ValueError(f"unsupported device {x_seq.device}")
-    for name, t in (("x_seq", x_seq), ("v0", v0), ("i0", i0)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _require_contiguous(x_seq=x_seq, v0=v0, i0=i0)
     z = torch.empty_like(x_seq)
     v_t = torch.empty_like(v0)
     i_t = torch.empty_like(i0)
-    c_mem, c_syn = neurons.euler_factors(
-        neurons.LIFParams() if cell == "lif" else neurons.LIParams()
-    )
+    c_mem, c_syn = _euler(cell)
     with torch.cuda.device(x_seq.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _temporal_lib()(
@@ -134,3 +168,218 @@ def temporal_cell_seq(
         raise RuntimeError(f"temporal_cell_seq launch failed (code {rc})")
     LAUNCHES["temporal_cell_seq"] += 1
     return z, v_t, i_t
+
+
+@contextlib.contextmanager
+def _full_fp32_conv():
+    """cuDNN runs fp32 convs in TF32 unless told not to; the plain
+    versions sum in full fp32, as the kernels and XLA do."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def _check_conv_args(x, w, a, b, v0, i0, cell, stride):
+    """Shared checks of the spiking conv; returns ``(k, Ho, Wo)``."""
+    if cell not in _CELLS:
+        raise ValueError(f"unsupported cell {cell!r}")
+    if stride not in (1, 2):
+        raise ValueError(f"unsupported stride {stride}")
+    if x.dtype not in X_DTYPES:
+        raise TypeError(f"x_seq dtype {x.dtype} not in {X_DTYPES}")
+    _check_state_dtypes(v0, i0)
+    if x.dim() != 5 or w.dim() != 4:
+        raise ValueError(
+            f"shapes x {tuple(x.shape)}, w {tuple(w.shape)}: want x = "
+            "[T, N, H, W, Cin] and w = [k, k, Cin, Cout]"
+        )
+    _, n, h, wd, cin = x.shape
+    k, cout = w.shape[0], w.shape[3]
+    if k not in (1, 3) or tuple(w.shape[1:3]) != (k, cin):
+        raise ValueError(f"w {tuple(w.shape)}: want [k, k, {cin}, Cout], "
+                         "k in (1, 3)")
+    ho = (h + 2 * (k // 2) - k) // stride + 1
+    wo = (wd + 2 * (k // 2) - k) // stride + 1
+    if tuple(v0.shape) != (n, ho, wo, cout) or v0.shape != i0.shape \
+            or tuple(a.shape) != (cout,) or tuple(b.shape) != (cout,):
+        raise ValueError(
+            f"shapes v0 {tuple(v0.shape)}, i0 {tuple(i0.shape)}, a "
+            f"{tuple(a.shape)}, b {tuple(b.shape)}: want state "
+            f"{(n, ho, wo, cout)} and a, b ({cout},)"
+        )
+    if len({t.device for t in (x, w, a, b, v0, i0)}) != 1:
+        raise ValueError("all inputs must be on one device")
+    return k, ho, wo
+
+
+def spiking_conv_seq_reference(
+    x_seq: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+    v0: torch.Tensor, i0: torch.Tensor, cell: str = "lif", stride: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`spiking_conv_seq`, a loop over T:
+    the conv on fp32-upcast x and w (bf16 products are exact in fp32, so
+    this is the fp32-accumulated conv), rounded to x's dtype; ``y * a +
+    b`` in fp32 rounded once (``neurons.fma``: XLA contracts it inside
+    the TPU kernel) and rounded to x's dtype again; then ``lif_step`` /
+    ``li_step`` with the state rounded to its storage dtype every step."""
+    k, _, _ = _check_conv_args(x_seq, w, a, b, v0, i0, cell, stride)
+    xd, sd = x_seq.dtype, v0.dtype
+    w_oihw = w.to(xd).float().permute(3, 2, 0, 1)
+    a32, b32 = a.float(), b.float()
+    step = neurons.lif_step if cell == "lif" else neurons.li_step
+    v, i = v0.float(), i0.float()
+    z = torch.empty(x_seq.shape[:2] + v0.shape[1:], dtype=xd,
+                    device=x_seq.device)
+    with _full_fp32_conv():
+        for t in range(x_seq.shape[0]):
+            y = F.conv2d(x_seq[t].float().permute(0, 3, 1, 2), w_oihw,
+                         stride=stride, padding=k // 2).permute(0, 2, 3, 1)
+            y = neurons.fma(y.to(xd).float(), a32, b32).to(xd).float()
+            out, (v, i) = step(y, (v, i))
+            z[t] = out.to(xd)
+            v, i = v.to(sd).float(), i.to(sd).float()
+    return z, v.to(sd), i.to(sd)
+
+
+def spiking_conv_seq(
+    x_seq: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+    v0: torch.Tensor, i0: torch.Tensor, cell: str = "lif", stride: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused [k x k conv (stride 1 or 2, zero padding k // 2) -> eval
+    BatchNorm affine -> LIF / LI] over a whole sequence: ``(z_seq, v_T,
+    i_T)``. Inference only: no truncation.
+
+    :param x_seq: ``[T, N, H, W, Cin]``, fp32 or bf16.
+    :param w: ``[k, k, Cin, Cout]`` (the JAX layout), k in (1, 3); cast
+        to x's dtype.
+    :param a: ``[Cout]`` folded BatchNorm scale, cast to fp32.
+    :param b: ``[Cout]`` folded BatchNorm offset, cast to fp32.
+    :param v0: ``[N, Ho, Wo, Cout]`` initial membrane, fp32, bf16 or fp8
+        e5m2.
+    :param i0: initial current, same shape and dtype as ``v0``.
+    :return: ``z_seq [T, N, Ho, Wo, Cout]`` in x's dtype (spikes for LIF,
+        the fp32 membrane before quantization for LI); ``v_T``, ``i_T``
+        in the state dtype.
+
+    On a CPU tensor this is :func:`spiking_conv_seq_reference`. On a
+    CUDA tensor it launches ``csrc/spiking_conv.cu`` on the current
+    stream or raises; ``x_seq``, ``v0`` and ``i0`` must be contiguous.
+    """
+    _, ho, wo = _check_conv_args(x_seq, w, a, b, v0, i0, cell, stride)
+    if x_seq.device.type == "cpu":
+        return spiking_conv_seq_reference(x_seq, w, a, b, v0, i0, cell,
+                                          stride)
+    if x_seq.device.type != "cuda":
+        raise ValueError(f"unsupported device {x_seq.device}")
+    _require_contiguous(x_seq=x_seq, v0=v0, i0=i0)
+    T, n, h, wd, cin = x_seq.shape
+    k, cout = w.shape[0], w.shape[3]
+    w = w.to(x_seq.dtype).contiguous()
+    a, b = a.float().contiguous(), b.float().contiguous()
+    z = torch.empty((T, n, ho, wo, cout), dtype=x_seq.dtype,
+                    device=x_seq.device)
+    v_t = torch.empty_like(v0)
+    i_t = torch.empty_like(i0)
+    c_mem, c_syn = _euler(cell)
+    with torch.cuda.device(x_seq.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _spiking_conv_lib("spiking_conv_seq_launch")(
+            x_seq.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+            v0.data_ptr(), i0.data_ptr(), z.data_ptr(), v_t.data_ptr(),
+            i_t.data_ptr(), T, n, h, wd, cin, ho, wo, cout, k, stride,
+            _CELLS[cell], _CODES[x_seq.dtype], _CODES[v0.dtype],
+            c_mem, c_syn, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"spiking_conv_seq launch failed (code {rc})")
+    LAUNCHES["spiking_conv_seq"] += 1
+    return z, v_t, i_t
+
+
+def _check_pointwise_args(x, w, a, b, v, i):
+    if x.dtype not in X_DTYPES or w.dtype != x.dtype:
+        raise TypeError(f"x and w dtypes ({x.dtype}, {w.dtype}) must match "
+                        f"and be one of {X_DTYPES}")
+    _check_state_dtypes(v, i)
+    if x.dim() != 2 or w.dim() != 2 or w.shape[0] != x.shape[1] \
+            or tuple(v.shape) != (x.shape[0], w.shape[1]) \
+            or v.shape != i.shape or tuple(a.shape) != (w.shape[1],) \
+            or tuple(b.shape) != (w.shape[1],):
+        raise ValueError(
+            f"shapes x {tuple(x.shape)}, w {tuple(w.shape)}, a "
+            f"{tuple(a.shape)}, b {tuple(b.shape)}, v {tuple(v.shape)}, i "
+            f"{tuple(i.shape)}: want x [N, Cin], w [Cin, Cout], a, b "
+            "[Cout], v, i [N, Cout]"
+        )
+    if len({t.device for t in (x, w, a, b, v, i)}) != 1:
+        raise ValueError("all inputs must be on one device")
+
+
+def fused_pointwise_conv_bn_lif_reference(
+    x: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+    v: torch.Tensor, i: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`fused_pointwise_conv_bn_lif`
+    (the JAX package's ``xla_pointwise_conv_bn_lif``): ``x @ w`` summed
+    in fp32, ``y * a + b`` in fp32 rounded once and not rounded to x's
+    dtype, then one LIF step with the reset ``(1 - z) * v_dec``."""
+    _check_pointwise_args(x, w, a, b, v, i)
+    c_mem, c_syn = _euler("lif")
+    y = neurons.fma(x.float() @ w.float(), a.float(), b.float())
+    vf, if_ = v.float(), i.float()
+    v_dec = neurons.fma(if_ - vf, c_mem, vf)
+    i_dec = neurons.fma(if_, -c_syn, if_)
+    z = (v_dec > neurons.LIFParams().v_th).float()
+    return ((z.to(x.dtype), ((1.0 - z) * v_dec).to(v.dtype),
+             (i_dec + y).to(i.dtype)))
+
+
+def fused_pointwise_conv_bn_lif(
+    x: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+    v: torch.Tensor, i: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One fused pass of ``[N, Cin] @ [Cin, Cout]`` -> BatchNorm affine
+    -> one LIF step: ``(z, v', i')``, all ``[N, Cout]``.
+
+    :param x: ``[N, Cin]`` fp32 or bf16, any N; ``w`` ``[Cin, Cout]`` of
+        the same dtype.
+    :param a: ``[Cout]`` folded BatchNorm scale, cast to fp32; ``b`` the
+        offset.
+    :param v: ``[N, Cout]`` membrane, fp32, bf16 or fp8 e5m2; ``i`` the
+        current, same dtype.
+    :return: ``z`` in x's dtype, ``v'`` and ``i'`` in the state dtype.
+
+    On a CPU tensor this is :func:`fused_pointwise_conv_bn_lif_reference`.
+    On a CUDA tensor it launches ``csrc/spiking_conv.cu`` (its T = 1,
+    1 x 1 instantiation) on the current stream or raises; ``x``, ``v``
+    and ``i`` must be contiguous.
+    """
+    _check_pointwise_args(x, w, a, b, v, i)
+    if x.device.type == "cpu":
+        return fused_pointwise_conv_bn_lif_reference(x, w, a, b, v, i)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    _require_contiguous(x=x, v=v, i=i)
+    w = w.contiguous()
+    a, b = a.float().contiguous(), b.float().contiguous()
+    z = torch.empty(v.shape, dtype=x.dtype, device=x.device)
+    v_out = torch.empty_like(v)
+    i_out = torch.empty_like(i)
+    c_mem, c_syn = _euler("lif")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _spiking_conv_lib("fused_pointwise_conv_bn_lif_launch")(
+            x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+            v.data_ptr(), i.data_ptr(), z.data_ptr(), v_out.data_ptr(),
+            i_out.data_ptr(), x.shape[0], x.shape[1], w.shape[1],
+            _CODES[x.dtype], _CODES[v.dtype], c_mem, c_syn, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"fused_pointwise_conv_bn_lif launch failed (code {rc})"
+        )
+    LAUNCHES["fused_pointwise_conv_bn_lif"] += 1
+    return z, v_out, i_out

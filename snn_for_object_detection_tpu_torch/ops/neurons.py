@@ -23,8 +23,9 @@ from typing import NamedTuple, Tuple
 import torch
 
 
-def fma(a: torch.Tensor, b: float, c: torch.Tensor) -> torch.Tensor:
-    """``a * b + c`` for fp32 tensors, rounded once to fp32.
+def fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` for fp32 tensors (``b`` a float or an fp32 tensor
+    that broadcasts), rounded once to fp32.
 
     The product of two fp32 values is exact in fp64. The sum is then
     rounded to odd (an inexact fp64 sum moves to whichever neighbour

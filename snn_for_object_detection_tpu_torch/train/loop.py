@@ -35,7 +35,10 @@ class Trainer:
     :param time_batched: ``False`` evaluates through ``model.forward``
         (per-step), ``True`` through ``model.forward_seq`` (every cell
         one ``temporal_cell_seq`` call over the sequence). Both give the
-        same predictions.
+        same predictions. A model built with ``fuse_seq=True`` runs its
+        fused triples here only at ``time_window == 0``: the JAX eval
+        step passes a traced start whenever the window is open, even
+        when the draw is 0, and a traced start never fuses.
     :param seed: Seed of the ``torch.Generator`` that draws each batch's
         truncation start; every ``validate`` / ``test`` call starts the
         draw anew from it, as the JAX trainer restarts its key.
@@ -71,7 +74,10 @@ class Trainer:
         dets [B, 300, 6])``, both on the model's device."""
         fwd = model.forward_fn(self.time_batched)
         with torch.inference_mode():
-            preds, _ = fwd(X, start_step=start_step)
+            if self.time_batched and model.time_window:
+                preds, _ = fwd(X, start_step=start_step, fuse=False)
+            else:
+                preds, _ = fwd(X, start_step=start_step)
             return model.loss(preds, labels), model.detect(preds)
 
     def _run_eval(self, model, batches: Iterable, limit: int,

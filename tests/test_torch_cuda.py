@@ -67,3 +67,115 @@ def test_temporal_cell_rejects_strided_input(card):
     with pytest.raises(ValueError, match="contiguous"):
         cuda_kernels.temporal_cell_seq(x.transpose(2, 3), v.transpose(1, 2),
                                        i.transpose(1, 2))
+
+
+CONV_CASES = [  # (k, stride, cell) of tests/test_pallas.py
+    (3, 1, "lif"), (3, 2, "lif"), (1, 1, "lif"),
+    (3, 2, "li"), (1, 1, "li"), (1, 2, "lif"),
+]
+
+
+def _conv_inputs(k, stride, x_dtype, state_dtype, shape, cout, seed=7):
+    """Seeded spiking conv inputs on the card: binary events, normal
+    weights, a BN affine away from identity, non-zero state."""
+    rng = np.random.default_rng(seed)
+    _, n, h, w, cin = shape
+    ho, wo = (h + 2 * (k // 2) - k) // stride + 1, \
+        (w + 2 * (k // 2) - k) // stride + 1
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).cuda()
+    return (f32(rng.random(shape) < 0.3).to(x_dtype),
+            f32(rng.normal(size=(k, k, cin, cout)) * 1.5 / (k * cin ** 0.5)),
+            f32(rng.uniform(0.5, 1.5, cout)), f32(rng.normal(size=cout) * 0.1),
+            f32(rng.normal(size=(n, ho, wo, cout)) * 0.3).to(state_dtype),
+            f32(rng.normal(size=(n, ho, wo, cout)) * 0.3).to(state_dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype,state_dtype", DTYPE_PAIRS)
+@pytest.mark.parametrize("k,stride,cell", CONV_CASES)
+def test_spiking_conv_matches_plain_version(card, k, stride, cell, x_dtype,
+                                            state_dtype):
+    """The gates of chip_smoke.py [3]: spike agreement >= 0.999 and at
+    most 0.1% (fp32; 1% in bf16) of final state elements outside rtol
+    1e-4, atol 1e-5 (fp32) or two ulps of the storage dtype. Odd sizes,
+    Cin off the chunk size, Cout off the channel tile and one Cout that
+    is no multiple of 4 (the scalar store path)."""
+    from chip_smoke import outside_share, spike_agreement
+
+    limit = 0.001 if x_dtype == torch.float32 else 0.01
+    for shape, cout in (((5, 2, 13, 19, 6), 40), ((3, 1, 9, 7, 10), 18)):
+        args = _conv_inputs(k, stride, x_dtype, state_dtype, shape, cout)
+        cuda_kernels.reset_launches()
+        got = cuda_kernels.spiking_conv_seq(*args, cell=cell, stride=stride)
+        torch.cuda.synchronize()
+        assert cuda_kernels.LAUNCHES["spiking_conv_seq"] == 1
+        want = cuda_kernels.spiking_conv_seq_reference(*args, cell=cell,
+                                                       stride=stride)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+        if cell == "lif":
+            assert 0 < float(want[0].float().mean()) < 1
+            assert spike_agreement(got[0], want[0]) >= 0.999
+        else:
+            assert outside_share(got[0], want[0], x_dtype) <= limit
+        for g, w in zip(got[1:], want[1:]):
+            assert outside_share(g, w, state_dtype) <= limit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype,state_dtype", DTYPE_PAIRS)
+@pytest.mark.parametrize("cell", ["lif", "li"])
+def test_spiking_conv_identity_weights_bit_equal(card, cell, x_dtype,
+                                                 state_dtype):
+    """1 x 1 identity weights make the conv exact: kernel and plain
+    version agree bit for bit."""
+    c = 16
+    x, _, a, b, v0, i0 = _conv_inputs(1, 1, x_dtype, state_dtype,
+                                      (6, 2, 5, 7, c), c)
+    x = (torch.randn(x.shape, generator=torch.Generator().manual_seed(2))
+         * 2.0).cuda().to(x_dtype)
+    w = torch.eye(c, device="cuda")[None, None]
+    got = cuda_kernels.spiking_conv_seq(x, w, a, b, v0, i0, cell=cell)
+    want = cuda_kernels.spiking_conv_seq_reference(x, w, a, b, v0, i0,
+                                                   cell=cell)
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g.float(), w_.float(), rtol=0, atol=0,
+                                   equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype,state_dtype", DTYPE_PAIRS)
+def test_pointwise_matches_plain_version(card, x_dtype, state_dtype):
+    """N = 700 rows (ragged against the 128-row tile). z and v' do not
+    depend on the product, so they are equal; i' within rtol 1e-5,
+    atol 1e-6 (fp32) or two ulps of the storage dtype."""
+    from chip_smoke import outside_share
+
+    rng = np.random.default_rng(4)
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).cuda()
+    n, cin, cout = 700, 64, 32
+    args = (f32(rng.normal(size=(n, cin))).to(x_dtype),
+            f32(rng.normal(size=(cin, cout)) * 0.1).to(x_dtype),
+            f32(rng.uniform(0.5, 1.5, cout)), f32(rng.normal(size=cout) * 0.1),
+            f32(rng.normal(size=(n, cout)) * 0.4).to(state_dtype),
+            f32(rng.normal(size=(n, cout)) * 0.4).to(state_dtype))
+    cuda_kernels.reset_launches()
+    z, v, i = cuda_kernels.fused_pointwise_conv_bn_lif(*args)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["fused_pointwise_conv_bn_lif"] == 1
+    wz, wv, wi = cuda_kernels.fused_pointwise_conv_bn_lif_reference(*args)
+    assert 0 < float(wz.float().mean()) < 1
+    for g, w in ((z, wz), (v, wv)):
+        torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=0)
+    if state_dtype == torch.float32:
+        torch.testing.assert_close(i, wi, rtol=1e-5, atol=1e-6)
+    else:
+        assert outside_share(i, wi, state_dtype) == 0.0
+
+
+@pytest.mark.cuda
+def test_spiking_conv_rejects_strided_input(card):
+    x, w, a, b, v, i = _conv_inputs(3, 1, torch.float32, torch.float32,
+                                    (2, 1, 6, 6, 4), 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_kernels.spiking_conv_seq(x.transpose(2, 3), w, a, b, v, i)

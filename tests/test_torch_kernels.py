@@ -120,9 +120,21 @@ def test_wrapper_rejects_bad_arguments():
 
 
 def test_cpu_call_counts_no_launch():
-    """The launch count moves only where a kernel launches: the plain
-    version on a CPU tensor leaves it alone."""
+    """The launch counts move only where a kernel launches: the plain
+    versions on CPU tensors leave them alone."""
     cuda_kernels.reset_launches()
     x = torch.ones(3, 2, 8)
     cuda_kernels.temporal_cell_seq(x, torch.zeros(2, 8), torch.zeros(2, 8))
-    assert cuda_kernels.LAUNCHES == {"temporal_cell_seq": 0}
+    ones, zeros = torch.ones(8), torch.zeros(8)
+    state = torch.zeros(1, 4, 4, 8)
+    cuda_kernels.spiking_conv_seq(torch.ones(3, 1, 4, 4, 2),
+                                  torch.ones(3, 3, 2, 8), ones, zeros,
+                                  state, state)
+    cuda_kernels.fused_pointwise_conv_bn_lif(
+        torch.ones(5, 2), torch.ones(2, 8), ones, zeros, torch.zeros(5, 8),
+        torch.zeros(5, 8),
+    )
+    assert cuda_kernels.LAUNCHES == {
+        "temporal_cell_seq": 0, "spiking_conv_seq": 0,
+        "fused_pointwise_conv_bn_lif": 0,
+    }

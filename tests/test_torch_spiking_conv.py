@@ -1,0 +1,303 @@
+"""The port's fused spiking conv against the JAX package, on the CPU.
+
+On the CPU, ``spiking_conv_seq`` and ``fused_pointwise_conv_bn_lif`` of
+the port run their plain PyTorch versions. They are held against the
+JAX Pallas kernels in interpret mode (as ``tests/test_pallas.py`` runs
+them), and the fused schedule of a narrow TinyYolo against JAX's
+``forward_seq(fuse_seq=True)`` on the same converted weights. The CUDA
+kernel is held against the same plain versions on the card
+(``tests/test_torch_cuda.py`` and ``chip_smoke.py`` [3]).
+
+Tolerances. With random weights the conv sums its products in another
+order than XLA, so at fp32 z, v and i agree within rtol 1e-4, atol 1e-5;
+in bf16, where the conv output is rounded to bf16 before and after the
+affine, spikes agree on at least 99.9% of elements and v, i lie within
+two ulps of the storage dtype on at least 99% (the gates of
+``chip_smoke.py``). With 1 x 1 identity weights the conv is exact and
+the port equals JAX bit for bit: that pins where the affine and the
+cell round.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import outside_share, spike_agreement
+from snn_for_object_detection_tpu.ops import pallas_kernels as jpk
+from snn_for_object_detection_tpu_torch.models.convert import load_jax_params
+from snn_for_object_detection_tpu_torch.ops import cuda_kernels
+from snn_for_object_detection_tpu_torch.train.loop import Trainer
+from test_torch_detector import (
+    HW,
+    PRED_TOL,
+    STATE_TOL,
+    T,
+    JNarrow,
+    PNarrow,
+    _frames,
+    _jax_weights,
+    _labels,
+    _state_leaves,
+)
+
+torch.set_num_threads(1)
+
+DTYPE_PAIRS = [
+    ("float32", "float32"),
+    ("bfloat16", "bfloat16"),
+    ("bfloat16", "float8_e5m2"),
+]
+CASES = [  # (k, stride, cell) of tests/test_pallas.py
+    (3, 1, "lif"), (3, 2, "lif"), (1, 1, "lif"),
+    (3, 2, "li"), (1, 1, "li"), (1, 2, "lif"),
+]
+
+
+def _to_torch(a, dtype: str) -> torch.Tensor:
+    # through fp32: every value of these dtypes is exact in fp32
+    t = torch.from_numpy(np.array(jnp.asarray(a, jnp.float32)))
+    return t.to(getattr(torch, dtype))
+
+
+def _conv_inputs(seed, k, stride, x_dtype, state_dtype,
+                 shape=(4, 2, 12, 19, 8), cout=16, w=None):
+    """Seeded inputs as numpy-drawn JAX arrays (those of
+    tests/test_pallas.py, with 1 x 1 weights three times as large so
+    that they spike too): binary event input, normal weights, a BN
+    affine away from identity, non-zero initial state."""
+    rng = np.random.default_rng(seed)
+    T_, n, h, wd, cin = shape
+    ho, wo = -(-h // stride), -(-wd // stride)
+    x = (rng.random(shape) < 0.3).astype(np.float32)
+    if w is None:
+        w = rng.normal(size=(k, k, cin, cout)) * 0.6 / k
+    a = rng.uniform(0.5, 1.5, cout)
+    b = rng.normal(size=cout) * 0.1
+    v0 = rng.normal(size=(n, ho, wo, cout)) * 0.3
+    i0 = rng.normal(size=(n, ho, wo, cout)) * 0.3
+    f32 = lambda v: jnp.asarray(np.asarray(v, np.float32))
+    return (f32(x).astype(x_dtype), f32(w), f32(a), f32(b),
+            f32(v0).astype(state_dtype), f32(i0).astype(state_dtype))
+
+
+def _run_both(args, cell, stride, x_dtype, state_dtype):
+    want = jpk.spiking_conv_seq(*args, cell=cell, stride=stride,
+                                interpret=True)
+    dtypes = (x_dtype, "float32", "float32", "float32", state_dtype,
+              state_dtype)
+    got = cuda_kernels.spiking_conv_seq(
+        *(_to_torch(a, d) for a, d in zip(args, dtypes)), cell=cell,
+        stride=stride,
+    )
+    return got, [_to_torch(w, d) for w, d in
+                 zip(want, (x_dtype, state_dtype, state_dtype))]
+
+
+@pytest.mark.parametrize("x_dtype,state_dtype", DTYPE_PAIRS)
+@pytest.mark.parametrize("k,stride,cell", CASES)
+def test_plain_spiking_conv_matches_jax(k, stride, cell, x_dtype,
+                                        state_dtype):
+    args = _conv_inputs(3, k, stride, x_dtype, state_dtype)
+    (z, v_t, i_t), (jz, jv, ji) = _run_both(args, cell, stride, x_dtype,
+                                            state_dtype)
+    assert z.dtype == getattr(torch, x_dtype)
+    assert v_t.dtype == i_t.dtype == getattr(torch, state_dtype)
+    assert z.shape == jz.shape and v_t.shape == jv.shape
+    if cell == "lif":
+        assert 0 < float(z.float().mean()) < 1  # the test really spikes
+    if x_dtype == "float32":
+        for g, w in ((z, jz), (v_t, jv), (i_t, ji)):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+        return
+    sd = getattr(torch, state_dtype)
+    if cell == "lif":
+        assert spike_agreement(z, jz) >= 0.999
+    else:  # LI emits the membrane in x's dtype
+        assert outside_share(z, jz, torch.bfloat16) <= 0.01
+    for g, w in ((v_t, jv), (i_t, ji)):
+        assert outside_share(g, w, sd) <= 0.01
+
+
+@pytest.mark.parametrize("cell", ["lif", "li"])
+@pytest.mark.parametrize("x_dtype,state_dtype", DTYPE_PAIRS)
+def test_identity_weights_bit_equal_to_jax(x_dtype, state_dtype, cell):
+    """1 x 1 identity weights make the conv exact, so what is left is
+    the rounding of the affine (one fused multiply-add) and of the cell:
+    bit for bit with JAX. Inputs are normal, not binary, so the bf16
+    rounding of the conv output and of the affine both matter."""
+    c = 16
+    args = list(_conv_inputs(5, 1, 1, x_dtype, state_dtype,
+                             shape=(6, 2, 5, 7, c), cout=c,
+                             w=np.eye(c)[None, None]))
+    rng = np.random.default_rng(6)
+    args[0] = jnp.asarray(
+        rng.normal(size=(6, 2, 5, 7, c)).astype(np.float32) * 2.0
+    ).astype(x_dtype)
+    got, want = _run_both(args, cell, 1, x_dtype, state_dtype)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=0,
+                                   equal_nan=True)
+
+
+def _pointwise_inputs(rng, n, cin=64, cout=32):
+    """The inputs of tests/test_pallas.py::make_inputs (fp32)."""
+    x = rng.normal(size=(n, cin))
+    w = rng.normal(size=(cin, cout)) * 0.1
+    a = rng.uniform(0.5, 1.5, (cout,))
+    b = rng.normal(size=(cout,)) * 0.1
+    v = rng.normal(size=(n, cout)) * 0.4
+    i = rng.normal(size=(n, cout)) * 0.4
+    return [np.asarray(t, np.float32) for t in (x, w, a, b, v, i)]
+
+
+@pytest.mark.parametrize("n", [256, 700])
+def test_plain_pointwise_matches_jax(n):
+    """Against the Pallas kernel (interpret mode) and its XLA oracle;
+    N = 700 is the ragged case of tests/test_pallas.py."""
+    args = _pointwise_inputs(np.random.default_rng(42), n)
+    z, v, i = cuda_kernels.fused_pointwise_conv_bn_lif(
+        *(torch.from_numpy(a) for a in args)
+    )
+    jargs = [jnp.asarray(a) for a in args]
+    for jz, jv, ji in (
+        jpk.fused_pointwise_conv_bn_lif(*jargs, interpret=True),
+        jpk.xla_pointwise_conv_bn_lif(*jargs),
+    ):
+        np.testing.assert_array_equal(z.numpy(), np.asarray(jz))
+        np.testing.assert_allclose(v.numpy(), np.asarray(jv), rtol=1e-5,
+                                   atol=1e-6)
+        np.testing.assert_allclose(i.numpy(), np.asarray(ji), rtol=1e-5,
+                                   atol=1e-6)
+    assert 0 < float(z.mean()) < 1
+
+
+def _count_calls(monkeypatch):
+    """Record ``(k, stride, cell, Cin, Cout)`` of every fused call: the
+    port's plain spiking conv and JAX's (traced) Pallas one."""
+    calls = {"port": [], "jax": []}
+    port_ref = cuda_kernels.spiking_conv_seq_reference
+    jax_fn = jpk.spiking_conv_seq
+
+    def port(x, w, a, b, v0, i0, cell="lif", stride=1):
+        calls["port"].append((w.shape[0], stride, cell, *w.shape[2:]))
+        return port_ref(x, w, a, b, v0, i0, cell, stride)
+
+    def jax_call(x, w, a, b, v0, i0, cell="lif", stride=1, **kw):
+        calls["jax"].append((w.shape[0], stride, cell, *w.shape[2:]))
+        return jax_fn(x, w, a, b, v0, i0, cell=cell, stride=stride, **kw)
+
+    monkeypatch.setattr(cuda_kernels, "spiking_conv_seq_reference", port)
+    monkeypatch.setattr(jpk, "spiking_conv_seq", jax_call)
+    return calls
+
+
+@pytest.fixture(scope="module")
+def fused_pair():
+    jm = JNarrow(num_classes=2, in_hw=HW, fuse_seq=True)
+    params, stats = _jax_weights(jm, 0, 8.0)
+    return jm, params, stats
+
+
+def _port_model(params, stats, **kw):
+    pm = PNarrow(num_classes=2, in_hw=HW, device="cpu", **kw)
+    load_jax_params(pm, params, stats)
+    return pm
+
+
+def test_fused_narrow_tiny_yolo_matches_jax(fused_pair, monkeypatch):
+    """The fused schedule against JAX's, on weights converted from JAX:
+    predictions and final states within the detector tolerances, and the
+    same 13 triples fused (10 LIF, 3 LI)."""
+    jm, params, stats = fused_pair
+    calls = _count_calls(monkeypatch)
+    X = _frames(1)
+    (j_cls, j_box), _, j_state = jax.jit(
+        lambda x: jm.forward_seq(params, stats, x)
+    )(jnp.asarray(X))
+    pm = _port_model(params, stats, fuse_seq=True)
+    (cls, box), state = pm.forward_seq(torch.from_numpy(X))
+    assert len(calls["port"]) == 13
+    assert sorted(calls["port"]) == sorted(calls["jax"])
+    assert sum(c[2] == "li" for c in calls["port"]) == 3
+    assert float(cls.abs().max()) > 0.1  # the net is not silent
+    np.testing.assert_allclose(cls.numpy(), np.asarray(j_cls), **PRED_TOL)
+    np.testing.assert_allclose(box.numpy(), np.asarray(j_box), **PRED_TOL)
+    jl, pl = jax.tree.leaves(j_state), _state_leaves(state)
+    assert len(jl) == len(pl) == 2 * 13
+    for j, p in zip(jl, pl):
+        np.testing.assert_allclose(p.numpy(), np.asarray(j), **STATE_TOL)
+
+
+def test_truncated_forward_seq_does_not_fuse(fused_pair, monkeypatch):
+    """A truncation start keeps the fused model on the unfused schedule
+    (JAX fuses only at the Python int start 0), with the same results;
+    asking for the fused kernel with a start raises."""
+    _, params, stats = fused_pair
+    calls = _count_calls(monkeypatch)
+    X = torch.from_numpy(_frames(2))
+    fused = _port_model(params, stats, fuse_seq=True)
+    plain = _port_model(params, stats)
+    (c1, b1), s1 = fused.forward_seq(X, start_step=3)
+    (c2, b2), s2 = plain.forward_seq(X, start_step=3)
+    assert calls["port"] == []
+    torch.testing.assert_close(c1, c2, rtol=0, atol=0)
+    torch.testing.assert_close(b1, b2, rtol=0, atol=0)
+    for p1, p2 in zip(_state_leaves(s1), _state_leaves(s2)):
+        torch.testing.assert_close(p1, p2, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="truncation gate"):
+        fused.forward_seq(X, start_step=3, fuse=True)
+
+
+@pytest.mark.parametrize("time_window", [0, T - 1])
+def test_trainer_fuses_only_without_time_window(fused_pair, monkeypatch,
+                                               time_window):
+    """``Trainer(time_batched=True)`` reaches the fused kernel only at
+    ``time_window == 0``, as the JAX eval step does (it passes a traced
+    start otherwise, even for a draw of 0). With a window the fused
+    model gives the unfused model's metrics exactly."""
+    _, params, stats = fused_pair
+    calls = _count_calls(monkeypatch)
+    batches = [(_frames(10 + k), _labels(20 + k)) for k in range(2)]
+    got = {}
+    for fuse in (True, False):
+        pm = _port_model(params, stats, fuse_seq=fuse,
+                         time_window=time_window)
+        trainer = Trainer(limit_test_batches=5, seed=3, time_batched=True)
+        got[fuse] = trainer.test(pm, iter(batches))
+    if time_window:
+        assert calls["port"] == []
+        assert got[True] == got[False]
+    else:
+        assert len(calls["port"]) == 13 * len(batches)
+        for k in got[False]:
+            np.testing.assert_allclose(got[True][k], got[False][k],
+                                       rtol=1e-5, atol=1e-6)
+
+
+def test_wrappers_reject_bad_arguments():
+    x = torch.zeros(2, 1, 6, 6, 4)
+    w = torch.zeros(3, 3, 4, 8)
+    a = torch.ones(8)
+    v = torch.zeros(1, 6, 6, 8)
+    conv = cuda_kernels.spiking_conv_seq
+    with pytest.raises(ValueError, match="cell"):
+        conv(x, w, a, a, v, v, cell="alif")
+    with pytest.raises(ValueError, match="stride"):
+        conv(x, w, a, a, v, v, stride=3)
+    with pytest.raises(ValueError, match="k in"):
+        conv(x, torch.zeros(5, 5, 4, 8), a, a, v, v)
+    with pytest.raises(ValueError, match="want state"):
+        conv(x, w, a, a, v, v, stride=2)
+    with pytest.raises(TypeError, match="state dtypes"):
+        conv(x, w, a, a, v, v.bfloat16())
+    with pytest.raises(TypeError, match="x_seq dtype"):
+        conv(x.half(), w, a, a, v, v)
+    pw = cuda_kernels.fused_pointwise_conv_bn_lif
+    xs, ws, vs = torch.zeros(5, 4), torch.zeros(4, 8), torch.zeros(5, 8)
+    with pytest.raises(TypeError, match="x and w dtypes"):
+        pw(xs, ws.bfloat16(), a, a, vs, vs)
+    with pytest.raises(ValueError, match="want x"):
+        pw(xs, ws, a, a, vs[:4], vs[:4])
