@@ -9,7 +9,8 @@ Phases (any failure raises and the script exits non-zero):
    and power limit as ``nvidia-smi`` gives them;
 2. build: compiles every ``csrc/*.cu`` of the port with ``nvcc``, one
    process per source, all at once;
-3. kernels against their plain versions, each at fp32, bf16 and
+3. ``neurons.fma`` on the card bit-equal to its exact emulation; the
+   kernels against their plain versions, each at fp32, bf16 and
    bf16 activations with e5m2 states; prints kernel ms, plain ms and
    the bound:
    - ``temporal_cell_seq`` on the main path's shapes (stage 1 and a
@@ -47,7 +48,27 @@ Phases (any failure raises and the script exits non-zero):
    amplifies flipped spikes). In bf16 the unfused path is another
    function, as in the JAX package: it applies the BatchNorm affine in
    bf16 with bf16 coefficients, the fused kernel in fp32 between two
-   roundings, so that agreement is printed, not asserted.
+   roundings, so that agreement is printed, not asserted;
+8. megakernel: ``StreamingMegakernel.step`` (one ``csrc/megakernel.cu``
+   launch per frame) on TinyYolo GEN1 at B=1 over 16 frames of [4]'s
+   event data with [4]'s weights, in both dtype configurations: exactly
+   one ``streaming_megakernel`` launch per frame and no other; final
+   state against the plain version run on the card (spike agreement
+   >= 0.99 per LIF cell; LI states within a relative L2 error of 5% at
+   fp32, 10% in bf16/e5m2: the kernel sums the convs in another order,
+   split along K, the untrained net at BatchNorm gain 8 flips a few
+   spikes, and each flipped spike moves the membranes of a whole pixel
+   of a head) and, at fp32, against the
+   per-step ``SODa.step`` (the same function on cuDNN and the cell
+   kernel); ``predict`` and ``to_model_state``. Prints kernel, plain and
+   ``SODa.step`` ms per frame, ``predict`` split into step and detect,
+   the grid, phases and barriers, the bound, and the device time of each
+   phase;
+9. engine: ``StreamingEngine`` (capacity 8, 6 streams, one removed and
+   one added part way, 24 steps) in sync and pipelined mode, both dtype
+   configurations: 22 ``temporal_cell_seq`` launches per step, every
+   output ``[k, 6]`` and finite and empty during a stream's warm-up; ms
+   per step and per camera-frame.
 
 Model and data values, with their source (the YAML files are not read:
 PyYAML is not a dependency of the port):
@@ -135,6 +156,12 @@ def outside_share(got, want, dtype) -> float:
     return 1.0 - float(inside.float().mean())
 
 
+def relative_l2(got, want) -> float:
+    """``|got - want|_2 / |want|_2`` in fp32."""
+    g, w = got.float(), want.float()
+    return float((g - w).norm() / w.norm().clamp_min(1e-30))
+
+
 def spike_agreement(got, want) -> float:
     """Share of equal spikes (z != 0) in two spike tensors."""
     return float(((got.float() != 0) == (want.float() != 0)).float().mean())
@@ -166,6 +193,29 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def check_fma(torch, neurons, dev, n=1 << 22):
+    """``neurons.fma`` on the card (PyTorch's contracted ``addcmul`` and
+    ``add(alpha=)``) bit-equal to its exact emulation on the CPU, over
+    values of mixed magnitudes and signs."""
+    rng = np.random.default_rng(11)
+    a, b, c = (rng.standard_normal(n).astype(np.float32)
+               * np.exp2(rng.integers(-20, 20, n)).astype(np.float32)
+               for _ in range(3))
+    cpu = [torch.from_numpy(v) for v in (a, b, c)]
+    for scalar in (False, True):
+        # the cells' factors are fp32 values (neurons.euler_factors)
+        bb = float(np.float32(0.1)) if scalar else cpu[1]
+        want = neurons.fma(cpu[0], bb, cpu[2])
+        got = neurons.fma(cpu[0].to(dev), bb if scalar else cpu[1].to(dev),
+                          cpu[2].to(dev)).cpu()
+        same = (got == want) | (got.isnan() & want.isnan())
+        check(bool(same.all()), f"neurons.fma on the card differs from the "
+              f"exact fma on {int((~same).sum())} of {n} values "
+              f"({'scalar' if scalar else 'tensor'} factor)")
+    print(f"  neurons.fma on the card: bit-equal to the exact emulation on "
+          f"{n} values, tensor and scalar factors", flush=True)
 
 
 def phase_kernels(torch, cuda_kernels, dev):
@@ -776,10 +826,10 @@ def phase_fused_path(torch, cuda_kernels, C, TinyYolo, Trainer, batches,
             torch.cuda.synchronize()
             launches = dict(cuda_kernels.LAUNCHES)
             peak_gb = torch.cuda.max_memory_allocated() / 1e9
-            want = {"spiking_conv_seq": CELLS_PER_STEP * EVAL_BATCHES * fuse,
-                    "temporal_cell_seq":
-                        CELLS_PER_STEP * EVAL_BATCHES * (not fuse),
-                    "fused_pointwise_conv_bn_lif": 0}
+            want = {k: 0 for k in launches}
+            want.update(spiking_conv_seq=CELLS_PER_STEP * EVAL_BATCHES * fuse,
+                        temporal_cell_seq=CELLS_PER_STEP * EVAL_BATCHES
+                        * (not fuse))
             check(launches == want, f"{name}: launches {launches} over "
                   f"{EVAL_BATCHES} eval steps, want {want}")
             check(all(np.isfinite(v) for v in metrics.values()),
@@ -827,6 +877,279 @@ def phase_fused_path(torch, cuda_kernels, C, TinyYolo, Trainer, batches,
     return total
 
 
+MK_FRAMES = 16  # [8]: frames of the B=1 megakernel run
+ENGINE_CAPACITY, ENGINE_STREAMS, ENGINE_STEPS = 8, 6, 24  # [9]
+
+
+def per_frame_ms(fn, frames: int = 10, reps: int = 10) -> float:
+    """Device ms per call: CUDA events around ``frames`` back-to-back
+    calls (so the host's enqueue of one call overlaps the device's work on
+    the one before), median over ``reps`` runs, divided by ``frames``."""
+    return cuda_time_ms(lambda: [fn() for _ in range(frames)], reps=reps,
+                        warmup=1) / frames
+
+
+def megakernel_bound(plan, x_bytes, state_bytes):
+    """Least time (ms) of one megakernel frame and what bounds it: the
+    larger of 2 * the convs' multiply-adds over the peak of the
+    activation type and, over the HBM rate, the bytes the function must
+    move: the frame (uint8) read, the weights read once, the state read
+    and written once and the fp32 predictions written once."""
+    macs = sum(op.k * op.k * plan.buffers[op.src].shape[2]
+               * plan.buffers[op.dst].numel
+               for op in plan.ops if op.kind == "conv")
+    weights = sum(op.k * op.k * plan.buffers[op.src].shape[2]
+                  * plan.buffers[op.dst].shape[2]
+                  + (2 * plan.buffers[op.dst].shape[2] if op.norm else 0)
+                  for op in plan.ops if op.kind == "conv")
+    state = sum(int(np.prod(s.shape)) for s in plan.slots)
+    nbytes = (plan.buffers[0].numel + weights * x_bytes
+              + 2 * state * state_bytes + 4 * plan.preds_numel)
+    ops_ms = 2 * macs / (FP32_FLOPS if x_bytes == 4 else BF16_FLOPS) * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", macs, nbytes)
+
+
+def row_label(fields, row):
+    """A short description of one op of a megakernel op table."""
+    f = dict(zip(fields, row.tolist()))
+    kind = ("conv", "ew", "pool", "up", "add", "copy", "reduce")[f["kind"]]
+    if kind != "conv":
+        return f"{kind} {f['ho']}x{f['wo']}x{f['cin']}"
+    chain = "+".join(x for x in (
+        "norm" if f["nk_off"] >= 0 else "",
+        {-1: "", 0: "lif", 1: "li"}[f["cell"]],
+        ("", "relu", "silu", "tanh")[f["act"]]) if x)
+    return (f"conv{f['k']}x{f['k']}s{f['stride']} {f['cin']}->{f['cout']} "
+            f"{f['ho']}x{f['wo']}" + (f" +{chain}" if chain else "")
+            + (f" split {f['split']}" if f["split"] > 1 else ""))
+
+
+def phase_megakernel(torch, cuda_kernels, TinyYolo, batch, dev):
+    """Phase 8: the B=1 streaming megakernel on TinyYolo GEN1, in both
+    dtype configurations, through ``StreamingMegakernel.step``: one
+    launch per frame and nothing else; the final state against the plain
+    version on the card and (fp32) against the per-step ``SODa.step``;
+    ``predict`` and ``to_model_state``; timings and the per-phase
+    timeline. Returns (launches, fp32 row of the kernels line)."""
+    from snn_for_object_detection_tpu_torch.ops.megakernel import (
+        StreamingMegakernel,
+        streaming_megakernel_reference,
+    )
+
+    X = torch.as_tensor(batch[0][:MK_FRAMES, 0], device=dev)  # uint8
+    total, row = 0, None
+    for xd, sd in (("float32", "float32"), ("bfloat16", "float8_e5m2")):
+        tag = f"{xd}/{sd}"
+        model = build_model(TinyYolo, xd, sd, dev)
+        mk = StreamingMegakernel(model)
+        plan = mk.plan
+        cuda_kernels.reset_launches()
+        state = None
+        for t in range(MK_FRAMES):
+            (cls_p, box_p), state = mk.step(X[t], state)
+        torch.cuda.synchronize()
+        launches = dict(cuda_kernels.LAUNCHES)
+        want = {k: 0 for k in launches}
+        want["streaming_megakernel"] = MK_FRAMES
+        check(launches == want, f"{tag}: launches {launches}, want {want}")
+        total += launches["streaming_megakernel"]
+        check(tuple(cls_p.shape) == (1, model.num_anchors, NUM_CLASSES + 1)
+              and tuple(box_p.shape) == (1, model.num_anchors, 4)
+              and bool(torch.isfinite(cls_p).all()
+                       & torch.isfinite(box_p).all()),
+              f"{tag}: megakernel predictions")
+
+        plain = mk._flat_state(None)
+        for t in range(MK_FRAMES):
+            pc, pb, plain = streaming_megakernel_reference(plan, X[t], plain)
+        got = mk._flat_state(state)
+        agree, active, li_out, li_rel = [], [], [], []
+        for g, w, slot in zip(got, plain, plan.slots):
+            if "head" in slot.path[0]:  # LI membranes and currents
+                li_out.append(outside_share(g, w, plan.state_dtype))
+                li_rel.append(relative_l2(g, w))
+            elif slot.field == 0:
+                agree.append(spike_agreement(g == 0, w == 0))
+                active.append(float((w != 0).float().mean()))
+        err = max(max_abs_err(a, b) for a, b in
+                  [(cls_p, pc), (box_p, pb)] + list(zip(got, plain)))
+        print(f"  {tag}: {MK_FRAMES} frames, {launches['streaming_megakernel']}"
+              f" megakernel launches and no other; vs the plain version on "
+              f"the card: final-state spike agreement (v == 0) min "
+              f"{min(agree):.6f} over {len(agree)} LIF cells (membranes "
+              f"nonzero: min {min(active):.3f}, mean "
+              f"{statistics.mean(active):.3f}); LI states: relative L2 "
+              f"error max {max(li_rel):.4f}, share outside rtol 1e-4 / two "
+              f"ulps max {max(li_out):.4f}; max abs err {err:.3g}",
+              flush=True)
+        check(min(agree) >= 0.99, f"{tag}: spike agreement {agree}")
+        li_limit = 0.05 if xd == "float32" else 0.1
+        check(max(li_rel) <= li_limit, f"{tag}: LI states' relative L2 "
+              f"error {li_rel} (limit {li_limit})")
+
+        if xd == "float32":  # the same function per step (cuDNN, cell)
+            ss = None
+            cuda_kernels.reset_launches()
+            for t in range(MK_FRAMES):
+                (sc, sb), ss = model.step(X[t][None], ss)
+            torch.cuda.synchronize()
+            check(cuda_kernels.LAUNCHES["temporal_cell_seq"]
+                  == CELLS_PER_STEP * MK_FRAMES, "SODa.step launches")
+            agree_s, pred_diff = spike_agreements(((cls_p, box_p), state),
+                                                  ((sc, sb), ss))
+            print(f"  {tag}: vs SODa.step: final-state spike agreement min "
+                  f"{min(agree_s):.6f}, mean {statistics.mean(agree_s):.6f} "
+                  f"over {len(agree_s)} cells; max |pred diff| "
+                  f"{pred_diff:.3g}", flush=True)
+            check(min(agree_s) >= 0.99, f"{tag}: vs SODa.step {agree_s}")
+
+        # predict and the flat state
+        dets, flat = mk.predict(X[0], got)
+        check(tuple(dets.shape) == (300, 6)
+              and bool(torch.isfinite(dets).all()), f"{tag}: predict")
+        tree = mk.to_model_state(flat)
+        (c1, _), _ = mk.step(X[1], tree)
+        (c2, _), _ = mk.step(X[1], flat)
+        check(bool(torch.equal(c1, c2))
+              and [tuple(x.shape) for x in state_leaves(tree)]
+              == [tuple(x.shape) for x in state_leaves(state)],
+              f"{tag}: to_model_state")
+
+        st = mk._flat_state(state)
+        ms = per_frame_ms(
+            lambda: cuda_kernels.streaming_megakernel(plan, X[0], st))
+        plain_ms = per_frame_ms(
+            lambda: streaming_megakernel_reference(plan, X[0], st), reps=3)
+        with torch.inference_mode():
+            step_ms = per_frame_ms(lambda: model.step(X[0][None], state))
+        parts = {"predict": [], "step": [], "detect": []}
+        for _ in range(6):
+            for name, fn in (("predict", lambda: mk.predict(X[0], st)),
+                             ("step", lambda: mk.step(X[0], st)),
+                             ("detect", lambda: model.detect((cls_p, box_p)))):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                parts[name].append((time.perf_counter() - t0) * 1e3)
+        parts = {k: statistics.median(v[1:]) for k, v in parts.items()}
+        cu = plan.cuda
+        rows, phases = cu["ops"].cpu(), cu["phases"].cpu()
+        n_phases = phases.shape[0]
+        line = torch.zeros(n_phases + 1, dtype=torch.int64, device=dev)
+        cuda_kernels.streaming_megakernel(plan, X[0], st, timeline=line)
+        torch.cuda.synchronize()
+        phase_ms = (line[1:] - line[:-1]).double().cpu().numpy() / 1e6
+        sx = torch.empty((), dtype=plan.compute_dtype).element_size()
+        ss_ = torch.empty((), dtype=plan.state_dtype).element_size()
+        bound_ms, bound_by, macs, nbytes = megakernel_bound(plan, sx, ss_)
+        n_split = int((rows[:, 0] == 6).sum())
+        print(f"  {tag}: megakernel {ms:.4f} ms/frame (CUDA events around "
+              f"10 back-to-back frames, median of 10), plain version "
+              f"{plain_ms:.2f} ms, SODa.step "
+              f"{step_ms:.2f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{2 * macs / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); grid "
+              f"{cu['grid']} blocks ({cu['blocks_per_sm']} per SM x "
+              f"{cu['sms']} SMs), {len(rows)} ops ({n_split} convs split "
+              f"along K) in {n_phases} phases, {n_phases - 1} grid barriers "
+              f"per frame", flush=True)
+        print(f"  {tag}: predict {parts['predict']:.2f} ms/frame = step "
+              f"{parts['step']:.2f} + detect {parts['detect']:.2f} ms "
+              f"(host clock, synchronised apart, median of 5)", flush=True)
+        fields = cuda_kernels.MK_FIELDS
+        labels = [[row_label(fields, rows[n]) for n in range(o0, o1)]
+                  for o0, o1, _ in phases.tolist()]
+        top = np.argsort(-phase_ms)[:8]
+        print(f"  {tag}: timeline (one launch, +1 barrier): "
+              f"{phase_ms.sum():.3f} ms over {n_phases} phases; slowest: "
+              + "; ".join(f"[{p}] {phase_ms[p]:.3f} ms "
+                          f"{', '.join(labels[p][:3])}" for p in top),
+              flush=True)
+        conv_ms = sum(phase_ms[p] for p in range(n_phases)
+                      if any(x.startswith(("conv", "reduce"))
+                             for x in labels[p]))
+        print(f"  {tag}: phases with a conv or a split conv's reduce "
+              f"{conv_ms:.3f} ms; phases under 10 us: "
+              f"{int((phase_ms < 0.01).sum())}", flush=True)
+        if xd == "float32":
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, max_abs_err=err, step_ms=step_ms)
+        del model, mk, plan, state, plain, got
+        torch.cuda.empty_cache()
+    return total, row
+
+
+def phase_engine(torch, cuda_kernels, TinyYolo, dev):
+    """Phase 9: StreamingEngine on TinyYolo GEN1, capacity 8, 6 streams
+    (one removed and one added part way) over 24 steps, sync and
+    pipelined, both dtype configurations: 22 cell launches per step,
+    every output [k, 6] and finite, empty during a stream's warm-up."""
+    from snn_for_object_detection_tpu_torch.serve import StreamingEngine
+
+    rng = np.random.default_rng(9)
+    frames = (rng.random((ENGINE_STEPS, ENGINE_STREAMS + 1, *IN_HW, 2))
+              < EVENT_DENSITY).astype(np.uint8)
+    for xd, sd in (("float32", "float32"), ("bfloat16", "float8_e5m2")):
+        model = build_model(TinyYolo, xd, sd, dev)
+        for pipelined in (False, True):
+            tag = f"{xd}/{sd} {'pipelined' if pipelined else 'sync'}"
+            eng = StreamingEngine(model, capacity=ENGINE_CAPACITY,
+                                  pipelined=pipelined)
+            ages, snaps, outs, times = {}, [], [], []
+            for n in range(ENGINE_STREAMS):
+                eng.add_stream(f"cam{n}")
+                ages[f"cam{n}"] = 0
+            cuda_kernels.reset_launches()
+            for t in range(ENGINE_STEPS):
+                if t == 8:
+                    eng.remove_stream("cam2")
+                    ages.pop("cam2")
+                if t == 12:
+                    eng.add_stream(f"cam{ENGINE_STREAMS}")
+                    ages[f"cam{ENGINE_STREAMS}"] = 0
+                batch = {sid: frames[t, int(sid[3:])] for sid in ages}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = eng.step(batch)
+                times.append((time.perf_counter() - t0) * 1e3)
+                for sid in ages:
+                    ages[sid] += 1
+                snaps.append(dict(ages))
+                outs.append(out)
+            outs.append(eng.flush())
+            torch.cuda.synchronize()
+            launches = dict(cuda_kernels.LAUNCHES)
+            check(launches["temporal_cell_seq"]
+                  == CELLS_PER_STEP * ENGINE_STEPS
+                  and sum(launches.values()) == launches["temporal_cell_seq"],
+                  f"{tag}: launches {launches}, want {CELLS_PER_STEP} cell "
+                  "launches a step")
+            # which step's detections each returned dict holds
+            results = outs[1:] if pipelined else outs[:-1]
+            check(outs[0] == {} if pipelined else outs[-1] == {},
+                  f"{tag}: pipelined shift")
+            n_dets = 0
+            for snap, out in zip(snaps, results):
+                check(sorted(out) == sorted(snap), f"{tag}: streams")
+                for sid, d in out.items():
+                    check(d.ndim == 2 and d.shape[1] == 6
+                          and bool(np.isfinite(d).all()), f"{tag}: {sid}")
+                    if snap[sid] <= model.time_window:
+                        check(d.shape[0] == 0, f"{tag}: {sid} warm-up")
+                    n_dets += d.shape[0]
+            step_ms = statistics.median(times[1:])
+            print(f"  {tag}: {ENGINE_STEPS} steps, {launches['temporal_cell_seq']}"
+                  f" cell launches ({CELLS_PER_STEP} a step); {n_dets} "
+                  f"detections after warm-up; step {step_ms:.1f} ms (host "
+                  f"clock, median), {step_ms / ENGINE_STREAMS:.2f} ms per "
+                  f"camera-frame at {ENGINE_STREAMS} streams, capacity "
+                  f"{ENGINE_CAPACITY}", flush=True)
+        del model, eng
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -858,6 +1181,7 @@ def main() -> int:
           flush=True)
 
     print("[3] kernels against their plain versions", flush=True)
+    check_fma(torch, neurons, "cuda")
     rows, worst = phase_kernels(torch, cuda_kernels, "cuda")
     conv_rows, conv_worst = phase_spiking_conv(torch, cuda_kernels, C,
                                                neurons, "cuda")
@@ -879,6 +1203,14 @@ def main() -> int:
           flush=True)
     conv_launches = phase_fused_path(torch, cuda_kernels, C, TinyYolo,
                                      Trainer, batches, "cuda")
+    print(f"[8] megakernel: TinyYolo GEN1 {IN_HW} at B=1, {MK_FRAMES} frames "
+          f"through StreamingMegakernel.step", flush=True)
+    mk_launches, mk_row = phase_megakernel(torch, cuda_kernels, TinyYolo,
+                                           batches[0], "cuda")
+    print(f"[9] engine: StreamingEngine on TinyYolo GEN1, capacity "
+          f"{ENGINE_CAPACITY}, {ENGINE_STREAMS} streams, {ENGINE_STEPS} steps",
+          flush=True)
+    phase_engine(torch, cuda_kernels, TinyYolo, "cuda")
 
     ref = next(r for r in rows if (r["shape"], r["cell"], r["x"], r["start"])
                == ("stage1", "lif", "float32", 0))
@@ -910,13 +1242,30 @@ def main() -> int:
             "bound_by": r["bound_by"],
             "library_ms": None,
         })
+    # no single PyTorch call computes the network either
+    kernels.append({
+        "name": "streaming_megakernel",
+        "route": "cuda",
+        "source": "snn_for_object_detection_tpu_torch/csrc/megakernel.cu",
+        "replaces": "snn_for_object_detection_tpu/ops/megakernel.py:454",
+        "launches": mk_launches,
+        "max_abs_err": mk_row["max_abs_err"],
+        "ms": mk_row["ms"],
+        "plain_ms": mk_row["plain_ms"],
+        "bound_ms": mk_row["bound_ms"],
+        "bound_by": mk_row["bound_by"],
+        "library_ms": None,
+    })
     print(f"done in {time.perf_counter() - t_start:.1f} s; kernel times "
           f"below: temporal_cell_seq the stage-1 fp32 LIF case "
           f"[42,4,120,152,64]; spiking_conv_seq the stage-3 downsample at "
           f"fp32 (3x3 s2, 128->256, [42,4,60,76] -> [30,38]); "
           f"fused_pointwise_conv_bn_lif {BATCH * 120 * 152} rows, 64->64, "
-          f"fp32. Launches: temporal_cell_seq in [4], spiking_conv_seq in "
-          f"[7]; fused_pointwise_conv_bn_lif has no path")
+          f"fp32; streaming_megakernel one GEN1 frame at fp32 (SODa.step, "
+          f"its per-layer yardstick: {mk_row['step_ms']:.3f} ms). Launches: "
+          f"temporal_cell_seq in [4], spiking_conv_seq in [7], "
+          f"streaming_megakernel in [8] (both dtype configurations); "
+          f"fused_pointwise_conv_bn_lif has no path")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,10 @@
 """Spec compiler: DSL config lists -> ``nn.Module`` trees (eval forward).
 
 Counterpart of ``snn_for_object_detection_tpu/models/compile.py`` for the
-TinyYolo menu: ``Conv``, eval-mode ``Norm``, ``LIF``/``LI``, ``Tanh``,
-``Pass``, ``Return`` taps, and ``Residual`` / ``Dense`` blocks. Shape
+TinyYolo menu and the streaming megakernel's: ``Conv``, eval-mode
+``Norm``, ``LIF``/``LI``, ``ReLU``, ``SiLU``, ``Tanh``, ``Pool`` with
+``kernel_size == stride``, nearest ``Up``, ``Pass``, ``Return`` taps,
+and ``Residual`` / ``Dense`` blocks. Shape
 inference runs once at build time, as in the JAX compiler. Each layer
 has two forms:
 
@@ -87,6 +89,49 @@ class Tanh(Layer):
         return torch.tanh(x), state
 
 
+class ReLU(Layer):
+    def step(self, x, state, ctx):
+        return torch.relu(x), state
+
+
+class SiLU(Layer):
+    def step(self, x, state, ctx):
+        return F.silu(x), state
+
+
+class Pool(Layer):
+    """Pooling with ``kernel_size == stride`` (compile.py:485-493): the
+    map is cropped to ``(oh * k, ow * k)`` and reduced over each k x k
+    window: ``M`` max, ``A`` mean, ``S`` sum."""
+
+    def __init__(self, ch, in_hw, k: int, kind: str):
+        super().__init__(ch, (in_hw[0] // k, in_hw[1] // k))
+        self.k, self.kind = k, kind
+        self.in_hw = tuple(in_hw)
+
+    def step(self, x, state, ctx):
+        (oh, ow), k = self.out_hw, self.k
+        b, c = x.shape[0], x.shape[-1]
+        y = x[:, :oh * k, :ow * k].reshape(b, oh, k, ow, k, c)
+        if self.kind == "M":
+            return y.amax(dim=(2, 4)), state
+        y = y.sum(dim=(2, 4))
+        return (y / (k * k) if self.kind == "A" else y), state
+
+
+class Up(Layer):
+    """Nearest upsampling by an integer scale: a repeat (compile.py:
+    533-538)."""
+
+    def __init__(self, ch, in_hw, scale: int):
+        super().__init__(ch, (in_hw[0] * scale, in_hw[1] * scale))
+        self.scale = scale
+
+    def step(self, x, state, ctx):
+        y = x.repeat_interleave(self.scale, dim=1)
+        return y.repeat_interleave(self.scale, dim=2), state
+
+
 class Return(Layer):
     """Pyramid tap; in sequence mode the tap is the whole sequence."""
 
@@ -131,8 +176,10 @@ class Conv(Layer):
 
 class Norm(Layer):
     """Eval-mode BatchNorm: the folded affine ``x * k + b`` applied in
-    the activation dtype as two ops (compile.py:143-158); the fused plan
-    hands the same fp32 ``(k, b)`` to ``spiking_conv_seq``."""
+    the activation dtype (compile.py:143-158). JAX runs it under ``jit``,
+    where XLA contracts it at fp32 into one fused multiply-add
+    (``neurons.fma``) and rounds each of the two ops in bf16. The fused
+    plan hands the same fp32 ``(k, b)`` to ``spiking_conv_seq``."""
 
     def __init__(self, ch, hw, bias: bool, eps: float):
         super().__init__(ch, hw)
@@ -156,6 +203,8 @@ class Norm(Layer):
 
     def step(self, x, state, ctx):
         k, b = self.coeffs()
+        if x.dtype == torch.float32:
+            return neurons.fma(x, k, b), state
         return x * k.to(x.dtype) + b.to(x.dtype), state
 
 
@@ -184,9 +233,7 @@ class Cell(Layer):
         return z, type(state)(v, i)
 
 
-_NOT_PORTED_LEAVES = (
-    S.Pool, S.Up, S.ReLU, S.SiLU, S.PLIF, S.ALIF, S.SLI, S.Synapse, S.LSTM,
-)
+_NOT_PORTED_LEAVES = (S.PLIF, S.ALIF, S.SLI, S.Synapse, S.LSTM)
 
 
 def _compile_leaf(layer: S.LayerSpec, in_ch: int, in_hw, state_dtype):
@@ -194,6 +241,20 @@ def _compile_leaf(layer: S.LayerSpec, in_ch: int, in_hw, state_dtype):
         return Pass(in_ch, in_hw)
     if isinstance(layer, S.Tanh):
         return Tanh(in_ch, in_hw)
+    if isinstance(layer, S.ReLU):
+        return ReLU(in_ch, in_hw)
+    if isinstance(layer, S.SiLU):
+        return SiLU(in_ch, in_hw)
+    if isinstance(layer, S.Pool):
+        k = layer.kernel_size
+        if (layer.stride if layer.stride is not None else k) != k:
+            raise not_ported("Pool with stride != kernel_size",
+                             "other leaves")
+        return Pool(in_ch, in_hw, k, layer.type)
+    if isinstance(layer, S.Up):
+        if layer.mode != "nearest":
+            raise not_ported(f"Up mode {layer.mode!r}", "other leaves")
+        return Up(in_ch, in_hw, layer.scale)
     if isinstance(layer, S.Return):
         return Return(in_ch, in_hw)
     if isinstance(layer, S.Conv):

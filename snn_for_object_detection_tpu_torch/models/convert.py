@@ -64,3 +64,19 @@ def load_jax_params(model: nn.Module, params: Dict[str, Any],
                     f"{tuple(target.shape)}"
                 )
             target.copy_(torch.from_numpy(np.array(value, np.float32)))
+
+
+def model_stats(model: nn.Module) -> Dict[str, Any]:
+    """The model's BatchNorm running statistics as a JAX-layout ``stats``
+    tree (nested dicts of numpy arrays), the counterpart of the
+    ``stats`` that :func:`load_jax_params` reads."""
+    tree: Dict[str, Any] = {}
+    for name, buf in model.state_dict().items():
+        *path, leaf = name.split(".")
+        if leaf not in ("mean", "var"):
+            continue
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = buf.detach().cpu().numpy()
+    return tree

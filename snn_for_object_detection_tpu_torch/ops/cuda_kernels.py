@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -23,6 +23,7 @@ LAUNCHES: Dict[str, int] = {
     "temporal_cell_seq": 0,
     "spiking_conv_seq": 0,
     "fused_pointwise_conv_bn_lif": 0,
+    "streaming_megakernel": 0,
 }
 
 # type codes of the C entry points
@@ -383,3 +384,258 @@ def fused_pointwise_conv_bn_lif(
         )
     LAUNCHES["fused_pointwise_conv_bn_lif"] += 1
     return z, v_out, i_out
+
+
+# ---- the streaming megakernel (csrc/megakernel.cu) ----
+
+# op table of csrc/megakernel.cu: one row of int32 fields per op
+MK_FIELDS = (
+    "kind", "src_space", "src_off", "res_space", "res_off", "dst_space",
+    "dst_off", "h", "w", "cin", "ho", "wo", "cout", "k", "stride", "w_off",
+    "nk_off", "nb_off", "cell", "slot_v", "slot_i", "act", "pool", "dst_c",
+    "ch_off", "tiles", "tile0", "bn", "split", "scratch_off",
+)
+_MK_ROW = 32
+_MK_KINDS = {"conv": 0, "ew": 1, "pool": 2, "up": 3, "add": 4, "copy": 5,
+             "reduce": 6}
+_MK_SPACES = {"ws": 0, "frame": 1, "preds": 2, "scratch": 3}
+_MK_ACTS = {None: 0, "relu": 1, "silu": 2, "tanh": 3}
+_MK_POOLS = {"M": 0, "A": 1, "S": 2}
+_MK_EW_TILE = 1024  # elements of an elementwise tile: 256 threads x 4
+_MK_BK = 16  # K-chunk of a conv tile
+_MK_MAX_SPLIT = 16
+_MK_MAX_SLOTS = 128
+_FRAME_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 3}
+
+
+def _megakernel_lib(name: str):
+    fn = getattr(cuda_build.load("megakernel.cu"), name)
+    if fn.argtypes is None:
+        if name == "megakernel_occupancy":
+            fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+        else:
+            fn.argtypes = (
+                [ctypes.c_void_p] * 2 + [ctypes.c_int]     # ops, phases, n
+                + [ctypes.c_void_p] * 3 + [ctypes.c_int]   # w, ws, frame, dt
+                + [ctypes.c_void_p] * 5 + [ctypes.c_int]   # preds, scratch,
+                # barrier, state in / out pointer arrays, slots
+                + [ctypes.c_int] * 2 + [ctypes.c_float] * 4
+                + [ctypes.c_int] + [ctypes.c_void_p] * 2   # grid, timeline,
+                # stream
+            )
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _conv_tile(cout: int) -> Tuple[int, int]:
+    """(BM, BN) of a conv tile: 64 x 64, or 128 x 32 for narrow convs."""
+    return (128, 32) if cout <= 32 else (64, 64)
+
+
+def _conv_split(tiles: int, k: int, grid: Optional[int]) -> int:
+    """Slices of K a conv with ``tiles`` output tiles and reduction depth
+    ``k`` is split into, so that a phase of it fills about ``grid``
+    blocks: 1 (no split) without a grid or when its tiles fill half of
+    it; each slice keeps at least 4 chunks of 16."""
+    if grid is None or 2 * tiles > grid:
+        return 1
+    return max(1, min(grid // tiles, k // (4 * _MK_BK), _MK_MAX_SPLIT))
+
+
+def megakernel_op_table(plan, grid: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """The int32 op table ``[ops, 32]``, the phase table ``[phases, 3]``
+    (first op, end op, tiles) and the fp32 scratch size of a megakernel
+    plan, on the CPU.
+
+    With ``grid`` (the blocks of the launch), a conv whose tiles fill
+    less than half the grid is split along K: its op writes fp32 partial
+    sums of each slice to scratch, and a ``reduce`` op in the next phase
+    sums the slices in order and runs the conv's epilogue. The phases are
+    derived as in the plan: every op runs in the phase after the last one
+    that wrote one of its inputs."""
+    entries = []  # (fields, phase)
+    ready: Dict[int, int] = {}
+    scratch = 0
+    for op in plan.ops:
+        src, dst = plan.buffers[op.src], plan.buffers[op.dst]
+        res = plan.buffers[op.res] if op.res >= 0 else None
+        h, w, cin = src.shape
+        ho, wo, dst_c = dst.shape
+        cout = dst_c if op.kind == "conv" else cin
+        f = dict(
+            kind=_MK_KINDS[op.kind], src_space=_MK_SPACES[src.space],
+            src_off=src.offset,
+            res_space=_MK_SPACES[res.space] if res else -1,
+            res_off=res.offset if res else -1,
+            dst_space=_MK_SPACES[dst.space], dst_off=dst.offset, h=h, w=w,
+            cin=cin, ho=ho, wo=wo, cout=cout, k=op.k, stride=op.stride,
+            w_off=op.w, nk_off=op.norm[0] if op.norm else -1,
+            nb_off=op.norm[1] if op.norm else -1,
+            cell={None: -1, "lif": 0, "li": 1}[op.cell],
+            slot_v=op.slots[0], slot_i=op.slots[1], act=_MK_ACTS[op.act],
+            pool=_MK_POOLS[op.pool], dst_c=dst_c, ch_off=op.ch_off,
+            bn=0, split=1, scratch_off=-1,
+        )
+        phase = 1 + max(ready.get(b, -1) for b in
+                        [op.src] + ([op.res] if op.res >= 0 else []))
+        if op.kind == "conv":
+            bm, f["bn"] = _conv_tile(cout)
+            tiles = -(-(ho * wo) // bm) * -(-cout // f["bn"])
+            split = _conv_split(tiles, op.k * op.k * cin, grid)
+            f["tiles"] = tiles * split
+            if split > 1:
+                f.update(split=split, scratch_off=scratch)
+                entries.append((f, phase))
+                # the slices' sum and the epilogue, one output a thread
+                f = dict(f, kind=_MK_KINDS["reduce"],
+                         src_space=_MK_SPACES["scratch"], src_off=scratch,
+                         h=ho, w=wo, cin=cout, k=split, bn=0, split=1,
+                         scratch_off=-1,
+                         tiles=-(-(ho * wo * cout) // _MK_EW_TILE))
+                scratch += split * ho * wo * cout
+                phase += 1
+        else:
+            numel = ho * wo * cin if op.kind in ("pool", "up") else h * w * cin
+            f["tiles"] = -(-numel // _MK_EW_TILE)
+        entries.append((f, phase))
+        ready[op.dst] = max(ready.get(op.dst, -1), phase)
+    entries.sort(key=lambda e: e[1])  # stable: emission order in a phase
+    n_phases = entries[-1][1] + 1
+    rows = torch.full((len(entries), _MK_ROW), -1, dtype=torch.int32)
+    phases = torch.zeros((n_phases, 3), dtype=torch.int32)
+    phases[:, 0] = len(entries)
+    for n, (f, phase) in enumerate(entries):
+        f["tile0"] = int(phases[phase, 2])
+        rows[n, :len(MK_FIELDS)] = torch.tensor(
+            [f[k] for k in MK_FIELDS], dtype=torch.int32)
+        phases[phase, 0] = min(int(phases[phase, 0]), n)
+        phases[phase, 1] = n + 1
+        phases[phase, 2] += f["tiles"]
+    return rows, phases, scratch
+
+
+def prepare_megakernel(plan) -> None:
+    """Size the launch to the card (the largest co-resident grid), then
+    upload the plan's op and phase tables and allocate its workspace,
+    split-K scratch and barrier counter there (once, before the first
+    launch)."""
+    if len(plan.slots) > _MK_MAX_SLOTS:
+        raise ValueError(f"{len(plan.slots)} state slots; the megakernel "
+                         f"takes at most {_MK_MAX_SLOTS}")
+    big = max(plan.ws_numel, plan.weight_numel, plan.preds_numel)
+    if big >= 2 ** 31:
+        raise ValueError("plan too large for 32-bit offsets")
+    dev = plan.device
+    with torch.cuda.device(dev):
+        blocks, sms = ctypes.c_int(0), ctypes.c_int(0)
+        rc = _megakernel_lib("megakernel_occupancy")(
+            _CODES[plan.compute_dtype], _CODES[plan.state_dtype],
+            ctypes.addressof(blocks), ctypes.addressof(sms))
+    if rc != 0 or blocks.value < 1:
+        raise RuntimeError(f"streaming_megakernel: occupancy query failed "
+                           f"(code {rc}, {blocks.value} blocks per SM)")
+    grid = blocks.value * sms.value
+    rows, phases, scratch = megakernel_op_table(plan, grid)
+    if scratch >= 2 ** 31:
+        raise ValueError("plan too large for 32-bit offsets")
+    plan.cuda = dict(
+        ops=rows.to(dev), phases=phases.to(dev),
+        workspace=torch.empty(max(plan.ws_numel, 1),
+                              dtype=plan.compute_dtype, device=dev),
+        scratch=torch.empty(max(scratch, 1), dtype=torch.float32, device=dev),
+        barrier=torch.zeros(2, dtype=torch.int32, device=dev),
+        blocks_per_sm=blocks.value, sms=sms.value, grid=grid,
+    )
+
+
+def _check_megakernel_args(plan, x, state_vals) -> None:
+    if x.dtype not in _FRAME_CODES:
+        raise TypeError(f"frame dtype {x.dtype} not in {tuple(_FRAME_CODES)}")
+    want = plan.buffers[0].shape
+    if tuple(x.shape) != want:
+        raise ValueError(f"frame shape {tuple(x.shape)}, want {want}")
+    if len(state_vals) != len(plan.slots):
+        raise ValueError(f"{len(state_vals)} state slots, want "
+                         f"{len(plan.slots)}")
+    for n, (t, slot) in enumerate(zip(state_vals, plan.slots)):
+        if t.dtype != slot.dtype or tuple(t.shape) != slot.shape:
+            raise ValueError(
+                f"state slot {n} ({'/'.join(slot.path)}[{slot.field}]): "
+                f"{t.dtype} {tuple(t.shape)}, want {slot.dtype} {slot.shape}")
+        if t.device != x.device:
+            raise ValueError(f"state slot {n} on {t.device}, frame on "
+                             f"{x.device}")
+
+
+def streaming_megakernel(
+    plan, x: torch.Tensor, state_vals: List[torch.Tensor],
+    timeline: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor]]:
+    """One B=1 frame through a whole detector: ``(cls [1, A, C+1], box
+    [1, A, 4], new state slots)``, predictions in fp32.
+
+    :param plan: a ``megakernel.Plan`` (``megakernel.build_plan``).
+    :param x: the frame ``[H, W, Cin]``, uint8, fp32 or bf16; the kernel
+        reads its dtype, so a frame costs no cast.
+    :param state_vals: the plan's state slots, ``[H, W, C]`` each in the
+        state dtype. They are read, never written: the new state comes
+        out in new tensors.
+    :param timeline: optional int64 ``[phases + 1]`` tensor on the card
+        that receives the device's global timer (ns) at the start and at
+        the end of every phase (costs one more grid barrier).
+
+    On a CPU frame this is ``megakernel.streaming_megakernel_reference``.
+    On a CUDA frame it launches ``csrc/megakernel.cu`` once, as one
+    cooperative grid on the current stream, or raises; the state slots
+    must be contiguous and on the frame's card, and the plan prepared
+    there (``prepare_megakernel``). The plan's workspace holds one
+    frame's activations, so one plan runs one frame at a time.
+    """
+    _check_megakernel_args(plan, x, state_vals)
+    if x.device.type == "cpu":
+        from snn_for_object_detection_tpu_torch.ops.megakernel import (
+            streaming_megakernel_reference,
+        )
+
+        return streaming_megakernel_reference(plan, x, state_vals)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    cu = getattr(plan, "cuda", None)
+    if cu is None or cu["ops"].device != x.device:
+        raise ValueError("the plan is not prepared on the frame's card "
+                         "(prepare_megakernel)")
+    _require_contiguous(x=x)
+    _require_contiguous(**{f"state slot {n}": t
+                           for n, t in enumerate(state_vals)})
+    if timeline is not None and (
+            timeline.dtype != torch.int64 or timeline.device != x.device
+            or timeline.numel() != cu["phases"].shape[0] + 1):
+        raise ValueError("timeline: want an int64 [phases + 1] tensor on "
+                         "the frame's card")
+    n = len(state_vals)
+    new_vals = [torch.empty_like(t) for t in state_vals]
+    preds = torch.empty(plan.preds_numel, dtype=torch.float32,
+                        device=x.device)
+    s_in = (ctypes.c_void_p * max(n, 1))(*[t.data_ptr() for t in state_vals])
+    s_out = (ctypes.c_void_p * max(n, 1))(*[t.data_ptr() for t in new_vals])
+    lif, li = _euler("lif"), _euler("li")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _megakernel_lib("streaming_megakernel_launch")(
+            cu["ops"].data_ptr(), cu["phases"].data_ptr(),
+            cu["phases"].shape[0], plan.weight_buf.data_ptr(),
+            cu["workspace"].data_ptr(), x.data_ptr(), _FRAME_CODES[x.dtype],
+            preds.data_ptr(), cu["scratch"].data_ptr(),
+            cu["barrier"].data_ptr(),
+            ctypes.addressof(s_in), ctypes.addressof(s_out), n,
+            _CODES[plan.compute_dtype], _CODES[plan.state_dtype],
+            lif[0], lif[1], li[0], li[1], cu["grid"],
+            None if timeline is None else timeline.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"streaming_megakernel launch failed (code {rc})")
+    LAUNCHES["streaming_megakernel"] += 1
+    a, c1 = plan.num_anchors, plan.num_classes + 1
+    return (preds[:a * c1].view(1, a, c1), preds[a * c1:].view(1, a, 4),
+            new_vals)

@@ -32,7 +32,17 @@ def fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
     has an odd last bit, using the exact TwoSum error), which keeps
     the later rounding to fp32 correct: the result is what a hardware
     fused multiply-add gives.
+
+    On a CUDA tensor it is that hardware fused multiply-add: PyTorch's
+    CUDA elementwise kernels are compiled with multiply-add contraction,
+    so ``addcmul`` (and ``add`` with ``alpha``) round once there
+    (``chip_smoke.py`` [3] holds it bit-equal to the emulation, which
+    costs a dozen fp64 passes).
     """
+    if a.is_cuda:
+        if isinstance(b, torch.Tensor):
+            return torch.addcmul(c, a, b)
+        return torch.add(c, a, alpha=b)
     p = a.double() * b
     cd = c.double()
     s = p + cd

@@ -17,6 +17,7 @@ Anchors outside the top-K are non-keep (class -1).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from snn_for_object_detection_tpu_torch.ops import boxes as box_ops
@@ -79,3 +80,12 @@ def multibox_detection(
         [out_cid[..., None].to(decoded.dtype), out_conf[..., None], top_boxes],
         dim=-1,
     )
+
+
+def filter_detections(dets) -> np.ndarray:
+    """Host-side helper: one image's ``[max_out, 6]`` detections (numpy
+    or a tensor) without the background rows (class < 0), as numpy."""
+    if isinstance(dets, torch.Tensor):
+        dets = dets.cpu().numpy()
+    dets = np.asarray(dets)
+    return dets[dets[:, 0] >= 0]

@@ -179,3 +179,114 @@ def test_spiking_conv_rejects_strided_input(card):
                                     (2, 1, 6, 6, 4), 8)
     with pytest.raises(ValueError, match="contiguous"):
         cuda_kernels.spiking_conv_seq(x.transpose(2, 3), w, a, b, v, i)
+
+
+def _cuda_models():
+    """Port-only models for the megakernel on the card (no JAX here): the
+    ``StructYolo`` layer menu of tests/test_megakernel.py and a narrow
+    TinyYolo."""
+    from snn_for_object_detection_tpu_torch.models import spec as S
+    from snn_for_object_detection_tpu_torch.models.detector import SODa
+    from snn_for_object_detection_tpu_torch.models.tiny_yolo import TinyYolo
+
+    class StructYolo(SODa):
+        def backbone_cfgs(self):
+            return [
+                S.Conv(8, 3, 2), S.Norm(), S.LIF(),
+                S.Dense([
+                    [S.Conv(4, 1), S.Norm(), S.LIF(),
+                     S.Residual([[S.Conv(4, 3), S.Norm(), S.LIF()], []])],
+                    [S.Conv(4, 1)],
+                ]),
+                S.Pool("S"),
+            ]
+
+        def neck_cfgs(self):
+            return [
+                S.Conv(8, 3, 2), S.Norm(), S.LIF(), S.Return(),
+                S.Conv(8, 3, 2), S.Norm(), S.LIF(), S.Up(2), S.Pool("M"),
+                S.Return(),
+            ]
+
+        def head_cfgs(self, box_out, cls_out):
+            return [
+                [S.Conv(kernel_size=1), S.Norm(), S.LI(), S.Tanh()],
+                [S.Conv(box_out, 1)],
+                [S.Conv(cls_out, 1)],
+            ]
+
+    class Narrow(TinyYolo):
+        backbone_plan = ((8, 1), (16, 1))
+        neck_plan = ((16, 1), (16, 1), (16, 1))
+
+    return {"struct": (StructYolo, (32, 40), 4.0),
+            "narrow_tiny_yolo": (Narrow, (64, 80), 8.0)}
+
+
+def _megakernel_model(name, x_dtype, state_dtype):
+    from snn_for_object_detection_tpu_torch.ops.megakernel import (
+        StreamingMegakernel,
+    )
+
+    cls, hw, gain = _cuda_models()[name]
+    model = cls(num_classes=2, in_hw=hw, time_window=0,
+                compute_dtype=x_dtype, state_dtype=state_dtype,
+                device="cuda", seed=1)
+    with torch.no_grad():
+        for pname, p in model.named_parameters():
+            if pname.endswith(".scale"):
+                p.fill_(gain)
+    return StreamingMegakernel(model), hw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype,state_dtype", DTYPE_PAIRS)
+@pytest.mark.parametrize("name", ["struct", "narrow_tiny_yolo"])
+def test_megakernel_matches_plain_version(card, name, x_dtype, state_dtype):
+    """One launch per frame; after 6 frames the final spikes (v == 0) of
+    every LIF cell agree on >= 99% with the plain version run on the
+    card, LI states lie within a relative L2 error of 10% and predictions
+    close by (the kernel sums the convs in another order, split along K
+    where the grid would idle, and uses CUDA's tanhf)."""
+    from chip_smoke import relative_l2, spike_agreement
+    from snn_for_object_detection_tpu_torch.ops.megakernel import (
+        streaming_megakernel_reference,
+    )
+
+    mk, hw = _megakernel_model(name, x_dtype, state_dtype)
+    rng = np.random.default_rng(8)
+    frames = torch.from_numpy(
+        (rng.random((6, *hw, 2)) < 0.3).astype(np.uint8)).cuda()
+    got, want = mk._flat_state(None), mk._flat_state(None)
+    cuda_kernels.reset_launches()
+    for x in frames:
+        gc, gb, got = cuda_kernels.streaming_megakernel(mk.plan, x, got)
+        wc, wb, want = streaming_megakernel_reference(mk.plan, x, want)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["streaming_megakernel"] == len(frames)
+    assert sum(cuda_kernels.LAUNCHES.values()) == len(frames)
+    for n, slot in enumerate(mk.plan.slots):
+        g, w = got[n], want[n]
+        assert g.dtype == w.dtype == state_dtype
+        if "head" in slot.path[0]:  # LI
+            assert relative_l2(g, w) <= 0.1, slot.path
+        elif slot.field == 0:  # LIF v
+            assert spike_agreement(g == 0, w == 0) >= 0.99, slot.path
+    for g, w in ((gc, wc), (gb, wb)):
+        assert bool(torch.isfinite(g).all())
+        assert float((g - w).abs().max()) < 0.1
+
+
+@pytest.mark.cuda
+def test_megakernel_rejects_bad_state(card):
+    mk, hw = _megakernel_model("struct", torch.float32, torch.float32)
+    x = torch.zeros((*hw, 2), device="cuda")
+    state = mk._flat_state(None)
+    bad = list(state)
+    h, w, c = bad[0].shape
+    bad[0] = torch.zeros((h, c, w), device="cuda").transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_kernels.streaming_megakernel(mk.plan, x, bad)
+    bad[0] = state[0].cpu()
+    with pytest.raises(ValueError, match="state slot 0 on cpu"):
+        cuda_kernels.streaming_megakernel(mk.plan, x, bad)

@@ -342,9 +342,9 @@ def test_cuda_model_without_a_card_raises():
 
 
 @pytest.mark.parametrize("leaf", [
-    PS.Pool(), PS.Up(), PS.PLIF(), PS.ALIF(), PS.SLI(), PS.Synapse(),
-    PS.LSTM(), PS.ReLU(), PS.Conv(8, 3, 2, s2d=True),
-    PS.LIF(state_storage=True),
+    PS.Pool(kernel_size=3, stride=2), PS.Up(mode="bilinear"), PS.PLIF(),
+    PS.ALIF(), PS.SLI(), PS.Synapse(), PS.LSTM(), PS.Up(mode="bicubic"),
+    PS.Conv(8, 3, 2, s2d=True), PS.LIF(state_storage=True),
 ])
 def test_unported_leaves_raise(leaf):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

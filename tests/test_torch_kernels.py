@@ -136,5 +136,5 @@ def test_cpu_call_counts_no_launch():
     )
     assert cuda_kernels.LAUNCHES == {
         "temporal_cell_seq": 0, "spiking_conv_seq": 0,
-        "fused_pointwise_conv_bn_lif": 0,
+        "fused_pointwise_conv_bn_lif": 0, "streaming_megakernel": 0,
     }
