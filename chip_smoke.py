@@ -16,12 +16,14 @@ Phases (any failure raises and the script exits non-zero):
    - ``temporal_cell_seq`` on the main path's shapes (stage 1 and a
      head LI) must be bit-equal to ``temporal_cell_seq_reference`` for
      LIF/LI and two truncation starts;
-   - ``spiking_conv_seq`` on five of the fused path's triples (stage-1,
-     -3 and -5 downsamples, a stage-1 bottleneck, the head-0 stem):
+   - ``spiking_conv_seq`` on eight of the fused path's triples (stage-1,
+     -3, -4 and -5 downsamples, the stage-1 and stage-5 bottlenecks, the
+     head-0 and head-2 stems), each printed with its launch plan:
      spike agreement >= 0.999 and at most 0.1% (fp32; 1% in bf16) of
      final state elements outside rtol 1e-4, atol 1e-5 (fp32) or two
      ulps of the storage dtype, since the kernel sums the conv in
      another order than cuDNN; bit-equal with 1x1 identity weights;
+     every CTA tile of the kernel bit-equal to the plan's and timed;
      also times the same triple on the unfused path (cuDNN conv, BN
      affine, cell kernel);
    - ``fused_pointwise_conv_bn_lif`` at 4*120*152 rows, 64->64, and
@@ -40,7 +42,8 @@ Phases (any failure raises and the script exits non-zero):
    ``Trainer.test`` on the same batches and weights as [4], in both
    dtype configurations: exactly 22 ``spiking_conv_seq`` and no
    ``temporal_cell_seq`` launches per eval step; its eval step timed
-   and profiled beside the unfused ``forward_seq`` at time_window 0.
+   and profiled beside the unfused ``forward_seq`` at time_window 0,
+   with each fused triple's kernel ms, bound and launch plan.
    Final-state spike agreement >= 0.99 for every cell against the
    same fused schedule run with the plain versions on the card, and at
    fp32 also against the unfused path (the kernel sums the conv in
@@ -116,8 +119,11 @@ SPIKING_CONV_CASES = (
     ("stage1_down", 3, 2, "lif", 2, 64, (240, 304), EVENT_DENSITY),
     ("stage1_bottleneck", 3, 1, "lif", 32, 32, (120, 152), 0.2),
     ("stage3_down", 3, 2, "lif", 128, 256, (60, 76), 0.2),
+    ("stage4_down", 3, 2, "lif", 256, 256, (30, 38), 0.2),
     ("stage5_down", 3, 2, "lif", 256, 256, (15, 19), 0.2),
+    ("stage5_bottleneck", 3, 1, "lif", 128, 128, (8, 10), 0.2),
     ("head0_stem", 1, 1, "li", 256, 256, (30, 38), 0.2),
+    ("head2_stem", 1, 1, "li", 256, 256, (8, 10), 0.2),
 )
 POINTWISE_CASES = ((BATCH * 120 * 152, 64, 64), (BATCH * 30 * 38, 256, 256))
 
@@ -305,6 +311,19 @@ def triple_bound(k, cin, cout, in_hw, out_hw, x_bytes, state_bytes):
                                    else "bytes")
 
 
+def layer_plan(cuda_kernels, k, n, out_hw, cout):
+    """The launch plan ``spiking_conv_seq`` takes on this card."""
+    return cuda_kernels.spiking_conv_plan(k, n, *out_hw, cout,
+                                          cuda_kernels.sm_count(0))
+
+
+def plan_text(plan) -> str:
+    """One launch plan of ``spiking_conv_seq`` (cuda_kernels.ConvPlan)."""
+    th, tw, px = plan.shape
+    return (f"tile {plan.tile} ({th}x{tw} px, {px} a thread, "
+            f"{plan.threads} threads), {plan.grid} CTAs")
+
+
 def max_abs_err(got, want) -> float:
     g, w = got.float(), want.float()
     finite = g.isfinite() & w.isfinite()
@@ -336,8 +355,9 @@ def unfused_triple(torch, C, neurons, k, stride, cell, cin, cout, in_hw,
 
 
 def phase_spiking_conv(torch, cuda_kernels, C, neurons, dev):
-    """Phase 3, spiking_conv_seq: the gates on five triples of the fused
-    path, the identity case bit-equal; returns per-case timings."""
+    """Phase 3, spiking_conv_seq: the gates on eight triples of the
+    fused path, every CTA tile bit-equal to the plan's and timed, the
+    identity case bit-equal; returns per-case timings."""
     rows, worst = [], 0.0
     for label, k, stride, cell, cin, cout, hw, density in SPIKING_CONV_CASES:
         gen = torch.Generator(device=dev).manual_seed(2)
@@ -377,7 +397,25 @@ def phase_spiking_conv(torch, cuda_kernels, C, neurons, dev):
                   f"{outside} (limit {limit})")
             err = max(max_abs_err(g, w_) for g, w_ in zip(got, want))
             worst = max(worst, err)
-            del got, want
+            del want
+            # every CTA tile sums in the same order: bit-equal to the
+            # plan's launch; each tile's time beside the plan's choice
+            plan = layer_plan(cuda_kernels, k, BATCH, out_hw, cout)
+            tile_ms = []
+            for tile in range(len(cuda_kernels.SC_TILES)):
+                alt = cuda_kernels.ConvPlan(
+                    tile, cuda_kernels.spiking_conv_grid(tile, k, BATCH,
+                                                         *out_hw, cout))
+                other = cuda_kernels.spiking_conv_seq_launch(*args, alt)
+                torch.cuda.synchronize()
+                check(all(bool(((g == o) | (g.isnan() & o.isnan())).all())
+                          for g, o in zip(got, other)),
+                      f"{tag}: tile {tile} differs from tile {plan.tile}")
+                del other
+                tile_ms.append(cuda_time_ms(
+                    lambda alt=alt: cuda_kernels.spiking_conv_seq_launch(
+                        *args, alt), reps=10))
+            del got
             ms = cuda_time_ms(lambda: cuda_kernels.spiking_conv_seq(*args),
                               reps=10)
             plain_ms = cuda_time_ms(
@@ -393,14 +431,18 @@ def phase_spiking_conv(torch, cuda_kernels, C, neurons, dev):
                 v0.element_size())
             rows.append(dict(shape=label, x=str(xd), state=str(sd),
                              ms=ms, plain_ms=plain_ms, unfused_ms=unfused_ms,
-                             bound_ms=bound_ms, bound_by=bound_by))
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             plan=plan_text(plan), tile_ms=tile_ms))
             print(f"  spiking_conv_seq {label:17s} {k}x{k} s{stride} {cell:3s} "
                   f"{cin}->{cout} {str(xd)[6:]:8s}/{str(sd)[6:]:11s}: "
                   f"{'spikes' if cell == 'lif' else 'LI out'} {agree:.6f}, "
                   f"states outside {max(outside):.2e}, max abs err "
                   f"{err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
                   f"unfused path {unfused_ms:.4f} ms, bound {bound_ms:.4f} "
-                  f"ms ({bound_by})", flush=True)
+                  f"ms ({bound_by}); plan: {rows[-1]['plan']}; every tile "
+                  "bit-equal, ms by tile: "
+                  + ", ".join(f"{t}: {m:.4f}" for t, m in enumerate(tile_ms)),
+                  flush=True)
             del x, v0, i0, args
         del x32, v32, i32
         torch.cuda.empty_cache()
@@ -578,7 +620,7 @@ def phase_main_path(torch, cuda_kernels, TinyYolo, Trainer, batches, dev):
               f"{peak_gb:.2f} GB", flush=True)
         print(f"  {xd}/{sd}: parts, synchronised apart: " + ", ".join(
             f"{k} {v:.2f} ms" for k, v in parts.items() if k != "step"))
-        profile_step(torch, model, trainer, X, lab, step_ms)
+        profile_step(torch, cuda_kernels, model, trainer, X, lab, step_ms)
         del model
         torch.cuda.empty_cache()
     return total
@@ -706,7 +748,8 @@ def fused_convs(Block, block):
                 yield from fused_convs(Block, layer)
 
 
-def profile_step(torch, model, trainer, X, lab, step_ms, start=5, top=6):
+def profile_step(torch, cuda_kernels, model, trainer, X, lab, step_ms,
+                 start=5, top=6):
     """``torch.profiler`` over one eval step: device time by kernel kind
     and for the top kernels, the device's busy time (union of kernel
     intervals) and its idle share against the unprofiled ``step_ms``,
@@ -760,14 +803,17 @@ def profile_step(torch, model, trainer, X, lab, step_ms, start=5, top=6):
                           key=lambda e: e.time_range.start)
         conv_ms = by_kind.get("spiking conv kernel", (0, 0.0))[1] / 1e3
         print(f"    spiking conv kernels: {conv_ms:.3f} ms against a bound "
-              f"of {sum(bounds):.3f} ms; per triple, kernel ms (bound ms):",
-              flush=True)
+              f"of {sum(bounds):.3f} ms; per triple, kernel ms (bound ms), "
+              f"launch plan:", flush=True)
         if len(launches) == len(convs):
-            print("      " + "; ".join(
-                f"{c.w.shape[-1]}x{c.w.shape[-1]} s{c.stride} "
-                f"{c.w.shape[1]}->{c.w.shape[0]} {c.out_hw[0]}x{c.out_hw[1]} "
-                f"{e.time_range.elapsed_us() / 1e3:.3f} ({b:.3f})"
-                for c, e, b in zip(convs, launches, bounds)), flush=True)
+            for c, e, b in zip(convs, launches, bounds):
+                k, cin, cout = c.w.shape[-1], c.w.shape[1], c.w.shape[0]
+                plan = layer_plan(cuda_kernels, k, X.shape[1], c.out_hw,
+                                  cout)
+                print(f"      {k}x{k} s{c.stride} {cin}->{cout} "
+                      f"{c.out_hw[0]}x{c.out_hw[1]} "
+                      f"{e.time_range.elapsed_us() / 1e3:.3f} ({b:.3f}); "
+                      f"{plan_text(plan)}", flush=True)
         return
     # the cells' bound over the step: x read and z written at every
     # step, (v, i) read and written once, per cell
@@ -854,7 +900,8 @@ def phase_fused_path(torch, cuda_kernels, C, TinyYolo, Trainer, batches,
                   f"memory {peak_gb:.2f} GB; parts, synchronised apart: "
                   + ", ".join(f"{k} {v:.2f} ms" for k, v in parts.items()
                               if k != "step"), flush=True)
-            profile_step(torch, model, trainer, X, lab, step_ms, start=0)
+            profile_step(torch, cuda_kernels, model, trainer, X, lab,
+                         step_ms, start=0)
             del model
             torch.cuda.empty_cache()
         check(all(bool(torch.isfinite(t).all()) for t in outs[True][0]),

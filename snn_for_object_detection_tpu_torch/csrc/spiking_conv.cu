@@ -27,11 +27,11 @@
 //
 // Design. The TPU kernel pre-gathered halo slabs and pre-split stride-2
 // phases in HBM for Mosaic and walked t as the innermost grid axis with
-// (v, i) in VMEM scratch. Here one CTA of 256 threads owns one image, a
-// tile of 128 output pixels (8 x 16 for 3 x 3, 128 consecutive pixels
-// for 1 x 1) and 32 output channels, and runs the whole time loop:
-//   - each thread owns 4 pixels (neighbours on one row) x 4 channels and
-//     keeps their (v, i) in fp32 registers from t = 0 to T - 1;
+// (v, i) in VMEM scratch. Here one CTA owns one image, a tile of output
+// pixels (TH x TW for 3 x 3, TH * TW consecutive pixels for 1 x 1) and
+// 32 output channels, and runs the whole time loop:
+//   - each thread owns PXT pixels (neighbours on one row) x 4 channels
+//     and keeps their (v, i) in fp32 registers from t = 0 to T - 1;
 //   - per step and per chunk of input channels (16 for 3 x 3, 32 for
 //     1 x 1) it stages the zero-padded input tile (halo included) and
 //     the chunk's weights in shared memory, 8 channels of a pixel per
@@ -41,17 +41,29 @@
 //   - the epilogue does the roundings, the affine and the shared cell
 //     update (cell_math.cuh) and writes z[t] once; vT, iT are written
 //     once at the end. The conv output never goes to device memory.
-// Direct indexing covers stride 2, odd inputs and Cin = 2. The CTAs of
-// one pixel tile (its channel tiles) are launched next to each other so
-// they read the same input lines from L2. Two CTAs fit an SM (128
-// registers a thread, up to 54 KB of shared memory each).
+// Every output sums its products in the plain conv's order (input
+// channel, then dy, then dx), whatever the tile, so every launch plan
+// gives the same bits.
+//
+// Launch plan. The CTA tile is one of two shapes (kTiles), picked per
+// layer by ops/cuda_kernels.py::spiking_conv_plan, which passes its
+// index and grid; the entry point checks the grid. Tile 0 (8 x 16
+// pixels, 4 a thread, 256 threads) fills the card on the large maps;
+// the 15 x 19 and 8 x 10 maps of the deep layers, where tile 0 gives
+// 16-128 CTAs, take tile 1 (4 x 8 pixels, 2 a thread, 128 threads) for
+// 64-384 CTAs. Direct indexing covers stride 2, odd inputs and Cin = 2.
+// The CTAs of one pixel tile (its channel tiles) are launched next to
+// each other so they read the same input lines from L2. 512 threads an
+// SM by registers (128 a thread), up to 54 KB of shared memory a CTA.
 //
 // Known limits (PERF.md): FFMA only, so bf16 runs at the fp32 rate far
-// from its tensor-core bound; each 4 x 4 output fragment costs a 16-byte
-// shared load of weights per tap, which by count puts the inner loop
-// near the shared-memory rate (not measured); the deep layers (15 x 19
-// and 8 x 10 outputs) launch fewer CTAs than the card has SMs, and
-// Cin = 2 at the stem fills a chunk of 16 with zeros.
+// from its tensor-core bound: a tensor-core MMA sums in another order,
+// which the fused path's spike-agreement gate refuses on its untrained
+// net (PERF.md, Findings); every chunk of every step stages the CTA's
+// weights again, a cost that a smaller pixel tile does not shrink, so
+// on the deep layers tile 1 is at most 1.6x faster than tile 0 (H100,
+// PERF.md); each output fragment costs a 16-byte shared load of weights
+// per tap; the stem's Cin = 2 fills a chunk of 16 with zeros.
 
 #include "cell_math.cuh"
 
@@ -62,12 +74,13 @@ using cell_math::from_f32;
 using cell_math::round_to;
 using cell_math::to_f32;
 
-constexpr int kThreads = 256;
-constexpr int kCo = 32;                          // output channels a CTA
-constexpr int kChGroups = kCo / 4;               // 4 channels a thread
-constexpr int kPxGroups = kThreads / kChGroups;  // 4 pixels a thread
-constexpr int kTilePx = 4 * kPxGroups;           // 128 pixels a CTA
-constexpr int kTileH = 8, kTileW = 16;           // 3 x 3 pixel tile
+constexpr int kCo = 32;             // output channels a CTA
+constexpr int kChGroups = kCo / 4;  // 4 channels a thread
+constexpr int kSmThreads = 512;     // threads an SM, by registers
+
+// The CTA tiles of the launch plan: {TH, TW, PXT} (pixel rows, pixel
+// columns, pixels a thread); the plan passes the index.
+constexpr int kTiles[2][3] = {{8, 16, 4}, {4, 8, 2}};
 
 struct Args {
   const void* x;
@@ -90,12 +103,12 @@ struct Args {
 // padded so that the 8 planes one thread writes fall on other banks
 // than its neighbours' (PLANE % 4 == 2 for 3 x 3; 1 x 1 keeps PLANE a
 // multiple of 4 for its 16-byte reads).
-template <int K, int STRIDE>
+template <int K, int STRIDE, int TH, int TW>
 struct Tile {
   static constexpr bool kRect = K == 3;
   static constexpr int KC = kRect ? 16 : 32;
-  static constexpr int HIN = kRect ? (kTileH - 1) * STRIDE + K : 1;
-  static constexpr int WIN = kRect ? (kTileW - 1) * STRIDE + K : kTilePx;
+  static constexpr int HIN = kRect ? (TH - 1) * STRIDE + K : 1;
+  static constexpr int WIN = kRect ? (TW - 1) * STRIDE + K : TH * TW;
   static constexpr int NPIX = HIN * WIN;
   static constexpr int PLANE = kRect ? NPIX + (6 - NPIX % 4) % 4 : NPIX;
   static constexpr int IN_FLOATS = KC * PLANE;
@@ -155,20 +168,28 @@ __device__ __forceinline__ void store4(T* dst, const float (&val)[4],
   }
 }
 
-// K = 3: rectangular 8 x 16 pixel tiles with a halo, STRIDE in {1, 2}.
-// K = 1: 128 consecutive output pixels, each reading one input pixel;
-// the stride is a run-time argument there (STRIDE is unused).
+// K = 3: rectangular TH x TW pixel tiles with a halo, STRIDE in {1, 2}.
+// K = 1: TH * TW consecutive output pixels, each reading one input
+// pixel; the stride is a run-time argument there (STRIDE is unused).
+// A thread owns PXT neighbouring pixels of a row x 4 channels.
 // PLAIN: the pointwise kernel's variant (no rounding around the affine,
 // reset by multiplication).
-template <int CELL, typename X, typename S, int K, int STRIDE, bool PLAIN>
-__global__ void __launch_bounds__(kThreads, 2)
+template <int CELL, typename X, typename S, int K, int STRIDE, bool PLAIN,
+          int TH, int TW, int PXT>
+__global__ void __launch_bounds__(TH * TW / PXT * kChGroups,
+                                  kSmThreads / (TH * TW / PXT * kChGroups))
     spiking_conv_kernel(const Args p) {
-  using G = Tile<K, STRIDE>;
+  using G = Tile<K, STRIDE, TH, TW>;
   constexpr bool kRect = G::kRect;
   constexpr int KC = G::KC;  // input channels a chunk
   constexpr int WIN = G::WIN;
   constexpr int PLANE = G::PLANE;
-  constexpr int WINDOW = 3 * STRIDE + K;  // input values of a tap row
+  constexpr int NT = TH * TW / PXT * kChGroups;  // threads
+  constexpr int TP = TH * TW;       // pixels a CTA
+  constexpr int GPR = TW / PXT;     // pixel groups of a tile row
+  constexpr int WINDOW = (PXT - 1) * STRIDE + K;  // inputs of a tap row
+  static_assert(TW % PXT == 0 && NT % TP == 0 && (PXT == 4 || PXT == 2),
+                "tile shape");
   extern __shared__ __align__(16) float smem[];
   float* in_s = smem;                  // [c][y][x]
   float* w_s = smem + G::IN_FLOATS;    // [tap][c][co]
@@ -183,31 +204,32 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   // block -> (image, pixel tile, channel tile), channel tile fastest
   const int co_tiles = (p.Cout + kCo - 1) / kCo;
-  const int tiles_w = (p.Wo + kTileW - 1) / kTileW;
-  const int tiles = kRect ? ((p.Ho + kTileH - 1) / kTileH) * tiles_w
-                          : (p.Ho * p.Wo + kTilePx - 1) / kTilePx;
+  const int tiles_w = (p.Wo + TW - 1) / TW;
+  const int tiles = kRect ? ((p.Ho + TH - 1) / TH) * tiles_w
+                          : (p.Ho * p.Wo + TP - 1) / TP;
   int bid = blockIdx.x;
   const int cot = bid % co_tiles;
   bid /= co_tiles;
   const int tile = bid % tiles;
   const int n = bid / tiles;
-  const int oy0 = kRect ? (tile / tiles_w) * kTileH : 0;
-  const int ox0 = kRect ? (tile % tiles_w) * kTileW : 0;
+  const int oy0 = kRect ? (tile / tiles_w) * TH : 0;
+  const int ox0 = kRect ? (tile % tiles_w) * TW : 0;
   const int co = cot * kCo + cg * 4;  // this thread's first channel
   const int nco = min(4, p.Cout - co);
 
-  // this thread's 4 output pixels: offsets into one time slab, -1 if out
-  int64_t out_off[4];
+  // this thread's PXT output pixels: offsets into one time slab, -1 if
+  // out
+  int64_t out_off[PXT];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < PXT; ++j) {
     int oy, ox;
     bool ok;
     if (kRect) {
-      oy = oy0 + pg / 4;
-      ox = ox0 + (pg % 4) * 4 + j;
+      oy = oy0 + pg / GPR;
+      ox = ox0 + (pg % GPR) * PXT + j;
       ok = oy < p.Ho && ox < p.Wo;
     } else {
-      const int q = tile * kTilePx + pg * 4 + j;
+      const int q = tile * TP + pg * PXT + j;
       oy = q / p.Wo;
       ox = q % p.Wo;
       ok = q < p.Ho * p.Wo;
@@ -224,9 +246,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     av[q] = q < nco ? p.a[co + q] : 0.0f;
     bv[q] = q < nco ? p.b[co + q] : 0.0f;
   }
-  float v[4][4], i[4][4];
+  float v[PXT][4], i[PXT][4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < PXT; ++j) {
     if (out_off[j] >= 0) {
       load4(static_cast<const S*>(p.v0) + out_off[j], v[j], nco, p.vec4);
       load4(static_cast<const S*>(p.i0) + out_off[j], i[j], nco, p.vec4);
@@ -243,7 +265,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   // 1 x 1: the input pixel this thread stages (the same every chunk)
   int src_1x1 = -1;
   if (!kRect) {
-    const int q = tile * kTilePx + tid % kTilePx;
+    const int q = tile * TP + tid % TP;
     if (q < p.Ho * p.Wo) {
       src_1x1 = ((q / p.Wo) * p.stride * p.W + (q % p.Wo) * p.stride) *
                 p.Cin;
@@ -252,9 +274,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int t = 0; t < p.T; ++t) {
     const X* __restrict__ xt =
         x + (static_cast<int64_t>(t) * p.N + n) * frame;
-    float acc[4][4];
+    float acc[PXT][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < PXT; ++j) {
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[j][q] = 0.0f;
     }
@@ -263,7 +285,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       __syncthreads();  // the previous chunk's reads are done
       // input: an item is 8 channels of one pixel; a warp stages 32
       // neighbouring pixels of one channel group
-      for (int e = tid; e < G::NPIX * (KC / 8); e += kThreads) {
+      for (int e = tid; e < G::NPIX * (KC / 8); e += NT) {
         const int pix = e % G::NPIX;
         const int c8 = (e / G::NPIX) * 8;
         int src = -1;
@@ -288,7 +310,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         for (int q = 0; q < 8; ++q) in_s[(c8 + q) * PLANE + pix] = val[q];
       }
       // weights: 4 neighbouring output channels an item
-      for (int e = 4 * tid; e < G::W_FLOATS; e += 4 * kThreads) {
+      for (int e = 4 * tid; e < G::W_FLOATS; e += 4 * NT) {
         const int oc = cot * kCo + e % kCo;
         const int ci = c0 + (e / kCo) % KC;
         const int tap = e / (kCo * KC);
@@ -306,8 +328,8 @@ __global__ void __launch_bounds__(kThreads, 2)
       __syncthreads();
 
       if (kRect) {
-        const int r = pg / 4;
-        const int xb = (pg % 4) * 4;
+        const int r = pg / GPR;
+        const int xb = (pg % GPR) * PXT;
 #pragma unroll 1
         for (int c = 0; c < KC; ++c) {
 #pragma unroll
@@ -322,7 +344,7 @@ __global__ void __launch_bounds__(kThreads, 2)
               const float4 wv = *reinterpret_cast<const float4*>(
                   w_s + ((dy * K + dx) * KC + c) * kCo + cg * 4);
 #pragma unroll
-              for (int j = 0; j < 4; ++j) {
+              for (int j = 0; j < PXT; ++j) {
                 const float in = win[j * STRIDE + dx];
                 acc[j][0] = __fmaf_rn(in, wv.x, acc[j][0]);
                 acc[j][1] = __fmaf_rn(in, wv.y, acc[j][1]);
@@ -335,13 +357,23 @@ __global__ void __launch_bounds__(kThreads, 2)
       } else {
 #pragma unroll 8
         for (int c = 0; c < KC; ++c) {
-          const float4 in4 =
-              *reinterpret_cast<const float4*>(in_s + c * PLANE + pg * 4);
+          const float* in_c = in_s + c * PLANE + pg * PXT;
           const float4 wv =
               *reinterpret_cast<const float4*>(w_s + c * kCo + cg * 4);
-          const float in[4] = {in4.x, in4.y, in4.z, in4.w};
+          float in[PXT];
+          if constexpr (PXT == 4) {
+            const float4 in4 = *reinterpret_cast<const float4*>(in_c);
+            in[0] = in4.x;
+            in[1] = in4.y;
+            in[2] = in4.z;
+            in[3] = in4.w;
+          } else {
+            const float2 in2 = *reinterpret_cast<const float2*>(in_c);
+            in[0] = in2.x;
+            in[1] = in2.y;
+          }
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
+          for (int j = 0; j < PXT; ++j) {
             acc[j][0] = __fmaf_rn(in[j], wv.x, acc[j][0]);
             acc[j][1] = __fmaf_rn(in[j], wv.y, acc[j][1]);
             acc[j][2] = __fmaf_rn(in[j], wv.z, acc[j][2]);
@@ -353,7 +385,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 
     // epilogue: roundings, affine, cell, z[t]
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < PXT; ++j) {
       if (out_off[j] < 0) continue;
       float out[4];
 #pragma unroll
@@ -373,66 +405,99 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < PXT; ++j) {
     if (out_off[j] < 0) continue;
     store4(static_cast<S*>(p.vT) + out_off[j], v[j], nco, p.vec4);
     store4(static_cast<S*>(p.iT) + out_off[j], i[j], nco, p.vec4);
   }
 }
 
-template <int CELL, typename X, typename S, int K, int STRIDE, bool PLAIN>
-int launch(const Args& p, cudaStream_t stream) {
+// CTAs of one layer under CTA tile TILE (the plan's grid)
+template <int K, int TILE>
+int64_t grid_of(const Args& p) {
+  constexpr int TH = kTiles[TILE][0], TW = kTiles[TILE][1];
   const int64_t co_tiles = (p.Cout + kCo - 1) / kCo;
   const int64_t tiles =
-      K == 3 ? static_cast<int64_t>((p.Ho + kTileH - 1) / kTileH) *
-                   ((p.Wo + kTileW - 1) / kTileW)
-             : (static_cast<int64_t>(p.Ho) * p.Wo + kTilePx - 1) / kTilePx;
-  const int64_t blocks = p.N * tiles * co_tiles;
-  if (blocks == 0) return 0;
-  if (blocks > 0x7fffffff) return -1;
-  constexpr int bytes = Tile<K, STRIDE>::BYTES;
-  auto kernel = spiking_conv_kernel<CELL, X, S, K, STRIDE, PLAIN>;
+      K == 3 ? static_cast<int64_t>((p.Ho + TH - 1) / TH) *
+                   ((p.Wo + TW - 1) / TW)
+             : (static_cast<int64_t>(p.Ho) * p.Wo + TH * TW - 1) / (TH * TW);
+  return p.N * tiles * co_tiles;
+}
+
+template <int CELL, typename X, typename S, int K, int STRIDE, bool PLAIN,
+          int TILE>
+int launch(const Args& p, int64_t grid, cudaStream_t stream) {
+  constexpr int TH = kTiles[TILE][0], TW = kTiles[TILE][1];
+  constexpr int PXT = kTiles[TILE][2];
+  if (grid != grid_of<K, TILE>(p) || grid > 0x7fffffff) return -1;
+  if (grid == 0) return 0;
+  constexpr int bytes = Tile<K, STRIDE, TH, TW>::BYTES;
+  auto kernel = spiking_conv_kernel<CELL, X, S, K, STRIDE, PLAIN, TH, TW, PXT>;
   if (bytes > 48 * 1024) {  // above 48 KB only when asked for
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<static_cast<unsigned>(blocks), kThreads, bytes, stream>>>(p);
+  kernel<<<static_cast<unsigned>(grid), TH * TW / PXT * kChGroups, bytes,
+           stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int CELL, typename X, typename S, bool PLAIN>
-int launch_geometry(int k, const Args& p, cudaStream_t s) {
-  if constexpr (PLAIN) {  // the pointwise kernel: 1 x 1 only
-    return k == 1 ? launch<CELL, X, S, 1, 1, true>(p, s) : -1;
+template <int CELL, typename X, typename S, int K, int STRIDE, bool PLAIN>
+int launch_tile(int tile, const Args& p, int64_t grid, cudaStream_t s) {
+  switch (tile) {
+    case 0:
+      return launch<CELL, X, S, K, STRIDE, PLAIN, 0>(p, grid, s);
+    case 1:
+      return launch<CELL, X, S, K, STRIDE, PLAIN, 1>(p, grid, s);
   }
-  if (k == 1) return launch<CELL, X, S, 1, 1, PLAIN>(p, s);
-  if (k == 3 && p.stride == 1) return launch<CELL, X, S, 3, 1, PLAIN>(p, s);
-  if (k == 3 && p.stride == 2) return launch<CELL, X, S, 3, 2, PLAIN>(p, s);
   return -1;
 }
 
+template <int CELL, typename X, typename S, bool PLAIN>
+int launch_geometry(int k, int tile, const Args& p, int64_t grid,
+                    cudaStream_t s) {
+  if constexpr (PLAIN) {  // the pointwise kernel: 1 x 1, tile 0 only
+    return k == 1 ? launch<CELL, X, S, 1, 1, true, 0>(
+                        p, grid_of<1, 0>(p), s)
+                  : -1;
+  } else {
+    if (k == 1) return launch_tile<CELL, X, S, 1, 1, false>(tile, p, grid, s);
+    if (k == 3 && p.stride == 1) {
+      return launch_tile<CELL, X, S, 3, 1, false>(tile, p, grid, s);
+    }
+    if (k == 3 && p.stride == 2) {
+      return launch_tile<CELL, X, S, 3, 2, false>(tile, p, grid, s);
+    }
+    return -1;
+  }
+}
+
 template <int CELL, bool PLAIN, typename X>
-int launch_state(int state_dtype, int k, const Args& p, cudaStream_t s) {
+int launch_state(int state_dtype, int k, int tile, const Args& p,
+                 int64_t grid, cudaStream_t s) {
   switch (state_dtype) {
     case 0:
-      return launch_geometry<CELL, X, float, PLAIN>(k, p, s);
+      return launch_geometry<CELL, X, float, PLAIN>(k, tile, p, grid, s);
     case 1:
-      return launch_geometry<CELL, X, __nv_bfloat16, PLAIN>(k, p, s);
+      return launch_geometry<CELL, X, __nv_bfloat16, PLAIN>(k, tile, p, grid,
+                                                            s);
     case 2:
-      return launch_geometry<CELL, X, E5M2, PLAIN>(k, p, s);
+      return launch_geometry<CELL, X, E5M2, PLAIN>(k, tile, p, grid, s);
   }
   return -1;
 }
 
 template <int CELL, bool PLAIN>
-int launch_x(int x_dtype, int state_dtype, int k, const Args& p,
-             cudaStream_t s) {
+int launch_x(int x_dtype, int state_dtype, int k, int tile, const Args& p,
+             int64_t grid, cudaStream_t s) {
   switch (x_dtype) {
     case 0:
-      return launch_state<CELL, PLAIN, float>(state_dtype, k, p, s);
+      return launch_state<CELL, PLAIN, float>(state_dtype, k, tile, p, grid,
+                                              s);
     case 1:
-      return launch_state<CELL, PLAIN, __nv_bfloat16>(state_dtype, k, p, s);
+      return launch_state<CELL, PLAIN, __nv_bfloat16>(state_dtype, k, tile,
+                                                      p, grid, s);
   }
   return -1;
 }
@@ -458,15 +523,16 @@ bool fits_int(long long v) { return v >= 0 && v <= 0x7fffffff; }
 }  // namespace
 
 // C entry points (loaded with ctypes). Type codes: 0 fp32, 1 bf16,
-// 2 fp8 e5m2 (state only); cell 0 = LIF, 1 = LI. Each returns 0 on
-// success, -1 for an unsupported argument, else the cudaError_t of the
-// launch. Shapes are checked by the Python wrappers.
+// 2 fp8 e5m2 (state only); cell 0 = LIF, 1 = LI; tile indexes kTiles
+// and grid is the plan's CTA count. Each returns 0 on success, -1 for
+// an unsupported argument or a grid that is not the tile's, else the
+// cudaError_t of the launch. Shapes are checked by the Python wrappers.
 extern "C" int spiking_conv_seq_launch(
     const void* x, const void* w, const float* a, const float* b,
     const void* v0, const void* i0, void* z, void* vT, void* iT, int T,
     int N, int H, int W, int Cin, int Ho, int Wo, int Cout, int k,
-    int stride, int cell, int x_dtype, int state_dtype, float c_mem,
-    float c_syn, void* stream) {
+    int stride, int tile, long long grid, int cell, int x_dtype,
+    int state_dtype, float c_mem, float c_syn, void* stream) {
   if (T < 0 || N < 0 || Cin <= 0 || Cout <= 0 || (stride != 1 && stride != 2)
       || !fits_int(static_cast<long long>(H) * W * Cin)) {
     return -1;
@@ -475,10 +541,12 @@ extern "C" int spiking_conv_seq_launch(
                            Ho, Wo, Cout, stride, c_mem, c_syn);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cell == cell_math::kLIF) {
-    return launch_x<cell_math::kLIF, false>(x_dtype, state_dtype, k, p, s);
+    return launch_x<cell_math::kLIF, false>(x_dtype, state_dtype, k, tile,
+                                            p, grid, s);
   }
   if (cell == cell_math::kLI) {
-    return launch_x<cell_math::kLI, false>(x_dtype, state_dtype, k, p, s);
+    return launch_x<cell_math::kLI, false>(x_dtype, state_dtype, k, tile, p,
+                                           grid, s);
   }
   return -1;
 }
@@ -497,6 +565,6 @@ extern "C" int fused_pointwise_conv_bn_lif_launch(
   const int r = static_cast<int>(rows);
   const Args p = make_args(x, w, a, b, v, i, z, v_out, i_out, 1, 1, 1, r,
                            Cin, 1, r, Cout, 1, c_mem, c_syn);
-  return launch_x<cell_math::kLIF, true>(x_dtype, state_dtype, 1, p,
+  return launch_x<cell_math::kLIF, true>(x_dtype, state_dtype, 1, 0, p, 0,
                                          static_cast<cudaStream_t>(stream));
 }

@@ -178,8 +178,10 @@ class Norm(Layer):
     """Eval-mode BatchNorm: the folded affine ``x * k + b`` applied in
     the activation dtype (compile.py:143-158). JAX runs it under ``jit``,
     where XLA contracts it at fp32 into one fused multiply-add
-    (``neurons.fma``) and rounds each of the two ops in bf16. The fused
-    plan hands the same fp32 ``(k, b)`` to ``spiking_conv_seq``."""
+    (``neurons.fma``) and rounds each of the two ops in bf16, except in
+    front of a cell, where the bf16 sum stays fp32
+    (``step_into_cell``). The fused plan hands the same fp32 ``(k, b)``
+    to ``spiking_conv_seq``."""
 
     def __init__(self, ch, hw, bias: bool, eps: float):
         super().__init__(ch, hw)
@@ -206,6 +208,17 @@ class Norm(Layer):
         if x.dtype == torch.float32:
             return neurons.fma(x, k, b), state
         return x * k.to(x.dtype) + b.to(x.dtype), state
+
+    def step_into_cell(self, x):
+        """The affine as jitted JAX feeds it to a cell that follows
+        directly: in bf16 the product ``x * k`` is rounded to bf16 but
+        the sum with the bf16 ``b`` reaches the cell in fp32 (XLA drops
+        the round trip in front of the cell's fp32 cast). fp32 as
+        ``step``."""
+        if x.dtype == torch.float32:
+            return self.step(x, (), None)[0]
+        k, b = self.coeffs()
+        return (x * k.to(x.dtype)).float() + b.to(x.dtype).float()
 
 
 class Cell(Layer):
@@ -364,6 +377,18 @@ class Block(Layer):
                 if li in fused:
                     y = self._run_fused(layers[li:li + 3], li, y, st_b, new_b)
                     li += 3
+                    continue
+                if (not seq and isinstance(layers[li], Norm)
+                        and li + 1 < len(layers)
+                        and isinstance(layers[li + 1], Cell)):
+                    # [Norm -> cell] of a step: the cell takes the fp32
+                    # sum and its output is rounded once, as in JAX
+                    dtype = y.dtype
+                    new_b[f"l{li}"] = st_b[f"l{li}"]
+                    y, new_b[f"l{li + 1}"] = layers[li + 1].step(
+                        layers[li].step_into_cell(y), st_b[f"l{li + 1}"], ctx)
+                    y = y.to(dtype)
+                    li += 2
                     continue
                 fn = layers[li].seq if seq else layers[li].step
                 y, new_b[f"l{li}"] = fn(y, st_b[f"l{li}"], ctx)

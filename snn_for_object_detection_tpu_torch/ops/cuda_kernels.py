@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -58,9 +60,10 @@ def _spiking_conv_lib(name: str):
     if fn.argtypes is None:
         pointers = [ctypes.c_void_p] * 9
         if name == "spiking_conv_seq_launch":
-            # T, N, H, W, Cin, Ho, Wo, Cout, k, stride, cell, x and
-            # state type codes
-            sizes = [ctypes.c_int] * 13
+            # T, N, H, W, Cin, Ho, Wo, Cout, k, stride, tile; grid; cell,
+            # x and state type codes
+            sizes = ([ctypes.c_int] * 11 + [ctypes.c_longlong]
+                     + [ctypes.c_int] * 3)
         else:
             sizes = [ctypes.c_longlong] + [ctypes.c_int] * 4
         fn.argtypes = (pointers + sizes + [ctypes.c_float] * 2
@@ -216,6 +219,65 @@ def _check_conv_args(x, w, a, b, v0, i0, cell, stride):
     return k, ho, wo
 
 
+# ---- the launch plan of csrc/spiking_conv.cu ----
+
+# CTA tiles of the kernel (its kTiles): (pixel rows, pixel columns,
+# pixels a thread); a CTA owns the tile's pixels (rows x columns
+# consecutive pixels for 1 x 1) and SC_CO output channels, a thread its
+# pixels x 4 channels
+SC_TILES = ((8, 16, 4), (4, 8, 2))
+SC_CO = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvPlan:
+    """How ``csrc/spiking_conv.cu`` cuts one layer: CTA tile
+    ``SC_TILES[tile]`` and ``grid`` CTAs of ``threads`` threads."""
+
+    tile: int
+    grid: int
+
+    @property
+    def shape(self) -> Tuple[int, int, int]:
+        return SC_TILES[self.tile]
+
+    @property
+    def threads(self) -> int:
+        th, tw, px = self.shape
+        return th * tw // px * (SC_CO // 4)
+
+
+def spiking_conv_grid(tile: int, k: int, n: int, ho: int, wo: int,
+                      cout: int) -> int:
+    """CTAs of one layer under CTA tile ``tile`` (``grid_of`` in the
+    source, which checks the plan's grid against it)."""
+    th, tw, _ = SC_TILES[tile]
+    tiles = (-(-ho // th) * -(-wo // tw) if k == 3
+             else -(-(ho * wo) // (th * tw)))
+    return n * tiles * -(-cout // SC_CO)
+
+
+def spiking_conv_plan(k: int, n: int, ho: int, wo: int, cout: int,
+                      sms: int) -> ConvPlan:
+    """The launch plan of one ``spiking_conv_seq`` layer on a card of
+    ``sms`` SMs: the largest CTA tile that gives at least one CTA an SM,
+    else the tile that gives the most CTAs (``chip_smoke.py`` [3] times
+    every tile). Every tile sums each output in the same order, so the
+    plan never changes results; it does not depend on the dtypes, the
+    stride or Cin."""
+    grids = [spiking_conv_grid(t, k, n, ho, wo, cout)
+             for t in range(len(SC_TILES))]
+    tile = next((t for t, g in enumerate(grids) if g >= sms),
+                max(range(len(grids)), key=grids.__getitem__))
+    return ConvPlan(tile, grids[tile])
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """SMs of CUDA device ``index``: one wave of the launch plan."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def spiking_conv_seq_reference(
     x_seq: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     v0: torch.Tensor, i0: torch.Tensor, cell: str = "lif", stride: int = 1,
@@ -276,8 +338,23 @@ def spiking_conv_seq(
     if x_seq.device.type != "cuda":
         raise ValueError(f"unsupported device {x_seq.device}")
     _require_contiguous(x_seq=x_seq, v0=v0, i0=i0)
+    plan = spiking_conv_plan(w.shape[0], x_seq.shape[1], ho, wo, w.shape[3],
+                             sm_count(x_seq.device.index))
+    return spiking_conv_seq_launch(x_seq, w, a, b, v0, i0, cell, stride,
+                                   plan)
+
+
+def spiking_conv_seq_launch(
+    x_seq: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+    v0: torch.Tensor, i0: torch.Tensor, cell: str, stride: int,
+    plan: ConvPlan,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One launch of ``csrc/spiking_conv.cu`` under ``plan``, for
+    arguments :func:`spiking_conv_seq` has checked (``chip_smoke.py``
+    times the plan's other tiles through it)."""
     T, n, h, wd, cin = x_seq.shape
     k, cout = w.shape[0], w.shape[3]
+    ho, wo = v0.shape[1:3]
     w = w.to(x_seq.dtype).contiguous()
     a, b = a.float().contiguous(), b.float().contiguous()
     z = torch.empty((T, n, ho, wo, cout), dtype=x_seq.dtype,
@@ -291,8 +368,8 @@ def spiking_conv_seq(
             x_seq.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
             v0.data_ptr(), i0.data_ptr(), z.data_ptr(), v_t.data_ptr(),
             i_t.data_ptr(), T, n, h, wd, cin, ho, wo, cout, k, stride,
-            _CELLS[cell], _CODES[x_seq.dtype], _CODES[v0.dtype],
-            c_mem, c_syn, stream,
+            plan.tile, plan.grid, _CELLS[cell], _CODES[x_seq.dtype],
+            _CODES[v0.dtype], c_mem, c_syn, stream,
         )
     if rc != 0:
         raise RuntimeError(f"spiking_conv_seq launch failed (code {rc})")

@@ -100,26 +100,74 @@ def test_spiking_conv_matches_plain_version(card, k, stride, cell, x_dtype,
     1e-4, atol 1e-5 (fp32) or two ulps of the storage dtype. Odd sizes,
     Cin off the chunk size, Cout off the channel tile and one Cout that
     is no multiple of 4 (the scalar store path)."""
+    for shape, cout in (((5, 2, 13, 19, 6), 40), ((3, 1, 9, 7, 10), 18)):
+        _check_conv_gates(k, stride, cell, x_dtype, state_dtype, shape, cout)
+
+
+def _check_conv_gates(k, stride, cell, x_dtype, state_dtype, shape, cout):
+    """One launch, then the gates of chip_smoke.py [3] against the plain
+    version; every CTA tile of the kernel gives the plan's bits."""
     from chip_smoke import outside_share, spike_agreement
 
     limit = 0.001 if x_dtype == torch.float32 else 0.01
-    for shape, cout in (((5, 2, 13, 19, 6), 40), ((3, 1, 9, 7, 10), 18)):
-        args = _conv_inputs(k, stride, x_dtype, state_dtype, shape, cout)
-        cuda_kernels.reset_launches()
-        got = cuda_kernels.spiking_conv_seq(*args, cell=cell, stride=stride)
-        torch.cuda.synchronize()
-        assert cuda_kernels.LAUNCHES["spiking_conv_seq"] == 1
-        want = cuda_kernels.spiking_conv_seq_reference(*args, cell=cell,
-                                                       stride=stride)
-        for g, w in zip(got, want):
-            assert g.dtype == w.dtype and g.shape == w.shape
-        if cell == "lif":
-            assert 0 < float(want[0].float().mean()) < 1
-            assert spike_agreement(got[0], want[0]) >= 0.999
-        else:
-            assert outside_share(got[0], want[0], x_dtype) <= limit
-        for g, w in zip(got[1:], want[1:]):
-            assert outside_share(g, w, state_dtype) <= limit
+    args = _conv_inputs(k, stride, x_dtype, state_dtype, shape, cout)
+    cuda_kernels.reset_launches()
+    got = cuda_kernels.spiking_conv_seq(*args, cell=cell, stride=stride)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["spiking_conv_seq"] == 1
+    ho, wo = args[4].shape[1:3]
+    for tile in range(len(cuda_kernels.SC_TILES)):
+        plan = cuda_kernels.ConvPlan(tile, cuda_kernels.spiking_conv_grid(
+            tile, k, shape[1], ho, wo, cout))
+        other = cuda_kernels.spiking_conv_seq_launch(*args, cell, stride,
+                                                     plan)
+        for g, o in zip(got, other):
+            torch.testing.assert_close(o.float(), g.float(), rtol=0, atol=0,
+                                       equal_nan=True)
+    want = cuda_kernels.spiking_conv_seq_reference(*args, cell=cell,
+                                                   stride=stride)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+    if cell == "lif":
+        assert 0 < float(want[0].float().mean()) < 1
+        assert spike_agreement(got[0], want[0]) >= 0.999
+    else:
+        assert outside_share(got[0], want[0], x_dtype) <= limit
+    for g, w in zip(got[1:], want[1:]):
+        assert outside_share(g, w, state_dtype) <= limit
+
+
+PLAN_CASES = {  # (k, stride, cell, [T, N, H, W, Cin], Cout)
+    "stem_cin2_s2_odd": (3, 2, "lif", (4, 2, 23, 31, 2), 64),
+    "out_8x10": (3, 1, "lif", (6, 4, 8, 10, 128), 128),
+    "out_15x19_s2_cout48": (3, 2, "lif", (5, 4, 30, 38, 64), 48),
+    "head_8x10_li": (1, 1, "li", (5, 4, 8, 10, 256), 256),
+    "n1_s2_odd_8x10": (3, 2, "lif", (4, 1, 15, 19, 32), 40),
+    "n1_15x19_cout24": (3, 1, "lif", (4, 1, 15, 19, 128), 24),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype,state_dtype", DTYPE_PAIRS)
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_spiking_conv_plan_variants(card, case, x_dtype, state_dtype):
+    """The launch plan and every CTA tile against the plain version on
+    the shapes where the plan leaves the largest tile: Cin = 2, 8 x 10
+    and 15 x 19 outputs (ragged pixel tiles), stride 2 on odd inputs,
+    N = 1, Cout off a multiple of 32 (a ragged channel tile)."""
+    k, stride, cell, shape, cout = PLAN_CASES[case]
+    _check_conv_gates(k, stride, cell, x_dtype, state_dtype, shape, cout)
+
+
+@pytest.mark.cuda
+def test_spiking_conv_rejects_a_wrong_grid(card):
+    """The entry point checks the plan's grid against its tile."""
+    args = _conv_inputs(3, 1, torch.float32, torch.float32,
+                        (2, 1, 8, 10, 16), 32)
+    grid = cuda_kernels.spiking_conv_grid(1, 3, 1, 8, 10, 32)
+    with pytest.raises(RuntimeError, match="code -1"):
+        cuda_kernels.spiking_conv_seq_launch(
+            *args, "lif", 1, cuda_kernels.ConvPlan(1, grid + 1))
 
 
 @pytest.mark.cuda

@@ -10,8 +10,8 @@
   JAX's jitted ``model.step`` bit for bit in every neuron state (XLA
   contracts the affine into one fused multiply-add under ``jit``). In
   bf16 the jitted step rounds the product to bf16 but hands the sum to
-  the cell in fp32, while the port rounds both ops (ROADMAP.md, Queue
-  3), so bf16 is held by the detector tolerances elsewhere.
+  the cell in fp32, and so does the port's step: bit-equal there too,
+  and equal to JAX's scanned ``forward``.
 """
 
 import jax
@@ -195,3 +195,36 @@ def test_identity_weights_step_bit_equal_to_jax():
     for got, want in zip(p_preds, j_preds):
         for g, w in zip(got, want):
             np.testing.assert_allclose(g.numpy(), w, **PRED_TOL)
+
+
+@pytest.mark.parametrize("state_dtype", ["bfloat16", "float8_e5m2"])
+def test_identity_weights_step_bit_equal_to_jax_bf16(state_dtype):
+    """The bf16 twin: jitted JAX rounds the affine's product ``x * k``
+    to bf16 and hands the sum ``+ b`` to the cell in fp32, and rounds
+    the cell's output once. Every neuron state of the port's
+    ``SODa.step`` is bit-equal over 4 frames of normal inputs, and
+    JAX's own per-step ``forward`` (its scan) ends in the same state."""
+    kw = dict(compute_dtype="bfloat16", state_dtype=state_dtype)
+    jm, params, stats, pm = pair(
+        identity_yolo(JS, JSODa), identity_yolo(PS, PSODa), identity_weights,
+        **kw,
+    )
+    frames = np.random.default_rng(4).normal(
+        size=(4, *HW, 2)).astype(np.float32) * 0.5
+    j_preds, j_state = roll_jax(jm, params, stats, frames)
+    p_preds, p_state = roll_port(pm, frames)
+    _, _, scan_state = jax.jit(
+        lambda x: jm.forward(params, stats, x))(jnp.asarray(frames)[:, None])
+    scan_state = jax.tree.leaves(scan_state)
+    assert len(p_state) == len(j_state) == len(scan_state)
+    for p, j, s in zip(p_state, j_state, scan_state):
+        np.testing.assert_array_equal(np.asarray(j, np.float32),
+                                      np.asarray(s, np.float32))
+        np.testing.assert_array_equal(p.float().numpy(),
+                                      np.asarray(j, np.float32))
+    v_lif = p_state[0]
+    assert 0 < int((v_lif == 0).sum()) < v_lif.numel()
+    for got, want in zip(p_preds, j_preds):
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.float().numpy(), w, rtol=2e-2,
+                                       atol=2e-2)

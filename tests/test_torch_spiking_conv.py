@@ -6,7 +6,9 @@ JAX Pallas kernels in interpret mode (as ``tests/test_pallas.py`` runs
 them), and the fused schedule of a narrow TinyYolo against JAX's
 ``forward_seq(fuse_seq=True)`` on the same converted weights. The CUDA
 kernel is held against the same plain versions on the card
-(``tests/test_torch_cuda.py`` and ``chip_smoke.py`` [3]).
+(``tests/test_torch_cuda.py`` and ``chip_smoke.py`` [3]). The kernel's
+launch plan (``cuda_kernels.spiking_conv_plan``) is walked here as the
+kernel walks it, for every GEN1 triple: each output is owned once.
 
 Tolerances. With random weights the conv sums its products in another
 order than XLA, so at fp32 z, v and i agree within rtol 1e-4, atol 1e-5;
@@ -275,6 +277,100 @@ def test_trainer_fuses_only_without_time_window(fused_pair, monkeypatch,
         for k in got[False]:
             np.testing.assert_allclose(got[True][k], got[False][k],
                                        rtol=1e-5, atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def gen1_triples():
+    """``(k, stride, Cin, Cout, out_hw)`` of the 22 fused triples of
+    TinyYolo at GEN1 width (240 x 304), in launch order."""
+    from chip_smoke import fused_convs
+    from snn_for_object_detection_tpu_torch.models.compile import Block
+    from snn_for_object_detection_tpu_torch.models.tiny_yolo import TinyYolo
+
+    m = TinyYolo(num_classes=2, in_hw=(240, 304), fuse_seq=True,
+                 device="cpu")
+    return [(c.w.shape[-1], c.stride, c.w.shape[1], c.w.shape[0], c.out_hw)
+            for top in (m.backbone, m.neck, *(h["base"] for h in m.heads()))
+            for c in fused_convs(Block, top)]
+
+
+def _check_plan_covers(plan, k, n, ho, wo, cout):
+    """Walk the plan as ``csrc/spiking_conv.cu`` does: every CTA's
+    (image, pixel tile, channel tile) from its block index, every
+    thread's pixels and 4 channels from its thread index. Each output
+    pixel and channel is owned exactly once."""
+    th, tw, px = plan.shape
+    nt = plan.threads
+    assert tw % px == 0 and nt % (th * tw) == 0  # the kernel's static_assert
+    assert plan.grid == cuda_kernels.spiking_conv_grid(plan.tile, k, n, ho,
+                                                       wo, cout)
+    co_tiles, tiles_w = -(-cout // cuda_kernels.SC_CO), -(-wo // tw)
+    tiles = -(-ho // th) * tiles_w if k == 3 else -(-(ho * wo) // (th * tw))
+    bid = np.arange(plan.grid)[:, None, None]
+    tid = np.arange(nt)[None, :, None]
+    j = np.arange(px)[None, None, :]
+    cot, rest = bid % co_tiles, bid // co_tiles
+    tile, img = rest % tiles, rest // tiles
+    groups = cuda_kernels.SC_CO // 4
+    cg, pg = tid % groups, tid // groups
+    if k == 3:
+        gpr = tw // px
+        oy = (tile // tiles_w) * th + pg // gpr
+        ox = (tile % tiles_w) * tw + (pg % gpr) * px + j
+        ok = (oy < ho) & (ox < wo)
+    else:
+        q = tile * th * tw + pg * px + j
+        oy, ox, ok = q // wo, q % wo, q < ho * wo
+    owned = np.zeros((n, ho, wo, cout), np.int32)
+    for c in range(4):
+        co = cot * cuda_kernels.SC_CO + cg * 4 + c
+        idx = np.broadcast_arrays(img, oy, ox, co, ok & (co < cout))
+        m = idx[-1]
+        np.add.at(owned, tuple(a[m] for a in idx[:-1]), 1)
+    assert (owned == 1).all()
+
+
+@pytest.mark.parametrize("batch", [4, 1])
+@pytest.mark.parametrize("triple", range(22))
+def test_launch_plan_covers_gen1_triple(gen1_triples, triple, batch):
+    """The launch plan of each GEN1 triple at B = 4 and B = 1 on a card
+    of 132 SMs: its CTAs and threads cover every output pixel and channel
+    exactly once, and so does every other CTA tile of the kernel; it
+    fills at least one wave of 132 CTAs wherever a tile allows, else
+    takes the tile with the most CTAs. The plan takes no dtype: the
+    tiles do the same work at fp32 and bf16."""
+    assert len(gen1_triples) == 22
+    k, _, _, cout, (ho, wo) = gen1_triples[triple]
+    plan = cuda_kernels.spiking_conv_plan(k, batch, ho, wo, cout, 132)
+    grids = [cuda_kernels.spiking_conv_grid(t, k, batch, ho, wo, cout)
+             for t in range(len(cuda_kernels.SC_TILES))]
+    for tile, grid in enumerate(grids):
+        _check_plan_covers(cuda_kernels.ConvPlan(tile, grid), k, batch, ho,
+                           wo, cout)
+    if max(grids) >= 132:
+        assert plan.grid >= 132
+        assert all(g < 132 for g in grids[:plan.tile])
+    else:
+        assert plan.grid == max(grids)
+
+
+@pytest.mark.parametrize("shape", [  # (k, N, Cout, Ho, Wo)
+    (3, 2, 40, 13, 19), (3, 1, 18, 5, 4), (3, 1, 24, 8, 10),
+    (1, 1, 32, 1, 700), (1, 3, 24, 3, 3),
+])
+def test_launch_plan_covers_odd_shapes(shape):
+    """Shapes of the card tests: Cout off the channel tile and off a
+    multiple of 4, an 8 x 10 and a 1 x 700 map, N = 1; every CTA tile,
+    and the plan on a card of 132 SMs and of one SM."""
+    k, n, cout, ho, wo = shape
+    for tile in range(len(cuda_kernels.SC_TILES)):
+        grid = cuda_kernels.spiking_conv_grid(tile, k, n, ho, wo, cout)
+        _check_plan_covers(cuda_kernels.ConvPlan(tile, grid), k, n, ho, wo,
+                           cout)
+    for sms in (132, 1):
+        plan = cuda_kernels.spiking_conv_plan(k, n, ho, wo, cout, sms)
+        _check_plan_covers(plan, k, n, ho, wo, cout)
+    assert cuda_kernels.spiking_conv_plan(k, n, ho, wo, cout, 1).tile == 0
 
 
 def test_wrappers_reject_bad_arguments():
