@@ -2,6 +2,7 @@
 """Run the PyTorch + CUDA port on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only 7,8   # [1] and the phases named, no more
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -51,7 +52,11 @@ Phases (any failure raises and the script exits non-zero):
    amplifies flipped spikes). In bf16 the unfused path is another
    function, as in the JAX package: it applies the BatchNorm affine in
    bf16 with bf16 coefficients, the fused kernel in fp32 between two
-   roundings, so that agreement is printed, not asserted;
+   roundings, so that agreement is printed, not asserted. Beside the
+   0.99 gate, the witness (``megakernel.witness_passes``, both dtype
+   configurations): the fused kernels' final state and predictions no
+   further from the same schedule with exact conv sums (float64,
+   rounded once) than the plain versions are, within its slack;
 8. megakernel: ``StreamingMegakernel.step`` (one ``csrc/megakernel.cu``
    launch per frame) on TinyYolo GEN1 at B=1 over 16 frames of [4]'s
    event data with [4]'s weights, in both dtype configurations: exactly
@@ -59,11 +64,15 @@ Phases (any failure raises and the script exits non-zero):
    state against the plain version run on the card (spike agreement
    >= 0.99 per LIF cell; LI states within a relative L2 error of 5% at
    fp32, 10% in bf16/e5m2: the kernel sums the convs in another order,
-   split along K, the untrained net at BatchNorm gain 8 flips a few
+   split along K, in bf16 on the tensor cores, the untrained net at
+   BatchNorm gain 8 flips a few
    spikes, and each flipped spike moves the membranes of a whole pixel
    of a head) and, at fp32, against the
    per-step ``SODa.step`` (the same function on cuDNN and the cell
-   kernel); ``predict`` and ``to_model_state``. Prints kernel, plain and
+   kernel); the witness over 16 event frames of each of 3 seeds (the
+   kernel no further from the exact-sum run than the plain version, on
+   every seed); at most 36 phases (the convs' dependency depth);
+   ``predict`` and ``to_model_state``. Prints kernel, plain and
    ``SODa.step`` ms per frame, ``predict`` split into step and detect,
    the grid, phases and barriers, the bound, and the device time of each
    phase;
@@ -86,6 +95,7 @@ lists every ported kernel with its launches on the main path.
 
 from __future__ import annotations
 
+import functools
 import glob
 import json
 import os
@@ -852,8 +862,15 @@ def phase_fused_path(torch, cuda_kernels, C, TinyYolo, Trainer, batches,
     the unfused one on the same batches and weights, in both dtype
     configurations; each eval step timed and profiled; the fused final
     states against the fused schedule on the plain versions and against
-    the unfused schedule. Returns the spiking conv kernel's launches
-    over the fused ``test`` runs."""
+    the unfused schedule, and the witness: the fused kernels no further
+    from the exact-sum run than the plain versions. Returns the spiking
+    conv kernel's launches over the fused ``test`` runs."""
+    from snn_for_object_detection_tpu_torch.ops.megakernel import (
+        model_cells,
+        run_distance,
+        witness_passes,
+    )
+
     X = torch.as_tensor(batches[0][0], device=dev)
     lab = torch.as_tensor(batches[0][1], device=dev)
     total = 0
@@ -884,13 +901,22 @@ def phase_fused_path(torch, cuda_kernels, C, TinyYolo, Trainer, batches,
                 total += launches["spiking_conv_seq"]
             with torch.inference_mode():
                 outs[fuse] = model.forward_seq(X)
-                if fuse:  # the same schedule on the plain versions
-                    C.spiking_conv_seq = \
-                        cuda_kernels.spiking_conv_seq_reference
-                    try:
-                        outs["plain"] = model.forward_seq(X)
-                    finally:
-                        C.spiking_conv_seq = cuda_kernels.spiking_conv_seq
+                if fuse:  # the same schedule on the plain versions, and
+                    # on the plain versions with exact conv sums
+                    ref = cuda_kernels.spiking_conv_seq_reference
+                    exact_ref = functools.partial(ref, exact_sums=True)
+                    for key, fn in (("plain", ref), ("exact", exact_ref)):
+                        C.spiking_conv_seq = fn
+                        try:
+                            outs[key] = model.forward_seq(X)
+                        finally:
+                            C.spiking_conv_seq = \
+                                cuda_kernels.spiking_conv_seq
+                    exact = (list(outs["exact"][0]),
+                             model_cells(model, outs["exact"][1]))
+                    dist = {key: run_distance(
+                        list(outs[key][0]), model_cells(model, outs[key][1]),
+                        *exact) for key in (True, "plain")}
             parts = time_step_parts(torch, model, trainer, X, lab, start=0)
             step_ms = parts["step"]
             print(f"  {name}: {metrics}")
@@ -919,12 +945,21 @@ def phase_fused_path(torch, cuda_kernels, C, TinyYolo, Trainer, batches,
             check(len(agree) == CELLS_PER_STEP, "cell count")
             check(not gated or min(agree) >= 0.99,
                   f"{xd}/{sd}: fused vs {what}: spike agreement {agree}")
+        ok = witness_passes(dist[True], dist["plain"])
+        print(f"  {xd}/{sd}: witness, distance from the exact-sum run "
+              f"(conv sums in float64): fused kernels: {dist[True]}; plain "
+              f"versions: {dist['plain']}; {'passes' if ok else 'FAILS'}",
+              flush=True)
+        check(ok, f"{xd}/{sd}: the fused kernels are further from the "
+              f"exact-sum run than the plain versions: {dist}")
         del outs
         torch.cuda.empty_cache()
     return total
 
 
 MK_FRAMES = 16  # [8]: frames of the B=1 megakernel run
+MK_WITNESS_SEEDS = (0, 1, 2)  # [8]: seeds of the witness's event frames
+MK_MAX_PHASES = 36  # [8]: the convs' dependency depth in TinyYolo GEN1
 ENGINE_CAPACITY, ENGINE_STREAMS, ENGINE_STEPS = 8, 6, 24  # [9]
 
 
@@ -961,16 +996,63 @@ def megakernel_bound(plan, x_bytes, state_bytes):
 def row_label(fields, row):
     """A short description of one op of a megakernel op table."""
     f = dict(zip(fields, row.tolist()))
-    kind = ("conv", "ew", "pool", "up", "add", "copy", "reduce")[f["kind"]]
+    kind = ("conv", "ew", "pool", "up", "add", "copy")[f["kind"]]
     if kind != "conv":
         return f"{kind} {f['ho']}x{f['wo']}x{f['cin']}"
     chain = "+".join(x for x in (
         "norm" if f["nk_off"] >= 0 else "",
         {-1: "", 0: "lif", 1: "li"}[f["cell"]],
-        ("", "relu", "silu", "tanh")[f["act"]]) if x)
+        ("", "relu", "silu", "tanh")[f["act"]],
+        "res" if f["res_space"] >= 0 else "") if x)
     return (f"conv{f['k']}x{f['k']}s{f['stride']} {f['cin']}->{f['cout']} "
             f"{f['ho']}x{f['wo']}" + (f" +{chain}" if chain else "")
             + (f" split {f['split']}" if f["split"] > 1 else ""))
+
+
+def megakernel_witness(torch, cuda_kernels, mk, tag, dev):
+    """The witness of [8]: over 16 seeded event frames from the zero
+    state, for each of three seeds, the kernel must be no further from
+    the exact-sum run (conv sums in float64, rounded once) than the plain
+    version is (``megakernel.witness_passes``). Prints each seed's
+    distances; returns the seeds where the kernel fails."""
+    from snn_for_object_detection_tpu_torch.ops.megakernel import (
+        plan_cells,
+        run_distance,
+        streaming_megakernel_reference,
+        witness_passes,
+    )
+
+    plan = mk.plan
+    runs = {
+        "kernel": lambda x, s: cuda_kernels.streaming_megakernel(plan, x, s),
+        "plain": lambda x, s: streaming_megakernel_reference(plan, x, s),
+        "exact": lambda x, s: streaming_megakernel_reference(
+            plan, x, s, exact_sums=True),
+    }
+    failed = []
+    for seed in MK_WITNESS_SEEDS:
+        rng = np.random.default_rng(100 + seed)
+        frames = torch.from_numpy(
+            (rng.random((MK_FRAMES, *IN_HW, 2)) < EVENT_DENSITY)
+            .astype(np.uint8)).to(dev)
+        out = {}
+        for name, fn in runs.items():
+            state, preds = mk._flat_state(None), []
+            for x in frames:
+                cls, box, state = fn(x, state)
+                preds += [cls, box]
+            out[name] = (preds, plan_cells(plan, state))
+        kernel = run_distance(*out["kernel"], *out["exact"])
+        plain = run_distance(*out["plain"], *out["exact"])
+        ok = witness_passes(kernel, plain)
+        print(f"  {tag}: witness, seed {seed}: distance from the exact-sum "
+              f"run: kernel: {kernel}; plain version: {plain}; "
+              f"{'passes' if ok else 'FAILS'}", flush=True)
+        if not ok:
+            failed.append(seed)
+        del out
+    torch.cuda.empty_cache()
+    return failed
 
 
 def phase_megakernel(torch, cuda_kernels, TinyYolo, batch, dev):
@@ -986,6 +1068,7 @@ def phase_megakernel(torch, cuda_kernels, TinyYolo, batch, dev):
     )
 
     X = torch.as_tensor(batch[0][:MK_FRAMES, 0], device=dev)  # uint8
+    fields = cuda_kernels.MK_FIELDS
     total, row = 0, None
     for xd, sd in (("float32", "float32"), ("bfloat16", "float8_e5m2")):
         tag = f"{xd}/{sd}"
@@ -1031,10 +1114,13 @@ def phase_megakernel(torch, cuda_kernels, TinyYolo, batch, dev):
               f"error max {max(li_rel):.4f}, share outside rtol 1e-4 / two "
               f"ulps max {max(li_out):.4f}; max abs err {err:.3g}",
               flush=True)
+        failed = megakernel_witness(torch, cuda_kernels, mk, tag, dev)
         check(min(agree) >= 0.99, f"{tag}: spike agreement {agree}")
         li_limit = 0.05 if xd == "float32" else 0.1
         check(max(li_rel) <= li_limit, f"{tag}: LI states' relative L2 "
               f"error {li_rel} (limit {li_limit})")
+        check(not failed, f"{tag}: the kernel is further from the "
+              f"exact-sum run than the plain version on seeds {failed}")
 
         if xd == "float32":  # the same function per step (cuDNN, cell)
             ss = None
@@ -1092,7 +1178,9 @@ def phase_megakernel(torch, cuda_kernels, TinyYolo, batch, dev):
         sx = torch.empty((), dtype=plan.compute_dtype).element_size()
         ss_ = torch.empty((), dtype=plan.state_dtype).element_size()
         bound_ms, bound_by, macs, nbytes = megakernel_bound(plan, sx, ss_)
-        n_split = int((rows[:, 0] == 6).sum())
+        n_split = int((rows[:, fields.index("split")] > 1).sum())
+        check(n_phases <= MK_MAX_PHASES, f"{tag}: {n_phases} phases, want "
+              f"at most {MK_MAX_PHASES}")
         print(f"  {tag}: megakernel {ms:.4f} ms/frame (CUDA events around "
               f"10 back-to-back frames, median of 10), plain version "
               f"{plain_ms:.2f} ms, SODa.step "
@@ -1100,12 +1188,12 @@ def phase_megakernel(torch, cuda_kernels, TinyYolo, batch, dev):
               f"{2 * macs / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); grid "
               f"{cu['grid']} blocks ({cu['blocks_per_sm']} per SM x "
               f"{cu['sms']} SMs), {len(rows)} ops ({n_split} convs split "
-              f"along K) in {n_phases} phases, {n_phases - 1} grid barriers "
-              f"per frame", flush=True)
+              f"along K, summed by their last slice) in {n_phases} phases, "
+              f"{n_phases - 1} grid barriers per frame; workspace "
+              f"{plan.ws_numel} elements", flush=True)
         print(f"  {tag}: predict {parts['predict']:.2f} ms/frame = step "
               f"{parts['step']:.2f} + detect {parts['detect']:.2f} ms "
               f"(host clock, synchronised apart, median of 5)", flush=True)
-        fields = cuda_kernels.MK_FIELDS
         labels = [[row_label(fields, rows[n]) for n in range(o0, o1)]
                   for o0, o1, _ in phases.tolist()]
         top = np.argsort(-phase_ms)[:8]
@@ -1115,10 +1203,9 @@ def phase_megakernel(torch, cuda_kernels, TinyYolo, batch, dev):
                           f"{', '.join(labels[p][:3])}" for p in top),
               flush=True)
         conv_ms = sum(phase_ms[p] for p in range(n_phases)
-                      if any(x.startswith(("conv", "reduce"))
-                             for x in labels[p]))
-        print(f"  {tag}: phases with a conv or a split conv's reduce "
-              f"{conv_ms:.3f} ms; phases under 10 us: "
+                      if any(x.startswith("conv") for x in labels[p]))
+        print(f"  {tag}: phases with a conv {conv_ms:.3f} ms; phases under "
+              f"10 us: "
               f"{int((phase_ms < 0.01).sum())}", flush=True)
         if xd == "float32":
             row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -1197,8 +1284,13 @@ def phase_engine(torch, cuda_kernels, TinyYolo, dev):
         torch.cuda.empty_cache()
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
+
+    # --only 7,8: the device line and those phases of 7 and 8, for quick
+    # runs; no kernels line and no result line
+    only = ({int(p) for p in argv[argv.index("--only") + 1].split(",")}
+            if "--only" in argv else None)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1218,6 +1310,20 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"    cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+
+    if only is not None:
+        batches = make_batches(EVAL_BATCHES, seed=0)
+        if 7 in only:
+            print("[7] fused path", flush=True)
+            phase_fused_path(torch, cuda_kernels, C, TinyYolo, Trainer,
+                             batches, "cuda")
+        if 8 in only:
+            print("[8] megakernel", flush=True)
+            phase_megakernel(torch, cuda_kernels, TinyYolo, batches[0],
+                             "cuda")
+        print(f"partial run of phases {sorted(only)} done in "
+              f"{time.perf_counter() - t_start:.1f} s")
+        return 0
 
     sources = sorted(os.path.basename(p)
                      for p in glob.glob(os.path.join(cuda_build.CSRC, "*.cu")))
@@ -1323,4 +1429,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -281,16 +281,23 @@ def sm_count(index: int) -> int:
 def spiking_conv_seq_reference(
     x_seq: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     v0: torch.Tensor, i0: torch.Tensor, cell: str = "lif", stride: int = 1,
+    exact_sums: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`spiking_conv_seq`, a loop over T:
     the conv on fp32-upcast x and w (bf16 products are exact in fp32, so
     this is the fp32-accumulated conv), rounded to x's dtype; ``y * a +
     b`` in fp32 rounded once (``neurons.fma``: XLA contracts it inside
     the TPU kernel) and rounded to x's dtype again; then ``lif_step`` /
-    ``li_step`` with the state rounded to its storage dtype every step."""
+    ``li_step`` with the state rounded to its storage dtype every step.
+
+    ``exact_sums`` runs the conv in float64 and rounds it once to fp32;
+    everything after it rounds as before, so the run differs from the
+    default only in the conv sums (the reference of the witness,
+    ``megakernel.run_distance``)."""
     k, _, _ = _check_conv_args(x_seq, w, a, b, v0, i0, cell, stride)
     xd, sd = x_seq.dtype, v0.dtype
-    w_oihw = w.to(xd).float().permute(3, 2, 0, 1)
+    cdt = torch.float64 if exact_sums else torch.float32
+    w_oihw = w.to(xd).to(cdt).permute(3, 2, 0, 1)
     a32, b32 = a.float(), b.float()
     step = neurons.lif_step if cell == "lif" else neurons.li_step
     v, i = v0.float(), i0.float()
@@ -298,8 +305,9 @@ def spiking_conv_seq_reference(
                     device=x_seq.device)
     with _full_fp32_conv():
         for t in range(x_seq.shape[0]):
-            y = F.conv2d(x_seq[t].float().permute(0, 3, 1, 2), w_oihw,
-                         stride=stride, padding=k // 2).permute(0, 2, 3, 1)
+            y = F.conv2d(x_seq[t].to(cdt).permute(0, 3, 1, 2), w_oihw,
+                         stride=stride, padding=k // 2
+                         ).permute(0, 2, 3, 1).float()
             y = neurons.fma(y.to(xd).float(), a32, b32).to(xd).float()
             out, (v, i) = step(y, (v, i))
             z[t] = out.to(xd)
@@ -465,23 +473,28 @@ def fused_pointwise_conv_bn_lif(
 
 # ---- the streaming megakernel (csrc/megakernel.cu) ----
 
-# op table of csrc/megakernel.cu: one row of int32 fields per op
+# op table of csrc/megakernel.cu: one row of int32 fields per op. An
+# activation is read or written at ``off + pixel * c + ch_off +
+# channel``: the root buffer's offset and channels, and where the op's
+# slice starts in it (``src_*`` input, ``res_*`` Residual input, ``dst``
+# output).
 MK_FIELDS = (
-    "kind", "src_space", "src_off", "res_space", "res_off", "dst_space",
-    "dst_off", "h", "w", "cin", "ho", "wo", "cout", "k", "stride", "w_off",
-    "nk_off", "nb_off", "cell", "slot_v", "slot_i", "act", "pool", "dst_c",
-    "ch_off", "tiles", "tile0", "bn", "split", "scratch_off",
+    "kind", "src_space", "src_off", "src_c", "src_ch_off", "res_space",
+    "res_off", "res_c", "res_ch_off", "dst_space", "dst_off", "dst_c",
+    "ch_off", "h", "w", "cin", "ho", "wo", "cout", "k", "stride", "w_off",
+    "nk_off", "nb_off", "cell", "slot_v", "slot_i", "act", "pool", "tiles",
+    "tile0", "bn", "split", "scratch_off", "counter_off", "vec_a", "vec_b",
 )
-_MK_ROW = 32
-_MK_KINDS = {"conv": 0, "ew": 1, "pool": 2, "up": 3, "add": 4, "copy": 5,
-             "reduce": 6}
-_MK_SPACES = {"ws": 0, "frame": 1, "preds": 2, "scratch": 3}
+_MK_ROW = 40
+_MK_KINDS = {"conv": 0, "ew": 1, "pool": 2, "up": 3, "add": 4, "copy": 5}
+_MK_SPACES = {"ws": 0, "frame": 1, "preds": 2}
 _MK_ACTS = {None: 0, "relu": 1, "silu": 2, "tanh": 3}
 _MK_POOLS = {"M": 0, "A": 1, "S": 2}
 _MK_EW_TILE = 1024  # elements of an elementwise tile: 256 threads x 4
 _MK_BK = 16  # K-chunk of a conv tile
 _MK_MAX_SPLIT = 16
 _MK_MAX_SLOTS = 128
+_MK_BLOCKS_PER_SM = 2  # the kernel's __launch_bounds__ minimum
 _FRAME_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 3}
 
 
@@ -494,8 +507,8 @@ def _megakernel_lib(name: str):
             fn.argtypes = (
                 [ctypes.c_void_p] * 2 + [ctypes.c_int]     # ops, phases, n
                 + [ctypes.c_void_p] * 3 + [ctypes.c_int]   # w, ws, frame, dt
-                + [ctypes.c_void_p] * 5 + [ctypes.c_int]   # preds, scratch,
-                # barrier, state in / out pointer arrays, slots
+                + [ctypes.c_void_p] * 6 + [ctypes.c_int]   # preds, scratch,
+                # tile counters, barrier, state in / out pointers, slots
                 + [ctypes.c_int] * 2 + [ctypes.c_float] * 4
                 + [ctypes.c_int] + [ctypes.c_void_p] * 2   # grid, timeline,
                 # stream
@@ -519,84 +532,98 @@ def _conv_split(tiles: int, k: int, grid: Optional[int]) -> int:
     return max(1, min(grid // tiles, k // (4 * _MK_BK), _MK_MAX_SPLIT))
 
 
-def megakernel_op_table(plan, grid: Optional[int] = None
-                        ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """The int32 op table ``[ops, 32]``, the phase table ``[phases, 3]``
-    (first op, end op, tiles) and the fp32 scratch size of a megakernel
-    plan, on the CPU.
+@dataclasses.dataclass
+class OpTable:
+    """A megakernel plan as the kernel reads it: the int32 op table
+    ``rows [ops, 40]`` (sorted by phase), the phase table ``phases
+    [phases, 3]`` (first op, end op, tiles), and the fp32 split-K
+    scratch and int32 tile counters the launch needs."""
 
-    With ``grid`` (the blocks of the launch), a conv whose tiles fill
-    less than half the grid is split along K: its op writes fp32 partial
-    sums of each slice to scratch, and a ``reduce`` op in the next phase
-    sums the slices in order and runs the conv's epilogue. The phases are
-    derived as in the plan: every op runs in the phase after the last one
-    that wrote one of its inputs."""
-    entries = []  # (fields, phase)
-    ready: Dict[int, int] = {}
-    scratch = 0
-    for op in plan.ops:
+    rows: torch.Tensor
+    phases: torch.Tensor
+    scratch: int
+    counters: int
+
+
+def megakernel_op_table(plan, grid: Optional[int] = None) -> OpTable:
+    """The op table of a megakernel plan, on the CPU.
+
+    Every op runs in its plan phase (``megakernel.op_phases``). With
+    ``grid`` (the blocks of the launch), a conv whose tiles fill less
+    than half the grid is split along K: each slice of an output tile
+    writes its fp32 partial sums to scratch and arrives on the tile's
+    counter, and the slice that arrives last sums the slices in order
+    and runs the epilogue, in the same phase. Split convs of one phase
+    take disjoint scratch and counters; the next phase reuses them."""
+    x_bytes = torch.empty((), dtype=plan.compute_dtype).element_size()
+    vec = 16 // x_bytes  # elements of a 16-byte copy
+    n_phases = max(plan.phases) + 1
+    scratch_at = [0] * n_phases
+    counter_at = [0] * n_phases
+    entries = []  # (phase, fields)
+
+    def where(buf):
+        b = plan.buffers[buf]
+        root, ch_off = plan.locate(buf)
+        rb = plan.buffers[root]
+        return _MK_SPACES[b.space], rb.offset, rb.shape[2], ch_off
+
+    for op, phase in zip(plan.ops, plan.phases):
         src, dst = plan.buffers[op.src], plan.buffers[op.dst]
-        res = plan.buffers[op.res] if op.res >= 0 else None
         h, w, cin = src.shape
-        ho, wo, dst_c = dst.shape
-        cout = dst_c if op.kind == "conv" else cin
-        f = dict(
-            kind=_MK_KINDS[op.kind], src_space=_MK_SPACES[src.space],
-            src_off=src.offset,
-            res_space=_MK_SPACES[res.space] if res else -1,
-            res_off=res.offset if res else -1,
-            dst_space=_MK_SPACES[dst.space], dst_off=dst.offset, h=h, w=w,
-            cin=cin, ho=ho, wo=wo, cout=cout, k=op.k, stride=op.stride,
-            w_off=op.w, nk_off=op.norm[0] if op.norm else -1,
-            nb_off=op.norm[1] if op.norm else -1,
-            cell={None: -1, "lif": 0, "li": 1}[op.cell],
-            slot_v=op.slots[0], slot_i=op.slots[1], act=_MK_ACTS[op.act],
-            pool=_MK_POOLS[op.pool], dst_c=dst_c, ch_off=op.ch_off,
-            bn=0, split=1, scratch_off=-1,
-        )
-        phase = 1 + max(ready.get(b, -1) for b in
-                        [op.src] + ([op.res] if op.res >= 0 else []))
+        ho, wo, cout = dst.shape
+        f = dict(kind=_MK_KINDS[op.kind], h=h, w=w, cin=cin, ho=ho, wo=wo,
+                 cout=cout, k=op.k, stride=op.stride, w_off=op.w,
+                 nk_off=op.norm[0] if op.norm else -1,
+                 nb_off=op.norm[1] if op.norm else -1,
+                 cell={None: -1, "lif": 0, "li": 1}[op.cell],
+                 slot_v=op.slots[0], slot_i=op.slots[1],
+                 act=_MK_ACTS[op.act], pool=_MK_POOLS[op.pool], bn=0,
+                 split=1, scratch_off=-1, counter_off=-1, vec_a=0, vec_b=0)
+        (f["src_space"], f["src_off"], f["src_c"],
+         f["src_ch_off"]) = where(op.src)
+        (f["res_space"], f["res_off"], f["res_c"], f["res_ch_off"]) = (
+            where(op.res) if op.res >= 0 else (-1, -1, 0, 0))
+        (f["dst_space"], f["dst_off"], f["dst_c"], f["ch_off"]) = where(op.dst)
         if op.kind == "conv":
             bm, f["bn"] = _conv_tile(cout)
             tiles = -(-(ho * wo) // bm) * -(-cout // f["bn"])
             split = _conv_split(tiles, op.k * op.k * cin, grid)
             f["tiles"] = tiles * split
+            # 16 channels of one tap are one 16-byte-aligned run in NHWC
+            f["vec_a"] = int(f["src_space"] == _MK_SPACES["ws"]
+                             and cin % _MK_BK == 0 and f["src_c"] % vec == 0
+                             and f["src_ch_off"] % vec == 0)
+            f["vec_b"] = int(cout % vec == 0 and op.w % vec == 0)
             if split > 1:
-                f.update(split=split, scratch_off=scratch)
-                entries.append((f, phase))
-                # the slices' sum and the epilogue, one output a thread
-                f = dict(f, kind=_MK_KINDS["reduce"],
-                         src_space=_MK_SPACES["scratch"], src_off=scratch,
-                         h=ho, w=wo, cin=cout, k=split, bn=0, split=1,
-                         scratch_off=-1,
-                         tiles=-(-(ho * wo * cout) // _MK_EW_TILE))
-                scratch += split * ho * wo * cout
-                phase += 1
+                f.update(split=split, scratch_off=scratch_at[phase],
+                         counter_off=counter_at[phase])
+                # 16-byte rows of partial sums: offsets in whole lines
+                scratch_at[phase] += -(-split * ho * wo * cout // 64) * 64
+                counter_at[phase] += tiles
         else:
             numel = ho * wo * cin if op.kind in ("pool", "up") else h * w * cin
             f["tiles"] = -(-numel // _MK_EW_TILE)
-        entries.append((f, phase))
-        ready[op.dst] = max(ready.get(op.dst, -1), phase)
-    entries.sort(key=lambda e: e[1])  # stable: emission order in a phase
-    n_phases = entries[-1][1] + 1
+        entries.append((phase, f))
+    entries.sort(key=lambda e: e[0])  # stable: emission order in a phase
     rows = torch.full((len(entries), _MK_ROW), -1, dtype=torch.int32)
     phases = torch.zeros((n_phases, 3), dtype=torch.int32)
     phases[:, 0] = len(entries)
-    for n, (f, phase) in enumerate(entries):
+    for n, (phase, f) in enumerate(entries):
         f["tile0"] = int(phases[phase, 2])
         rows[n, :len(MK_FIELDS)] = torch.tensor(
             [f[k] for k in MK_FIELDS], dtype=torch.int32)
         phases[phase, 0] = min(int(phases[phase, 0]), n)
         phases[phase, 1] = n + 1
         phases[phase, 2] += f["tiles"]
-    return rows, phases, scratch
+    return OpTable(rows, phases, max(scratch_at), max(counter_at))
 
 
 def prepare_megakernel(plan) -> None:
-    """Size the launch to the card (the largest co-resident grid), then
-    upload the plan's op and phase tables and allocate its workspace,
-    split-K scratch and barrier counter there (once, before the first
-    launch)."""
+    """Size the launch to the card (two co-resident blocks an SM, as the
+    kernel's launch bounds ask), then upload the plan's op and phase
+    tables and allocate its workspace, split-K scratch, tile counters and
+    barrier counter there (once, before the first launch)."""
     if len(plan.slots) > _MK_MAX_SLOTS:
         raise ValueError(f"{len(plan.slots)} state slots; the megakernel "
                          f"takes at most {_MK_MAX_SLOTS}")
@@ -612,17 +639,22 @@ def prepare_megakernel(plan) -> None:
     if rc != 0 or blocks.value < 1:
         raise RuntimeError(f"streaming_megakernel: occupancy query failed "
                            f"(code {rc}, {blocks.value} blocks per SM)")
-    grid = blocks.value * sms.value
-    rows, phases, scratch = megakernel_op_table(plan, grid)
-    if scratch >= 2 ** 31:
+    blocks_per_sm = min(blocks.value, _MK_BLOCKS_PER_SM)
+    grid = blocks_per_sm * sms.value
+    table = megakernel_op_table(plan, grid)
+    if table.scratch >= 2 ** 31:
         raise ValueError("plan too large for 32-bit offsets")
     plan.cuda = dict(
-        ops=rows.to(dev), phases=phases.to(dev),
+        ops=table.rows.to(dev), phases=table.phases.to(dev),
         workspace=torch.empty(max(plan.ws_numel, 1),
                               dtype=plan.compute_dtype, device=dev),
-        scratch=torch.empty(max(scratch, 1), dtype=torch.float32, device=dev),
+        scratch=torch.empty(max(table.scratch, 1), dtype=torch.float32,
+                            device=dev),
+        # every split conv's last slice sets its counters back to zero
+        counters=torch.zeros(max(table.counters, 1), dtype=torch.int32,
+                             device=dev),
         barrier=torch.zeros(2, dtype=torch.int32, device=dev),
-        blocks_per_sm=blocks.value, sms=sms.value, grid=grid,
+        blocks_per_sm=blocks_per_sm, sms=sms.value, grid=grid,
     )
 
 
@@ -704,7 +736,7 @@ def streaming_megakernel(
             cu["phases"].shape[0], plan.weight_buf.data_ptr(),
             cu["workspace"].data_ptr(), x.data_ptr(), _FRAME_CODES[x.dtype],
             preds.data_ptr(), cu["scratch"].data_ptr(),
-            cu["barrier"].data_ptr(),
+            cu["counters"].data_ptr(), cu["barrier"].data_ptr(),
             ctypes.addressof(s_in), ctypes.addressof(s_out), n,
             _CODES[plan.compute_dtype], _CODES[plan.state_dtype],
             lif[0], lif[1], li[0], li[1], cu["grid"],

@@ -8,7 +8,9 @@ once, at construction, into a *plan*: a list of ops over buffers of one
 preallocated workspace, with every conv weight packed as ``[k*k, Cin,
 Cout]`` taps and every folded BatchNorm ``(k, b)`` in one weight buffer
 of the compute dtype, and the neuron states as ``[H, W, C]`` slots.
-The plan runs two ways:
+Every op has a phase on the card (:func:`op_phases`), and buffers whose
+live phases do not overlap share memory (:func:`allocate`), so a
+frame's live activations stay in L2. The plan runs two ways:
 
 - on the card, ``ops/cuda_kernels.py::streaming_megakernel`` launches
   ``csrc/megakernel.cu`` once: a persistent cooperative kernel that walks
@@ -23,11 +25,15 @@ The walk uses the traversal and naming of JAX ``_emit_cfg`` /
 weights where ``load_jax_params`` put them). A conv absorbs the Norm,
 LIF/LI and ReLU/SiLU/Tanh that directly follow it into its epilogue
 (without the Norm, a cell or activation starts its own elementwise op);
-Pool, Up, Residual sums and Dense concatenations are ops of their own.
-The plain version runs the ops in the order they were emitted; on the
-card (``cuda_kernels.megakernel_op_table``) every op takes the phase
-after the last phase that wrote one of its inputs, so independent
-branches (Dense branches, the heads) share phases.
+Pool and Up are ops of their own. A two-branch Residual sum runs in the
+epilogue of the op that made one branch (its ``res``), and every branch
+of a Dense concatenation is a channel slice of the concatenation, which
+its producer writes in place; an ``add`` or ``copy`` op is left only
+where that cannot be (more branches, or a value that already lives in
+another buffer). The plain version runs the ops in the order they were
+emitted; on the card every op takes the phase after the last phase that
+wrote into one of its inputs, so independent branches (Dense branches,
+the heads) share phases.
 
 Arithmetic (the JAX body's, ``megakernel.py:105-306``): a conv is k*k
 tap matmuls of fp32-upcast operands summed in fp32 in ``(dy, dx)`` order
@@ -39,7 +45,11 @@ exact convs, ROADMAP.md Queue 3). Cells run ``neurons.lif_step`` /
 ``li_step`` in fp32, store the state in its dtype and round their
 output to the compute dtype; ReLU, SiLU and Tanh run in fp32;
 Pool ``M`` is a max and ``A`` / ``S`` fp32 sums; Up is a repeat;
-Residual and Dense sum and concatenate in the compute dtype.
+Residual and Dense sum and concatenate in the compute dtype. With
+``exact_sums`` the plain version sums each conv in float64 instead and
+rounds it once to fp32: the reference of the witness
+(:func:`run_distance`, :func:`witness_passes`), which tells a kernel
+that sums its convs in another order from one with a fault.
 
 Eval only (folded BatchNorm, no surrogate gradient). Layers outside the
 menu raise :class:`UnsupportedLayer`; callers use ``SODa.predict``.
@@ -69,16 +79,22 @@ class StateSlot:
     field: int              # 0 = v, 1 = i
     shape: Tuple[int, int, int]  # [H, W, C] (B = 1, squeezed)
     dtype: torch.dtype
+    cell: str = "lif"       # "lif" | "li"
 
 
 @dataclasses.dataclass
 class Buffer:
     """An ``[H, W, C]`` activation: the frame, a workspace region (compute
-    dtype) or a region of the fp32 prediction output."""
+    dtype) or a region of the fp32 prediction output. A buffer with a
+    ``parent`` is channels ``ch_off`` onward of that buffer (a branch of
+    a Dense concatenation, written in place); a workspace buffer without
+    one gets its ``offset`` from the liveness allocator."""
 
     space: str  # "frame" | "ws" | "preds"
-    offset: int
+    offset: Optional[int]
     shape: Tuple[int, int, int]
+    parent: int = -1
+    ch_off: int = 0
 
     @property
     def numel(self) -> int:
@@ -88,10 +104,10 @@ class Buffer:
 @dataclasses.dataclass
 class Op:
     """One op of the plan. ``kind``: conv, ew (a standalone epilogue
-    chain), pool, up, add or copy (into channels ``ch_off`` onward of
-    ``dst``). The epilogue chain of conv and ew: ``norm`` (offsets of
-    ``k`` and ``b``), then ``cell`` with its state ``slots`` (v, i), then
-    ``act``."""
+    chain), pool, up, add or copy. The epilogue chain of conv and ew:
+    ``norm`` (offsets of ``k`` and ``b``), then ``cell`` with its state
+    ``slots`` (v, i), then ``act``, then, with a ``res`` buffer, the
+    Residual sum ``round(y + res)``."""
 
     kind: str
     src: int
@@ -105,7 +121,10 @@ class Op:
     slots: Tuple[int, int] = (-1, -1)
     act: Optional[str] = None
     pool: str = "M"
-    ch_off: int = 0
+
+    @property
+    def inputs(self) -> List[int]:
+        return [self.src] + ([self.res] if self.res >= 0 else [])
 
 
 class Plan:
@@ -117,6 +136,7 @@ class Plan:
         self.device = device
         self.buffers: List[Buffer] = []
         self.ops: List[Op] = []
+        self.phases: List[int] = []  # of each op (op_phases)
         self.slots: List[StateSlot] = []
         self.weights: List[torch.Tensor] = []
         self.weight_numel = 0
@@ -127,14 +147,17 @@ class Plan:
 
     # ---- building ----
 
-    def add_buffer(self, space: str, shape, offset: Optional[int] = None
-                   ) -> int:
-        if offset is None:
-            offset = self.ws_numel
-            n = shape[0] * shape[1] * shape[2]
-            self.ws_numel += -(-n // ALIGN) * ALIGN
-        self.buffers.append(Buffer(space, offset, tuple(shape)))
+    def add_buffer(self, space: str, shape, offset: Optional[int] = None,
+                   parent: int = -1, ch_off: int = 0) -> int:
+        self.buffers.append(Buffer(space, offset, tuple(shape), parent,
+                                   ch_off))
         return len(self.buffers) - 1
+
+    def can_place(self, buf: int) -> bool:
+        """Whether ``buf`` may become a channel slice of a wider buffer:
+        a workspace buffer that lives nowhere else yet."""
+        b = self.buffers[buf]
+        return b.space == "ws" and b.parent < 0
 
     def add_weight(self, value: torch.Tensor) -> int:
         off = self.weight_numel
@@ -152,10 +175,23 @@ class Plan:
         return op
 
     def finish(self) -> None:
+        self.phases = op_phases(self)
+        self.ws_numel = allocate(self, self.phases)
         self.weight_buf = (torch.cat(self.weights) if self.weights else
                            torch.zeros(ALIGN, dtype=self.compute_dtype))
         self.weight_buf = self.weight_buf.to(self.device).contiguous()
         self.weights = []
+
+    # ---- reading ----
+
+    def locate(self, buf: int) -> Tuple[int, int]:
+        """``(root, ch_off)``: the buffer that holds ``buf`` and the
+        channel where ``buf`` starts in it."""
+        off = 0
+        while self.buffers[buf].parent >= 0:
+            off += self.buffers[buf].ch_off
+            buf = self.buffers[buf].parent
+        return buf, off
 
     @property
     def preds_numel(self) -> int:
@@ -165,11 +201,58 @@ class Plan:
         return self.weight_buf[off:off + n]
 
 
-def _slot_state(b: Plan, path, shape) -> Tuple[int, int]:
+def op_phases(plan: Plan) -> List[int]:
+    """The phase of every op on the card: the one after the last phase
+    that wrote any of its inputs (a buffer is written when it or any
+    slice of it is), so independent branches share phases."""
+    ready: Dict[int, int] = {}
+    phases = []
+    for op in plan.ops:
+        p = 1 + max(ready.get(b, -1) for b in op.inputs)
+        phases.append(p)
+        b = op.dst
+        while b >= 0:
+            ready[b] = max(ready.get(b, -1), p)
+            b = plan.buffers[b].parent
+    return phases
+
+
+def allocate(plan: Plan, phases: List[int]) -> int:
+    """Give every workspace root buffer its offset so that two buffers
+    whose live phases (first write to last read, slices included)
+    overlap share no element: largest first, each at the lowest offset
+    (a multiple of ``ALIGN``) that fits. Returns the workspace size."""
+    live: Dict[int, Tuple[int, int]] = {}
+    for op, p in zip(plan.ops, phases):
+        for b in op.inputs + [op.dst]:
+            root, _ = plan.locate(b)
+            if plan.buffers[root].space == "ws":
+                lo, hi = live.get(root, (p, p))
+                live[root] = (min(lo, p), max(hi, p))
+    placed: List[Tuple[int, int, int]] = []  # (offset, end, root)
+    for root in sorted(live, key=lambda r: (-plan.buffers[r].numel, r)):
+        n = -(-plan.buffers[root].numel // ALIGN) * ALIGN
+        lo, hi = live[root]
+        busy = sorted((o, e) for o, e, other in placed
+                      if live[other][0] <= hi and lo <= live[other][1])
+        off = 0
+        for o, e in busy:
+            if off + n <= o:
+                break
+            off = max(off, e)
+        placed.append((off, off + n, root))
+    offsets = {root: off for off, _, root in placed}
+    for n, buf in enumerate(plan.buffers):
+        if buf.space == "ws" and buf.parent < 0:
+            buf.offset = offsets.get(n, 0)  # 0: no op touches it
+    return max((e for _, e, _ in placed), default=0)
+
+
+def _slot_state(b: Plan, path, shape, cell: str) -> Tuple[int, int]:
     ids = []
     for field in (0, 1):
         b.slots.append(StateSlot(tuple(path), field, tuple(shape),
-                                 b.state_dtype))
+                                 b.state_dtype, cell))
         ids.append(len(b.slots) - 1)
     return tuple(ids)
 
@@ -196,12 +279,29 @@ def _absorb_chain(b: Plan, op: Op, layers, li: int, path) -> int:
         cell = layers[li]
         op.cell = cell.kind
         op.slots = _slot_state(
-            b, path + (f"l{li}",), (*cell.out_hw, cell.out_channels))
+            b, path + (f"l{li}",), (*cell.out_hw, cell.out_channels),
+            cell.kind)
         li += 1
     if li < len(layers) and _act_name(layers[li]) is not None:
         op.act = _act_name(layers[li])
         li += 1
     return li
+
+
+def _fuse_residual(b: Plan, outs: List[int], taps: List[int]) -> int:
+    """A two-branch Residual sum taken into the epilogue of the op that
+    made one branch, when that op was the last one emitted (so the other
+    branch is ready before it) and nothing else reads its output; returns
+    the sum's buffer, or -1 where an ``add`` op is needed."""
+    if len(outs) != 2 or not b.ops:
+        return -1
+    last = b.ops[-1]
+    if (last.kind not in ("conv", "ew") or last.res >= 0
+            or last.dst not in outs or outs[0] == outs[1]
+            or last.dst in taps or b.buffers[last.dst].space != "ws"):
+        return -1
+    last.res = outs[1] if last.dst == outs[0] else outs[0]
+    return last.dst
 
 
 def _emit_block(b: Plan, block: C.Block, src: int, path, taps) -> int:
@@ -262,6 +362,9 @@ def _emit_block(b: Plan, block: C.Block, src: int, path, taps) -> int:
                     f"{type(layer).__name__} at {'/'.join(lpath)}")
         outs.append(y)
     if block.mode == "residual":
+        y = _fuse_residual(b, outs, taps)
+        if y >= 0:
+            return y
         y = outs[0]
         for o in outs[1:]:
             dst = b.add_buffer("ws", b.buffers[y].shape)
@@ -269,12 +372,19 @@ def _emit_block(b: Plan, block: C.Block, src: int, path, taps) -> int:
             y = dst
         return y
     if block.mode == "dense":
+        # each branch output lives in its channels of the concatenation;
+        # a value that already lives elsewhere is copied there
         h, w, _ = b.buffers[outs[0]].shape
         dst = b.add_buffer("ws", (h, w, block.out_channels))
         off = 0
         for o in outs:
-            b.add_op(Op("copy", o, dst, ch_off=off))
-            off += b.buffers[o].shape[2]
+            c = b.buffers[o].shape[2]
+            if b.can_place(o):
+                b.buffers[o].parent, b.buffers[o].ch_off = dst, off
+            else:
+                part = b.add_buffer("ws", (h, w, c), parent=dst, ch_off=off)
+                b.add_op(Op("copy", o, part))
+            off += c
         return dst
     return outs[0]
 
@@ -285,9 +395,10 @@ def _to_preds(b: Plan, buf: int, offset: int) -> None:
     it, else a copy does."""
     pbuf = b.add_buffer("preds", b.buffers[buf].shape, offset=offset)
     producers = [op for op in b.ops if op.dst == buf]
-    readers = [op for op in b.ops if buf in (op.src, op.res)]
-    if (b.buffers[buf].space == "ws" and len(producers) == 1
-            and producers[0].kind in ("conv", "ew") and not readers):
+    readers = [op for op in b.ops if buf in op.inputs]
+    if (b.can_place(buf) and len(producers) == 1
+            and producers[0].kind in ("conv", "ew") and not readers
+            and not any(x.parent == buf for x in b.buffers)):
         producers[0].dst = pbuf
     else:
         b.add_op(Op("copy", buf, pbuf))
@@ -329,7 +440,8 @@ def build_plan(model) -> Plan:
 def _epilogue(plan: Plan, op: Op, y: torch.Tensor, s_in, s_out
               ) -> torch.Tensor:
     """The conv / ew epilogue on ``y`` (fp32 values; the conv sum or the
-    op's input), returning the op's output in the compute dtype."""
+    op's input), returning the op's output in the compute dtype (before
+    the Residual sum)."""
     cdt = plan.compute_dtype
     y = y.to(cdt)
     if op.norm is not None:
@@ -355,56 +467,71 @@ def _epilogue(plan: Plan, op: Op, y: torch.Tensor, s_in, s_out
 
 
 def _conv_taps(x: torch.Tensor, w: torch.Tensor, k: int, stride: int,
-               out_hw) -> torch.Tensor:
+               out_hw, exact: bool = False) -> torch.Tensor:
     """k x k conv as k*k tap matmuls of fp32-upcast operands, summed in
     fp32 in ``(dy, dx)`` order; x is ``[H, W, Cin]``, w ``[k*k, Cin,
-    Cout]``."""
+    Cout]``. With ``exact`` the taps and channels are summed in float64
+    and the sum is rounded once to fp32 (the products of fp32 values are
+    exact in float64)."""
     ho, wo = out_hw
     pad = k // 2
-    x = F.pad(x.float(), (0, 0, pad, pad, pad, pad))
+    dt = torch.float64 if exact else torch.float32
+    x = F.pad(x.to(dt), (0, 0, pad, pad, pad, pad))
     acc = None
     for dy in range(k):
         for dx in range(k):
             patch = x[dy:dy + (ho - 1) * stride + 1:stride,
                       dx:dx + (wo - 1) * stride + 1:stride]
-            m = patch.reshape(ho * wo, -1) @ w[dy * k + dx].float()
+            m = patch.reshape(ho * wo, -1) @ w[dy * k + dx].to(dt)
             acc = m if acc is None else acc + m
-    return acc.reshape(ho, wo, -1)
+    return acc.reshape(ho, wo, -1).float()
 
 
 def streaming_megakernel_reference(plan: Plan, x: torch.Tensor,
-                                   state_vals: List[torch.Tensor]):
+                                   state_vals: List[torch.Tensor],
+                                   exact_sums: bool = False):
     """Plain PyTorch version of the megakernel: one frame ``x [H, W,
     Cin]`` (uint8, fp32 or bf16) and the state slots -> ``(cls [1, A,
     C+1], box [1, A, 4], new state slots)``, predictions in fp32. The
-    inputs are not written."""
+    inputs are not written.
+
+    ``exact_sums`` sums every conv in float64 and rounds it once to
+    fp32 (``_conv_taps``); everything after the sum rounds where the
+    plain version does. The run then differs from the plain version only
+    in the conv sums: the reference of the witness (``run_distance``)."""
     cdt = plan.compute_dtype
-    vals: Dict[int, torch.Tensor] = {0: x.to(cdt)}
+    roots: Dict[int, torch.Tensor] = {0: x.to(cdt)}
     preds = torch.zeros(plan.preds_numel, dtype=torch.float32,
                         device=x.device)
     s_out = list(state_vals)
 
-    def store(dst: int, value: torch.Tensor, ch_off: int = 0) -> None:
-        buf = plan.buffers[dst]
-        if buf.space == "preds":
-            preds[buf.offset:buf.offset + buf.numel] = value.reshape(-1)
+    def read(buf: int) -> torch.Tensor:
+        root, off = plan.locate(buf)
+        return roots[root][..., off:off + plan.buffers[buf].shape[2]]
+
+    def write(buf: int, value: torch.Tensor) -> None:
+        b = plan.buffers[buf]
+        if b.space == "preds":
+            preds[b.offset:b.offset + b.numel] = value.reshape(-1)
             return
-        if value.shape[-1] == buf.shape[2]:
-            vals[dst] = value
+        root, off = plan.locate(buf)
+        if root == buf:  # the whole buffer: written once
+            roots[root] = value
             return
-        if dst not in vals:
-            vals[dst] = torch.zeros(buf.shape, dtype=cdt, device=x.device)
-        vals[dst][..., ch_off:ch_off + value.shape[-1]] = value
+        if root not in roots:
+            roots[root] = torch.zeros(plan.buffers[root].shape, dtype=cdt,
+                                      device=x.device)
+        roots[root][..., off:off + b.shape[2]] = value
 
     for op in plan.ops:
-        src = vals[op.src]
+        src = read(op.src)
         out_hw = plan.buffers[op.dst].shape[:2]
         if op.kind == "conv":
             c = src.shape[-1]
             cout = plan.buffers[op.dst].shape[2]
             w = plan.weight(op.w, op.k * op.k * c * cout).reshape(
                 op.k * op.k, c, cout)
-            acc = _conv_taps(src, w, op.k, op.stride, out_hw)
+            acc = _conv_taps(src, w, op.k, op.stride, out_hw, exact_sums)
             y = _epilogue(plan, op, acc, state_vals, s_out)
         elif op.kind == "ew":
             y = _epilogue(plan, op, src.float(), state_vals, s_out)
@@ -418,15 +545,102 @@ def streaming_megakernel_reference(plan: Plan, x: torch.Tensor,
                 y = (y / (k * k) if op.pool == "A" else y).to(cdt)
         elif op.kind == "up":
             y = src.repeat_interleave(op.k, 0).repeat_interleave(op.k, 1)
-        elif op.kind == "add":
-            y = src + vals[op.res]
-        else:  # copy
+        else:  # add, copy
             y = src
-        store(op.dst, y, op.ch_off)
+        if op.res >= 0:  # a Residual sum: add, or a conv / ew epilogue's
+            y = y + read(op.res)
+        write(op.dst, y)
     a = plan.num_anchors
     cls = preds[:a * (plan.num_classes + 1)].reshape(1, a, -1)
     box = preds[a * (plan.num_classes + 1):].reshape(1, a, 4)
     return cls, box, s_out
+
+
+# ---- the witness: how far one run is from another ----
+
+# A build passes the witness when, on every seed, it is no further from
+# the exact-sum run than the plain version is, give or take this slack
+# (PERF.md, "the witness"; tests/test_torch_megakernel.py fixes it).
+WITNESS_AGREEMENT_SLACK = 0.02
+WITNESS_L2_FACTOR = 1.5
+WITNESS_L2_SLACK = 0.03
+
+
+@dataclasses.dataclass(frozen=True)
+class RunDistance:
+    """How far one run of frames is from another from the same start:
+    per LIF cell the share of neurons that spiked at the last frame (v ==
+    0) in both runs or in neither; per LI state tensor the relative L2
+    distance; the largest difference of the predictions."""
+
+    agreement: Tuple[float, ...]
+    li_rel_l2: Tuple[float, ...]
+    max_pred_diff: float
+
+    def __str__(self) -> str:
+        return (f"spike agreement min {min(self.agreement, default=1.0):.6f}"
+                f" over {len(self.agreement)} LIF cells, LI relative L2 max "
+                f"{max(self.li_rel_l2, default=0.0):.3e}, max |pred diff| "
+                f"{self.max_pred_diff:.3g}")
+
+
+def run_distance(preds_a, cells_a, preds_b, cells_b) -> RunDistance:
+    """Distance of run a from run b. ``preds_*``: sequences of prediction
+    tensors; ``cells_*``: ``(kind, v, i)`` of every cell at the end of
+    the run, in one order (``plan_cells``, ``model_cells``)."""
+    agree, rel = [], []
+    for (kind, va, ia), (_, vb, ib) in zip(cells_a, cells_b):
+        if kind == "lif":
+            agree.append(float(((va == 0) == (vb == 0)).float().mean()))
+        else:
+            for a, b in ((va, vb), (ia, ib)):
+                a, b = a.float(), b.float()
+                rel.append(float((a - b).norm()
+                                 / b.norm().clamp_min(1e-30)))
+    diff = max((float((a.float() - b.float()).abs().max())
+                for a, b in zip(preds_a, preds_b)), default=0.0)
+    return RunDistance(tuple(agree), tuple(rel), diff)
+
+
+def witness_passes(build: RunDistance, plain: RunDistance) -> bool:
+    """Whether a build, at distance ``build`` from the exact-sum run, is
+    no further from it than the plain version (at ``plain``), within the
+    witness's slack."""
+    agree_ok = (min(build.agreement, default=1.0)
+                >= min(plain.agreement, default=1.0)
+                - WITNESS_AGREEMENT_SLACK)
+    l2_ok = (max(build.li_rel_l2, default=0.0)
+             <= WITNESS_L2_FACTOR * max(plain.li_rel_l2, default=0.0)
+             + WITNESS_L2_SLACK)
+    return agree_ok and l2_ok
+
+
+def plan_cells(plan: Plan, state_vals: List[torch.Tensor]):
+    """``(kind, v, i)`` of every cell from a plan's flat state slots."""
+    return [(plan.slots[n].cell, state_vals[n], state_vals[n + 1])
+            for n in range(0, len(plan.slots), 2)]
+
+
+def model_cells(model, state):
+    """``(kind, v, i)`` of every cell from a model's state tree, in the
+    order of the plan's slots."""
+    cells = []
+
+    def walk(block, st):
+        for bi in range(block.num_branches):
+            for name, layer in getattr(block, f"b{bi}").items():
+                if isinstance(layer, C.Block):
+                    walk(layer, st[f"b{bi}"][name])
+                elif isinstance(layer, C.Cell):
+                    v, i = st[f"b{bi}"][name]
+                    cells.append((layer.kind, v, i))
+
+    walk(model.backbone, state["backbone"])
+    walk(model.neck, state["neck"])
+    for idx, head in enumerate(model.heads()):
+        for part in ("base", "box", "cls"):
+            walk(head[part], state[f"head{idx}"][part])
+    return cells
 
 
 # ---- the user-facing step ----

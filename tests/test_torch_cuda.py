@@ -267,8 +267,30 @@ def _cuda_models():
         backbone_plan = ((8, 1), (16, 1))
         neck_plan = ((16, 1), (16, 1), (16, 1))
 
+    class Wide(TinyYolo):  # every Cin past stage 1 a multiple of 16
+        backbone_plan = ((32, 1), (64, 2))
+        neck_plan = ((64, 1), (128, 1), (64, 1))
+
+    class Fallbacks(StructYolo):  # add, copy and ew ops in the plan
+        def backbone_cfgs(self):
+            return [
+                S.Conv(8, 3, 2), S.Norm(), S.LIF(),
+                S.Residual([[S.Conv(8, 1), S.Norm(), S.LIF()],
+                            [S.Conv(8, 1)], []]),
+                S.Dense([[], [], [S.Conv(8, 1), S.Norm(), S.LIF()]]),
+                S.Pool("M"), S.Norm(), S.LIF(),
+            ]
+
+        def neck_cfgs(self):
+            return [
+                S.Conv(8, 3, 2), S.Norm(), S.LIF(), S.Return(),
+                S.Conv(8, 3, 2), S.Norm(), S.LIF(), S.Return(),
+            ]
+
     return {"struct": (StructYolo, (32, 40), 4.0),
-            "narrow_tiny_yolo": (Narrow, (64, 80), 8.0)}
+            "narrow_tiny_yolo": (Narrow, (64, 80), 8.0),
+            "wide_tiny_yolo": (Wide, (64, 80), 8.0),
+            "fallbacks": (Fallbacks, (64, 80), 4.0)}
 
 
 def _megakernel_model(name, x_dtype, state_dtype):
@@ -289,7 +311,8 @@ def _megakernel_model(name, x_dtype, state_dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("x_dtype,state_dtype", DTYPE_PAIRS)
-@pytest.mark.parametrize("name", ["struct", "narrow_tiny_yolo"])
+@pytest.mark.parametrize("name", ["struct", "narrow_tiny_yolo",
+                                  "wide_tiny_yolo", "fallbacks"])
 def test_megakernel_matches_plain_version(card, name, x_dtype, state_dtype):
     """One launch per frame; after 6 frames the final spikes (v == 0) of
     every LIF cell agree on >= 99% with the plain version run on the
@@ -323,6 +346,82 @@ def test_megakernel_matches_plain_version(card, name, x_dtype, state_dtype):
     for g, w in ((gc, wc), (gb, wb)):
         assert bool(torch.isfinite(g).all())
         assert float((g - w).abs().max()) < 0.1
+
+
+def _mk_frames(hw, n, seed=8):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(
+        (rng.random((n, *hw, 2)) < 0.3).astype(np.uint8)).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype,state_dtype", DTYPE_PAIRS)
+@pytest.mark.parametrize("name", ["struct", "narrow_tiny_yolo",
+                                  "wide_tiny_yolo", "fallbacks"])
+def test_megakernel_bit_equal_with_selection_weights(card, name, x_dtype,
+                                                     state_dtype):
+    """Every conv weight selects one input value per output (output
+    channel co reads channel co % Cin at tap co % k^2), so every conv
+    sum is exact in any order, padding and stride included: every state
+    of the kernel equals the plain version's bit for bit, through the
+    in-place concatenations, the Residual epilogues, split K and both
+    ways of staging. The predictions pass through CUDA's tanhf, so they
+    agree within a few ulps."""
+    from snn_for_object_detection_tpu_torch.ops.megakernel import (
+        StreamingMegakernel,
+        streaming_megakernel_reference,
+    )
+
+    mk, hw = _megakernel_model(name, x_dtype, state_dtype)
+    with torch.no_grad():
+        for pname, p in mk.model.named_parameters():
+            if pname.endswith(".w"):
+                cout, cin, k, _ = p.shape
+                p.zero_()
+                for co in range(cout):
+                    t = co % (k * k)
+                    p[co, co % cin, t // k, t % k] = 1.0
+    mk = StreamingMegakernel(mk.model)
+    if "tiny_yolo" in name:  # the others' convs are too shallow to split
+        split = cuda_kernels.MK_FIELDS.index("split")
+        assert int((mk.plan.cuda["ops"][:, split] > 1).sum()) > 0
+    got, want = mk._flat_state(None), mk._flat_state(None)
+    for x in _mk_frames(hw, 6):
+        gc, gb, got = cuda_kernels.streaming_megakernel(mk.plan, x, got)
+        wc, wb, want = streaming_megakernel_reference(mk.plan, x, want)
+    torch.cuda.synchronize()
+    spiked = 0
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=0)
+        spiked += int((w == 0).sum())
+    assert spiked > 0
+    tol = (dict(rtol=1e-5, atol=1e-6) if x_dtype == torch.float32
+           else dict(rtol=2e-2, atol=1e-3))
+    torch.testing.assert_close(gc, wc, **tol)
+    torch.testing.assert_close(gb, wb, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype,state_dtype", [DTYPE_PAIRS[0],
+                                                 DTYPE_PAIRS[2]])
+def test_megakernel_is_deterministic(card, x_dtype, state_dtype):
+    """Two launches on the same frame and state give the same bits (the
+    last slice of a split conv sums the slices in order; no atomics
+    touch the values), and every tile counter is back at zero after a
+    frame."""
+    mk, hw = _megakernel_model("wide_tiny_yolo", x_dtype, state_dtype)
+    frames = _mk_frames(hw, 3)
+    state = mk._flat_state(None)
+    for x in frames[:2]:
+        _, _, state = cuda_kernels.streaming_megakernel(mk.plan, x, state)
+    runs = [cuda_kernels.streaming_megakernel(mk.plan, frames[2], state)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    (c1, b1, s1), (c2, b2, s2) = runs
+    for a, b in zip([c1, b1] + s1, [c2, b2] + s2):
+        assert torch.equal(a, b)
+    counters = mk.plan.cuda["counters"]
+    assert counters.numel() > 1 and int(counters.abs().sum()) == 0
 
 
 @pytest.mark.cuda

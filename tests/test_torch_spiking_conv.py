@@ -144,6 +144,35 @@ def test_identity_weights_bit_equal_to_jax(x_dtype, state_dtype, cell):
                                    equal_nan=True)
 
 
+@pytest.mark.parametrize("cell", ["lif", "li"])
+@pytest.mark.parametrize("x_dtype,state_dtype", DTYPE_PAIRS)
+def test_exact_sums_change_only_the_conv_sums(x_dtype, state_dtype, cell):
+    """``exact_sums`` (the conv in float64, rounded once to fp32) is the
+    witness's reference. With 1 x 1 identity weights the fp32 conv is
+    exact too, so every output is bit-equal to the default: the option
+    changes the conv sums and nothing else. With random 3 x 3 weights
+    at fp32 the sums, and so the states, do differ."""
+    c = 16
+    args = list(_conv_inputs(5, 1, 1, x_dtype, state_dtype,
+                             shape=(6, 2, 5, 7, c), cout=c,
+                             w=np.eye(c)[None, None]))
+    args[0] = jnp.asarray(np.random.default_rng(6).normal(
+        size=(6, 2, 5, 7, c)).astype(np.float32) * 2.0).astype(x_dtype)
+    dtypes = (x_dtype, "float32", "float32", "float32", state_dtype,
+              state_dtype)
+    t = [_to_torch(a, d) for a, d in zip(args, dtypes)]
+    ref = cuda_kernels.spiking_conv_seq_reference
+    for g, w in zip(ref(*t, cell=cell, exact_sums=True), ref(*t, cell=cell)):
+        assert g.dtype == w.dtype
+        torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=0,
+                                   equal_nan=True)
+    if x_dtype == "float32":
+        t = [_to_torch(a, d) for a, d in zip(
+            _conv_inputs(3, 3, 1, x_dtype, state_dtype), dtypes)]
+        got, want = ref(*t, cell=cell, exact_sums=True), ref(*t, cell=cell)
+        assert not torch.equal(got[2], want[2])
+
+
 def _pointwise_inputs(rng, n, cin=64, cout=32):
     """The inputs of tests/test_pallas.py::make_inputs (fp32)."""
     x = rng.normal(size=(n, cin))
