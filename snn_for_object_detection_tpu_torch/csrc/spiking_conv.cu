@@ -1,22 +1,19 @@
 // Fused k x k conv + eval BatchNorm + LIF / LI over T time steps, for
 // Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of
-// snn_for_object_detection_tpu/ops/pallas_kernels.py:
-//   - `spiking_conv_seq` (`_spiking_conv_kernel` under
-//     `_spiking_conv_seq_impl`'s pallas_call):
-//       in:  x[T, N, H, W, Cin] (fp32 or bf16), w[k, k, Cin, Cout] in x's
-//            type (k in {1, 3}, stride in {1, 2}, zero padding k / 2),
-//            a, b[Cout] fp32 (the folded eval BatchNorm),
-//            v0, i0[N, Ho, Wo, Cout] (fp32, bf16 or fp8 e5m2)
-//       out: z[T, N, Ho, Wo, Cout] in x's type, vT, iT in the state type
-//     Per step: the conv summed in fp32, rounded to x's type; y * a + b
-//     in fp32 (one fused multiply-add, as XLA contracts it), rounded to
-//     x's type again; then the cell with the state rounded to its
-//     storage type (spikes for LIF, the fp32 membrane for LI).
-//   - `fused_pointwise_conv_bn_lif` (`_fused_kernel`): the T = 1, 1 x 1,
-//     stride-1 LIF case over x[rows, Cin], with y * a + b fed to the cell
-//     unrounded and the reset written v' = (1 - z) * v_dec.
+// Replaces the Pallas TPU kernel `spiking_conv_seq` of
+// snn_for_object_detection_tpu/ops/pallas_kernels.py
+// (`_spiking_conv_kernel` under `_spiking_conv_seq_impl`'s pallas_call):
+//   in:  x[T, N, H, W, Cin] (fp32 or bf16), w[k, k, Cin, Cout] in x's
+//        type (k in {1, 3}, stride in {1, 2}, zero padding k / 2),
+//        a, b[Cout] fp32 (the folded eval BatchNorm),
+//        v0, i0[N, Ho, Wo, Cout] (fp32, bf16 or fp8 e5m2)
+//   out: z[T, N, Ho, Wo, Cout] in x's type, vT, iT in the state type
+// Per step: the conv summed in fp32, rounded to x's type; y * a + b in
+// fp32 (one fused multiply-add, as XLA contracts it), rounded to x's
+// type again; then the cell with the state rounded to its storage type
+// (spikes for LIF, the fp32 membrane for LI). (`fused_pointwise_conv_bn_lif`
+// has a kernel of its own, pointwise.cu.)
 //
 // What bounds it: operations. A 3 x 3 layer does 2 * 9 * Cin flops per
 // output element and step against a few bytes of x, z and state, far
@@ -172,10 +169,8 @@ __device__ __forceinline__ void store4(T* dst, const float (&val)[4],
 // K = 1: TH * TW consecutive output pixels, each reading one input
 // pixel; the stride is a run-time argument there (STRIDE is unused).
 // A thread owns PXT neighbouring pixels of a row x 4 channels.
-// PLAIN: the pointwise kernel's variant (no rounding around the affine,
-// reset by multiplication).
-template <int CELL, typename X, typename S, int K, int STRIDE, bool PLAIN,
-          int TH, int TW, int PXT>
+template <int CELL, typename X, typename S, int K, int STRIDE, int TH,
+          int TW, int PXT>
 __global__ void __launch_bounds__(TH * TW / PXT * kChGroups,
                                   kSmThreads / (TH * TW / PXT * kChGroups))
     spiking_conv_kernel(const Args p) {
@@ -390,13 +385,10 @@ __global__ void __launch_bounds__(TH * TW / PXT * kChGroups,
       float out[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        float y = acc[j][q];
-        if (!PLAIN) y = round_to<X>(y);
-        y = __fmaf_rn(y, av[q], bv[q]);
-        if (!PLAIN) y = round_to<X>(y);
+        float y = round_to<X>(acc[j][q]);
+        y = round_to<X>(__fmaf_rn(y, av[q], bv[q]));
         float vv = v[j][q], ii = i[j][q];
-        out[q] = cell_math::cell_step<CELL, PLAIN>(y, vv, ii, p.c_mem,
-                                                   p.c_syn);
+        out[q] = cell_math::cell_step<CELL>(y, vv, ii, p.c_mem, p.c_syn);
         v[j][q] = round_to<S>(vv);
         i[j][q] = round_to<S>(ii);
       }
@@ -424,15 +416,14 @@ int64_t grid_of(const Args& p) {
   return p.N * tiles * co_tiles;
 }
 
-template <int CELL, typename X, typename S, int K, int STRIDE, bool PLAIN,
-          int TILE>
+template <int CELL, typename X, typename S, int K, int STRIDE, int TILE>
 int launch(const Args& p, int64_t grid, cudaStream_t stream) {
   constexpr int TH = kTiles[TILE][0], TW = kTiles[TILE][1];
   constexpr int PXT = kTiles[TILE][2];
   if (grid != grid_of<K, TILE>(p) || grid > 0x7fffffff) return -1;
   if (grid == 0) return 0;
   constexpr int bytes = Tile<K, STRIDE, TH, TW>::BYTES;
-  auto kernel = spiking_conv_kernel<CELL, X, S, K, STRIDE, PLAIN, TH, TW, PXT>;
+  auto kernel = spiking_conv_kernel<CELL, X, S, K, STRIDE, TH, TW, PXT>;
   if (bytes > 48 * 1024) {  // above 48 KB only when asked for
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -443,61 +434,53 @@ int launch(const Args& p, int64_t grid, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int CELL, typename X, typename S, int K, int STRIDE, bool PLAIN>
+template <int CELL, typename X, typename S, int K, int STRIDE>
 int launch_tile(int tile, const Args& p, int64_t grid, cudaStream_t s) {
   switch (tile) {
     case 0:
-      return launch<CELL, X, S, K, STRIDE, PLAIN, 0>(p, grid, s);
+      return launch<CELL, X, S, K, STRIDE, 0>(p, grid, s);
     case 1:
-      return launch<CELL, X, S, K, STRIDE, PLAIN, 1>(p, grid, s);
+      return launch<CELL, X, S, K, STRIDE, 1>(p, grid, s);
   }
   return -1;
 }
 
-template <int CELL, typename X, typename S, bool PLAIN>
+template <int CELL, typename X, typename S>
 int launch_geometry(int k, int tile, const Args& p, int64_t grid,
                     cudaStream_t s) {
-  if constexpr (PLAIN) {  // the pointwise kernel: 1 x 1, tile 0 only
-    return k == 1 ? launch<CELL, X, S, 1, 1, true, 0>(
-                        p, grid_of<1, 0>(p), s)
-                  : -1;
-  } else {
-    if (k == 1) return launch_tile<CELL, X, S, 1, 1, false>(tile, p, grid, s);
-    if (k == 3 && p.stride == 1) {
-      return launch_tile<CELL, X, S, 3, 1, false>(tile, p, grid, s);
-    }
-    if (k == 3 && p.stride == 2) {
-      return launch_tile<CELL, X, S, 3, 2, false>(tile, p, grid, s);
-    }
-    return -1;
+  if (k == 1) return launch_tile<CELL, X, S, 1, 1>(tile, p, grid, s);
+  if (k == 3 && p.stride == 1) {
+    return launch_tile<CELL, X, S, 3, 1>(tile, p, grid, s);
   }
+  if (k == 3 && p.stride == 2) {
+    return launch_tile<CELL, X, S, 3, 2>(tile, p, grid, s);
+  }
+  return -1;
 }
 
-template <int CELL, bool PLAIN, typename X>
+template <int CELL, typename X>
 int launch_state(int state_dtype, int k, int tile, const Args& p,
                  int64_t grid, cudaStream_t s) {
   switch (state_dtype) {
     case 0:
-      return launch_geometry<CELL, X, float, PLAIN>(k, tile, p, grid, s);
+      return launch_geometry<CELL, X, float>(k, tile, p, grid, s);
     case 1:
-      return launch_geometry<CELL, X, __nv_bfloat16, PLAIN>(k, tile, p, grid,
-                                                            s);
+      return launch_geometry<CELL, X, __nv_bfloat16>(k, tile, p, grid, s);
     case 2:
-      return launch_geometry<CELL, X, E5M2, PLAIN>(k, tile, p, grid, s);
+      return launch_geometry<CELL, X, E5M2>(k, tile, p, grid, s);
   }
   return -1;
 }
 
-template <int CELL, bool PLAIN>
+template <int CELL>
 int launch_x(int x_dtype, int state_dtype, int k, int tile, const Args& p,
              int64_t grid, cudaStream_t s) {
   switch (x_dtype) {
     case 0:
-      return launch_state<CELL, PLAIN, float>(state_dtype, k, tile, p, grid,
-                                              s);
+      return launch_state<CELL, float>(state_dtype, k, tile, p, grid, s);
     case 1:
-      return launch_state<CELL, PLAIN, __nv_bfloat16>(state_dtype, k, tile,
-                                                      p, grid, s);
+      return launch_state<CELL, __nv_bfloat16>(state_dtype, k, tile, p, grid,
+                                               s);
   }
   return -1;
 }
@@ -541,30 +524,12 @@ extern "C" int spiking_conv_seq_launch(
                            Ho, Wo, Cout, stride, c_mem, c_syn);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cell == cell_math::kLIF) {
-    return launch_x<cell_math::kLIF, false>(x_dtype, state_dtype, k, tile,
-                                            p, grid, s);
+    return launch_x<cell_math::kLIF>(x_dtype, state_dtype, k, tile, p, grid,
+                                     s);
   }
   if (cell == cell_math::kLI) {
-    return launch_x<cell_math::kLI, false>(x_dtype, state_dtype, k, tile, p,
-                                           grid, s);
+    return launch_x<cell_math::kLI>(x_dtype, state_dtype, k, tile, p, grid,
+                                    s);
   }
   return -1;
-}
-
-// x[rows, Cin] @ w[Cin, Cout], y * a + b, one LIF step from (v, i):
-// the spiking conv at T = 1, 1 x 1, stride 1, over one image of 1 x rows.
-extern "C" int fused_pointwise_conv_bn_lif_launch(
-    const void* x, const void* w, const float* a, const float* b,
-    const void* v, const void* i, void* z, void* v_out, void* i_out,
-    long long rows, int Cin, int Cout, int x_dtype, int state_dtype,
-    float c_mem, float c_syn, void* stream) {
-  if (!fits_int(rows) || Cin <= 0 || Cout <= 0 ||
-      !fits_int(rows * Cin)) {
-    return -1;
-  }
-  const int r = static_cast<int>(rows);
-  const Args p = make_args(x, w, a, b, v, i, z, v_out, i_out, 1, 1, 1, r,
-                           Cin, 1, r, Cout, 1, c_mem, c_syn);
-  return launch_x<cell_math::kLIF, true>(x_dtype, state_dtype, 1, 0, p, 0,
-                                         static_cast<cudaStream_t>(stream));
 }

@@ -13,6 +13,7 @@ import contextlib
 import ctypes
 import dataclasses
 import functools
+import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -55,19 +56,30 @@ def _temporal_lib():
     return fn
 
 
-def _spiking_conv_lib(name: str):
-    fn = getattr(cuda_build.load("spiking_conv.cu"), name)
+def _spiking_conv_lib():
+    fn = cuda_build.load("spiking_conv.cu").spiking_conv_seq_launch
     if fn.argtypes is None:
-        pointers = [ctypes.c_void_p] * 9
-        if name == "spiking_conv_seq_launch":
-            # T, N, H, W, Cin, Ho, Wo, Cout, k, stride, tile; grid; cell,
-            # x and state type codes
-            sizes = ([ctypes.c_int] * 11 + [ctypes.c_longlong]
-                     + [ctypes.c_int] * 3)
+        # 9 pointers; T, N, H, W, Cin, Ho, Wo, Cout, k, stride, tile; grid;
+        # cell, x and state type codes; c_mem, c_syn; stream
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
+                       + [ctypes.c_longlong] + [ctypes.c_int] * 3
+                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _pointwise_lib(name: str):
+    fn = getattr(cuda_build.load("pointwise.cu"), name)
+    if fn.argtypes is None:
+        if name == "pointwise_occupancy":
+            fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
         else:
-            sizes = [ctypes.c_longlong] + [ctypes.c_int] * 4
-        fn.argtypes = (pointers + sizes + [ctypes.c_float] * 2
-                       + [ctypes.c_void_p])
+            # 9 pointers; n; Cin, Cout, rows, Cout_tile, threads, smem;
+            # grid; x and state type codes; c_mem, c_syn; stream
+            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong]
+                           + [ctypes.c_int] * 6 + [ctypes.c_longlong]
+                           + [ctypes.c_int] * 2 + [ctypes.c_float] * 2
+                           + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -372,7 +384,7 @@ def spiking_conv_seq_launch(
     c_mem, c_syn = _euler(cell)
     with torch.cuda.device(x_seq.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _spiking_conv_lib("spiking_conv_seq_launch")(
+        rc = _spiking_conv_lib()(
             x_seq.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
             v0.data_ptr(), i0.data_ptr(), z.data_ptr(), v_t.data_ptr(),
             i_t.data_ptr(), T, n, h, wd, cin, ho, wo, cout, k, stride,
@@ -423,6 +435,172 @@ def fused_pointwise_conv_bn_lif_reference(
              (i_dec + y).to(i.dtype)))
 
 
+# ---- the launch plan of csrc/pointwise.cu ----
+
+PW_THREADS = {2: 256, 4: 128}  # a CTA, by x's size: mma, FFMA
+PW_MAX_SMEM = 232448  # 227 KB: the most a CTA can have on the H100
+PW_SM_SMEM = 233472  # 228 KB an SM, of which the card keeps
+PW_CTA_RESERVED = 1024  # per CTA
+PW_SLAB_MAX = 135168  # 132 KB: the largest resident weight slab
+PW_STAGES = 2  # the ring's depth (the source's kStages)
+PW_CTAS_PER_SM = {2: 2, 4: 4}  # the most a plan asks for: mma, FFMA
+
+
+@dataclasses.dataclass(frozen=True)
+class PointwisePlan:
+    """How ``csrc/pointwise.cu`` runs one call: row tiles of ``rows``
+    rows, ``splits`` CTAs of ``cout_tile`` output channels each per row
+    tile, ``smem`` bytes of shared memory a CTA (the weight slab and a
+    ring of ``PW_STAGES`` row tiles), ``grid`` persistent CTAs
+    (``ctas_per_sm`` an SM) of ``threads`` threads."""
+
+    rows: int
+    cout_tile: int
+    splits: int
+    smem: int
+    grid: int
+    ctas_per_sm: int
+    threads: int
+
+
+def _pw_sizes(x_dtype, state_dtype) -> Tuple[int, int]:
+    return (torch.empty((), dtype=x_dtype).element_size(),
+            torch.empty((), dtype=state_dtype).element_size())
+
+
+def pointwise_smem(cin: int, cout_tile: int, rows: int, sx: int,
+                   ss: int) -> Tuple[int, int]:
+    """``(weight slab bytes, shared memory bytes)`` of one CTA: the
+    source's ``geometry``. Every shared row is padded by 16 bytes; the
+    product's k step is 16 (bf16, mma) or 4 (fp32, FFMA), a state row
+    holds whole 16-byte items, and z takes x's slot after the product."""
+    mma, ch, xw = sx == 2, 16 // ss, 16 // sx
+    kstep, nstep = (16, 8) if mma else (4, 4)
+    kpad = -(-cin // kstep) * kstep
+    wc = -(-cout_tile // nstep) * nstep
+    vc = -(-cout_tile // ch) * ch
+    zs = -(-vc // xw) * xw + xw
+    w_bytes = kpad * (wc + xw) * sx
+    ab_bytes = -(-2 * wc * 4 // 16) * 16
+    stage = rows * max(kpad + xw, zs) * sx + 2 * rows * (vc + ch) * ss
+    return w_bytes, w_bytes + ab_bytes + PW_STAGES * stage
+
+
+def pointwise_rows(cout_tile: int, sx: int) -> List[int]:
+    """Row-tile heights the kernel takes for ``cout_tile`` channels,
+    largest first: with mma (256 threads), 16 rows a warp (at most 8 n8
+    tiles a warp); with FFMA (128 threads), 4, 2 or 1 rows a thread of 8
+    channels, channel groups a power of two from 1 to 16 (so at most 128
+    channels)."""
+    threads = PW_THREADS[sx]
+    if sx == 2:
+        n8 = -(-cout_tile // 8)
+        warps = threads // 32
+        return [r for r in (128, 64, 32, 16)
+                if -(-n8 // (warps // (r // 16))) <= 8]
+    cgp = 1
+    while cgp * 8 < cout_tile:
+        cgp *= 2
+    if cgp > 16:
+        return []
+    return [threads // cgp * rm for rm in (4, 2, 1)]
+
+
+def pointwise_grid(n: int, rows: int, splits: int, sms: int,
+                   ctas_per_sm: int) -> int:
+    """Persistent CTAs: one a work item (row tile x Cout split) up to
+    ``sms * ctas_per_sm``, a multiple of the splits so that each CTA
+    keeps one slab; the splits of a row tile are neighbours."""
+    items = -(-n // rows) * splits
+    most = max(splits, sms * ctas_per_sm // splits * splits)
+    return min(items, most)
+
+
+def pointwise_plan(n: int, cin: int, cout: int, x_dtype: torch.dtype,
+                   state_dtype: torch.dtype, sms: int,
+                   ctas_per_sm: Optional[int] = None) -> PointwisePlan:
+    """The launch plan of one ``fused_pointwise_conv_bn_lif`` call on a
+    card of ``sms`` SMs.
+
+    ``cout_tile`` is Cout wherever its weight slab fits in
+    ``PW_SLAB_MAX`` (and, in fp32, Cout <= 128), so x is read once; else
+    Cout is split into the fewest tiles that fit. Then, of the row tiles
+    and CTAs an SM (up to 2 of 256 threads for bf16, mma; up to 4 of 128
+    for fp32, FFMA) whose slab and ring fit, the most rows in flight an
+    SM (rows x CTAs), then more CTAs, taking the first that gives every
+    CTA of the grid a row tile (else the one with the most row tiles):
+    on the H100 an SM's throughput grows with the rows it works on at
+    once (PERF.md, Findings).
+    ``ctas_per_sm`` is what the card reports for the instance
+    (``pointwise_occupancy``); without it the plan's own count is used.
+    """
+    sx, ss = _pw_sizes(x_dtype, state_dtype)
+    unit = math.lcm(8 if sx == 2 else 4, 16 // ss)
+    splits = 1
+    while True:
+        tile = -(-cout // splits)
+        tile = min(cout, -(-tile // unit) * unit)
+        if pointwise_smem(cin, tile, 0, sx, ss)[0] <= PW_SLAB_MAX \
+                and pointwise_rows(tile, sx):
+            break
+        if tile <= unit:
+            raise ValueError(f"Cin = {cin}: no weight slab fits")
+        splits += 1
+    splits = -(-cout // tile)
+
+    fits = []  # (rows, ctas, smem)
+    for ctas in range(PW_CTAS_PER_SM[sx], 0, -1):
+        for rows in pointwise_rows(tile, sx):
+            smem = pointwise_smem(cin, tile, rows, sx, ss)[1]
+            if smem <= PW_MAX_SMEM and ctas * (
+                    smem + PW_CTA_RESERVED) <= PW_SM_SMEM:
+                fits.append((rows, ctas, smem))
+    if not fits:
+        raise ValueError(f"no launch plan for Cin = {cin}, Cout = {cout}")
+    # most rows in flight an SM, then more CTAs
+    fits.sort(key=lambda f: (f[0] * f[1], f[1]), reverse=True)
+    full = [f for f in fits if -(-n // f[0]) * splits >= sms * f[1]]
+    rows, ctas, smem = full[0] if full else min(fits)
+    per_sm = ctas if ctas_per_sm is None else ctas_per_sm
+    return PointwisePlan(rows, tile, splits, smem,
+                         pointwise_grid(n, rows, splits, sms, per_sm), per_sm,
+                         PW_THREADS[sx])
+
+
+@functools.lru_cache(maxsize=None)
+def pointwise_occupancy(index: int, x_dtype: torch.dtype,
+                        state_dtype: torch.dtype, cin: int, rows: int,
+                        cout_tile: int, threads: int, smem: int) -> int:
+    """CTAs of the ``csrc/pointwise.cu`` instance that a plan of ``rows``
+    x ``cout_tile`` and ``threads`` threads runs for these dtypes that
+    fit one SM of CUDA device ``index`` at ``smem`` bytes of shared
+    memory (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        rc = _pointwise_lib("pointwise_occupancy")(
+            _CODES[x_dtype], _CODES[state_dtype], cin, rows, cout_tile,
+            threads, smem, ctypes.addressof(blocks))
+    if rc != 0 or blocks.value < 1:
+        raise RuntimeError(f"pointwise occupancy query failed (code {rc}, "
+                           f"{blocks.value} CTAs an SM)")
+    return blocks.value
+
+
+@functools.lru_cache(maxsize=256)
+def pointwise_plan_on(index: int, n: int, cin: int, cout: int,
+                      x_dtype: torch.dtype,
+                      state_dtype: torch.dtype) -> PointwisePlan:
+    """The plan :func:`fused_pointwise_conv_bn_lif` launches on CUDA
+    device ``index``: :func:`pointwise_plan` with the card's SMs and the
+    CTAs an SM it reports for the plan's shared memory."""
+    sms = sm_count(index)
+    plan = pointwise_plan(n, cin, cout, x_dtype, state_dtype, sms)
+    return pointwise_plan(n, cin, cout, x_dtype, state_dtype, sms,
+                          pointwise_occupancy(index, x_dtype, state_dtype,
+                                              cin, plan.rows, plan.cout_tile,
+                                              plan.threads, plan.smem))
+
+
 def fused_pointwise_conv_bn_lif(
     x: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     v: torch.Tensor, i: torch.Tensor,
@@ -439,9 +617,9 @@ def fused_pointwise_conv_bn_lif(
     :return: ``z`` in x's dtype, ``v'`` and ``i'`` in the state dtype.
 
     On a CPU tensor this is :func:`fused_pointwise_conv_bn_lif_reference`.
-    On a CUDA tensor it launches ``csrc/spiking_conv.cu`` (its T = 1,
-    1 x 1 instantiation) on the current stream or raises; ``x``, ``v``
-    and ``i`` must be contiguous.
+    On a CUDA tensor it launches ``csrc/pointwise.cu`` once, under
+    :func:`pointwise_plan` with the card's occupancy, on the current
+    stream, or raises; ``x``, ``v`` and ``i`` must be contiguous.
     """
     _check_pointwise_args(x, w, a, b, v, i)
     if x.device.type == "cpu":
@@ -449,6 +627,21 @@ def fused_pointwise_conv_bn_lif(
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     _require_contiguous(x=x, v=v, i=i)
+    index = x.device.index if x.device.index is not None \
+        else torch.cuda.current_device()
+    plan = pointwise_plan_on(index, x.shape[0], x.shape[1], w.shape[1],
+                             x.dtype, v.dtype)
+    return fused_pointwise_launch(x, w, a, b, v, i, plan)
+
+
+def fused_pointwise_launch(
+    x: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+    v: torch.Tensor, i: torch.Tensor, plan: PointwisePlan,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One launch of ``csrc/pointwise.cu`` under ``plan``, for arguments
+    :func:`fused_pointwise_conv_bn_lif` has checked (``chip_smoke.py``
+    and the card tests run other plans through it); the entry point
+    refuses a plan whose shared memory or grid does not match."""
     w = w.contiguous()
     a, b = a.float().contiguous(), b.float().contiguous()
     z = torch.empty(v.shape, dtype=x.dtype, device=x.device)
@@ -457,10 +650,11 @@ def fused_pointwise_conv_bn_lif(
     c_mem, c_syn = _euler("lif")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _spiking_conv_lib("fused_pointwise_conv_bn_lif_launch")(
+        rc = _pointwise_lib("fused_pointwise_launch")(
             x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
             v.data_ptr(), i.data_ptr(), z.data_ptr(), v_out.data_ptr(),
-            i_out.data_ptr(), x.shape[0], x.shape[1], w.shape[1],
+            i_out.data_ptr(), x.shape[0], x.shape[1], w.shape[1], plan.rows,
+            plan.cout_tile, plan.threads, plan.smem, plan.grid,
             _CODES[x.dtype], _CODES[v.dtype], c_mem, c_syn, stream,
         )
     if rc != 0:

@@ -191,22 +191,48 @@ def test_spiking_conv_identity_weights_bit_equal(card, cell, x_dtype,
                                    equal_nan=True)
 
 
+POINTWISE_CASES = {  # name: (N, Cin, Cout, x[1:] of an [N + 1, Cin] x)
+    "full_cout": (700, 64, 32, False),
+    "cout_split": (300, 256, 256, False),  # fp32: two Cout tiles
+    "ragged_n": (1001, 128, 64, False),
+    "general": (333, 40, 32, False),  # Cin off 16, e5m2 rows of 32 B
+    "unaligned_x": (200, 10, 24, True),  # 40-byte fp32 rows, odd base
+}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("x_dtype,state_dtype", DTYPE_PAIRS)
-def test_pointwise_matches_plain_version(card, x_dtype, state_dtype):
-    """N = 700 rows (ragged against the 128-row tile). z and v' do not
-    depend on the product, so they are equal; i' within rtol 1e-5,
-    atol 1e-6 (fp32) or two ulps of the storage dtype."""
-    from chip_smoke import outside_share
+@pytest.mark.parametrize("case", sorted(POINTWISE_CASES))
+def test_pointwise_matches_plain_version(card, case, x_dtype, state_dtype):
+    """One launch a call over the plan's branches: the whole Cout in one
+    tile, fp32 256 -> 256 split in two, N ragged against the row tile,
+    Cin and Cout off the vector widths, and a contiguous x whose base
+    and rows are not 16-byte aligned. z and v' do not depend on the
+    product, so they are equal. With fp32 x, i' is bit-equal to the
+    plain version's formula with the product summed as the FFMA kernel
+    sums it, k ascending, one fused multiply-add at a time: the plain
+    version's own cuBLAS product sums in another order, and at 300 x
+    256 -> 256 that puts 9 of 76,800 elements past rtol 1e-5 where
+    i_dec + y cancels. With bf16 x, i' is within two ulps of the storage
+    dtype of the plain version plus what two fp32 sums of the products
+    in different orders may differ by (the tensor cores' order;
+    ``chip_smoke.pointwise_i_outside``)."""
+    from chip_smoke import pointwise_i_outside
 
+    n, cin, cout, shifted = POINTWISE_CASES[case]
     rng = np.random.default_rng(4)
     f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).cuda()
-    n, cin, cout = 700, 64, 32
-    args = (f32(rng.normal(size=(n, cin))).to(x_dtype),
-            f32(rng.normal(size=(cin, cout)) * 0.1).to(x_dtype),
+    x = f32(rng.normal(size=(n + shifted, cin))).to(x_dtype)[int(shifted):]
+    args = (x, f32(rng.normal(size=(cin, cout)) * 0.1).to(x_dtype),
             f32(rng.uniform(0.5, 1.5, cout)), f32(rng.normal(size=cout) * 0.1),
             f32(rng.normal(size=(n, cout)) * 0.4).to(state_dtype),
             f32(rng.normal(size=(n, cout)) * 0.4).to(state_dtype))
+    plan = cuda_kernels.pointwise_plan_on(0, n, cin, cout, x_dtype,
+                                          state_dtype)
+    if case == "cout_split":
+        assert plan.splits == (2 if x_dtype == torch.float32 else 1)
+    if case == "unaligned_x":
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
     cuda_kernels.reset_launches()
     z, v, i = cuda_kernels.fused_pointwise_conv_bn_lif(*args)
     torch.cuda.synchronize()
@@ -215,10 +241,71 @@ def test_pointwise_matches_plain_version(card, x_dtype, state_dtype):
     assert 0 < float(wz.float().mean()) < 1
     for g, w in ((z, wz), (v, wv)):
         torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=0)
-    if state_dtype == torch.float32:
-        torch.testing.assert_close(i, wi, rtol=1e-5, atol=1e-6)
+    if x_dtype == torch.float32:
+        assert torch.equal(i, _pointwise_i_summed_k_ascending(*args))
     else:
-        assert outside_share(i, wi, state_dtype) == 0.0
+        assert pointwise_i_outside(i, wi, *args[:3])[1] == 0.0
+
+
+def _pointwise_i_summed_k_ascending(x, w, a, b, v, i):
+    """i' of ``fused_pointwise_conv_bn_lif_reference`` with ``x @ w``
+    summed k ascending from zero by fused multiply-adds (``neurons.fma``
+    is one on the card)."""
+    from snn_for_object_detection_tpu_torch.ops import neurons
+
+    xf, wf = x.float(), w.float()
+    y = torch.zeros(v.shape, device=x.device)
+    for k in range(x.shape[1]):
+        y = neurons.fma(xf[:, k:k + 1], wf[k:k + 1], y)
+    _, c_syn = cuda_kernels._euler("lif")
+    i32 = i.float()
+    i_dec = neurons.fma(i32, -c_syn, i32)
+    return (i_dec + neurons.fma(y, a.float(), b.float())).to(i.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype,state_dtype", DTYPE_PAIRS)
+def test_pointwise_every_plan_agrees(card, x_dtype, state_dtype):
+    """Every row tile and grid the kernel takes at 777 x
+    128 -> 64 gives the plan's bits (each output sums its products in
+    the same order under every plan), and the plan's launch is within
+    the gate of the plain version; a plan whose shared memory does not
+    match the kernel's is refused."""
+    import dataclasses
+
+    from chip_smoke import pointwise_i_outside
+
+    n, cin, cout = 777, 128, 64
+    rng = np.random.default_rng(5)
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).cuda()
+    args = (f32(rng.normal(size=(n, cin))).to(x_dtype),
+            f32(rng.normal(size=(cin, cout)) * 0.1).to(x_dtype),
+            f32(rng.uniform(0.5, 1.5, cout)), f32(rng.normal(size=cout) * 0.1),
+            f32(rng.normal(size=(n, cout)) * 0.4).to(state_dtype),
+            f32(rng.normal(size=(n, cout)) * 0.4).to(state_dtype))
+    wz, wv, wi = cuda_kernels.fused_pointwise_conv_bn_lif_reference(*args)
+    base = cuda_kernels.pointwise_plan_on(0, n, cin, cout, x_dtype,
+                                          state_dtype)
+    got = cuda_kernels.fused_pointwise_launch(*args, base)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], wz) and torch.equal(got[1].float(),
+                                                   wv.float())
+    assert pointwise_i_outside(got[2], wi, *args[:3])[1] == 0.0
+    sx, ss = cuda_kernels._pw_sizes(x_dtype, state_dtype)
+    for rows in cuda_kernels.pointwise_rows(base.cout_tile, sx):
+        smem = cuda_kernels.pointwise_smem(cin, base.cout_tile, rows, sx,
+                                           ss)[1]
+        if smem > cuda_kernels.PW_MAX_SMEM:
+            continue
+        for grid in (1, 7):
+            plan = dataclasses.replace(base, rows=rows, smem=smem, grid=grid)
+            other = cuda_kernels.fused_pointwise_launch(*args, plan)
+            torch.cuda.synchronize()
+            for g, o in zip(got, other):
+                assert torch.equal(g.float(), o.float()), plan
+    bad = dataclasses.replace(base, smem=base.smem + 16)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        cuda_kernels.fused_pointwise_launch(*args, bad)
 
 
 @pytest.mark.cuda

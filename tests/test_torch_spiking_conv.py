@@ -26,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import outside_share, spike_agreement
+from chip_smoke import outside_share, pointwise_i_outside, spike_agreement
 from snn_for_object_detection_tpu.ops import pallas_kernels as jpk
 from snn_for_object_detection_tpu_torch.models.convert import load_jax_params
 from snn_for_object_detection_tpu_torch.ops import cuda_kernels
@@ -184,25 +184,59 @@ def _pointwise_inputs(rng, n, cin=64, cout=32):
     return [np.asarray(t, np.float32) for t in (x, w, a, b, v, i)]
 
 
+def _check_pointwise_against_jax(args, x_dtype, state_dtype):
+    """The port's pointwise op (its plain version on the CPU) against the
+    Pallas kernel in interpret mode and its XLA oracle, on the same
+    inputs cast to the same dtypes: z bit-equal; v' bit-equal to the
+    Pallas kernel's in low precision, rtol 1e-5, atol 1e-6 at fp32 and
+    against the XLA oracle (which, outside a kernel, rounds the decay's
+    multiply-add on its own: a v_dec that nearly cancels moves by 1e-9
+    there); i' within rtol 1e-5, atol 1e-6 at fp32; in bf16 within two
+    ulps of the storage dtype plus what two fp32 sums of the Cin
+    products in different orders may differ by
+    (``chip_smoke.pointwise_i_outside``: at 1000 x 256 -> 128 in bf16
+    one element of 128,000 cancels past two ulps between XLA's and
+    PyTorch's CPU dot products)."""
+    dtypes = (x_dtype, x_dtype, "float32", "float32", state_dtype,
+              state_dtype)
+    t = [_to_torch(a, d) for a, d in zip(args, dtypes)]
+    z, v, i = cuda_kernels.fused_pointwise_conv_bn_lif(*t)
+    jargs = [jnp.asarray(a).astype(d) for a, d in zip(args, dtypes)]
+    for oracle, (jz, jv, ji) in (
+        ("pallas", jpk.fused_pointwise_conv_bn_lif(*jargs, interpret=True)),
+        ("xla", jpk.xla_pointwise_conv_bn_lif(*jargs)),
+    ):
+        np.testing.assert_array_equal(z.float().numpy(),
+                                      np.asarray(jz.astype(jnp.float32)))
+        jv32 = np.asarray(jv.astype(jnp.float32))
+        if state_dtype == "float32" or oracle == "xla":
+            np.testing.assert_allclose(v.float().numpy(), jv32, rtol=1e-5,
+                                       atol=1e-6)
+        else:
+            np.testing.assert_array_equal(v.float().numpy(), jv32)
+        ji_t = _to_torch(np.asarray(ji.astype(jnp.float32)), state_dtype)
+        assert pointwise_i_outside(i, ji_t, *t[:3])[1] == 0.0
+    assert 0 < float(z.float().mean()) < 1
+
+
 @pytest.mark.parametrize("n", [256, 700])
 def test_plain_pointwise_matches_jax(n):
-    """Against the Pallas kernel (interpret mode) and its XLA oracle;
-    N = 700 is the ragged case of tests/test_pallas.py."""
-    args = _pointwise_inputs(np.random.default_rng(42), n)
-    z, v, i = cuda_kernels.fused_pointwise_conv_bn_lif(
-        *(torch.from_numpy(a) for a in args)
-    )
-    jargs = [jnp.asarray(a) for a in args]
-    for jz, jv, ji in (
-        jpk.fused_pointwise_conv_bn_lif(*jargs, interpret=True),
-        jpk.xla_pointwise_conv_bn_lif(*jargs),
-    ):
-        np.testing.assert_array_equal(z.numpy(), np.asarray(jz))
-        np.testing.assert_allclose(v.numpy(), np.asarray(jv), rtol=1e-5,
-                                   atol=1e-6)
-        np.testing.assert_allclose(i.numpy(), np.asarray(ji), rtol=1e-5,
-                                   atol=1e-6)
-    assert 0 < float(z.mean()) < 1
+    """Against the Pallas kernel (interpret mode) and its XLA oracle at
+    64 -> 32, in fp32, bf16 and bf16 with e5m2 states; N = 700 is the
+    ragged case of tests/test_pallas.py."""
+    for x_dtype, state_dtype in DTYPE_PAIRS:
+        args = _pointwise_inputs(np.random.default_rng(42), n)
+        _check_pointwise_against_jax(args, x_dtype, state_dtype)
+
+
+@pytest.mark.parametrize("x_dtype,state_dtype", DTYPE_PAIRS)
+@pytest.mark.parametrize("n,cin,cout", [(1000, 256, 128), (700, 128, 64)])
+def test_plain_pointwise_matches_jax_on_bench_shapes(n, cin, cout, x_dtype,
+                                                     state_dtype):
+    """Ragged, narrow versions of benchmarks/bench_pallas.py's C2f
+    shapes (256 -> 128 and 128 -> 64), every dtype pair."""
+    args = _pointwise_inputs(np.random.default_rng(42), n, cin, cout)
+    _check_pointwise_against_jax(args, x_dtype, state_dtype)
 
 
 def _count_calls(monkeypatch):
