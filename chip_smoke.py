@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only 7,8   # [1] and the phases named, no more
                                        # (3: fused_pointwise_conv_bn_lif)
+    python3 chip_smoke.py --only 10    # [1] and the training phase
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -89,7 +90,23 @@ Phases (any failure raises and the script exits non-zero):
    one added part way, 24 steps) in sync and pipelined mode, both dtype
    configurations: 22 ``temporal_cell_seq`` launches per step, every
    output ``[k, 6]`` and finite and empty during a stream's warm-up; ms
-   per step and per camera-frame.
+   per step and per camera-frame;
+10. train: the ``temporal_cell_seq`` backward kernel against autograd
+   through ``temporal_cell_seq_reference`` at GEN1 stage 1 and the
+   stride-8 head, fp32 and bf16 states, LIF and LI, over the sequence
+   (T = 42) at start 0 and 5 and at T = 1 (each per-step launch) at
+   start 0: every element bit-equal, or at most rtol 1e-5 of the largest
+   cotangent with the count of elements that differ printed; kernel ms,
+   bound and share, the plain backward's ms. Then ``Trainer.fit`` for 3
+   steps on each schedule in both training configurations (fp32, and
+   bf16 states with fp32 activations, ``config/fast.yaml``) at full GEN1
+   width:
+   22 backward launches a time-batched step and 22 x (T - r) a per-step
+   one, no ``spiking_conv_seq``, finite losses, weights and running
+   stats moved; a train step's ms (CUDA events), peak memory, and the
+   device idle share of one profiled step; and at fp32 with cuDNN off
+   each schedule's first-step loss and gradients against the same
+   schedule's through the plain cell, gradients within rtol 2e-3.
 
 Model and data values, with their source (the YAML files are not read:
 PyYAML is not a dependency of the port):
@@ -106,8 +123,10 @@ from __future__ import annotations
 
 import functools
 import glob
+import itertools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -374,7 +393,7 @@ def phase_kernels(torch, cuda_kernels, dev):
                         else "operations",
                         gb_per_s=nbytes / ms / 1e6,
                     ))
-                    print(f"  {label:7s} {cell:3s} {xd:8s}/{sd:11s} "
+                    print(f"  {label:9s} {cell:3s} {xd:8s}/{sd:11s} "
                           f"start={start}: bit-equal; kernel {ms:.4f} ms, "
                           f"plain {plain_ms:.3f} ms, bound "
                           f"{rows[-1]['bound_ms']:.4f} ms "
@@ -734,7 +753,7 @@ def phase_main_path(torch, cuda_kernels, TinyYolo, Trainer, batches, dev):
               f"{peak_gb:.2f} GB", flush=True)
         print(f"  {xd}/{sd}: parts, synchronised apart: " + ", ".join(
             f"{k} {v:.2f} ms" for k, v in parts.items() if k != "step"))
-        profile_step(torch, cuda_kernels, model, trainer, X, lab, step_ms)
+        profile_step(torch, cuda_kernels, model, trainer, X, lab)
         del model
         torch.cuda.empty_cache()
     return total
@@ -830,6 +849,7 @@ def phase_streaming(torch, cuda_kernels, TinyYolo, batch, dev, frames=8):
 
 KERNEL_KINDS = (  # (kind, substrings of a CUDA kernel's name), first match
     ("cell kernel", ("temporal_cell_kernel",)),
+    ("cell backward kernel", ("temporal_cell_bwd_kernel",)),
     ("spiking conv kernel", ("spiking_conv_kernel",)),
     ("conv layout", ("nchwtonhwc", "nhwctonchw", "transpose", "permute")),
     ("conv", ("conv", "xmma", "gemm", "cutlass", "implicit", "fprop",
@@ -862,40 +882,53 @@ def fused_convs(Block, block):
                 yield from fused_convs(Block, layer)
 
 
-def profile_step(torch, cuda_kernels, model, trainer, X, lab, step_ms,
-                 start=5, top=6):
-    """``torch.profiler`` over one eval step: device time by kernel kind
-    and for the top kernels, the device's busy time (union of kernel
-    intervals) and its idle share against the unprofiled ``step_ms``,
-    and the cell and spiking conv kernels' time against their bound."""
+def profiled(torch, fn):
+    """One call of ``fn`` under ``torch.profiler`` between two CUDA
+    events: its device kernels, the device's busy ms (union of the
+    kernels' intervals) and the ms between the events, both of this one
+    call (the profiler's host overhead included). Fails if the profiler
+    saw no kernel: every step profiled here runs on the card."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from snn_for_object_detection_tpu_torch.models.compile import Block, Cell
-
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        trainer.eval_step(model, X, lab, start)
+        start.record()
+        fn()
+        end.record()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:
-        print("    device time not measured (the profiler saw no kernel)")
-        return
+    check(bool(kernels), "the profiler saw no device kernel in a step")
+    busy_us, span_end = 0.0, float("-inf")
+    for s, e in sorted((e.time_range.start, e.time_range.end)
+                       for e in kernels):
+        busy_us += max(0.0, e - max(s, span_end))
+        span_end = max(span_end, e)
+    return kernels, busy_us / 1e3, start.elapsed_time(end)
+
+
+def profile_step(torch, cuda_kernels, model, trainer, X, lab, start=5,
+                 top=6):
+    """``torch.profiler`` over one eval step: device time by kernel kind
+    and for the top kernels, the device's busy time and its idle share
+    of that same step (``profiled``), and the cell and spiking conv
+    kernels' time against their bound."""
+    from snn_for_object_detection_tpu_torch.models.compile import Block, Cell
+
+    kernels, busy_ms, wall_ms = profiled(
+        torch, lambda: trainer.eval_step(model, X, lab, start))
     by_kind, by_name = {}, {}
     for e in kernels:
         us = e.time_range.elapsed_us()
         for table, key in ((by_kind, kernel_kind(e.name)), (by_name, e.name)):
             n, total = table.get(key, (0, 0.0))
             table[key] = (n + 1, total + us)
-    busy_us, span_end = 0.0, float("-inf")
-    for s, e in sorted((e.time_range.start, e.time_range.end)
-                       for e in kernels):
-        busy_us += max(0.0, e - max(s, span_end))
-        span_end = max(span_end, e)
-    busy_ms = busy_us / 1e3
+    busy_us = busy_ms * 1e3
     print(f"    profiled step: {len(kernels)} device kernels, device busy "
-          f"{busy_ms:.2f} ms, idle share "
-          f"{max(0.0, 1 - busy_ms / step_ms):.3f} of the unprofiled step")
+          f"{busy_ms:.2f} ms of {wall_ms:.2f} ms between CUDA events, idle "
+          f"share {max(0.0, 1 - busy_ms / wall_ms):.3f}")
     for title, table, rows in (("kind", by_kind, len(by_kind)),
                                ("kernel", by_name, top)):
         for key, (n, us) in sorted(table.items(),
@@ -1031,7 +1064,7 @@ def phase_fused_path(torch, cuda_kernels, C, TinyYolo, Trainer, batches,
                   + ", ".join(f"{k} {v:.2f} ms" for k, v in parts.items()
                               if k != "step"), flush=True)
             profile_step(torch, cuda_kernels, model, trainer, X, lab,
-                         step_ms, start=0)
+                         start=0)
             del model
             torch.cuda.empty_cache()
         check(all(bool(torch.isfinite(t).all()) for t in outs[True][0]),
@@ -1388,6 +1421,296 @@ def phase_engine(torch, cuda_kernels, TinyYolo, dev):
         torch.cuda.empty_cache()
 
 
+# [10]: training. (x, state) dtypes of the two training configurations
+# (config/config.yaml; config/fast.yaml: bf16 states, fp32 activations),
+# train steps of Trainer.fit per schedule and configuration, the start r
+# of the timed step and of the gradient comparison, and the fp32
+# operations per element-step of the backward kernel (LIF: the forward
+# re-run in pass 1, then sub, add, fma, sub, abs, mul, add, mul, div,
+# select, add, mul, add, mul, add, add and the two carry adds; LI:
+# add, mul, add, mul, add, add and the carries)
+TRAIN_PAIRS = (("float32", "float32"), ("float32", "bfloat16"))
+TRAIN_STEPS = 3
+TRAIN_START = 5
+CELL_BWD_OPS = {"lif": CELL_OPS + 18, "li": 8}
+
+
+def cell_bwd_bound(cell, T, M, sx, ss):
+    """Least time (ms) of the cell backward and what bounds it: the bytes
+    it must move (gz read, gx written, gvT, giT read, gv0, gi0 written;
+    LIF also reads x, v0, i0: LI's gradient depends on neither) over the
+    HBM rate, against its operations over the fp32 peak."""
+    nbytes = 2 * T * M * sx + 4 * M * ss
+    if cell == "lif":
+        nbytes += T * M * sx + 2 * M * ss
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = T * M * CELL_BWD_OPS[cell] / FP32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms \
+        else "operations"
+
+
+def phase_cell_backward(torch, cuda_kernels, dev):
+    """[10] first part: the backward kernel against autograd through the
+    plain version, at GEN1 stage 1 and the stride-8 head, both training
+    state dtypes, LIF and LI: over the sequence (T = 42, the time-batched
+    schedule) at start 0 and 5, and at T = 1 (the per-step schedule's
+    every launch, a branch of its own in the kernel) at start 0. The
+    gate: every element bit-equal (the kernel sums in autograd's order);
+    a run that is not prints the elements that differ and fails past
+    rtol 1e-5 of the largest cotangent. Returns per-case rows and the
+    worst error."""
+    h, w = IN_HW
+    shapes = {"stage1": ((STEPS, BATCH, h // 2, w // 2, 64), (0, TRAIN_START)),
+              "head_li": ((STEPS, BATCH, h // 8, w // 8, 256),
+                          (0, TRAIN_START)),
+              "stage1_t1": ((1, BATCH, h // 2, w // 2, 64), (0,)),
+              "head_t1": ((1, BATCH, h // 8, w // 8, 256), (0,))}
+    rows, worst = [], 0.0
+    for label, (shape, starts) in shapes.items():
+        rng = np.random.default_rng(2)
+        draw = [torch.from_numpy(rng.standard_normal(s, dtype=np.float32)
+                                 * scale).to(dev)
+                for s, scale in ((shape, 2.0), (shape[1:], 1.0),
+                                 (shape[1:], 1.0), (shape, 1.0),
+                                 (shape[1:], 1.0), (shape[1:], 1.0))]
+        T, M = shape[0], int(np.prod(shape[1:]))
+        for xd, sd in TRAIN_PAIRS:
+            x, gz = (a.to(getattr(torch, xd)) for a in draw[0::3])
+            v0, i0, gv, gi = (a.to(getattr(torch, sd))
+                              for a in (draw[1], draw[2], draw[4], draw[5]))
+            for cell in ("lif", "li"):
+                for start in starts:
+                    cuda_kernels.reset_launches()
+                    got = cuda_kernels.temporal_cell_seq_bwd(
+                        x, v0, i0, gz, gv, gi, cell, start)
+                    torch.cuda.synchronize()
+                    check(cuda_kernels.LAUNCHES["temporal_cell_seq_bwd"] == 1,
+                          "one backward launch a call")
+                    leaves = [a.detach().requires_grad_()
+                              for a in (x, v0, i0)]
+                    outs = cuda_kernels.temporal_cell_seq_reference(
+                        *leaves, cell, start)
+                    want = torch.autograd.grad(outs, leaves, (gz, gv, gi),
+                                               retain_graph=True)
+                    differ = 0
+                    for name, g, wnt in zip(("gx", "gv0", "gi0"), got, want):
+                        g, wnt = g.float(), wnt.float()
+                        same = (g == wnt) | (g.isnan() & wnt.isnan())
+                        differ += int((~same).sum())
+                        err = float((g - wnt).abs().max())
+                        worst = max(worst, err)
+                        scale = float(wnt.abs().max())
+                        check(err <= 1e-5 * scale,
+                              f"{label} {cell} {xd}/{sd} start={start}: {name} "
+                              f"max abs err {err} past rtol 1e-5 of {scale}")
+                    # one launch at T = 1 is shorter than the wrapper's
+                    # host time: time it queued behind a busy card
+                    timer = queued_ms if T == 1 else functools.partial(
+                        cuda_time_ms, reps=10)
+                    ms = timer(lambda: cuda_kernels.temporal_cell_seq_bwd(
+                        x, v0, i0, gz, gv, gi, cell, start))
+                    plain_ms = cuda_time_ms(lambda: torch.autograd.grad(
+                        outs, leaves, (gz, gv, gi), retain_graph=True),
+                        reps=3, warmup=1)
+                    del got, want, outs, leaves
+                    bound_ms, by = cell_bwd_bound(cell, T, M, x.element_size(),
+                                                  v0.element_size())
+                    rows.append(dict(shape=label, cell=cell, x=xd, state=sd,
+                                     start=start, ms=ms, plain_ms=plain_ms,
+                                     bound_ms=bound_ms, bound_by=by,
+                                     differ=differ))
+                    print(f"  {label:9s} {cell:3s} {xd}/{sd:8s} start={start}: "
+                          f"{'bit-equal' if not differ else f'{differ} elements differ'}"
+                          f"; kernel {ms:.4f} ms"
+                          f"{' (queued)' if T == 1 else ''}, bound "
+                          f"{bound_ms:.4f} ms "
+                          f"({by}, {bound_ms / ms:.0%} of it), plain backward "
+                          f"{plain_ms:.3f} ms", flush=True)
+        del draw, x, gz, v0, i0, gv, gi
+        torch.cuda.empty_cache()
+    return rows, worst
+
+
+class _Batches:
+    """``Trainer.fit``'s data: [10]'s event batches, over and over."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def train_loader(self):
+        return itertools.cycle(self.batches)
+
+    val_loader = train_loader
+
+
+def first_step_grads(torch, model, schedule, X, lab, start):
+    """The loss and every parameter's gradient of one train forward."""
+    model.zero_grad()
+    preds, _ = model.forward_fn(schedule)(X, start_step=start, train=True)
+    loss = model.loss(preds, lab)
+    loss.backward()
+    return float(loss.detach()), {
+        n: p.grad.detach().clone() if p.grad is not None
+        else torch.zeros_like(p) for n, p in model.named_parameters()}
+
+
+def kind_ms(kernels):
+    """Device ms of profiled kernels by kernel kind."""
+    by_kind = {}
+    for e in kernels:
+        kind = kernel_kind(e.name)
+        by_kind[kind] = by_kind.get(kind, 0.0) + e.time_range.elapsed_us() / 1e3
+    return by_kind
+
+
+def phase_train(torch, cuda_kernels, TinyYolo, Trainer, batches, dev):
+    """[10] second part: ``Trainer.fit`` for TRAIN_STEPS steps on each
+    schedule in both training configurations at full GEN1 width. Each
+    step must launch the cell backward kernel 22 times (time-batched) or
+    22 x (T - r) times (per step) and no spiking conv kernel; the loss
+    stays finite, the weights and the running stats move. Then one train
+    step from r = 5 timed (CUDA events, median of 3), its peak memory,
+    and the device idle share of one more step under ``torch.profiler``.
+    Last, at fp32 with cuDNN off, each schedule's first-step loss and
+    gradients must agree with the same schedule's through the plain cell.
+    Returns the backward kernel's launches over the fit runs."""
+    out_root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "chip_smoke_train")
+    X = torch.as_tensor(batches[0][0], device=dev)
+    lab = torch.as_tensor(batches[0][1], device=dev)
+    total = 0
+    for xd, sd in TRAIN_PAIRS:
+        for schedule in (False, True):
+            tag = f"{xd}/{sd} {'time-batched' if schedule else 'per-step'}"
+            model = build_model(TinyYolo, xd, sd, dev)
+            w0 = [p.detach().clone() for p in model.parameters()]
+            s0 = [b.clone() for n, b in model.named_buffers()
+                  if n.endswith((".mean", ".var"))]
+            out_dir = os.path.join(out_root, f"{xd}_{sd}_{int(schedule)}")
+            shutil.rmtree(out_dir, ignore_errors=True)
+            trainer = Trainer(max_epochs=1, limit_train_batches=TRAIN_STEPS,
+                              check_val_every_n_epoch=10 ** 6,
+                              log_every_n_steps=1, out_dir=out_dir, seed=0,
+                              time_batched=schedule)
+            starts = []
+            draw = trainer.draw_start
+            trainer.draw_start = lambda m, g: starts.append(draw(m, g)) \
+                or starts[-1]
+            cuda_kernels.reset_launches()
+            t0 = time.perf_counter()
+            trainer.fit(model, _Batches(batches))
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            n = dict(cuda_kernels.LAUNCHES)
+            want = CELLS_PER_STEP * sum(1 if schedule else STEPS - r
+                                        for r in starts)
+            check(n["temporal_cell_seq_bwd"] == want,
+                  f"{tag}: {n['temporal_cell_seq_bwd']} backward launches "
+                  f"for starts {starts}, want {want}")
+            check(n["spiking_conv_seq"] == 0, f"{tag}: a fused launch")
+            total += n["temporal_cell_seq_bwd"]
+            with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+                losses = [r["train_loss"] for r in map(json.loads, f)
+                          if "train_loss" in r]
+            check(len(losses) == TRAIN_STEPS
+                  and all(np.isfinite(v) for v in losses),
+                  f"{tag}: train losses {losses}")
+            moved = sum(not torch.equal(p, q)
+                        for p, q in zip(model.parameters(), w0))
+            stats_moved = sum(not torch.equal(b, q) for b, q in zip(
+                (b for n_, b in model.named_buffers()
+                 if n_.endswith((".mean", ".var"))), s0))
+            check(moved >= 0.9 * len(w0) and stats_moved >= 0.9 * len(s0),
+                  f"{tag}: {moved} of {len(w0)} weights and {stats_moved} of "
+                  f"{len(s0)} running stats moved")
+
+            def step():
+                trainer.train_step(model, X, lab, TRAIN_START)
+
+            torch.cuda.reset_peak_memory_stats()
+            step_ms = cuda_time_ms(step, reps=3, warmup=1)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            kernels, busy, wall = profiled(torch, step)
+            by_kind = kind_ms(kernels)
+            print(f"  {tag}: fit {TRAIN_STEPS} steps in {fit_s:.1f} s, starts "
+                  f"{starts}, losses {[round(v, 4) for v in losses]}; "
+                  f"launches {n['temporal_cell_seq']} forward (remat "
+                  f"recomputes them), {n['temporal_cell_seq_bwd']} backward; "
+                  f"train step from r={TRAIN_START} {step_ms:.1f} ms (CUDA "
+                  f"events, median of 3), {STEPS * BATCH / (step_ms / 1e3):.0f}"
+                  f" frames/s, peak memory {peak_gb:.2f} GB; one step under "
+                  f"the profiler: device busy {busy:.1f} of {wall:.1f} ms, "
+                  f"idle share {max(0.0, 1 - busy / wall):.3f}; device ms by "
+                  f"kind: " + ", ".join(
+                      f"{k} {v:.1f}" for k, v in sorted(
+                          by_kind.items(), key=lambda kv: -kv[1])[:6]),
+                  flush=True)
+            del model, trainer, w0, s0
+            torch.cuda.empty_cache()
+
+    # each schedule's gradients against the same schedule with the plain
+    # cell (autograd through temporal_cell_seq_reference, on the card):
+    # the cell is the only difference and is bit-equal both ways, so the
+    # spikes match and what is left is the order of a few sums in the
+    # backward. The two schedules are not compared with each other here:
+    # their BatchNorm moments round apart (one batched reduction against
+    # one a step, as in JAX), and on this untrained net at gains 8 one
+    # flipped spike moves the gradients past any tolerance; the CPU tests
+    # hold both schedules against JAX and each other at narrow width.
+    from snn_for_object_detection_tpu_torch.models import compile as C
+
+    kernel_cell = C.temporal_cell_seq
+    torch.backends.cudnn.enabled = False
+    runs = {}
+    try:
+        model = build_model(TinyYolo, "float32", "float32", dev)
+        for schedule in (False, True):
+            for how in ("kernel", "plain"):
+                C.temporal_cell_seq = kernel_cell if how == "kernel" \
+                    else cuda_kernels.temporal_cell_seq_reference
+                cuda_kernels.reset_launches()
+                runs[schedule, how] = first_step_grads(
+                    torch, model, schedule, X, lab, TRAIN_START)
+                n = cuda_kernels.LAUNCHES
+                want = CELLS_PER_STEP * (1 if schedule else STEPS - TRAIN_START)
+                check((n["temporal_cell_seq_bwd"], n["temporal_cell_seq"] > 0)
+                      == ((want, True) if how == "kernel" else (0, False)),
+                      f"{how} cell: {n['temporal_cell_seq']} forward and "
+                      f"{n['temporal_cell_seq_bwd']} backward launches")
+    finally:
+        C.temporal_cell_seq = kernel_cell
+        torch.backends.cudnn.enabled = True
+    for schedule in (False, True):
+        (l_k, g_k), (l_p, g_p) = runs[schedule, "kernel"], runs[schedule,
+                                                               "plain"]
+        check(abs(l_k - l_p) <= 1e-6 * abs(l_p),
+              f"losses {l_k} (kernels) and {l_p} (plain cell)")
+        same, worst = 0, 0.0
+        for name, a in g_k.items():
+            b = g_p[name]
+            torch.testing.assert_close(a, b, rtol=2e-3, atol=1e-7,
+                                       msg=lambda m: f"{name}: {m}")
+            same += bool(torch.equal(a, b))
+            worst = max(worst, float((a - b).abs().max())
+                        / max(float(b.abs().max()), 1e-30))
+        print(f"  {'time-batched' if schedule else 'per-step'} at fp32, "
+              f"cuDNN off, r={TRAIN_START}: the kernels' first step against "
+              f"the plain cell's: losses {l_k!r} / {l_p!r}, {same} of "
+              f"{len(g_k)} gradients bit-equal, every one within rtol 2e-3, "
+              f"atol 1e-7 (max difference over a tensor's largest entry "
+              f"{worst:.3g})", flush=True)
+    (l_s, g_s), (l_b, g_b) = runs[False, "kernel"], runs[True, "kernel"]
+    flat_s = torch.cat([g.flatten() for g in g_s.values()])
+    flat_b = torch.cat([g_b[n].flatten() for n in g_s])
+    print(f"  the two schedules, not a gate: losses {l_s:.6f} / {l_b:.6f}, "
+          f"gradients' relative L2 distance "
+          f"{float((flat_s - flat_b).norm() / flat_b.norm()):.3g}",
+          flush=True)
+    del model, runs
+    torch.cuda.empty_cache()
+    return total
+
+
 def main(argv) -> int:
     import torch
 
@@ -1428,6 +1751,11 @@ def main(argv) -> int:
             print("[8] megakernel", flush=True)
             phase_megakernel(torch, cuda_kernels, TinyYolo, batches[0],
                              "cuda")
+        if 10 in only:
+            print("[10] train", flush=True)
+            phase_cell_backward(torch, cuda_kernels, "cuda")
+            phase_train(torch, cuda_kernels, TinyYolo, Trainer, batches,
+                        "cuda")
         print(f"partial run of phases {sorted(only)} done in "
               f"{time.perf_counter() - t_start:.1f} s")
         return 0
@@ -1471,6 +1799,13 @@ def main(argv) -> int:
           f"{ENGINE_CAPACITY}, {ENGINE_STREAMS} streams, {ENGINE_STEPS} steps",
           flush=True)
     phase_engine(torch, cuda_kernels, TinyYolo, "cuda")
+    print(f"[10] train: the cell backward kernel against autograd through "
+          f"its plain version, then Trainer.fit on TinyYolo GEN1 {IN_HW}, "
+          f"B={BATCH}, T={STEPS}, {TRAIN_STEPS} steps a schedule and "
+          f"configuration", flush=True)
+    bwd_rows, bwd_worst = phase_cell_backward(torch, cuda_kernels, "cuda")
+    bwd_launches = phase_train(torch, cuda_kernels, TinyYolo, Trainer,
+                               batches, "cuda")
 
     ref = next(r for r in rows if (r["shape"], r["cell"], r["x"], r["start"])
                == ("stage1", "lif", "float32", 0))
@@ -1479,11 +1814,17 @@ def main(argv) -> int:
     pw_ref = next(r for r in pw_rows
                   if (r["n"], r["cin"], r["cout"], r["x"])
                   == (BATCH * 120 * 152, 64, 64, "torch.float32"))
-    # no single PyTorch call computes any of the three functions (a conv
-    # alone has no BatchNorm and no cell): library_ms is null
+    # no single PyTorch call computes any of these functions (a conv
+    # alone has no BatchNorm and no cell; the cell's VJP is autograd
+    # through its plain version): library_ms is null
+    bwd_ref = next(r for r in bwd_rows
+                   if (r["shape"], r["cell"], r["state"], r["start"])
+                   == ("stage1", "lif", "float32", 0))
     kernels = []
     for name, source, line, n, err, r in (
         ("temporal_cell_seq", "temporal_cell.cu", 207, launches, worst, ref),
+        ("temporal_cell_seq_bwd", "temporal_cell.cu", 356, bwd_launches,
+         bwd_worst, bwd_ref),
         ("spiking_conv_seq", "spiking_conv.cu", 657, conv_launches,
          conv_worst, conv_ref),
         ("fused_pointwise_conv_bn_lif", "pointwise.cu", 88, 0, pw_worst,
@@ -1523,9 +1864,12 @@ def main(argv) -> int:
           f"fp32 (3x3 s2, 128->256, [42,4,60,76] -> [30,38]); "
           f"fused_pointwise_conv_bn_lif {BATCH * 120 * 152} rows, 64->64, "
           f"fp32; streaming_megakernel one GEN1 frame at fp32 (SODa.step, "
-          f"its per-layer yardstick: {mk_row['step_ms']:.3f} ms). Launches: "
-          f"temporal_cell_seq in [4], spiking_conv_seq in [7], "
-          f"streaming_megakernel in [8] (both dtype configurations); "
+          f"its per-layer yardstick: {mk_row['step_ms']:.3f} ms); "
+          f"temporal_cell_seq_bwd the stage-1 fp32 LIF case at start 0. "
+          f"Launches: temporal_cell_seq in [4], spiking_conv_seq in [7], "
+          f"streaming_megakernel in [8] (both dtype configurations), "
+          f"temporal_cell_seq_bwd in [10]'s Trainer.fit runs (both "
+          f"schedules and training configurations); "
           f"fused_pointwise_conv_bn_lif has no path")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,4 +1,4 @@
-"""Spec compiler: DSL config lists -> ``nn.Module`` trees (eval forward).
+"""Spec compiler: DSL config lists -> ``nn.Module`` trees.
 
 Counterpart of ``snn_for_object_detection_tpu/models/compile.py`` for the
 TinyYolo menu and the streaming megakernel's: ``Conv``, eval-mode
@@ -16,6 +16,13 @@ has two forms:
   each ``[Conv k x k -> Norm -> LIF/LI]`` triple of a branch as one
   ``spiking_conv_seq`` call instead (the JAX compiler's fused plan).
 
+Under ``ctx.train`` Norm normalises with per-step batch statistics and
+hands its new running statistics on as its state (the model writes them
+to its buffers once the forward is done), blocks never fuse, and with
+``ctx.remat`` a sequence call runs each branch as checkpointed segments
+(``torch.utils.checkpoint``), one per conv -> norm -> cell run, as the
+JAX compiler's ``_segment_plan``.
+
 Activations are NHWC at every boundary (the JAX layout). Submodules are
 named after the JAX pytree keys (``b0.l3.w`` for ``["b0"]["l3"]["w"]``),
 so ``models/convert.py`` maps weights one to one. Every other leaf and
@@ -30,6 +37,7 @@ from typing import Any, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from snn_for_object_detection_tpu_torch.models import spec as S
 from snn_for_object_detection_tpu_torch.ops import neurons
@@ -50,16 +58,27 @@ class Ctx:
     """Per-call context: ``taps`` collects ``Return`` outputs in config
     order; ``start_step`` is the truncation start r of a sequence call
     (state frozen for t < r); ``fuse`` lets a sequence call run its
-    fused triples (only at ``start_step == 0``: the fused kernel has no
-    truncation gate; the per-step ``step`` never fuses)."""
+    fused triples (only at ``start_step == 0`` and not in training: the
+    fused kernel has no truncation gate and no backward; the per-step
+    ``step`` never fuses); ``train`` selects batch statistics in Norm;
+    ``remat`` checkpoints a sequence call's segments."""
 
     taps: List[torch.Tensor] = dataclasses.field(default_factory=list)
     start_step: int = 0
     fuse: bool = False
+    train: bool = False
+    remat: bool = False
+
+    def step_mask(self, steps: int) -> List[bool]:
+        """Step t of a sequence call is active iff ``t >= start_step``."""
+        return [t >= self.start_step for t in range(steps)]
 
 
 class Layer(nn.Module):
-    """A compiled layer with static output shape."""
+    """A compiled layer with static output shape. ``has_tap``: a
+    ``Return`` is in it, so a remat segment must not hold it."""
+
+    has_tap = False
 
     def __init__(self, out_channels: int, out_hw: Tuple[int, int]):
         super().__init__()
@@ -135,6 +154,8 @@ class Up(Layer):
 class Return(Layer):
     """Pyramid tap; in sequence mode the tap is the whole sequence."""
 
+    has_tap = True
+
     def step(self, x, state, ctx):
         ctx.taps.append(x)
         return x, state
@@ -175,17 +196,28 @@ class Conv(Layer):
 
 
 class Norm(Layer):
-    """Eval-mode BatchNorm: the folded affine ``x * k + b`` applied in
-    the activation dtype (compile.py:143-158). JAX runs it under ``jit``,
-    where XLA contracts it at fp32 into one fused multiply-add
-    (``neurons.fma``) and rounds each of the two ops in bf16, except in
-    front of a cell, where the bf16 sum stays fp32
-    (``step_into_cell``). The fused plan hands the same fp32 ``(k, b)``
-    to ``spiking_conv_seq``."""
+    """BatchNorm.
 
-    def __init__(self, ch, hw, bias: bool, eps: float):
+    Eval: the folded affine ``x * k + b`` applied in the activation
+    dtype (compile.py:143-158). JAX runs it under ``jit``, where XLA
+    contracts it at fp32 into one fused multiply-add (``neurons.fma``)
+    and rounds each of the two ops in bf16, except in front of a cell,
+    where the bf16 sum stays fp32 (``step_into_cell``). The fused plan
+    hands the same fp32 ``(k, b)`` to ``spiking_conv_seq``.
+
+    Train (compile.py:408-468): per-step batch statistics over (B, H,
+    W) in fp32, ``y = (x - mean) * rsqrt(var + eps) * scale (+ bias)``
+    rounded once to x's dtype. The running statistics fold in the
+    unbiased variance with ``momentum``, once per active step; they
+    travel as the layer's state (``(mean, var)``; ``()`` means the
+    buffers), so a checkpointed recompute cannot fold them twice.
+    """
+
+    def __init__(self, ch, hw, bias: bool, eps: float,
+                 momentum: float = 0.1):
         super().__init__(ch, hw)
         self.eps = eps
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(ch))
         if bias:
             self.bias = nn.Parameter(torch.zeros(ch))
@@ -203,14 +235,49 @@ class Norm(Layer):
             b = b + self.bias
         return k, b
 
+    def _fold(self, running, mean, unbiased):
+        m = self.momentum
+        mean0, var0 = running if running else (self.mean, self.var)
+        return ((1 - m) * mean0 + m * mean, (1 - m) * var0 + m * unbiased)
+
+    def _normalize(self, x, mean, var):
+        y = (x.float() - mean) * torch.rsqrt(var + self.eps) * self.scale
+        if self.bias is not None:
+            y = y + self.bias
+        return y.to(x.dtype)
+
+    def _unbiased(self, x, var):
+        n = x.shape[-4] * x.shape[-3] * x.shape[-2]
+        return var.detach().flatten() * (n / max(n - 1, 1))
+
     def step(self, x, state, ctx):
+        if ctx is not None and ctx.train:
+            # batch mean and biased variance over (B, H, W), in fp32
+            var, mean = torch.var_mean(x.float(), dim=(0, 1, 2),
+                                       correction=0, keepdim=True)
+            return self._normalize(x, mean, var), self._fold(
+                state, mean.detach().flatten(), self._unbiased(x, var))
         k, b = self.coeffs()
         if x.dtype == torch.float32:
             return neurons.fma(x, k, b), state
         return x * k.to(x.dtype) + b.to(x.dtype), state
 
+    def seq(self, X, state, ctx):
+        if not ctx.train:
+            return super().seq(X, state, ctx)
+        # every step's moments in one batched reduction, as JAX's
+        # apply_seq: the same values as the step form's, summed in
+        # another order
+        var, mean = torch.var_mean(X.float(), dim=(1, 2, 3), correction=0,
+                                   keepdim=True)
+        for t, keep in enumerate(ctx.step_mask(X.shape[0])):
+            if keep:
+                state = self._fold(state, mean[t].detach().flatten(),
+                                   self._unbiased(X, var[t]))
+        return self._normalize(X, mean, var), state
+
     def step_into_cell(self, x):
-        """The affine as jitted JAX feeds it to a cell that follows
+        """The eval affine as jitted JAX feeds it to a cell that follows
         directly: in bf16 the product ``x * k`` is rounded to bf16 but
         the sum with the bf16 ``b`` reaches the cell in fp32 (XLA drops
         the round trip in front of the cell's fp32 cast). fp32 as
@@ -219,6 +286,25 @@ class Norm(Layer):
             return self.step(x, (), None)[0]
         k, b = self.coeffs()
         return (x * k.to(x.dtype)).float() + b.to(x.dtype).float()
+
+
+def commit_norm_stats(block: "Block", state):
+    """Write the running statistics a train forward left in ``state``
+    into each Norm's buffers; returns ``state`` with those entries
+    back to ``()``."""
+    out = {}
+    for bi, branch in enumerate(block._branches()):
+        st_b = dict(state[f"b{bi}"])
+        for name, layer in branch.items():
+            if isinstance(layer, Norm) and st_b[name]:
+                with torch.no_grad():
+                    layer.mean.copy_(st_b[name][0])
+                    layer.var.copy_(st_b[name][1])
+                st_b[name] = ()
+            elif isinstance(layer, Block):
+                st_b[name] = commit_norm_stats(layer, st_b[name])
+        out[f"b{bi}"] = st_b
+    return out
 
 
 class Cell(Layer):
@@ -276,7 +362,7 @@ def _compile_leaf(layer: S.LayerSpec, in_ch: int, in_hw, state_dtype):
         out = in_ch if layer.out_channels is None else layer.out_channels
         return Conv(in_ch, out, layer.kernel_size, layer.stride, in_hw)
     if isinstance(layer, S.Norm):
-        return Norm(in_ch, in_hw, layer.bias, layer.eps)
+        return Norm(in_ch, in_hw, layer.bias, layer.eps, layer.momentum)
     if isinstance(layer, (S.LIF, S.LI)):
         if layer.state_storage:
             raise not_ported("state recording (state_storage=True)",
@@ -352,6 +438,9 @@ class Block(Layer):
             ))
         self.num_branches = len(branches)
         self.fused_plan = [_fused_groups(layers) for layers in branches]
+        self.segment_plan = [_segment_plan(layers) for layers in branches]
+        self.has_tap = any(layer.has_tap for layers in branches
+                           for layer in layers)
 
     def _branches(self):
         return [getattr(self, f"b{bi}") for bi in range(self.num_branches)]
@@ -366,11 +455,16 @@ class Block(Layer):
         }
 
     def _run(self, x, state, ctx, seq: bool):
-        fuse = seq and ctx.fuse and ctx.start_step == 0
+        fuse = seq and ctx.fuse and ctx.start_step == 0 and not ctx.train
         outs, new_state = [], {}
         for bi, branch in enumerate(self._branches()):
             y, st_b, new_b = x, state[f"b{bi}"], {}
             layers = list(branch.values())
+            if seq and ctx.remat:
+                outs.append(self._run_segments(
+                    layers, self.segment_plan[bi], y, st_b, new_b, ctx))
+                new_state[f"b{bi}"] = new_b
+                continue
             fused = self.fused_plan[bi] if fuse else []
             li = 0
             while li < len(layers):
@@ -378,7 +472,7 @@ class Block(Layer):
                     y = self._run_fused(layers[li:li + 3], li, y, st_b, new_b)
                     li += 3
                     continue
-                if (not seq and isinstance(layers[li], Norm)
+                if (not seq and not ctx.train and isinstance(layers[li], Norm)
                         and li + 1 < len(layers)
                         and isinstance(layers[li + 1], Cell)):
                     # [Norm -> cell] of a step: the cell takes the fp32
@@ -406,6 +500,34 @@ class Block(Layer):
         return y, new_state
 
     @staticmethod
+    def _run_segments(layers, plan, y, st_b, new_b, ctx):
+        """A branch of a sequence call as checkpointed segments (JAX
+        ``_apply_branch_remat``): each segment's layers run again in the
+        backward instead of keeping their activations. Layers with a tap
+        run bare, outside any segment: a recompute would append their
+        taps again. Inside a segment nested blocks do not checkpoint
+        again (one recompute per layer)."""
+        inner = dataclasses.replace(ctx, remat=False)
+        for bare, idxs in plan:
+            if bare:
+                li = idxs[0]
+                y, new_b[f"l{li}"] = layers[li].seq(y, st_b[f"l{li}"], ctx)
+                continue
+
+            def run(y, states, idxs=idxs):
+                out = []
+                for li, st in zip(idxs, states):
+                    y, st = layers[li].seq(y, st, inner)
+                    out.append(st)
+                return y, out
+
+            y, states = checkpoint(run, y, [st_b[f"l{li}"] for li in idxs],
+                                   use_reentrant=False)
+            for li, st in zip(idxs, states):
+                new_b[f"l{li}"] = st
+        return y
+
+    @staticmethod
     def _run_fused(triple, li, X, st_b, new_b):
         """One fused ``[Conv -> Norm -> cell]`` over the sequence ``X``
         (JAX ``_run_fused``): the Conv and Norm states pass through and
@@ -427,6 +549,27 @@ class Block(Layer):
 
     def seq(self, X, state, ctx):
         return self._run(X, state, ctx, seq=True)
+
+
+def _segment_plan(layers: List[Layer]) -> List[Tuple[bool, List[int]]]:
+    """``(bare, layer indices)`` runs of a branch for sequence-mode
+    remat (JAX ``_segment_plan``): a segment closes after each cell or
+    nested block; a layer with a tap runs bare."""
+    plan, cur = [], []
+    for li, layer in enumerate(layers):
+        if layer.has_tap:
+            if cur:
+                plan.append((False, cur))
+                cur = []
+            plan.append((True, [li]))
+            continue
+        cur.append(li)
+        if isinstance(layer, (Cell, Block)):
+            plan.append((False, cur))
+            cur = []
+    if cur:
+        plan.append((False, cur))
+    return plan
 
 
 def compile_block(cfgs, in_ch: int, in_hw, returns: Optional[list] = None,

@@ -1,10 +1,14 @@
 """Detector core: backbone/neck/head composition, forwards, loss, decode.
 
 Counterpart of ``snn_for_object_detection_tpu/models/detector.py``
-(``SODa``, after the reference's models/soda.py) for evaluation. The
-module owns its parameters and BatchNorm running stats; the recurrent
-neuron state is a nested dict the caller passes in and gets back, in
-the JAX pytree layout.
+(``SODa``, after the reference's models/soda.py). The module owns its
+parameters and BatchNorm running stats; the recurrent neuron state is a
+nested dict the caller passes in and gets back, in the JAX pytree
+layout. ``forward`` and ``forward_seq`` take ``train=True`` for
+training: BatchNorm on batch statistics (the running statistics are
+written to the buffers when the forward returns) and, with ``remat``,
+activations recomputed in the backward: per step on the per-step
+schedule, per segment on the time-batched one.
 
 Two schedules give the same predictions:
 
@@ -24,11 +28,13 @@ apply them once, to the last step's stem activations.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from snn_for_object_detection_tpu_torch.models import compile as C
 from snn_for_object_detection_tpu_torch.models import spec as S
@@ -64,11 +70,16 @@ class SODa(nn.Module):
     :param loss_ratio: GT-vs-background loss weighting.
     :param time_window: Max random truncation of the sequence start.
     :param iou_threshold: Anchor-assignment IoU threshold.
+    :param learning_rate: The optimizer's (peak) learning rate.
     :param compute_dtype: Activation dtype, fp32 or bf16.
     :param state_dtype: Neuron state storage dtype: fp32, bf16 or e5m2.
+    :param remat: In training, recompute activations in the backward
+        instead of keeping them (``torch.utils.checkpoint``), as the JAX
+        package's ``jax.checkpoint``.
     :param fuse_seq: :meth:`forward_seq` fuses each ``[Conv -> Norm ->
         LIF/LI]`` triple into one ``spiking_conv_seq`` call when no
-        truncation is in play (opt-in, as in the JAX package).
+        truncation is in play and it is not training (opt-in, as in the
+        JAX package).
     :param device: Where the model lives. ``"cuda"`` needs a card: there
         is no fallback to the CPU.
     :param seed: Seed of the ``torch.Generator`` that draws the weights.
@@ -82,9 +93,11 @@ class SODa(nn.Module):
         loss_ratio: float = 0.04,
         time_window: int = 16,
         iou_threshold: float = 0.4,
+        learning_rate: float = 1e-3,
         state_storage: bool = False,
         compute_dtype=torch.float32,
         state_dtype=torch.float32,
+        remat: bool = True,
         fuse_seq: bool = False,
         device="cuda",
         seed: int = 0,
@@ -105,6 +118,8 @@ class SODa(nn.Module):
         self.loss_ratio = loss_ratio
         self.time_window = time_window
         self.iou_threshold = iou_threshold
+        self.learning_rate = learning_rate
+        self.remat = remat
         self.state_storage = state_storage
         self.fuse_seq = fuse_seq
         self.compute_dtype = as_dtype(compute_dtype)
@@ -222,10 +237,11 @@ class SODa(nn.Module):
 
     # ----- per-step pieces -----
 
-    def _trunk(self, x: torch.Tensor, state) -> Tuple[tuple, Dict]:
+    def _trunk(self, x: torch.Tensor, state,
+               train: bool = False) -> Tuple[tuple, Dict]:
         """Backbone + neck + head stems for one frame; the stateless
         box/cls tails are left to :meth:`_tail_readout`."""
-        ctx = C.Ctx()
+        ctx = C.Ctx(train=train)
         new_state = {}
         y, new_state["backbone"] = self.backbone.step(
             x.to(self.compute_dtype), state["backbone"], ctx
@@ -267,59 +283,97 @@ class SODa(nn.Module):
         base_outs, state = self._trunk(x, state)
         return self._tail_readout(base_outs, state), state
 
-    @torch.no_grad()
+    def commit_stats(self, state) -> Dict:
+        """Write the running statistics a train forward carried in
+        ``state`` into the BatchNorm buffers, once, outside any
+        recompute; returns the state with those entries back to ``()``,
+        as in eval."""
+        state = dict(state)
+        state["backbone"] = C.commit_norm_stats(self.backbone,
+                                                state["backbone"])
+        state["neck"] = C.commit_norm_stats(self.neck, state["neck"])
+        for idx, head in enumerate(self.heads()):
+            hst = dict(state[f"head{idx}"])
+            hst["base"] = C.commit_norm_stats(head["base"], hst["base"])
+            state[f"head{idx}"] = hst
+        return state
+
     def forward(self, X: torch.Tensor, start_step: int = 0,
-                state=None) -> Tuple[Preds, Dict]:
+                state=None, train: bool = False) -> Tuple[Preds, Dict]:
         """Per-step schedule over ``X [T, B, H, W, C]``: last-step
         predictions and the final state. Steps ``t < start_step`` are
-        skipped (state frozen)."""
+        skipped (state and BatchNorm statistics frozen), as JAX's
+        ``lax.cond`` over the scan. ``train=True``: BatchNorm on batch
+        statistics, each step checkpointed when ``remat``, and gradients
+        on; without it the call runs under ``no_grad``."""
         T, B = X.shape[0], X.shape[1]
         if state is None:
             state = self.init_state(B)
-        base_outs = tuple(
-            torch.zeros((B, *h["base"].out_hw, h["base"].out_channels),
-                        dtype=self.compute_dtype, device=X.device)
-            for h in self.heads()
-        )
-        for t in range(max(int(start_step), 0), T):
-            base_outs, state = self._trunk(X[t], state)
-        return self._tail_readout(base_outs, state), state
+        with contextlib.nullcontext() if train else torch.no_grad():
+            base_outs = tuple(
+                torch.zeros((B, *h["base"].out_hw, h["base"].out_channels),
+                            dtype=self.compute_dtype, device=X.device)
+                for h in self.heads()
+            )
+            for t in range(max(int(start_step), 0), T):
+                if train and self.remat:
+                    base_outs, state = checkpoint(
+                        self._trunk, X[t], state, True, use_reentrant=False)
+                else:
+                    base_outs, state = self._trunk(X[t], state, train)
+            preds = self._tail_readout(base_outs, state)
+        if train:
+            state = self.commit_stats(state)
+        return preds, state
 
-    @torch.no_grad()
     def forward_seq(self, X: torch.Tensor, start_step: int = 0,
-                    state=None, fuse=None) -> Tuple[Preds, Dict]:
+                    state=None, fuse=None,
+                    train: bool = False) -> Tuple[Preds, Dict]:
         """Time-batched schedule, same results as :meth:`forward`.
 
         :param fuse: run the fused triples (``spiking_conv_seq``).
-            Default: ``fuse_seq`` when ``start_step == 0``, as the JAX
-            package fuses only for the Python int start 0. The fused
-            kernel has no truncation gate, so ``fuse=True`` with another
-            start raises.
+            Default: ``fuse_seq`` when ``start_step == 0`` and not
+            training, as the JAX package fuses only for the Python int
+            start 0 in eval. The fused kernel has no truncation gate and
+            no backward, so ``fuse=True`` with another start or with
+            ``train`` raises.
+        :param train: BatchNorm on per-step batch statistics, the
+            running statistics folded once per step ``t >= start_step``;
+            conv -> norm -> cell segments checkpointed when ``remat``;
+            gradients on. Without it the call runs under ``no_grad``.
         """
         start_step = int(start_step)
         if fuse is None:
-            fuse = self.fuse_seq and start_step == 0
-        elif fuse and start_step != 0:
-            raise ValueError("the fused schedule has no truncation gate: "
-                             f"fuse=True needs start_step 0, not {start_step}")
+            fuse = self.fuse_seq and start_step == 0 and not train
+        elif fuse and (start_step != 0 or train):
+            raise ValueError("the fused schedule has no truncation gate "
+                             "and no backward: fuse=True needs start_step "
+                             f"0 and eval, not start {start_step}, "
+                             f"train={train}")
         B = X.shape[1]
         if state is None:
             state = self.init_state(B)
-        ctx = C.Ctx(start_step=start_step, fuse=fuse)
-        new_state = {}
-        y, new_state["backbone"] = self.backbone.seq(
-            X.to(self.compute_dtype), state["backbone"], ctx
-        )
-        _, new_state["neck"] = self.neck.seq(y, state["neck"], ctx)
-        base_outs = []
-        for idx, (head, fmap_seq) in enumerate(zip(self.heads(), ctx.taps)):
-            hst = state[f"head{idx}"]
-            base_seq, nst = head["base"].seq(fmap_seq, hst["base"], ctx)
-            new_state[f"head{idx}"] = {
-                "base": nst, "box": hst["box"], "cls": hst["cls"]
-            }
-            base_outs.append(base_seq[-1])
-        return self._tail_readout(base_outs, new_state), new_state
+        ctx = C.Ctx(start_step=start_step, fuse=fuse, train=train,
+                    remat=train and self.remat)
+        with contextlib.nullcontext() if train else torch.no_grad():
+            new_state = {}
+            y, new_state["backbone"] = self.backbone.seq(
+                X.to(self.compute_dtype), state["backbone"], ctx
+            )
+            _, new_state["neck"] = self.neck.seq(y, state["neck"], ctx)
+            base_outs = []
+            for idx, (head, fmap_seq) in enumerate(
+                    zip(self.heads(), ctx.taps)):
+                hst = state[f"head{idx}"]
+                base_seq, nst = head["base"].seq(fmap_seq, hst["base"], ctx)
+                new_state[f"head{idx}"] = {
+                    "base": nst, "box": hst["box"], "cls": hst["cls"]
+                }
+                base_outs.append(base_seq[-1])
+            preds = self._tail_readout(base_outs, new_state)
+        if train:
+            new_state = self.commit_stats(new_state)
+        return preds, new_state
 
     def forward_fn(self, schedule):
         """``Trainer(time_batched=...)`` flag -> forward: ``False`` ->

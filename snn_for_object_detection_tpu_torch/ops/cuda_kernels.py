@@ -24,6 +24,7 @@ from snn_for_object_detection_tpu_torch.ops import cuda_build, neurons
 # launches per kernel since the last reset_launches()
 LAUNCHES: Dict[str, int] = {
     "temporal_cell_seq": 0,
+    "temporal_cell_seq_bwd": 0,
     "spiking_conv_seq": 0,
     "fused_pointwise_conv_bn_lif": 0,
     "streaming_megakernel": 0,
@@ -41,15 +42,17 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _temporal_lib():
-    lib = cuda_build.load("temporal_cell.cu")
-    fn = lib.temporal_cell_seq_launch
+def _temporal_lib(name: str = "temporal_cell_seq_launch"):
+    fn = getattr(cuda_build.load("temporal_cell.cu"), name)
     if fn.argtypes is None:
+        # pointers (6 forward, 11 backward); T, M; start, cell, x and
+        # state type codes; c_mem, c_syn (and alpha); stream
+        bwd = name == "temporal_cell_seq_bwd_launch"
         fn.argtypes = (
-            [ctypes.c_void_p] * 6
+            [ctypes.c_void_p] * (11 if bwd else 6)
             + [ctypes.c_longlong] * 2
             + [ctypes.c_int] * 4
-            + [ctypes.c_float] * 2
+            + [ctypes.c_float] * (3 if bwd else 2)
             + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
@@ -120,6 +123,22 @@ def _check_cell_args(x_seq, v0, i0, cell):
         raise ValueError("x_seq, v0 and i0 must be on one device")
 
 
+class _StoreRound(torch.autograd.Function):
+    """``x`` (fp32) rounded to the state's storage dtype and widened
+    back, and its gradient rounded the same way: the state and its
+    cotangent are both stored in that dtype between steps, as the JAX
+    scan's ``astype(state_dtype)`` / ``astype(f32)`` pair rounds them."""
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        ctx.dtype = dtype
+        return x.to(dtype).to(torch.float32, copy=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype).float(), None
+
+
 def temporal_cell_seq_reference(
     x_seq: torch.Tensor, v0: torch.Tensor, i0: torch.Tensor,
     cell: str = "lif", start: int = 0,
@@ -127,45 +146,36 @@ def temporal_cell_seq_reference(
     """Plain PyTorch version of :func:`temporal_cell_seq`: a loop over T
     of ``neurons.lif_step`` / ``li_step`` in fp32, the state cast to its
     storage dtype every step and frozen for ``t < start`` (the output is
-    still emitted from the frozen state)."""
+    still emitted from the frozen state).
+
+    Autograd through it is the plain version of the kernel's backward
+    and is JAX's VJP of ``_temporal_scan_reference``: each step takes
+    its state through a :class:`_StoreRound`, so the state cotangent a
+    step hands back is rounded to the storage dtype, and a frozen step
+    holds the carried state through one more, so its cotangent is the
+    carried one plus the rounded cotangent of the step's output, rounded
+    once more (JAX's ``where(keep, new, old)`` summed in the storage
+    dtype).
+    """
     _check_cell_args(x_seq, v0, i0, cell)
     step = neurons.lif_step if cell == "lif" else neurons.li_step
     sd = v0.dtype
     v, i = v0.float(), i0.float()
-    z = torch.empty_like(x_seq)
-    for t in range(x_seq.shape[0]):
-        out, (v_new, i_new) = step(x_seq[t].float(), (v, i))
-        z[t] = out.to(x_seq.dtype)
+    z = []
+    for t, x_t in enumerate(x_seq.unbind(0)):
+        out, (v_new, i_new) = step(
+            x_t.float(),
+            (_StoreRound.apply(v, sd), _StoreRound.apply(i, sd)))
+        z.append(out.to(x_seq.dtype))
         if t >= start:
-            v, i = v_new.to(sd).float(), i_new.to(sd).float()
+            v, i = _StoreRound.apply(v_new, sd), _StoreRound.apply(i_new, sd)
+        else:
+            v, i = _StoreRound.apply(v, sd), _StoreRound.apply(i, sd)
+    z = torch.stack(z) if z else torch.empty_like(x_seq)
     return z, v.to(sd), i.to(sd)
 
 
-def temporal_cell_seq(
-    x_seq: torch.Tensor, v0: torch.Tensor, i0: torch.Tensor,
-    cell: str = "lif", start: int = 0,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Whole-layer LIF/LI over T steps: ``(z_seq, v_T, i_T)``.
-
-    :param x_seq: ``[T, ...]`` cell input, fp32 or bf16.
-    :param v0: ``[...]`` initial membrane, fp32, bf16 or fp8 e5m2.
-    :param i0: ``[...]`` initial current, same dtype as ``v0``.
-    :param start: truncation start r: the state is frozen for steps
-        ``t < r`` while their outputs are still emitted.
-    :return: ``z_seq`` in ``x_seq``'s dtype (spikes for LIF, the fp32
-        membrane before quantization for LI); ``v_T``, ``i_T`` in the
-        state dtype.
-
-    On a CPU tensor this is :func:`temporal_cell_seq_reference`. On a
-    CUDA tensor it launches ``csrc/temporal_cell.cu`` on the current
-    stream or raises; inputs must be contiguous (a sequence is never
-    copied here).
-    """
-    _check_cell_args(x_seq, v0, i0, cell)
-    if x_seq.device.type == "cpu":
-        return temporal_cell_seq_reference(x_seq, v0, i0, cell, start)
-    if x_seq.device.type != "cuda":
-        raise ValueError(f"unsupported device {x_seq.device}")
+def _launch_forward(x_seq, v0, i0, cell, start):
     _require_contiguous(x_seq=x_seq, v0=v0, i0=i0)
     z = torch.empty_like(x_seq)
     v_t = torch.empty_like(v0)
@@ -184,6 +194,101 @@ def temporal_cell_seq(
         raise RuntimeError(f"temporal_cell_seq launch failed (code {rc})")
     LAUNCHES["temporal_cell_seq"] += 1
     return z, v_t, i_t
+
+
+def temporal_cell_seq_bwd(
+    x_seq: torch.Tensor, v0: torch.Tensor, i0: torch.Tensor,
+    gz: torch.Tensor, gv: torch.Tensor, gi: torch.Tensor,
+    cell: str = "lif", start: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The VJP of :func:`temporal_cell_seq` on the card: ``(gx, gv0,
+    gi0)`` for the cotangents ``gz`` (x's dtype, ``[T, ...]``) and
+    ``gv``, ``gi`` (the state dtype) of ``(z_seq, v_T, i_T)``. One
+    launch of ``csrc/temporal_cell.cu``'s backward kernel; its plain
+    version is autograd through :func:`temporal_cell_seq_reference`."""
+    _check_cell_args(x_seq, v0, i0, cell)
+    if x_seq.device.type != "cuda":
+        raise ValueError("the backward kernel takes CUDA tensors, not "
+                         f"{x_seq.device}")
+    if (gz.shape, gz.dtype) != (x_seq.shape, x_seq.dtype) or any(
+            (g.shape, g.dtype) != (v0.shape, v0.dtype) for g in (gv, gi)):
+        raise ValueError("cotangents must match (z_seq, v_T, i_T) in shape "
+                         "and dtype")
+    _require_contiguous(x_seq=x_seq, v0=v0, i0=i0)
+    gz, gv, gi = gz.contiguous(), gv.contiguous(), gi.contiguous()
+    T, m = x_seq.shape[0], v0.numel()
+    gx = torch.empty_like(x_seq)
+    gv0 = torch.empty_like(v0)
+    gi0 = torch.empty_like(i0)
+    # the state entering steps 1 .. T-1 (LIF only: LI's gradient does
+    # not depend on the state)
+    rows = T - 1 if cell == "lif" and T > 1 else 0
+    ws = torch.empty((2, rows, m), dtype=v0.dtype, device=v0.device)
+    c_mem, c_syn = _euler(cell)
+    with torch.cuda.device(x_seq.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _temporal_lib("temporal_cell_seq_bwd_launch")(
+            x_seq.data_ptr(), v0.data_ptr(), i0.data_ptr(), gz.data_ptr(),
+            gv.data_ptr(), gi.data_ptr(), gx.data_ptr(), gv0.data_ptr(),
+            gi0.data_ptr(), ws[0].data_ptr(), ws[1].data_ptr(), T, m,
+            int(start), _CELLS[cell], _CODES[x_seq.dtype],
+            _CODES[v0.dtype], c_mem, c_syn, neurons.LIFParams().alpha,
+            stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"temporal_cell_seq_bwd launch failed (code {rc})")
+    LAUNCHES["temporal_cell_seq_bwd"] += 1
+    return gx, gv0, gi0
+
+
+class _TemporalCellSeq(torch.autograd.Function):
+    """The forward kernel, and the backward kernel for its VJP. Saves
+    only ``(x_seq, v0, i0)`` and the start, as the JAX custom VJP does:
+    the backward recomputes the states."""
+
+    @staticmethod
+    def forward(ctx, x_seq, v0, i0, cell, start):
+        ctx.cell, ctx.start = cell, start
+        ctx.save_for_backward(x_seq, v0, i0)
+        return _launch_forward(x_seq, v0, i0, cell, start)
+
+    @staticmethod
+    def backward(ctx, gz, gv, gi):
+        x_seq, v0, i0 = ctx.saved_tensors
+        gx, gv0, gi0 = temporal_cell_seq_bwd(
+            x_seq, v0, i0, gz, gv, gi, ctx.cell, ctx.start)
+        return gx, gv0, gi0, None, None
+
+
+def temporal_cell_seq(
+    x_seq: torch.Tensor, v0: torch.Tensor, i0: torch.Tensor,
+    cell: str = "lif", start: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Whole-layer LIF/LI over T steps: ``(z_seq, v_T, i_T)``.
+
+    :param x_seq: ``[T, ...]`` cell input, fp32 or bf16.
+    :param v0: ``[...]`` initial membrane, fp32, bf16 or fp8 e5m2.
+    :param i0: ``[...]`` initial current, same dtype as ``v0``.
+    :param start: truncation start r: the state is frozen for steps
+        ``t < r`` while their outputs are still emitted. It gets no
+        gradient.
+    :return: ``z_seq`` in ``x_seq``'s dtype (spikes for LIF, the fp32
+        membrane before quantization for LI); ``v_T``, ``i_T`` in the
+        state dtype.
+
+    On a CPU tensor this is :func:`temporal_cell_seq_reference`, and
+    autograd runs through it. On a CUDA tensor it launches
+    ``csrc/temporal_cell.cu`` on the current stream or raises, and its
+    gradient is one launch of the backward kernel
+    (:func:`temporal_cell_seq_bwd`); inputs must be contiguous (a
+    sequence is never copied here).
+    """
+    _check_cell_args(x_seq, v0, i0, cell)
+    if x_seq.device.type == "cpu":
+        return temporal_cell_seq_reference(x_seq, v0, i0, cell, start)
+    if x_seq.device.type != "cuda":
+        raise ValueError(f"unsupported device {x_seq.device}")
+    return _TemporalCellSeq.apply(x_seq, v0, i0, cell, int(start))
 
 
 @contextlib.contextmanager

@@ -1,11 +1,12 @@
-"""LIF / LI neuron cells as plain PyTorch functions (eval forward).
+"""LIF / LI neuron cells as plain PyTorch functions.
 
 Counterpart of ``snn_for_object_detection_tpu/ops/neurons.py``: the same
 norse cell semantics, ``step(x, state) -> (out, new_state)`` on tensors
 of any shape, Euler integration with ``dt = 1e-3``. These are the plain
 versions of the math that ``ops/cuda_kernels.temporal_cell_seq`` runs on
-the card; the surrogate gradient and the PLIF/ALIF/SLI/Synapse cells
-come with the training slice.
+the card. The spike is :func:`superspike`: a hard threshold forward and
+the SuperSpike surrogate gradient backward; the PLIF/ALIF/SLI/Synapse
+cells are not ported.
 
 Rounding. The JAX package computes ``v + dt*tau*(...)`` with a Python
 float factor, so the factor is the double product rounded once to fp32
@@ -21,6 +22,43 @@ import dataclasses
 from typing import NamedTuple, Tuple
 
 import torch
+
+
+def _fma_exact(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """The emulated fused multiply-add of :func:`fma` on the CPU."""
+    p = a.double() * b
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    inexact = (err != 0) & torch.isfinite(err)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, float("inf"), float("-inf")).to(s.dtype)
+    s = torch.where(inexact & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+class _Fma(torch.autograd.Function):
+    """:func:`_fma_exact` with the gradient of ``a * b + c``: ``(g * b,
+    g * a, g)``, a tensor ``b``'s summed over the dimensions it was
+    broadcast along. Autograd cannot pass the fp64 bit arithmetic."""
+
+    @staticmethod
+    def forward(ctx, a, b, c):
+        ctx.b_is_tensor = isinstance(b, torch.Tensor)
+        ctx.save_for_backward(a, b if ctx.b_is_tensor else None)
+        ctx.b = None if ctx.b_is_tensor else b
+        return _fma_exact(a, b, c)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        if not ctx.b_is_tensor:
+            return g * ctx.b, None, g
+        gb = None
+        if ctx.needs_input_grad[1]:
+            gb = (g * a).sum_to_size(b.shape)
+        return g * b, gb, g
 
 
 def fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
@@ -43,16 +81,29 @@ def fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
         if isinstance(b, torch.Tensor):
             return torch.addcmul(c, a, b)
         return torch.add(c, a, alpha=b)
-    p = a.double() * b
-    cd = c.double()
-    s = p + cd
-    bb = s - p
-    err = (p - (s - bb)) + (cd - bb)
-    inexact = (err != 0) & torch.isfinite(err)
-    even = (s.view(torch.int64) & 1) == 0
-    toward = torch.where(err > 0, float("inf"), float("-inf")).to(s.dtype)
-    s = torch.where(inexact & even, torch.nextafter(s, toward), s)
-    return s.float()
+    return _Fma.apply(a, b, c)
+
+
+class _SuperSpike(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, alpha):
+        ctx.save_for_backward(x)
+        ctx.alpha = alpha
+        return (x > 0).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g / (ctx.alpha * x.abs() + 1.0) ** 2, None
+
+
+def superspike(x: torch.Tensor, alpha: float = 100.0) -> torch.Tensor:
+    """Heaviside spike with the SuperSpike surrogate gradient.
+
+    Forward: ``(x > 0)`` (strict, as norse's ``torch.gt``), in x's
+    dtype. Backward: ``g / (alpha * |x| + 1) ** 2``.
+    """
+    return _SuperSpike.apply(x, alpha)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +115,7 @@ class LIFParams:
     v_leak: float = 0.0
     v_th: float = 1.0
     v_reset: float = 0.0
+    alpha: float = 100.0
     dt: float = 1e-3
 
 
@@ -116,16 +168,19 @@ def lif_step(
     """One Euler step of a feed-forward LIF neuron, fp32.
 
     norse ``lif_feed_forward_step`` order: decay (v, i), spike from the
-    decayed v (``v_dec - v_th > 0``), reset, then inject the input into
-    the current.
+    decayed v (:func:`superspike` of ``v_dec - v_th``), reset, then
+    inject the input into the current. The reset gate carries no
+    gradient (JAX's ``stop_gradient(z)``): the select passes ``(1 - z)
+    * g`` to ``v_dec``.
     """
     v, i = state
     c_mem, c_syn = euler_factors(p)
     v_dec = fma((p.v_leak - v) + i, c_mem, v)
     i_dec = fma(i, -c_syn, i)
-    z = (v_dec - p.v_th) > 0
-    v_new = torch.where(z, torch.full_like(v_dec, p.v_reset), v_dec)
-    return z.to(v_dec.dtype), LIFState(v_new, i_dec + x)
+    z = superspike(v_dec - p.v_th, p.alpha)
+    v_new = torch.where(z.detach() != 0, torch.full_like(v_dec, p.v_reset),
+                        v_dec)
+    return z, LIFState(v_new, i_dec + x)
 
 
 def li_step(

@@ -1,63 +1,367 @@
-"""Evaluation loop: the eval half of the JAX package's ``Trainer``.
+"""Training and evaluation loop: the port of the JAX package's ``Trainer``.
 
-Counterpart of ``Trainer.validate`` / ``test`` in
-``snn_for_object_detection_tpu/train/loop.py`` (``eval_step`` and
-``_run_eval``). Each batch:
+Counterpart of ``snn_for_object_detection_tpu/train/loop.py``.
 
-1. draws a random truncation start ``r`` in ``[0, time_window)``;
-2. runs the model's forward with ``start_step=r``;
-3. computes ``model.loss``;
-4. decodes detections with ``model.detect`` (softmax + NMS);
-5. accumulates COCO mAP on the host.
+Training (``fit`` -> ``train_step``), each step:
+
+1. draws a random truncation start ``r`` in ``[0, time_window)`` from
+   the trainer's ``torch.Generator``;
+2. runs the model's forward with ``start_step=r, train=True`` (BatchNorm
+   on batch statistics, activations recomputed in the backward);
+3. computes ``model.loss`` and its gradient (on the card every LIF/LI
+   cell's backward is the ``temporal_cell_seq`` backward kernel);
+4. updates the weights as the JAX step's optax chain does: gradients
+   averaged over ``accumulate_grad_batches`` micro-batches
+   (``optax.MultiSteps``), clipped by their global norm, then the named
+   optimizer (Adamax by default) at the scheduled learning rate, and
+   the EMA blended on a real update.
+
+``fit`` runs epochs of ``limit_train_batches`` steps, validates every
+``check_val_every_n_epoch`` epochs (on the EMA weights when EMA is on),
+stops early on ``monitor``, logs JSONL to ``out_dir`` and checkpoints
+there (``train/checkpoint.py``), and resumes from ``ckpt_path``.
+
+Evaluation (``validate`` / ``test``), each batch: a start ``r``, the
+forward, ``model.loss``, ``model.detect`` (softmax + NMS) and COCO mAP
+on the host.
 
 Batches are any iterable of numpy ``(X [T, B, H, W, C], labels [B, N,
-5])`` pairs. Training comes with a later slice.
+5])`` pairs; ``fit`` takes an object with ``train_loader()`` and
+``val_loader()`` returning such iterables.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
-from typing import Dict, Iterable, Tuple
+import json
+import math
+import os
+import time
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from snn_for_object_detection_tpu_torch.models.compile import not_ported
+from snn_for_object_detection_tpu_torch.train.checkpoint import (
+    CheckpointManager,
+)
 from snn_for_object_detection_tpu_torch.train.metrics import (
     MeanAveragePrecision,
     detections_to_map_inputs,
 )
 
 
-class Trainer:
-    """Evaluation orchestrator.
+class MetricsLogger:
+    """JSONL + stdout metrics sink (``out_dir/metrics.jsonl``)."""
 
-    :param time_batched: ``False`` evaluates through ``model.forward``
-        (per-step), ``True`` through ``model.forward_seq`` (every cell
-        one ``temporal_cell_seq`` call over the sequence). Both give the
-        same predictions. A model built with ``fuse_seq=True`` runs its
-        fused triples here only at ``time_window == 0``: the JAX eval
-        step passes a traced start whenever the window is open, even
-        when the draw is 0, and a traced start never fuses.
+    def __init__(self, out_dir: str):
+        os.makedirs(out_dir, exist_ok=True)
+        self.path = os.path.join(out_dir, "metrics.jsonl")
+
+    def log(self, step: int, payload: Dict[str, float]) -> None:
+        rec = {"step": step, "time": time.time(), **payload}
+        with open(self.path, "a") as f:
+            f.write(json.dumps(rec, default=float) + "\n")
+        printable = " ".join(
+            f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in payload.items()
+        )
+        print(f"[step {step}] {printable}", flush=True)
+
+
+# ---- optax's optimizers, schedules and wrappers in torch ----
+
+# optax factory -> torch.optim class, and optax keyword -> torch keyword
+_OPTIMIZERS = {
+    "adamax": torch.optim.Adamax,
+    "adam": torch.optim.Adam,
+    "adamw": torch.optim.AdamW,
+    "sgd": torch.optim.SGD,
+}
+_OPTAX_DEFAULTS = {  # optax's defaults where torch's differ
+    "adamw": {"weight_decay": 1e-4},
+}
+
+
+def make_torch_optimizer(name: str, params, lr: float,
+                         kwargs: Dict[str, Any]) -> torch.optim.Optimizer:
+    """The ``torch.optim`` optimizer whose update is optax's ``name``
+    with ``kwargs`` (optax's names: ``b1``, ``b2``, ``eps``,
+    ``weight_decay``, ``momentum``, ``nesterov``)."""
+    if name not in _OPTIMIZERS:
+        raise not_ported(f"optimizer {name!r}", "training extras")
+    kw = dict(_OPTAX_DEFAULTS.get(name, {}))
+    kwargs = dict(kwargs)
+    if "b1" in kwargs or "b2" in kwargs:
+        kw["betas"] = (kwargs.pop("b1", 0.9), kwargs.pop("b2", 0.999))
+    for key in ("eps", "weight_decay", "momentum", "nesterov"):
+        if key in kwargs:
+            kw[key] = kwargs.pop(key)
+    if kwargs:
+        raise not_ported(f"{name} options {sorted(kwargs)}",
+                         "training extras")
+    if kw.get("momentum", 0) is None:  # optax's sgd: no momentum
+        del kw["momentum"]
+    return _OPTIMIZERS[name](params, lr=lr, **kw)
+
+
+def make_schedule(lr: float, cfg: Optional[Dict[str, Any]]
+                  ) -> Callable[[int], float]:
+    """Learning rate by optimizer update count (0 for the first update),
+    by optax's formulas, peaking at ``lr``: ``warmup_cosine``
+    (``warmup_cosine_decay_schedule``), ``cosine``
+    (``cosine_decay_schedule``), ``exponential`` (``exponential_decay``);
+    constant without ``cfg``."""
+    if not cfg:
+        return lambda count: lr
+    cfg = dict(cfg)
+    kind = cfg.pop("name", "warmup_cosine")
+
+    def cosine(init, decay_steps, alpha=0.0, exponent=1.0):
+        if not decay_steps > 0:
+            raise ValueError("cosine decay needs positive decay_steps")
+
+        def f(count):
+            c = min(count, decay_steps)
+            decay = 0.5 * (1 + math.cos(math.pi * c / decay_steps))
+            return init * ((1 - alpha) * decay ** exponent + alpha)
+        return f
+
+    if kind == "warmup_cosine":
+        init = cfg.pop("init_value", 0.0)
+        warmup = cfg.pop("warmup_steps", 0)
+        end = cfg.pop("end_value", 0.0)
+        after = cosine(lr, cfg.pop("decay_steps") - warmup,
+                       0.0 if lr == 0.0 else end / lr,
+                       cfg.pop("exponent", 1.0))
+        _no_options(kind, cfg)
+
+        def warmup_cosine(count):
+            if count < warmup:
+                return init + (lr - init) * count / warmup
+            return after(count - warmup)
+        return warmup_cosine
+    if kind == "cosine":
+        f = cosine(lr, cfg.pop("decay_steps"), cfg.pop("alpha", 0.0),
+                   cfg.pop("exponent", 1.0))
+        _no_options(kind, cfg)
+        return f
+    if kind == "exponential":
+        steps = cfg.pop("transition_steps")
+        rate = cfg.pop("decay_rate")
+        begin = max(cfg.pop("transition_begin", 0), 0)
+        staircase = cfg.pop("staircase", False)
+        end = cfg.pop("end_value", None)
+        _no_options(kind, cfg)
+        if steps <= 0 or rate == 0:
+            return lambda count: lr
+
+        def exponential(count):
+            p = (count - begin) / steps
+            if staircase:
+                p = math.floor(p)
+            value = lr if count - begin <= 0 else lr * rate ** p
+            if end is not None:
+                value = max(value, end) if rate < 1 else min(value, end)
+            return value
+        return exponential
+    raise ValueError(f"unknown lr_schedule name {kind!r} "
+                     "(warmup_cosine | cosine | exponential)")
+
+
+def _no_options(kind: str, cfg: Dict[str, Any]) -> None:
+    if cfg:
+        raise not_ported(f"{kind} schedule options {sorted(cfg)}",
+                         "training extras")
+
+
+def clip_by_global_norm(grads: List[torch.Tensor],
+                        max_norm: float) -> List[torch.Tensor]:
+    """optax ``clip_by_global_norm``: ``(g / norm) * max_norm`` for every
+    leaf when the global norm is at least ``max_norm``, else ``g``."""
+    norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    if bool(norm < max_norm):
+        return grads
+    return [(g / norm.to(g.dtype)) * max_norm for g in grads]
+
+
+class Optimizer:
+    """The JAX step's optax chain on a list of parameters:
+    ``MultiSteps(chain(clip_by_global_norm, <name>(schedule)), k)``.
+
+    :meth:`step` takes one micro-batch's gradients and returns whether it
+    updated the parameters (every ``k``-th call, with the mean of the k
+    gradients, as ``MultiSteps``). The schedule's step is the count of
+    real updates.
+    """
+
+    def __init__(self, params: List[torch.nn.Parameter], optimizer: Any,
+                 schedule: Callable[[int], float],
+                 clip_norm: Optional[float] = None, every_k: int = 1):
+        if isinstance(optimizer, str):
+            name, kwargs = optimizer, {}
+        else:
+            kwargs = dict(optimizer)
+            name = kwargs.pop("name")
+        self.params = list(params)
+        self.schedule = schedule
+        self.clip_norm = clip_norm
+        self.every_k = max(int(every_k), 1)
+        self.torch = make_torch_optimizer(name, self.params, schedule(0),
+                                          kwargs)
+        self.count = 0
+        self.mini_step = 0
+        self.acc = [torch.zeros_like(p) for p in self.params] \
+            if self.every_k > 1 else None
+
+    @torch.no_grad()
+    def step(self, grads: List[Optional[torch.Tensor]]) -> bool:
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(self.params, grads)]
+        if self.acc is not None:
+            n = self.mini_step
+            self.acc = [a + (g - a) / (n + 1)
+                        for a, g in zip(self.acc, grads)]
+            self.mini_step = (n + 1) % self.every_k
+            if self.mini_step:
+                return False
+            grads, self.acc = self.acc, [torch.zeros_like(a)
+                                         for a in self.acc]
+        if self.clip_norm:
+            grads = clip_by_global_norm(grads, self.clip_norm)
+        for group in self.torch.param_groups:
+            group["lr"] = self.schedule(self.count)
+        for p, g in zip(self.params, grads):
+            p.grad = g
+        self.torch.step()
+        for p in self.params:
+            p.grad = None
+        self.count += 1
+        return True
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"torch": self.torch.state_dict(), "count": self.count,
+                "mini_step": self.mini_step, "acc": self.acc}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.torch.load_state_dict(state["torch"])
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
+        if self.acc is not None and state["acc"] is not None:
+            self.acc = [a.to(p.device) for a, p in
+                        zip(state["acc"], self.params)]
+
+
+def _stats(model) -> Dict[str, torch.Tensor]:
+    return {name: buf for name, buf in model.named_buffers()
+            if name.endswith((".mean", ".var"))}
+
+
+class Trainer:
+    """Training and evaluation orchestrator.
+
+    :param time_batched: ``False`` runs through ``model.forward``
+        (per-step, each step checkpointed in training), ``True`` through
+        ``model.forward_seq`` (every cell one ``temporal_cell_seq`` call
+        over the sequence, conv -> norm -> cell segments checkpointed in
+        training). Both compute the same function. A model built with
+        ``fuse_seq=True`` runs its fused triples in evaluation only, and
+        there only at ``time_window == 0``: the JAX eval step passes a
+        traced start whenever the window is open, even when the draw is
+        0, and a traced start never fuses.
     :param seed: Seed of the ``torch.Generator`` that draws each batch's
-        truncation start; every ``validate`` / ``test`` call starts the
-        draw anew from it, as the JAX trainer restarts its key.
+        truncation start. ``fit`` draws from one generator over the run;
+        every ``validate`` / ``test`` call starts the draw anew from the
+        seed, as the JAX trainer restarts its key.
+    :param optimizer: An optax factory name (``"adamax"``, ``"adam"``,
+        ``"adamw"``, ``"sgd"``) or ``{"name": ..., **optax_kwargs}``.
+    :param lr_schedule: ``{"name": "warmup_cosine" | "cosine" |
+        "exponential", ...}`` with the model's ``learning_rate`` as the
+        peak (:func:`make_schedule`).
+    :param ema_decay: Keep an average of the weights, blended on every
+        real update; validation and checkpoints use it.
+    :param prefetch_batches: Must be 0: background prefetch threads are
+        not ported (the JAX default is 2).
+
+    ``mesh``, ``spatial_devices`` > 1, ``debug_nans``, ``profile_dir``,
+    ``logger`` back ends and the ``"hybrid"`` / ``"auto"`` schedules raise
+    ``NotImplementedError`` naming their ROADMAP item.
     """
 
     def __init__(
         self,
+        max_epochs: int = -1,
+        min_epochs: int = 0,
+        limit_train_batches: int = 100,
         limit_val_batches: int = 100,
         limit_test_batches: int = 1000,
+        check_val_every_n_epoch: int = 20,
+        early_stopping_patience: int = 30,
+        monitor: str = "map",
+        save_top_k: int = 4,
+        log_every_n_steps: int = 20,
+        out_dir: str = "log/run",
         seed: int = 0,
+        mesh=None,
+        debug_nans: bool = False,
+        profile_dir: Optional[str] = None,
+        gradient_clip_norm: Optional[float] = None,
+        accumulate_grad_batches: int = 1,
+        fast_dev_run: bool = False,
+        prefetch_batches: int = 0,
+        spatial_devices: int = 1,
         time_batched: bool = False,
+        ema_decay: Optional[float] = None,
+        optimizer: Any = "adamax",
+        lr_schedule: Optional[Dict[str, Any]] = None,
+        logger: Any = None,
     ):
         if time_batched not in (False, True):
             raise not_ported(f"time_batched={time_batched!r}",
                              "other schedules")
+        for what, on in (("a device mesh", mesh is not None),
+                         ("spatial_devices > 1", spatial_devices != 1)):
+            if on:
+                raise not_ported(what, "the rest")
+        for what, on in (("debug_nans", debug_nans),
+                         ("the profiler (profile_dir)", profile_dir),
+                         ("logger back ends", logger is not None),
+                         ("prefetch threads (prefetch_batches > 0)",
+                          prefetch_batches)):
+            if on:
+                raise not_ported(what, "training extras")
+        if ema_decay is not None and not 0.0 <= float(ema_decay) <= 1.0:
+            raise ValueError(f"ema_decay must be in [0, 1], got {ema_decay}")
+        if fast_dev_run:
+            # one-batch smoke run (the Lightning flag)
+            max_epochs = limit_train_batches = limit_val_batches = 1
+            limit_test_batches = check_val_every_n_epoch = 1
+            min_epochs = 0
+        self.max_epochs = max_epochs
+        self.min_epochs = min_epochs
+        self.limit_train_batches = limit_train_batches
         self.limit_val_batches = limit_val_batches
         self.limit_test_batches = limit_test_batches
+        self.check_val_every_n_epoch = check_val_every_n_epoch
+        self.early_stopping_patience = early_stopping_patience
+        self.monitor = monitor
+        self.save_top_k = save_top_k
+        self.log_every_n_steps = log_every_n_steps
+        self.out_dir = out_dir
         self.seed = seed
+        self.gradient_clip_norm = gradient_clip_norm
+        self.accumulate_grad_batches = max(accumulate_grad_batches, 1)
         self.time_batched = time_batched
+        self.ema_decay = None if ema_decay is None else float(ema_decay)
+        self.optimizer = optimizer
+        self.lr_schedule = lr_schedule
+        self.opt: Optional[Optimizer] = None
+        self.ema: Optional[List[torch.Tensor]] = None
+
+    def request_mesh_reshape(self, devices=None, num_devices=None):
+        raise not_ported("live mesh reshape", "the rest")
 
     @staticmethod
     def draw_start(model, generator: torch.Generator) -> int:
@@ -67,6 +371,163 @@ class Trainer:
             return 0
         return int(torch.randint(0, model.time_window, (),
                                  generator=generator))
+
+    # ---- training ----
+
+    def configure(self, model) -> None:
+        """Fresh optimizer state (and EMA at the current weights) for
+        ``model``'s parameters."""
+        params = list(model.parameters())
+        self.opt = Optimizer(
+            params, self.optimizer,
+            make_schedule(model.learning_rate, self.lr_schedule),
+            self.gradient_clip_norm, self.accumulate_grad_batches,
+        )
+        self.ema = None if self.ema_decay is None else \
+            [p.detach().clone() for p in params]
+
+    def train_step(self, model, X: torch.Tensor, labels: torch.Tensor,
+                   start_step: int) -> torch.Tensor:
+        """One micro-batch: forward from ``start_step`` in training mode,
+        loss, gradients and the optimizer chain. Returns the loss
+        (detached, on the model's device). Needs :meth:`configure`."""
+        if self.opt is None:
+            raise RuntimeError("call configure(model) before train_step")
+        fwd = model.forward_fn(self.time_batched)
+        preds, _ = fwd(X, start_step=start_step, train=True)
+        loss = model.loss(preds, labels)
+        grads = torch.autograd.grad(loss, self.opt.params,
+                                    allow_unused=True)
+        if self.opt.step(list(grads)) and self.ema is not None:
+            d = self.ema_decay
+            with torch.no_grad():
+                self.ema = [d * e + (1.0 - d) * p
+                            for e, p in zip(self.ema, self.opt.params)]
+        return loss.detach()
+
+    @contextlib.contextmanager
+    def _ema_weights(self, model):
+        """The model with the EMA weights in place (if EMA is on)."""
+        if self.ema is None:
+            yield
+            return
+        saved = [p.detach().clone() for p in self.opt.params]
+        with torch.no_grad():
+            for p, e in zip(self.opt.params, self.ema):
+                p.copy_(e)
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for p, s in zip(self.opt.params, saved):
+                    p.copy_(s)
+
+    def _payload(self, model, **counters) -> Dict[str, Any]:
+        payload = {
+            "params": {n: p.detach() for n, p in model.named_parameters()},
+            "stats": {n: b.detach() for n, b in _stats(model).items()},
+            "opt_state": self.opt.state_dict(),
+            **counters,
+        }
+        if self.ema is not None:
+            payload["ema_params"] = {
+                n: e for (n, _), e in zip(model.named_parameters(),
+                                          self.ema)}
+        return payload
+
+    def _restore(self, model, restored: Dict[str, Any]) -> None:
+        with torch.no_grad():
+            named = dict(model.named_parameters())
+            for n, value in restored["params"].items():
+                named[n].copy_(value)
+            stats = _stats(model)
+            for n, value in restored.get("stats", {}).items():
+                stats[n].copy_(value)
+        if self.ema is not None:
+            # an EMA-less checkpoint restarts the average at its weights
+            ema = restored.get("ema_params") or restored["params"]
+            self.ema = [ema[n].to(p.device).clone()
+                        for n, p in model.named_parameters()]
+        if "opt_state" in restored:
+            self.opt.load_state_dict(restored["opt_state"])
+        else:
+            print(f"[trainer] no optimizer state in the checkpoint; the "
+                  "optimizer starts fresh", flush=True)
+
+    def fit(self, model, data, ckpt_path: Optional[str] = None
+            ) -> Dict[str, Any]:
+        """Train until early stopping or ``max_epochs``; returns the run's
+        counters. ``ckpt_path="auto"`` resumes from this run's ``last``
+        checkpoint if there is one."""
+        logger = MetricsLogger(self.out_dir)
+        ckpt = CheckpointManager(
+            os.path.join(self.out_dir, "checkpoints"),
+            save_top_k=self.save_top_k, monitor=self.monitor)
+        self.configure(model)
+        generator = torch.Generator().manual_seed(self.seed)
+        step = epoch = checks_since_best = 0
+        best_metric = -np.inf
+        if ckpt_path == "auto":
+            last = os.path.join(self.out_dir, "checkpoints", "last")
+            ckpt_path = last if os.path.exists(last) else None
+        if ckpt_path:
+            restored = ckpt.restore(ckpt_path)
+            self._restore(model, restored)
+            step = int(restored.get("step", 0))
+            epoch = int(restored.get("epoch", 0))
+            best_metric = float(restored.get("best_metric", -np.inf))
+            checks_since_best = int(restored.get("checks_since_best", 0))
+            print(f"resumed from {ckpt_path} at step {step}", flush=True)
+
+        train_iter = iter(data.train_loader())
+        t_epoch = time.time()
+        while self.max_epochs < 0 or epoch < self.max_epochs:
+            losses = []
+            for _ in range(self.limit_train_batches):
+                X, labels = next(train_iter)
+                loss = self.train_step(
+                    model,
+                    torch.as_tensor(np.asarray(X), device=model.device),
+                    torch.as_tensor(np.asarray(labels, np.float32),
+                                    device=model.device),
+                    self.draw_start(model, generator),
+                )
+                step += 1
+                losses.append(float(loss))
+                if step % self.log_every_n_steps == 0:
+                    logger.log(step, {"train_loss": float(np.mean(
+                        losses[-self.log_every_n_steps:]))})
+            epoch += 1
+            logger.log(step, {"epoch": epoch,
+                              "epoch_train_loss": float(np.mean(losses)),
+                              "epoch_time_s": time.time() - t_epoch})
+            t_epoch = time.time()
+
+            if epoch % self.check_val_every_n_epoch == 0:
+                with self._ema_weights(model):
+                    metrics = self.validate(model, data.val_loader())
+                logger.log(step, metrics)
+                metric = metrics.get(self.monitor, 0.0)
+                # the early-stopping state is updated before the save, so
+                # a resume sees this validation's outcome
+                if metric > best_metric:
+                    best_metric, checks_since_best = metric, 0
+                else:
+                    checks_since_best += 1
+                ckpt.save(step, self._payload(
+                    model, step=step, epoch=epoch, best_metric=best_metric,
+                    checks_since_best=checks_since_best),
+                    metric=metric, meta={"metrics": metrics, "epoch": epoch})
+                # patience counts validation checks, as Lightning's
+                if (epoch >= self.min_epochs
+                        and self.early_stopping_patience > 0
+                        and checks_since_best >= self.early_stopping_patience):
+                    print(f"early stopping at epoch {epoch} (best "
+                          f"{self.monitor}={best_metric:.4f})", flush=True)
+                    break
+        return {"step": step, "epoch": epoch, "best_metric": best_metric}
+
+    # ---- evaluation ----
 
     def eval_step(self, model, X: torch.Tensor, labels: torch.Tensor,
                   start_step: int) -> Tuple[torch.Tensor, torch.Tensor]:

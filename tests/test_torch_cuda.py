@@ -524,3 +524,117 @@ def test_megakernel_rejects_bad_state(card):
     bad[0] = state[0].cpu()
     with pytest.raises(ValueError, match="state slot 0 on cpu"):
         cuda_kernels.streaming_megakernel(mk.plan, x, bad)
+
+
+TRAIN_PAIRS = DTYPE_PAIRS + [(torch.float32, torch.bfloat16)]
+
+
+def _bwd_inputs(shape, x_dtype, state_dtype, seed=9):
+    """Seeded cell inputs and cotangents on the card, in range."""
+    rng = np.random.default_rng(seed)
+
+    def draw(s, scale, dtype):
+        a = rng.standard_normal(s).astype(np.float32) * scale
+        return torch.from_numpy(a).cuda().to(dtype)
+
+    return (draw(shape, 2.0, x_dtype), draw(shape[1:], 1.0, state_dtype),
+            draw(shape[1:], 1.0, state_dtype), draw(shape, 1.0, x_dtype),
+            draw(shape[1:], 1.0, state_dtype),
+            draw(shape[1:], 1.0, state_dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype,state_dtype", TRAIN_PAIRS)
+@pytest.mark.parametrize("cell", ["lif", "li"])
+def test_temporal_cell_backward_matches_plain_version(card, cell, x_dtype,
+                                                      state_dtype):
+    """The backward kernel bit-equal to autograd through the plain
+    version (it sums in autograd's order): the vector path, the scalar
+    path and T = 1 (the per-step schedule), with and without truncation;
+    one launch a call, and autograd through ``temporal_cell_seq`` on the
+    card runs it."""
+    for shape in ((9, 3, 7, 5, 24), (5, 1, 3, 5, 7), (1, 2, 4, 16)):
+        x, v0, i0, gz, gv, gi = _bwd_inputs(shape, x_dtype, state_dtype)
+        for start in (0, 4):
+            cuda_kernels.reset_launches()
+            got = cuda_kernels.temporal_cell_seq_bwd(x, v0, i0, gz, gv, gi,
+                                                     cell, start)
+            torch.cuda.synchronize()
+            assert cuda_kernels.LAUNCHES["temporal_cell_seq_bwd"] == 1
+            leaves = [a.detach().requires_grad_() for a in (x, v0, i0)]
+            # LIF at T = 1 frozen: x reaches nothing, its cotangent is 0
+            want = torch.autograd.grad(
+                cuda_kernels.temporal_cell_seq_reference(*leaves, cell,
+                                                         start),
+                leaves, (gz, gv, gi), allow_unused=True,
+                materialize_grads=True)
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype
+                torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                           atol=0, equal_nan=True)
+            leaves = [a.detach().requires_grad_() for a in (x, v0, i0)]
+            via = torch.autograd.grad(
+                cuda_kernels.temporal_cell_seq(*leaves, cell, start),
+                leaves, (gz, gv, gi))
+            assert cuda_kernels.LAUNCHES["temporal_cell_seq_bwd"] == 2
+            for g, w in zip(via, got):
+                assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_temporal_cell_backward_rejects_bad_cotangents(card):
+    x, v0, i0, gz, gv, gi = _bwd_inputs((3, 2, 8), torch.float32,
+                                        torch.float32)
+    with pytest.raises(ValueError, match="cotangents"):
+        cuda_kernels.temporal_cell_seq_bwd(x, v0, i0, gz.bfloat16(), gv, gi)
+    with pytest.raises(ValueError, match="cotangents"):
+        cuda_kernels.temporal_cell_seq_bwd(x, v0, i0, gz, gv[:1], gi)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_kernels.temporal_cell_seq_bwd(x.cpu(), v0.cpu(), i0.cpu(),
+                                           gz.cpu(), gv.cpu(), gi.cpu())
+
+
+@pytest.mark.cuda
+def test_narrow_training_on_the_card(card):
+    """A narrow TinyYolo train step on each schedule on the card: one
+    backward launch per cell and active step (13 cells), no fused
+    launch, finite gradients; with cuDNN off the two schedules'
+    gradients agree within rtol 2e-3 and match the same model's on the
+    CPU (the plain versions) within rtol 2e-3."""
+    cls, hw, _ = _cuda_models()["narrow_tiny_yolo"]
+    rng = np.random.default_rng(3)
+    T, B, r = 8, 2, 2
+    X = (rng.random((T, B, *hw, 2)) < 0.4).astype(np.float32)
+    lab = np.full((B, 4, 5), -1.0, np.float32)
+    lab[:, 0] = [1, 0.2, 0.2, 0.6, 0.7]
+    grads = {}
+    torch.backends.cudnn.enabled = False
+    try:
+        for dev in ("cuda", "cpu"):
+            model = cls(num_classes=2, in_hw=hw, device=dev, seed=1)
+            with torch.no_grad():
+                for name, p in model.named_parameters():
+                    if name.endswith(".scale"):
+                        p.fill_(4.0)
+            for schedule in (False, True):
+                cuda_kernels.reset_launches()
+                model.zero_grad()
+                preds, _ = model.forward_fn(schedule)(
+                    torch.from_numpy(X).to(dev), start_step=r, train=True)
+                model.loss(preds, torch.from_numpy(lab).to(dev)).backward()
+                if dev == "cuda":
+                    n = cuda_kernels.LAUNCHES
+                    assert n["temporal_cell_seq_bwd"] == \
+                        13 * (1 if schedule else T - r)
+                    assert n["spiking_conv_seq"] == 0
+                grads[dev, schedule] = {
+                    k: (torch.zeros_like(p) if p.grad is None
+                        else p.grad).cpu()
+                    for k, p in model.named_parameters()}
+    finally:
+        torch.backends.cudnn.enabled = True
+    for key in (("cuda", True), ("cpu", False)):
+        for name, g in grads["cuda", False].items():
+            assert torch.isfinite(g).all()
+            torch.testing.assert_close(g, grads[key][name], rtol=2e-3,
+                                       atol=1e-7, msg=name)

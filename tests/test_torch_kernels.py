@@ -135,6 +135,7 @@ def test_cpu_call_counts_no_launch():
         torch.zeros(5, 8),
     )
     assert cuda_kernels.LAUNCHES == {
-        "temporal_cell_seq": 0, "spiking_conv_seq": 0,
-        "fused_pointwise_conv_bn_lif": 0, "streaming_megakernel": 0,
+        "temporal_cell_seq": 0, "temporal_cell_seq_bwd": 0,
+        "spiking_conv_seq": 0, "fused_pointwise_conv_bn_lif": 0,
+        "streaming_megakernel": 0,
     }
