@@ -2,8 +2,9 @@
 """Run the PyTorch + CUDA port on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --only 7,8   # [1] and the phases named, no more
-                                       # (3: fused_pointwise_conv_bn_lif)
+    python3 chip_smoke.py --only 3,7   # [1] and the phases named, no more
+                                       # (3: spiking_conv_seq and
+                                       # fused_pointwise_conv_bn_lif)
     python3 chip_smoke.py --only 10    # [1] and the training phase
 
 Phases (any failure raises and the script exits non-zero):
@@ -26,9 +27,9 @@ Phases (any failure raises and the script exits non-zero):
      final state elements outside rtol 1e-4, atol 1e-5 (fp32) or two
      ulps of the storage dtype, since the kernel sums the conv in
      another order than cuDNN; bit-equal with 1x1 identity weights;
-     every CTA tile of the kernel bit-equal to the plan's and timed;
-     also times the same triple on the unfused path (cuDNN conv, BN
-     affine, cell kernel);
+     every plan of the layer (``spiking_conv_plans``) bit-equal to the
+     plan's and timed, the plan's time beside the fastest; also times the same triple on the unfused path (cuDNN conv, BN
+     affine, cell kernel) and cuDNN's conv alone over the T x N frames;
    - ``fused_pointwise_conv_bn_lif`` (``csrc/pointwise.cu``) on five
      shapes (``POINTWISE_CASES``: GEN1 4*120*152 rows 64->64 and
      4*30*38 rows 256->256, and the three of
@@ -422,17 +423,18 @@ def triple_bound(k, cin, cout, in_hw, out_hw, x_bytes, state_bytes):
                                    else "bytes")
 
 
-def layer_plan(cuda_kernels, k, n, out_hw, cout):
+def layer_plan(cuda_kernels, k, stride, n, out_hw, cin, cout, x_dtype):
     """The launch plan ``spiking_conv_seq`` takes on this card."""
-    return cuda_kernels.spiking_conv_plan(k, n, *out_hw, cout,
-                                          cuda_kernels.sm_count(0))
+    return cuda_kernels.spiking_conv_plan(k, stride, n, *out_hw, cin, cout,
+                                          x_dtype, cuda_kernels.sm_count(0))
 
 
 def plan_text(plan) -> str:
     """One launch plan of ``spiking_conv_seq`` (cuda_kernels.ConvPlan)."""
-    th, tw, px = plan.shape
-    return (f"tile {plan.tile} ({th}x{tw} px, {px} a thread, "
-            f"{plan.threads} threads), {plan.grid} CTAs")
+    return (f"{plan.co} channels x {plan.th}x{plan.tw} px x 4 "
+            f"steps a CTA, {plan.threads} threads, {plan.kc} input channels "
+            f"a stage, weights {'resident' if plan.resident else 'streamed'}"
+            f", {plan.smem} B shared, {plan.grid} CTAs")
 
 
 def max_abs_err(got, want) -> float:
@@ -465,25 +467,65 @@ def unfused_triple(torch, C, neurons, k, stride, cell, cin, cout, in_hw,
     return run
 
 
+def conv_alone(torch, x, w, stride):
+    """cuDNN's conv alone on the triple's input, as ``Conv.seq`` runs it:
+    one ``F.conv2d`` over the T x N frames of a channels-last view (TF32
+    off: [1] turns it off for the whole run). The yardstick of the
+    fused kernel's conv; no path of the port calls it so."""
+    import torch.nn.functional as F
+
+    T, n, h, wd, cin = x.shape
+    frames = x.reshape(T * n, h, wd, cin).permute(0, 3, 1, 2)
+    w_oihw = w.to(x.dtype).permute(3, 2, 0, 1).contiguous()
+    return lambda: F.conv2d(frames, w_oihw, stride=stride,
+                            padding=w.shape[0] // 2)
+
+
+def conv_out_hw(k, stride, hw):
+    return tuple((d + 2 * (k // 2) - k) // stride + 1 for d in hw)
+
+
+def spiking_conv_inputs(torch, case, dev):
+    """Seeded fp32 ``(x, w, a, b, v0, i0)`` of one ``SPIKING_CONV_CASES``
+    triple at [T, B] = [42, 4]: Bernoulli event input at the case's
+    density, weights giving a conv output of about unit spread before
+    the BN affine, the affine away from identity, states around 0."""
+    _, k, stride, _, cin, cout, hw, density = case
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x32 = (torch.rand((STEPS, BATCH, *hw, cin), generator=gen,
+                      device=dev) < density).float()
+    w = torch.randn((k, k, cin, cout), generator=gen, device=dev) \
+        / (k * k * cin * density) ** 0.5
+    a = torch.rand(cout, generator=gen, device=dev) + 0.5
+    b = 0.1 * torch.randn(cout, generator=gen, device=dev)
+    state = (BATCH, *conv_out_hw(k, stride, hw), cout)
+    v32 = 0.3 * torch.randn(state, generator=gen, device=dev)
+    i32 = 0.3 * torch.randn(state, generator=gen, device=dev)
+    return x32, w, a, b, v32, i32
+
+
+def identity_inputs(torch, dev, c=256):
+    """Seeded ``(x, w, a, b, v0)`` of [3]'s 1x1 identity case: normal x
+    [42, 4, 30, 38, 256], identity weights (an exact conv)."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x32 = 2.0 * torch.randn((STEPS, BATCH, 30, 38, c), generator=gen,
+                            device=dev)
+    eye = torch.eye(c, device=dev)[None, None]
+    a = torch.rand(c, generator=gen, device=dev) + 0.5
+    b = 0.1 * torch.randn(c, generator=gen, device=dev)
+    v32 = 0.3 * torch.randn((BATCH, 30, 38, c), generator=gen, device=dev)
+    return x32, eye, a, b, v32
+
+
 def phase_spiking_conv(torch, cuda_kernels, C, neurons, dev):
     """Phase 3, spiking_conv_seq: the gates on eight triples of the
-    fused path, every CTA tile bit-equal to the plan's and timed, the
-    identity case bit-equal; returns per-case timings."""
+    fused path, every plan of the layer bit-equal to the plan's and
+    timed, the identity case bit-equal; returns per-case timings."""
     rows, worst = [], 0.0
-    for label, k, stride, cell, cin, cout, hw, density in SPIKING_CONV_CASES:
-        gen = torch.Generator(device=dev).manual_seed(2)
-        pad = k // 2
-        out_hw = tuple((d + 2 * pad - k) // stride + 1 for d in hw)
-        x32 = (torch.rand((STEPS, BATCH, *hw, cin), generator=gen,
-                          device=dev) < density).float()
-        # conv output of about unit spread before the BN affine
-        w = torch.randn((k, k, cin, cout), generator=gen, device=dev) \
-            / (k * k * cin * density) ** 0.5
-        a = torch.rand(cout, generator=gen, device=dev) + 0.5
-        b = 0.1 * torch.randn(cout, generator=gen, device=dev)
-        state = (BATCH, *out_hw, cout)
-        v32 = 0.3 * torch.randn(state, generator=gen, device=dev)
-        i32 = 0.3 * torch.randn(state, generator=gen, device=dev)
+    for case in SPIKING_CONV_CASES:
+        label, k, stride, cell, cin, cout, hw, _ = case
+        out_hw = conv_out_hw(k, stride, hw)
+        x32, w, a, b, v32, i32 = spiking_conv_inputs(torch, case, dev)
         for xd, sd in DTYPE_PAIRS:
             xd, sd = getattr(torch, xd), getattr(torch, sd)
             x, v0, i0 = x32.to(xd), v32.to(sd), i32.to(sd)
@@ -509,23 +551,24 @@ def phase_spiking_conv(torch, cuda_kernels, C, neurons, dev):
             err = max(max_abs_err(g, w_) for g, w_ in zip(got, want))
             worst = max(worst, err)
             del want
-            # every CTA tile sums in the same order: bit-equal to the
-            # plan's launch; each tile's time beside the plan's choice
-            plan = layer_plan(cuda_kernels, k, BATCH, out_hw, cout)
-            tile_ms = []
-            for tile in range(len(cuda_kernels.SC_TILES)):
-                alt = cuda_kernels.ConvPlan(
-                    tile, cuda_kernels.spiking_conv_grid(tile, k, BATCH,
-                                                         *out_hw, cout))
+            # every plan sums in the same order: bit-equal to the plan's
+            # launch; each plan's time beside the plan's choice
+            plan = layer_plan(cuda_kernels, k, stride, BATCH, out_hw, cin,
+                              cout, xd)
+            plans = cuda_kernels.spiking_conv_plans(k, stride, BATCH,
+                                                    *out_hw, cin, cout, xd)
+            plan_ms = []
+            for alt in plans:
                 other = cuda_kernels.spiking_conv_seq_launch(*args, alt)
                 torch.cuda.synchronize()
                 check(all(bool(((g == o) | (g.isnan() & o.isnan())).all())
                           for g, o in zip(got, other)),
-                      f"{tag}: tile {tile} differs from tile {plan.tile}")
+                      f"{tag}: plan {plan_text(alt)} differs from the "
+                      f"plan's")
                 del other
-                tile_ms.append(cuda_time_ms(
+                plan_ms.append(cuda_time_ms(
                     lambda alt=alt: cuda_kernels.spiking_conv_seq_launch(
-                        *args, alt), reps=10))
+                        *args, alt), reps=3, warmup=1))
             del got
             ms = cuda_time_ms(lambda: cuda_kernels.spiking_conv_seq(*args),
                               reps=10)
@@ -537,36 +580,36 @@ def phase_spiking_conv(torch, cuda_kernels, C, neurons, dev):
             with torch.inference_mode():
                 unfused_ms = cuda_time_ms(lambda: unfused(x, v0, i0),
                                           reps=10)
+                conv_ms = cuda_time_ms(conv_alone(torch, x, w, stride),
+                                       reps=10)
             bound_ms, bound_by = triple_bound(
                 k, cin, cout, hw, out_hw, x.element_size(),
                 v0.element_size())
             rows.append(dict(shape=label, x=str(xd), state=str(sd),
                              ms=ms, plain_ms=plain_ms, unfused_ms=unfused_ms,
-                             bound_ms=bound_ms, bound_by=bound_by,
-                             plan=plan_text(plan), tile_ms=tile_ms))
+                             conv_ms=conv_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, plan=plan_text(plan),
+                             plan_ms=plan_ms))
+            best = min(range(len(plans)), key=plan_ms.__getitem__)
+            chosen = plan_ms[plans.index(plan)]
             print(f"  spiking_conv_seq {label:17s} {k}x{k} s{stride} {cell:3s} "
                   f"{cin}->{cout} {str(xd)[6:]:8s}/{str(sd)[6:]:11s}: "
                   f"{'spikes' if cell == 'lif' else 'LI out'} {agree:.6f}, "
                   f"states outside {max(outside):.2e}, max abs err "
-                  f"{err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-                  f"unfused path {unfused_ms:.4f} ms, bound {bound_ms:.4f} "
-                  f"ms ({bound_by}); plan: {rows[-1]['plan']}; every tile "
-                  "bit-equal, ms by tile: "
-                  + ", ".join(f"{t}: {m:.4f}" for t, m in enumerate(tile_ms)),
+                  f"{err:.3g}; kernel {ms:.4f} ms ({bound_ms / ms:.0%} of "
+                  f"bound {bound_ms:.4f} ms, {bound_by}), plain "
+                  f"{plain_ms:.3f} ms, unfused triple {unfused_ms:.4f} ms, "
+                  f"cuDNN conv alone {conv_ms:.4f} ms; plan: "
+                  f"{rows[-1]['plan']}; {len(plans)} plans bit-equal, "
+                  f"the plan {chosen:.4f} ms among them, the fastest "
+                  f"{plan_ms[best]:.4f} ms: {plan_text(plans[best])}",
                   flush=True)
             del x, v0, i0, args
         del x32, v32, i32
         torch.cuda.empty_cache()
 
     # 1x1 identity weights: the conv is exact, so kernel == plain version
-    c = 256
-    gen = torch.Generator(device=dev).manual_seed(3)
-    x32 = 2.0 * torch.randn((STEPS, BATCH, 30, 38, c), generator=gen,
-                            device=dev)
-    eye = torch.eye(c, device=dev)[None, None]
-    a = torch.rand(c, generator=gen, device=dev) + 0.5
-    b = 0.1 * torch.randn(c, generator=gen, device=dev)
-    v32 = 0.3 * torch.randn((BATCH, 30, 38, c), generator=gen, device=dev)
+    x32, eye, a, b, v32 = identity_inputs(torch, dev)
     for xd, sd in DTYPE_PAIRS:
         xd, sd = getattr(torch, xd), getattr(torch, sd)
         for cell in ("lif", "li"):
@@ -955,8 +998,8 @@ def profile_step(torch, cuda_kernels, model, trainer, X, lab, start=5,
         if len(launches) == len(convs):
             for c, e, b in zip(convs, launches, bounds):
                 k, cin, cout = c.w.shape[-1], c.w.shape[1], c.w.shape[0]
-                plan = layer_plan(cuda_kernels, k, X.shape[1], c.out_hw,
-                                  cout)
+                plan = layer_plan(cuda_kernels, k, c.stride, X.shape[1],
+                                  c.out_hw, cin, cout, model.compute_dtype)
                 print(f"      {k}x{k} s{c.stride} {cin}->{cout} "
                       f"{c.out_hw[0]}x{c.out_hw[1]} "
                       f"{e.time_range.elapsed_us() / 1e3:.3f} ({b:.3f}); "
@@ -1053,7 +1096,8 @@ def phase_fused_path(torch, cuda_kernels, C, TinyYolo, Trainer, batches,
                              model_cells(model, outs["exact"][1]))
                     dist = {key: run_distance(
                         list(outs[key][0]), model_cells(model, outs[key][1]),
-                        *exact) for key in (True, "plain")}
+                        *exact) for key in outs if key not in (False,
+                                                               "exact")}
             parts = time_step_parts(torch, model, trainer, X, lab, start=0)
             step_ms = parts["step"]
             print(f"  {name}: {metrics}")
@@ -1714,8 +1758,9 @@ def phase_train(torch, cuda_kernels, TinyYolo, Trainer, batches, dev):
 def main(argv) -> int:
     import torch
 
-    # --only 3,7,8: the device line and those phases (of [3] only its
-    # pointwise part), for quick runs; no kernels line and no result line
+    # --only 3,7,8: the device line and those phases (of [3] its
+    # spiking_conv_seq and pointwise parts), for quick runs; no kernels
+    # line and no result line
     only = ({int(p) for p in argv[argv.index("--only") + 1].split(",")}
             if "--only" in argv else None)
 
@@ -1741,7 +1786,9 @@ def main(argv) -> int:
     if only is not None:
         batches = make_batches(EVAL_BATCHES, seed=0)
         if 3 in only:
-            print("[3] fused_pointwise_conv_bn_lif", flush=True)
+            print("[3] spiking_conv_seq and fused_pointwise_conv_bn_lif",
+                  flush=True)
+            phase_spiking_conv(torch, cuda_kernels, C, neurons, "cuda")
             phase_pointwise(torch, cuda_kernels, "cuda")
         if 7 in only:
             print("[7] fused path", flush=True)
@@ -1814,9 +1861,10 @@ def main(argv) -> int:
     pw_ref = next(r for r in pw_rows
                   if (r["n"], r["cin"], r["cout"], r["x"])
                   == (BATCH * 120 * 152, 64, 64, "torch.float32"))
-    # no single PyTorch call computes any of these functions (a conv
-    # alone has no BatchNorm and no cell; the cell's VJP is autograd
-    # through its plain version): library_ms is null
+    # no single PyTorch call computes any of these functions (the cell's
+    # VJP is autograd through its plain version): library_ms is null,
+    # but for spiking_conv_seq, where cuDNN's conv alone (no BatchNorm,
+    # no cell) is the nearest call
     bwd_ref = next(r for r in bwd_rows
                    if (r["shape"], r["cell"], r["state"], r["start"])
                    == ("stage1", "lif", "float32", 0))
@@ -1842,7 +1890,7 @@ def main(argv) -> int:
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
-            "library_ms": None,
+            "library_ms": r.get("conv_ms"),
         })
     # no single PyTorch call computes the network either
     kernels.append({
@@ -1861,7 +1909,8 @@ def main(argv) -> int:
     print(f"done in {time.perf_counter() - t_start:.1f} s; kernel times "
           f"below: temporal_cell_seq the stage-1 fp32 LIF case "
           f"[42,4,120,152,64]; spiking_conv_seq the stage-3 downsample at "
-          f"fp32 (3x3 s2, 128->256, [42,4,60,76] -> [30,38]); "
+          f"fp32 (3x3 s2, 128->256, [42,4,60,76] -> [30,38]; library_ms "
+          f"cuDNN's conv alone); "
           f"fused_pointwise_conv_bn_lif {BATCH * 120 * 152} rows, 64->64, "
           f"fp32; streaming_megakernel one GEN1 frame at fp32 (SODa.step, "
           f"its per-layer yardstick: {mk_row['step_ms']:.3f} ms); "

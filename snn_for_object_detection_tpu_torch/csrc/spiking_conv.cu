@@ -4,63 +4,65 @@
 // Replaces the Pallas TPU kernel `spiking_conv_seq` of
 // snn_for_object_detection_tpu/ops/pallas_kernels.py
 // (`_spiking_conv_kernel` under `_spiking_conv_seq_impl`'s pallas_call):
-//   in:  x[T, N, H, W, Cin] (fp32 or bf16), w[k, k, Cin, Cout] in x's
-//        type (k in {1, 3}, stride in {1, 2}, zero padding k / 2),
-//        a, b[Cout] fp32 (the folded eval BatchNorm),
-//        v0, i0[N, Ho, Wo, Cout] (fp32, bf16 or fp8 e5m2)
+//   in:  x[T, N, H, W, Cin] (fp32 or bf16); w as the wrapper hands it:
+//        fp32 [Cin][k][k][Cout], rounded to x's type first (k in {1, 3},
+//        stride in {1, 2}, zero padding k / 2); a, b[Cout] fp32 (the
+//        folded eval BatchNorm); v0, i0[N, Ho, Wo, Cout] (fp32, bf16 or
+//        fp8 e5m2)
 //   out: z[T, N, Ho, Wo, Cout] in x's type, vT, iT in the state type
 // Per step: the conv summed in fp32, rounded to x's type; y * a + b in
 // fp32 (one fused multiply-add, as XLA contracts it), rounded to x's
 // type again; then the cell with the state rounded to its storage type
-// (spikes for LIF, the fp32 membrane for LI). (`fused_pointwise_conv_bn_lif`
-// has a kernel of its own, pointwise.cu.)
+// (spikes for LIF, the fp32 membrane for LI).
 //
 // What bounds it: operations. A 3 x 3 layer does 2 * 9 * Cin flops per
-// output element and step against a few bytes of x, z and state, far
-// above the card's ~20 fp32 flops per byte, so the least time is
-// 2 * MACs / 67 TFLOP/s (fp32 outside the tensor cores: JAX's fp32
-// semantics forbid TF32; bf16 products are exact in fp32, so both types
-// run on the fp32 lanes here).
+// output element and step against a few bytes of x, z and state: at fp32
+// 2 * MACs / 67 TFLOP/s (JAX's fp32 semantics forbid TF32), in bf16
+// 2 * MACs / 989 TFLOP/s on the tensor cores. Both dtypes run on the
+// fp32 lanes here, so bf16 cannot come near its bound (Known limits).
 //
 // Design. The TPU kernel pre-gathered halo slabs and pre-split stride-2
 // phases in HBM for Mosaic and walked t as the innermost grid axis with
-// (v, i) in VMEM scratch. Here one CTA owns one image, a tile of output
-// pixels (TH x TW for 3 x 3, TH * TW consecutive pixels for 1 x 1) and
-// 32 output channels, and runs the whole time loop:
-//   - each thread owns PXT pixels (neighbours on one row) x 4 channels
-//     and keeps their (v, i) in fp32 registers from t = 0 to T - 1;
-//   - per step and per chunk of input channels (16 for 3 x 3, 32 for
-//     1 x 1) it stages the zero-padded input tile (halo included) and
-//     the chunk's weights in shared memory, 8 channels of a pixel per
-//     vector load, then accumulates in fp32 with explicit __fmaf_rn (the
-//     sources build with --fmad=false); a 3 x 3 row of taps reuses one
-//     register window of the input row for its three dx taps;
-//   - the epilogue does the roundings, the affine and the shared cell
-//     update (cell_math.cuh) and writes z[t] once; vT, iT are written
-//     once at the end. The conv output never goes to device memory.
-// Every output sums its products in the plain conv's order (input
-// channel, then dy, then dx), whatever the tile, so every launch plan
-// gives the same bits.
+// (v, i) in VMEM scratch. Here a CTA owns one image, a tile of output
+// pixels and a tile of output channels, and runs the whole time loop in
+// blocks of kTB = 4 steps: the convs of a block's steps do not depend on
+// each other, so a block is one product of M = pixels x 4 steps rows,
+// and only the cell runs step by step. A thread owns the 4 steps of one
+// pixel x 8 channels and keeps their (v, i) in fp32 registers from
+// t = 0 to T - 1. The launch plan (ops/cuda_kernels.py,
+// spiking_conv_plan) picks the tiles, the threads and the chunk.
 //
-// Launch plan. The CTA tile is one of two shapes (kTiles), picked per
-// layer by ops/cuda_kernels.py::spiking_conv_plan, which passes its
-// index and grid; the entry point checks the grid. Tile 0 (8 x 16
-// pixels, 4 a thread, 256 threads) fills the card on the large maps;
-// the 15 x 19 and 8 x 10 maps of the deep layers, where tile 0 gives
-// 16-128 CTAs, take tile 1 (4 x 8 pixels, 2 a thread, 128 threads) for
-// 64-384 CTAs. Direct indexing covers stride 2, odd inputs and Cin = 2.
-// The CTAs of one pixel tile (its channel tiles) are launched next to
-// each other so they read the same input lines from L2. 512 threads an
-// SM by registers (128 a thread), up to 54 KB of shared memory a CTA.
+// The CTA's weights sit in shared memory as [c][tap][co]: once for the
+// whole time loop where they fit (147,456 bytes at Cin = 128 and a
+// 32-channel tile), else streamed with each chunk of input channels,
+// once a block of 4 steps. Per block and chunk the halo tile's rows
+// (pixel, step) are copied as they lie in device memory (16-, 8- or
+// 4-byte cp.async, neighbouring threads neighbouring bytes; the stem's
+// Cin = 2 stages 2 channels, not a zero-filled chunk), in flight while
+// the chunk before is summed, then transposed once in shared memory
+// into fp32 planes [c][pixel][step], stride-2 columns split by phase so
+// that neighbouring output pixels read neighbouring words. Per (input
+// channel, tap) a thread loads its pixel's 4 steps (16 bytes) and 8
+// weights (32 bytes) for 32 FMAs. Every output sums in the order of the
+// kernel before this design, input channel, then dy, then dx, with
+// __fmaf_rn under --fmad=false, whatever the plan: bit-equal to it, and
+// at fp32 to cuDNN's fp32 conv on the GEN1 net (PERF.md).
 //
-// Known limits (PERF.md): FFMA only, so bf16 runs at the fp32 rate far
-// from its tensor-core bound: a tensor-core MMA sums in another order,
-// which the fused path's spike-agreement gate refuses on its untrained
-// net (PERF.md, Findings); every chunk of every step stages the CTA's
-// weights again, a cost that a smaller pixel tile does not shrink, so
-// on the deep layers tile 1 is at most 1.6x faster than tile 0 (H100,
-// PERF.md); each output fragment costs a 16-byte shared load of weights
-// per tap; the stem's Cin = 2 fills a chunk of 16 with zeros.
+// The epilogue does the roundings, the affine and the shared cell update
+// (cell_math.cuh) for the 4 steps in order and writes z[t] once; vT, iT
+// are written once at the end. The conv output never goes to device
+// memory. The CTAs of one pixel tile (its channel tiles) are neighbours
+// in the grid, so they read the same input lines from L2. The entry
+// point refuses a plan whose grid or shared memory is not its geometry's.
+//
+// Known limits (PERF.md): the FFMA loop reaches 8-49% of the fp32 bound,
+// and neither fewer shared loads a FMA nor a register double buffer of
+// the next tap's loads moved it; the deep maps (15 x 19, 8 x 10) give
+// few CTAs; the last block of a T that is no multiple of 4 computes
+// empty steps. bf16 on the tensor cores in the TPU kernel's tap-major
+// order (mma.sync, 4-12x faster) moved the untrained GEN1 net's spikes
+// past chip_smoke.py [7]'s 0.99 agreement gate against the plain
+// version, which sums in this order, and is not in this source.
 
 #include "cell_math.cuh"
 
@@ -71,13 +73,9 @@ using cell_math::from_f32;
 using cell_math::round_to;
 using cell_math::to_f32;
 
-constexpr int kCo = 32;             // output channels a CTA
-constexpr int kChGroups = kCo / 4;  // 4 channels a thread
-constexpr int kSmThreads = 512;     // threads an SM, by registers
-
-// The CTA tiles of the launch plan: {TH, TW, PXT} (pixel rows, pixel
-// columns, pixels a thread); the plan passes the index.
-constexpr int kTiles[2][3] = {{8, 16, 4}, {4, 8, 2}};
+constexpr int kTB = 4;            // steps a block: rows of the product
+constexpr int kMaxThreads = 256;  // threads a CTA at most
+constexpr int kMaxSmem = 232448;  // 227 KB: the most a CTA can have
 
 struct Args {
   const void* x;
@@ -91,51 +89,77 @@ struct Args {
   void* iT;
   int T, N, H, W, Cin, Ho, Wo, Cout, stride;
   float c_mem, c_syn;
-  bool vec4;  // Cout % 4 == 0 and w, v0, i0, z, vT, iT 16-byte aligned
-  bool xvec;  // Cin % 8 == 0 and x 16-byte aligned
+  bool vec;  // Cout % 8 == 0 and z, v0, i0, vT, iT 16-byte aligned
+  int xvb;   // staging: bytes a copy of x (16, 8, 4; 0: a value)
+  bool wvec;  // weights in 16-byte copies (Cout % 4 == 0)
 };
 
-// Shared-memory geometry of one instance. A chunk of KC input channels
-// is staged as KC planes of the (halo) tile; a plane holds PLANE floats,
-// padded so that the 8 planes one thread writes fall on other banks
-// than its neighbours' (PLANE % 4 == 2 for 3 x 3; 1 x 1 keeps PLANE a
-// multiple of 4 for its 16-byte reads).
-template <int K, int STRIDE, int TH, int TW>
-struct Tile {
-  static constexpr bool kRect = K == 3;
-  static constexpr int KC = kRect ? 16 : 32;
-  static constexpr int HIN = kRect ? (TH - 1) * STRIDE + K : 1;
-  static constexpr int WIN = kRect ? (TW - 1) * STRIDE + K : TH * TW;
-  static constexpr int NPIX = HIN * WIN;
-  static constexpr int PLANE = kRect ? NPIX + (6 - NPIX % 4) % 4 : NPIX;
-  static constexpr int IN_FLOATS = KC * PLANE;
-  static constexpr int W_FLOATS = K * K * KC * kCo;
-  static constexpr int BYTES = 4 * (IN_FLOATS + W_FLOATS);
+// A launch plan (ops/cuda_kernels.py, ConvPlan)
+struct Plan {
+  int resident; // weights staged once (1) or with each chunk (0)
+  int co;       // output channels a CTA
+  int th, tw;   // output pixels a CTA: th rows x tw columns
+  int threads;
+  int kc;       // input channels a staged chunk
+  int smem;     // bytes of dynamic shared memory
+  long long grid;
 };
+
+// Staging geometry: the halo tile (hin x win pixels; for 1 x 1 the
+// tile itself, its input pixels a stride apart) and a plane of it, one
+// input channel of 4 steps, in 4-byte words padded to 4 mod 32 so that
+// 8 channels x 4 steps written by a warp fall on 32 banks.
+struct Geo {
+  int hin, win, hw2, npix, plane;
+};
+
+inline __host__ __device__ Geo conv_geo(int k, int stride, int th, int tw) {
+  Geo g;
+  g.hin = k == 3 ? (th - 1) * stride + 3 : th;
+  g.win = k == 3 ? (tw - 1) * stride + 3 : tw;
+  g.hw2 = (g.win + 1) / 2;
+  g.npix = g.hin * g.win;
+  g.plane = g.npix * kTB;
+  g.plane += (36 - g.plane % 32) % 32;
+  return g;
+}
+
+// bytes of a staged row (one pixel and step, kc input channels of x's
+// type, padded by 16 bytes so that neighbouring rows fall on other banks)
+inline __host__ __device__ int conv_row_bytes(int kc, int x_bytes) {
+  return (kc * x_bytes + 15) / 16 * 16 + 16;
+}
+
+// Shared memory: resident weights [Cin][tap][co] (or two buffers of
+// a chunk's [kc][tap][co]), the raw rows of a chunk as they lie in device
+// memory, and the chunk as fp32 planes
+inline long long conv_smem(int k, int stride, int cin, int x_bytes,
+                           const Plan& q) {
+  const Geo g = conv_geo(k, stride, q.th, q.tw);
+  const long long wk = static_cast<long long>(k) * k * q.co;
+  return 4LL * (q.resident ? cin : 2 * q.kc) * wk +
+         static_cast<long long>(g.npix) * kTB *
+             conv_row_bytes(q.kc, x_bytes) +
+         4LL * q.kc * g.plane;
+}
+
+inline long long grid_of(const Args& p, const Plan& q) {
+  const long long co_tiles = (p.Cout + q.co - 1) / q.co;
+  const long long tiles = static_cast<long long>((p.Ho + q.th - 1) / q.th) *
+                          ((p.Wo + q.tw - 1) / q.tw);
+  return p.N * tiles * co_tiles;
+}
 
 template <typename T>
 struct alignas(4 * sizeof(T)) Vec4 {
   T a[4];
 };
 
-template <typename T>
-__device__ __forceinline__ void load4(const T* src, float (&out)[4],
-                                      int nvalid, bool vec) {
-  if (vec && nvalid == 4) {
-    const Vec4<T> v = *reinterpret_cast<const Vec4<T>*>(src);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) out[q] = to_f32(v.a[q]);
-  } else {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) out[q] = q < nvalid ? to_f32(src[q]) : 0.0f;
-  }
-}
-
-// 8 consecutive values from src (the first nvalid; zeros after)
+// 8 consecutive values (the first nvalid; zeros after)
 template <typename T>
 __device__ __forceinline__ void load8(const T* src, float (&out)[8],
                                       int nvalid, bool vec) {
-  if (vec && nvalid >= 8) {
+  if (vec && nvalid == 8) {
     const Vec4<T> lo = *reinterpret_cast<const Vec4<T>*>(src);
     const Vec4<T> hi = *reinterpret_cast<const Vec4<T>*>(src + 4);
 #pragma unroll
@@ -150,386 +174,440 @@ __device__ __forceinline__ void load8(const T* src, float (&out)[8],
 }
 
 template <typename T>
-__device__ __forceinline__ void store4(T* dst, const float (&val)[4],
+__device__ __forceinline__ void store8(T* dst, const float (&val)[8],
                                        int nvalid, bool vec) {
-  if (vec && nvalid == 4) {
-    Vec4<T> v;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) v.a[q] = from_f32<T>(val[q]);
-    *reinterpret_cast<Vec4<T>*>(dst) = v;
-  } else {
+  if (vec && nvalid == 8) {
+    Vec4<T> lo, hi;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
+      lo.a[q] = from_f32<T>(val[q]);
+      hi.a[q] = from_f32<T>(val[q + 4]);
+    }
+    *reinterpret_cast<Vec4<T>*>(dst) = lo;
+    *reinterpret_cast<Vec4<T>*>(dst + 4) = hi;
+  } else {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
       if (q < nvalid) dst[q] = from_f32<T>(val[q]);
     }
   }
 }
 
-// K = 3: rectangular TH x TW pixel tiles with a halo, STRIDE in {1, 2}.
-// K = 1: TH * TW consecutive output pixels, each reading one input
-// pixel; the stride is a run-time argument there (STRIDE is unused).
-// A thread owns PXT neighbouring pixels of a row x 4 channels.
-template <int CELL, typename X, typename S, int K, int STRIDE, int TH,
-          int TW, int PXT>
-__global__ void __launch_bounds__(TH * TW / PXT * kChGroups,
-                                  kSmThreads / (TH * TW / PXT * kChGroups))
-    spiking_conv_kernel(const Args p) {
-  using G = Tile<K, STRIDE, TH, TW>;
-  constexpr bool kRect = G::kRect;
-  constexpr int KC = G::KC;  // input channels a chunk
-  constexpr int WIN = G::WIN;
-  constexpr int PLANE = G::PLANE;
-  constexpr int NT = TH * TW / PXT * kChGroups;  // threads
-  constexpr int TP = TH * TW;       // pixels a CTA
-  constexpr int GPR = TW / PXT;     // pixel groups of a tile row
-  constexpr int WINDOW = (PXT - 1) * STRIDE + K;  // inputs of a tap row
-  static_assert(TW % PXT == 0 && NT % TP == 0 && (PXT == 4 || PXT == 2),
-                "tile shape");
+// cp.async: `bytes` from global to shared memory, zero-filled where
+// `valid` is false (src-size 0), through L1 (.ca)
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(valid ? 8 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// four consecutive values of x's type in shared memory (8-byte aligned
+// at least), widened to fp32
+__device__ __forceinline__ void load4_shared(const float* p, float* v) {
+  const float2 lo = *reinterpret_cast<const float2*>(p);
+  const float2 hi = *reinterpret_cast<const float2*>(p + 2);
+  v[0] = lo.x;
+  v[1] = lo.y;
+  v[2] = hi.x;
+  v[3] = hi.y;
+}
+__device__ __forceinline__ void load4_shared(const __nv_bfloat16* p,
+                                             float* v) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  v[0] = __uint_as_float(q.x << 16);
+  v[1] = __uint_as_float(q.x & 0xffff0000u);
+  v[2] = __uint_as_float(q.y << 16);
+  v[3] = __uint_as_float(q.y & 0xffff0000u);
+}
+
+// The CTA's place: its image, the first output row and column of its
+// pixel tile and its channel tile (channel tiles fastest).
+struct Place {
+  int n, oy0, ox0, cot;
+};
+
+__device__ __forceinline__ Place place_of(const Args& p, const Plan& q) {
+  const int co_tiles = (p.Cout + q.co - 1) / q.co;
+  const int tiles_w = (p.Wo + q.tw - 1) / q.tw;
+  const int tiles = ((p.Ho + q.th - 1) / q.th) * tiles_w;
+  int bid = blockIdx.x;
+  Place c;
+  c.cot = bid % co_tiles;
+  bid /= co_tiles;
+  const int tile = bid % tiles;
+  c.n = bid / tiles;
+  c.oy0 = (tile / tiles_w) * q.th;
+  c.ox0 = (tile % tiles_w) * q.tw;
+  return c;
+}
+
+// One step of the epilogue for 8 channels: roundings, affine, cell; the
+// state (v, i) is updated and rounded to S, the output returned in out.
+template <int CELL, typename X, typename S>
+__device__ __forceinline__ void epilogue8(const Args& p, const float* acc,
+                                          const float* av, const float* bv,
+                                          float* v, float* i, float* out) {
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    float y = round_to<X>(acc[q]);
+    y = round_to<X>(__fmaf_rn(y, av[q], bv[q]));
+    float vv = v[q], ii = i[q];
+    out[q] = cell_math::cell_step<CELL>(y, vv, ii, p.c_mem, p.c_syn);
+    v[q] = round_to<S>(vv);
+    i[q] = round_to<S>(ii);
+  }
+}
+
+// A thread owns the 4 steps of one output pixel x 8 channels: tid % CG
+// is its channel group (CG = co / 8), tid / CG its pixel in the tile.
+template <int CELL, typename X, typename S, int K, int STRIDE>
+__global__ void __launch_bounds__(kMaxThreads, 2)
+    spiking_conv_kernel(const Args p, const Plan q) {
+  constexpr int KK = K * K;
   extern __shared__ __align__(16) float smem[];
-  float* in_s = smem;                  // [c][y][x]
-  float* w_s = smem + G::IN_FLOATS;    // [tap][c][co]
+  const Geo g = conv_geo(K, STRIDE, q.th, q.tw);
+  const int CO = q.co, CG = CO / 8, NT = q.threads, KC = q.kc;
+  const int Cin = p.Cin;
+  // weights: resident [Cin][tap][CO], or two buffers of a chunk's
+  // [KC][tap][CO]; then the raw rows (halo pixel, step) of a chunk and
+  // its planes [KC][plane]
+  const int wk = KK * CO;  // weights of one input channel
+  float* w_s = smem;
+  const int rows = g.npix * kTB;
+  const int row_bytes = conv_row_bytes(KC, sizeof(X));
+  unsigned char* raw = reinterpret_cast<unsigned char*>(
+      smem + (q.resident ? Cin : 2 * KC) * wk);
+  float* planes = reinterpret_cast<float*>(raw + rows * row_bytes);
 
   const X* __restrict__ x = static_cast<const X*>(p.x);
-  const X* __restrict__ w = static_cast<const X*>(p.w);
+  const float* __restrict__ w = static_cast<const float*>(p.w);
   X* __restrict__ z = static_cast<X*>(p.z);
 
   const int tid = threadIdx.x;
-  const int cg = tid % kChGroups;
-  const int pg = tid / kChGroups;
-
-  // block -> (image, pixel tile, channel tile), channel tile fastest
-  const int co_tiles = (p.Cout + kCo - 1) / kCo;
-  const int tiles_w = (p.Wo + TW - 1) / TW;
-  const int tiles = kRect ? ((p.Ho + TH - 1) / TH) * tiles_w
-                          : (p.Ho * p.Wo + TP - 1) / TP;
-  int bid = blockIdx.x;
-  const int cot = bid % co_tiles;
-  bid /= co_tiles;
-  const int tile = bid % tiles;
-  const int n = bid / tiles;
-  const int oy0 = kRect ? (tile / tiles_w) * TH : 0;
-  const int ox0 = kRect ? (tile % tiles_w) * TW : 0;
-  const int co = cot * kCo + cg * 4;  // this thread's first channel
-  const int nco = min(4, p.Cout - co);
-
-  // this thread's PXT output pixels: offsets into one time slab, -1 if
-  // out
-  int64_t out_off[PXT];
-#pragma unroll
-  for (int j = 0; j < PXT; ++j) {
-    int oy, ox;
-    bool ok;
-    if (kRect) {
-      oy = oy0 + pg / GPR;
-      ox = ox0 + (pg % GPR) * PXT + j;
-      ok = oy < p.Ho && ox < p.Wo;
-    } else {
-      const int q = tile * TP + pg * PXT + j;
-      oy = q / p.Wo;
-      ox = q % p.Wo;
-      ok = q < p.Ho * p.Wo;
-    }
-    out_off[j] = ok && nco > 0
-                     ? ((static_cast<int64_t>(n) * p.Ho + oy) * p.Wo + ox) *
-                               p.Cout + co
-                     : -1;
-  }
-
-  float av[4], bv[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    av[q] = q < nco ? p.a[co + q] : 0.0f;
-    bv[q] = q < nco ? p.b[co + q] : 0.0f;
-  }
-  float v[PXT][4], i[PXT][4];
-#pragma unroll
-  for (int j = 0; j < PXT; ++j) {
-    if (out_off[j] >= 0) {
-      load4(static_cast<const S*>(p.v0) + out_off[j], v[j], nco, p.vec4);
-      load4(static_cast<const S*>(p.i0) + out_off[j], i[j], nco, p.vec4);
-    } else {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) v[j][q] = i[j][q] = 0.0f;
-    }
-  }
-
-  const int64_t frame = static_cast<int64_t>(p.H) * p.W * p.Cin;
+  const int cg = tid % CG, pg = tid / CG;
+  const Place c = place_of(p, q);
+  const int r = pg / q.tw, qx = pg % q.tw;
+  const int oy = c.oy0 + r, ox = c.ox0 + qx;
+  const int co = c.cot * CO + cg * 8;
+  const int nco = min(8, p.Cout - co);
+  const bool mine = oy < p.Ho && ox < p.Wo && nco > 0;
+  const int64_t out_off =
+      mine ? ((static_cast<int64_t>(c.n) * p.Ho + oy) * p.Wo + ox) * p.Cout +
+                 co
+           : 0;
   const int64_t slab = static_cast<int64_t>(p.N) * p.Ho * p.Wo * p.Cout;
-  const int iy0 = oy0 * STRIDE - K / 2;
-  const int ix0 = ox0 * STRIDE - K / 2;
-  // 1 x 1: the input pixel this thread stages (the same every chunk)
-  int src_1x1 = -1;
-  if (!kRect) {
-    const int q = tile * TP + tid % TP;
-    if (q < p.Ho * p.Wo) {
-      src_1x1 = ((q / p.Wo) * p.stride * p.W + (q % p.Wo) * p.stride) *
-                p.Cin;
+
+  // weights [c][tap][Cout] in device memory (the wrapper's fp32 copy,
+  // permuted) -> [c][tap][CO] in shared memory, input channels c0 .. c0
+  // + kc - 1 of the CTA's channel tile; 16 bytes a copy where they allow
+  auto stage_weights = [&](float* dst, int c0, int kc) {
+    const float* src0 = w + static_cast<int64_t>(c0) * wk / CO * p.Cout;
+    if (p.wvec) {
+      const int sh = __ffs(CO / 4) - 1;  // CO / 4 pieces a row
+      for (int e = tid; e < kc * wk / 4; e += NT) {
+        const int wrow = e >> sh, piece = e & (CO / 4 - 1);
+        const int oc = c.cot * CO + piece * 4;
+        const bool ok = oc < p.Cout;
+        cp_async16(dst + wrow * CO + piece * 4,
+                   ok ? src0 + static_cast<int64_t>(wrow) * p.Cout + oc : w,
+                   ok);
+      }
+    } else {
+      for (int e = tid; e < kc * wk; e += NT) {
+        const int wrow = e / CO, col = e - wrow * CO;
+        const int oc = c.cot * CO + col;
+        dst[e] = oc < p.Cout ? src0[static_cast<int64_t>(wrow) * p.Cout + oc]
+                             : 0.0f;
+      }
     }
+  };
+  if (q.resident) stage_weights(w_s, 0, Cin);  // once
+
+  float av[8], bv[8], v[8], i[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    av[k] = k < nco ? p.a[co + k] : 0.0f;
+    bv[k] = k < nco ? p.b[co + k] : 0.0f;
   }
-  for (int t = 0; t < p.T; ++t) {
-    const X* __restrict__ xt =
-        x + (static_cast<int64_t>(t) * p.N + n) * frame;
-    float acc[PXT][4];
+  if (mine) {
+    load8(static_cast<const S*>(p.v0) + out_off, v, nco, p.vec);
+    load8(static_cast<const S*>(p.i0) + out_off, i, nco, p.vec);
+  } else {
 #pragma unroll
-    for (int j = 0; j < PXT; ++j) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[j][q] = 0.0f;
+    for (int k = 0; k < 8; ++k) v[k] = i[k] = 0.0f;
+  }
+
+  const int nblk = (p.T + kTB - 1) / kTB;
+  const int nchunk = (Cin + KC - 1) / KC;
+  const int items = nblk * nchunk;
+  // staging: pieces of p.xvb bytes (16, 8 or 4; 0: one value at a time,
+  // synchronously) of each row, neighbouring threads neighbouring pieces,
+  // copied as they lie in device memory into the raw rows of a stage
+  const int ve = p.xvb ? p.xvb / static_cast<int>(sizeof(X)) : 1;
+  auto stage = [&](int j) {
+    unsigned char* st = raw;
+    const int blk = j / nchunk;
+    const int c0 = (j - blk * nchunk) * KC;
+    const int kc = min(KC, Cin - c0);
+    const int pieces = (kc + ve - 1) / ve;
+    for (int e = tid; e < rows * pieces; e += NT) {
+      const int row = e / pieces, piece = e - row * pieces;
+      const int pix = row / kTB, t = blk * kTB + row % kTB;
+      const int hr = pix / g.win, pos = pix - hr * g.win;
+      int iy, ix;
+      bool ok;
+      if (K == 3) {
+        const int cc = STRIDE == 2
+                           ? (pos < g.hw2 ? 2 * pos : 2 * (pos - g.hw2) + 1)
+                           : pos;
+        iy = c.oy0 * STRIDE - 1 + hr;
+        ix = c.ox0 * STRIDE - 1 + cc;
+        ok = iy >= 0 && iy < p.H && ix >= 0 && ix < p.W;
+      } else {
+        iy = (c.oy0 + hr) * p.stride;
+        ix = (c.ox0 + pos) * p.stride;
+        ok = c.oy0 + hr < p.Ho && c.ox0 + pos < p.Wo;
+      }
+      ok = ok && t < p.T;
+      const X* src =
+          ok ? x + ((static_cast<int64_t>(t) * p.N + c.n) * p.H + iy) *
+                       static_cast<int64_t>(p.W) * Cin +
+                   static_cast<int64_t>(ix) * Cin + c0 + piece * ve
+             : x;
+      unsigned char* dst = st + row * row_bytes + piece * ve * sizeof(X);
+      if (p.xvb == 16) {
+        cp_async16(dst, src, ok);
+      } else if (p.xvb == 8) {
+        cp_async8(dst, src, ok);
+      } else if (p.xvb == 4) {
+        cp_async4(dst, src, ok);
+      } else {
+        *reinterpret_cast<X*>(dst) = ok ? *src : from_f32<X>(0.0f);
+      }
     }
-
-    for (int c0 = 0; c0 < p.Cin; c0 += KC) {
-      __syncthreads();  // the previous chunk's reads are done
-      // input: an item is 8 channels of one pixel; a warp stages 32
-      // neighbouring pixels of one channel group
-      for (int e = tid; e < G::NPIX * (KC / 8); e += NT) {
-        const int pix = e % G::NPIX;
-        const int c8 = (e / G::NPIX) * 8;
-        int src = -1;
-        if (kRect) {
-          const int iy = iy0 + pix / WIN;
-          const int ix = ix0 + pix % WIN;
-          if (iy >= 0 && iy < p.H && ix >= 0 && ix < p.W) {
-            src = (iy * p.W + ix) * p.Cin;
-          }
-        } else {
-          src = src_1x1;
-        }
-        float val[8];
-        const int nvalid = p.Cin - (c0 + c8);
-        if (src >= 0 && nvalid > 0) {
-          load8(xt + src + c0 + c8, val, nvalid, p.xvec);
-        } else {
+    if (!q.resident) stage_weights(w_s + (j % 2) * KC * wk, c0, kc);
+  };
+  // the raw rows of stage j as planes [c][pixel][step] of fp32, 4 values
+  // of a row a time, neighbouring threads neighbouring rows
+  auto transpose = [&](int j) {
+    const unsigned char* st = raw;
+    const int c0 = (j % nchunk) * KC;
+    const int kc = min(KC, Cin - c0);
+    for (int e = tid; e < rows * ((kc + 3) / 4); e += NT) {
+      const int g4 = e / rows, row = e - g4 * rows;
+      float val[4];
+      load4_shared(reinterpret_cast<const X*>(st + row * row_bytes) + 4 * g4,
+                   val);
 #pragma unroll
-          for (int q = 0; q < 8; ++q) val[q] = 0.0f;
-        }
-#pragma unroll
-        for (int q = 0; q < 8; ++q) in_s[(c8 + q) * PLANE + pix] = val[q];
+      for (int k = 0; k < 4; ++k) {
+        if (4 * g4 + k < kc) planes[(4 * g4 + k) * g.plane + row] = val[k];
       }
-      // weights: 4 neighbouring output channels an item
-      for (int e = 4 * tid; e < G::W_FLOATS; e += 4 * NT) {
-        const int oc = cot * kCo + e % kCo;
-        const int ci = c0 + (e / kCo) % KC;
-        const int tap = e / (kCo * KC);
-        float val[4];
-        if (ci < p.Cin) {
-          load4(w + (static_cast<int64_t>(tap) * p.Cin + ci) * p.Cout + oc,
-                val, min(4, p.Cout - oc), p.vec4);
-        } else {
-#pragma unroll
-          for (int q = 0; q < 4; ++q) val[q] = 0.0f;
-        }
-        *reinterpret_cast<float4*>(w_s + e) =
-            make_float4(val[0], val[1], val[2], val[3]);
-      }
-      __syncthreads();
+    }
+  };
 
-      if (kRect) {
-        const int r = pg / GPR;
-        const int xb = (pg % GPR) * PXT;
-#pragma unroll 1
-        for (int c = 0; c < KC; ++c) {
+  // this thread's pixel in a plane (tap (0, 0)), in words
+  const int base = (K == 3 ? r * STRIDE * g.win + qx : r * g.win + qx) * kTB;
+  float acc[kTB][8];
 #pragma unroll
-          for (int dy = 0; dy < K; ++dy) {
-            const float* row = in_s + c * PLANE + (r * STRIDE + dy) * WIN +
-                               xb * STRIDE;
-            float win[WINDOW];
+  for (int tb = 0; tb < kTB; ++tb) {
 #pragma unroll
-            for (int u = 0; u < WINDOW; ++u) win[u] = row[u];
+    for (int k = 0; k < 8; ++k) acc[tb][k] = 0.0f;
+  }
+
+  stage(0);
+  cp_async_commit();
+  for (int j = 0; j < items; ++j) {
+    cp_async_wait<0>();  // this thread's copies of item j have landed
+    __syncthreads();     // everyone's have, and item j - 1 is summed
+    transpose(j);
+    __syncthreads();  // the planes of item j are in, the raw rows free
+    if (j + 1 < items) stage(j + 1);  // in flight while item j is summed
+    cp_async_commit();
+    const int blk = j / nchunk;
+    const int c0 = (j - blk * nchunk) * KC;
+    const int kc = min(KC, Cin - c0);
+    const float* in = planes + base;
+    const float* wc =
+        (q.resident ? w_s + c0 * wk : w_s + (j % 2) * KC * wk) + cg * 8;
+#pragma unroll 2
+    for (int ci = 0; ci < kc; ++ci) {
 #pragma unroll
-            for (int dx = 0; dx < K; ++dx) {
-              const float4 wv = *reinterpret_cast<const float4*>(
-                  w_s + ((dy * K + dx) * KC + c) * kCo + cg * 4);
+      for (int dy = 0; dy < K; ++dy) {
 #pragma unroll
-              for (int j = 0; j < PXT; ++j) {
-                const float in = win[j * STRIDE + dx];
-                acc[j][0] = __fmaf_rn(in, wv.x, acc[j][0]);
-                acc[j][1] = __fmaf_rn(in, wv.y, acc[j][1]);
-                acc[j][2] = __fmaf_rn(in, wv.z, acc[j][2]);
-                acc[j][3] = __fmaf_rn(in, wv.w, acc[j][3]);
-              }
+        for (int dx = 0; dx < K; ++dx) {
+          const int off =
+              K == 3 ? dy * g.win +
+                           (STRIDE == 2 ? (dx & 1) * g.hw2 + (dx >> 1) : dx)
+                     : 0;
+          const float4 xv = *reinterpret_cast<const float4*>(in + off * kTB);
+          const float* wt = wc + (dy * K + dx) * CO;
+          const float4 w0 = *reinterpret_cast<const float4*>(wt);
+          const float4 w1 = *reinterpret_cast<const float4*>(wt + 4);
+          const float xs[kTB] = {xv.x, xv.y, xv.z, xv.w};
+          const float ws[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+          for (int tb = 0; tb < kTB; ++tb) {
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+              acc[tb][k] = __fmaf_rn(xs[tb], ws[k], acc[tb][k]);
             }
           }
         }
-      } else {
-#pragma unroll 8
-        for (int c = 0; c < KC; ++c) {
-          const float* in_c = in_s + c * PLANE + pg * PXT;
-          const float4 wv =
-              *reinterpret_cast<const float4*>(w_s + c * kCo + cg * 4);
-          float in[PXT];
-          if constexpr (PXT == 4) {
-            const float4 in4 = *reinterpret_cast<const float4*>(in_c);
-            in[0] = in4.x;
-            in[1] = in4.y;
-            in[2] = in4.z;
-            in[3] = in4.w;
-          } else {
-            const float2 in2 = *reinterpret_cast<const float2*>(in_c);
-            in[0] = in2.x;
-            in[1] = in2.y;
-          }
-#pragma unroll
-          for (int j = 0; j < PXT; ++j) {
-            acc[j][0] = __fmaf_rn(in[j], wv.x, acc[j][0]);
-            acc[j][1] = __fmaf_rn(in[j], wv.y, acc[j][1]);
-            acc[j][2] = __fmaf_rn(in[j], wv.z, acc[j][2]);
-            acc[j][3] = __fmaf_rn(in[j], wv.w, acc[j][3]);
-          }
-        }
       }
+      in += g.plane;
+      wc += wk;
     }
-
-    // epilogue: roundings, affine, cell, z[t]
+    if (c0 + kc < Cin) continue;
+    // the block's convs are summed: its cells in step order
 #pragma unroll
-    for (int j = 0; j < PXT; ++j) {
-      if (out_off[j] < 0) continue;
-      float out[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        float y = round_to<X>(acc[j][q]);
-        y = round_to<X>(__fmaf_rn(y, av[q], bv[q]));
-        float vv = v[j][q], ii = i[j][q];
-        out[q] = cell_math::cell_step<CELL>(y, vv, ii, p.c_mem, p.c_syn);
-        v[j][q] = round_to<S>(vv);
-        i[j][q] = round_to<S>(ii);
+    for (int tb = 0; tb < kTB; ++tb) {
+      const int t = blk * kTB + tb;
+      if (t < p.T) {
+        float out[8];
+        epilogue8<CELL, X, S>(p, acc[tb], av, bv, v, i, out);
+        if (mine) store8(z + t * slab + out_off, out, nco, p.vec);
       }
-      store4(z + t * slab + out_off[j], out, nco, p.vec4);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) acc[tb][k] = 0.0f;
     }
   }
-
-#pragma unroll
-  for (int j = 0; j < PXT; ++j) {
-    if (out_off[j] < 0) continue;
-    store4(static_cast<S*>(p.vT) + out_off[j], v[j], nco, p.vec4);
-    store4(static_cast<S*>(p.iT) + out_off[j], i[j], nco, p.vec4);
+  if (mine) {
+    store8(static_cast<S*>(p.vT) + out_off, v, nco, p.vec);
+    store8(static_cast<S*>(p.iT) + out_off, i, nco, p.vec);
   }
-}
-
-// CTAs of one layer under CTA tile TILE (the plan's grid)
-template <int K, int TILE>
-int64_t grid_of(const Args& p) {
-  constexpr int TH = kTiles[TILE][0], TW = kTiles[TILE][1];
-  const int64_t co_tiles = (p.Cout + kCo - 1) / kCo;
-  const int64_t tiles =
-      K == 3 ? static_cast<int64_t>((p.Ho + TH - 1) / TH) *
-                   ((p.Wo + TW - 1) / TW)
-             : (static_cast<int64_t>(p.Ho) * p.Wo + TH * TW - 1) / (TH * TW);
-  return p.N * tiles * co_tiles;
-}
-
-template <int CELL, typename X, typename S, int K, int STRIDE, int TILE>
-int launch(const Args& p, int64_t grid, cudaStream_t stream) {
-  constexpr int TH = kTiles[TILE][0], TW = kTiles[TILE][1];
-  constexpr int PXT = kTiles[TILE][2];
-  if (grid != grid_of<K, TILE>(p) || grid > 0x7fffffff) return -1;
-  if (grid == 0) return 0;
-  constexpr int bytes = Tile<K, STRIDE, TH, TW>::BYTES;
-  auto kernel = spiking_conv_kernel<CELL, X, S, K, STRIDE, TH, TW, PXT>;
-  if (bytes > 48 * 1024) {  // above 48 KB only when asked for
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  kernel<<<static_cast<unsigned>(grid), TH * TW / PXT * kChGroups, bytes,
-           stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int CELL, typename X, typename S, int K, int STRIDE>
-int launch_tile(int tile, const Args& p, int64_t grid, cudaStream_t s) {
-  switch (tile) {
-    case 0:
-      return launch<CELL, X, S, K, STRIDE, 0>(p, grid, s);
-    case 1:
-      return launch<CELL, X, S, K, STRIDE, 1>(p, grid, s);
-  }
-  return -1;
-}
-
-template <int CELL, typename X, typename S>
-int launch_geometry(int k, int tile, const Args& p, int64_t grid,
-                    cudaStream_t s) {
-  if (k == 1) return launch_tile<CELL, X, S, 1, 1>(tile, p, grid, s);
-  if (k == 3 && p.stride == 1) {
-    return launch_tile<CELL, X, S, 3, 1>(tile, p, grid, s);
-  }
-  if (k == 3 && p.stride == 2) {
-    return launch_tile<CELL, X, S, 3, 2>(tile, p, grid, s);
-  }
-  return -1;
-}
-
-template <int CELL, typename X>
-int launch_state(int state_dtype, int k, int tile, const Args& p,
-                 int64_t grid, cudaStream_t s) {
-  switch (state_dtype) {
-    case 0:
-      return launch_geometry<CELL, X, float>(k, tile, p, grid, s);
-    case 1:
-      return launch_geometry<CELL, X, __nv_bfloat16>(k, tile, p, grid, s);
-    case 2:
-      return launch_geometry<CELL, X, E5M2>(k, tile, p, grid, s);
-  }
-  return -1;
-}
-
-template <int CELL>
-int launch_x(int x_dtype, int state_dtype, int k, int tile, const Args& p,
-             int64_t grid, cudaStream_t s) {
-  switch (x_dtype) {
-    case 0:
-      return launch_state<CELL, float>(state_dtype, k, tile, p, grid, s);
-    case 1:
-      return launch_state<CELL, __nv_bfloat16>(state_dtype, k, tile, p, grid,
-                                               s);
-  }
-  return -1;
 }
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-Args make_args(const void* x, const void* w, const float* a, const float* b,
-               const void* v0, const void* i0, void* z, void* vT, void* iT,
-               int T, int N, int H, int W, int Cin, int Ho, int Wo, int Cout,
-               int stride, float c_mem, float c_syn) {
-  Args p{x, w, a, b, v0, i0, z, vT, iT, T, N, H, W, Cin, Ho, Wo, Cout,
-         stride, c_mem, c_syn, false, false};
-  p.vec4 = Cout % 4 == 0 && aligned16(w) && aligned16(v0) &&
-           aligned16(i0) && aligned16(z) && aligned16(vT) && aligned16(iT);
-  p.xvec = Cin % 8 == 0 && aligned16(x);
-  return p;
+// the plan's geometry against the arguments: its grid and its shared
+// memory
+bool plan_ok(const Args& p, int k, int x_dtype, const Plan& q) {
+  return q.threads >= 32 && q.threads <= kMaxThreads &&
+         q.threads % 32 == 0 && q.th >= 1 && q.tw >= 1 && q.kc >= 1 &&
+         q.smem <= kMaxSmem && q.grid == grid_of(p, q) &&
+         q.grid <= 0x7fffffff && q.co >= 8 && q.co % 8 == 0 &&
+         (q.resident == 0 || q.resident == 1) &&
+         q.threads == (q.co / 8) * q.th * q.tw &&
+         q.smem == conv_smem(k, p.stride, p.Cin, x_dtype == 0 ? 4 : 2, q);
+}
+template <typename KernelT>
+int launch_kernel(KernelT kernel, const Args& p, const Plan& q,
+                  cudaStream_t stream) {
+  if (q.grid == 0) return 0;
+  if (q.smem > 48 * 1024) {  // above 48 KB only when asked for
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, q.smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<static_cast<unsigned>(q.grid), q.threads, q.smem, stream>>>(p, q);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int CELL, typename X, typename S>
+int launch_geometry(int k, const Args& p, const Plan& q, cudaStream_t s) {
+  if (k == 1) {
+    return launch_kernel(spiking_conv_kernel<CELL, X, S, 1, 1>, p, q, s);
+  }
+  if (k == 3 && p.stride == 1) {
+    return launch_kernel(spiking_conv_kernel<CELL, X, S, 3, 1>, p, q, s);
+  }
+  if (k == 3 && p.stride == 2) {
+    return launch_kernel(spiking_conv_kernel<CELL, X, S, 3, 2>, p, q, s);
+  }
+  return -1;
+}
+
+template <int CELL, typename X>
+int launch_state(int state_dtype, int k, const Args& p, const Plan& q,
+                 cudaStream_t s) {
+  switch (state_dtype) {
+    case 0:
+      return launch_geometry<CELL, X, float>(k, p, q, s);
+    case 1:
+      return launch_geometry<CELL, X, __nv_bfloat16>(k, p, q, s);
+    case 2:
+      return launch_geometry<CELL, X, E5M2>(k, p, q, s);
+  }
+  return -1;
+}
+
+template <int CELL>
+int launch_x(int x_dtype, int state_dtype, int k, const Args& p,
+             const Plan& q, cudaStream_t s) {
+  switch (x_dtype) {
+    case 0:
+      return launch_state<CELL, float>(state_dtype, k, p, q, s);
+    case 1:
+      return launch_state<CELL, __nv_bfloat16>(state_dtype, k, p, q, s);
+  }
+  return -1;
 }
 
 bool fits_int(long long v) { return v >= 0 && v <= 0x7fffffff; }
 
 }  // namespace
 
-// C entry points (loaded with ctypes). Type codes: 0 fp32, 1 bf16,
-// 2 fp8 e5m2 (state only); cell 0 = LIF, 1 = LI; tile indexes kTiles
-// and grid is the plan's CTA count. Each returns 0 on success, -1 for
-// an unsupported argument or a grid that is not the tile's, else the
-// cudaError_t of the launch. Shapes are checked by the Python wrappers.
+// C entry point (loaded with ctypes). Type codes: 0 fp32, 1 bf16, 2 fp8
+// e5m2 (state only); cell 0 = LIF, 1 = LI; the plan's fields as
+// ops/cuda_kernels.py's ConvPlan. Returns 0 on success, -1 for an
+// unsupported argument or a plan that is not its geometry's, else the
+// cudaError_t of the launch. Shapes are checked by the Python wrapper.
 extern "C" int spiking_conv_seq_launch(
     const void* x, const void* w, const float* a, const float* b,
     const void* v0, const void* i0, void* z, void* vT, void* iT, int T,
     int N, int H, int W, int Cin, int Ho, int Wo, int Cout, int k,
-    int stride, int tile, long long grid, int cell, int x_dtype,
-    int state_dtype, float c_mem, float c_syn, void* stream) {
-  if (T < 0 || N < 0 || Cin <= 0 || Cout <= 0 || (stride != 1 && stride != 2)
-      || !fits_int(static_cast<long long>(H) * W * Cin)) {
+    int stride, int resident, int co, int th, int tw, int threads, int kc,
+    int smem, long long grid, int cell, int x_dtype, int state_dtype,
+    float c_mem, float c_syn, void* stream) {
+  if (T < 0 || N < 0 || Cin <= 0 || Cout <= 0 ||
+      (stride != 1 && stride != 2) || (k != 1 && k != 3) ||
+      !fits_int(static_cast<long long>(H) * W * Cin) ||
+      !fits_int(static_cast<long long>(Cin) * k * k * Cout)) {
     return -1;
   }
-  const Args p = make_args(x, w, a, b, v0, i0, z, vT, iT, T, N, H, W, Cin,
-                           Ho, Wo, Cout, stride, c_mem, c_syn);
+  Args p{x, w, a, b, v0, i0, z, vT, iT, T, N, H, W, Cin, Ho, Wo, Cout,
+         stride, c_mem, c_syn, false, 0, false};
+  p.vec = Cout % 8 == 0 && aligned16(z) && aligned16(v0) && aligned16(i0) &&
+          aligned16(vT) && aligned16(iT);
+  const Plan q{resident, co, th, tw, threads, kc, smem, grid};
+  p.wvec = Cout % 4 == 0 && aligned16(w);
+  // the widest copy that divides a pixel's channels, a chunk and x's base
+  const int xb = x_dtype == 0 ? 4 : 2;
+  for (int vb = 16; vb >= 4 && p.xvb == 0; vb /= 2) {
+    if ((Cin * xb) % vb == 0 && (kc * xb) % vb == 0 &&
+        reinterpret_cast<uintptr_t>(x) % vb == 0) {
+      p.xvb = vb;
+    }
+  }
+  if (!plan_ok(p, k, x_dtype, q)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cell == cell_math::kLIF) {
-    return launch_x<cell_math::kLIF>(x_dtype, state_dtype, k, tile, p, grid,
-                                     s);
+    return launch_x<cell_math::kLIF>(x_dtype, state_dtype, k, p, q, s);
   }
   if (cell == cell_math::kLI) {
-    return launch_x<cell_math::kLI>(x_dtype, state_dtype, k, tile, p, grid,
-                                    s);
+    return launch_x<cell_math::kLI>(x_dtype, state_dtype, k, p, q, s);
   }
   return -1;
 }

@@ -536,7 +536,7 @@ class Block(Layer):
         a, b = norm.coeffs()
         st = st_b[f"l{li + 2}"]
         z, v, i = spiking_conv_seq(
-            X, conv.w.permute(2, 3, 1, 0).to(X.dtype), a, b, st.v, st.i,
+            X, conv.w.permute(2, 3, 1, 0), a, b, st.v, st.i,
             cell.kind, conv.stride,
         )
         new_b[f"l{li}"] = st_b[f"l{li}"]

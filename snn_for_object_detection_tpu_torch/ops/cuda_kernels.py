@@ -9,10 +9,12 @@ from one to the other. Each wrapper counts its launches in
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import dataclasses
 import functools
+import itertools
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -62,9 +64,10 @@ def _temporal_lib(name: str = "temporal_cell_seq_launch"):
 def _spiking_conv_lib():
     fn = cuda_build.load("spiking_conv.cu").spiking_conv_seq_launch
     if fn.argtypes is None:
-        # 9 pointers; T, N, H, W, Cin, Ho, Wo, Cout, k, stride, tile; grid;
-        # cell, x and state type codes; c_mem, c_syn; stream
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
+        # 9 pointers; T, N, H, W, Cin, Ho, Wo, Cout, k, stride; the plan's
+        # resident, co, th, tw, threads, kc, smem; grid; cell, x and state
+        # type codes; c_mem, c_syn; stream
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 17
                        + [ctypes.c_longlong] + [ctypes.c_int] * 3
                        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -338,55 +341,146 @@ def _check_conv_args(x, w, a, b, v0, i0, cell, stride):
 
 # ---- the launch plan of csrc/spiking_conv.cu ----
 
-# CTA tiles of the kernel (its kTiles): (pixel rows, pixel columns,
-# pixels a thread); a CTA owns the tile's pixels (rows x columns
-# consecutive pixels for 1 x 1) and SC_CO output channels, a thread its
-# pixels x 4 channels
-SC_TILES = ((8, 16, 4), (4, 8, 2))
-SC_CO = 32
+SC_TB = 4  # steps a block: a thread's rows of the product (kTB)
+SC_THREADS = (256, 128)  # threads a CTA the plans take (at most kMaxThreads)
+SC_MAX_SMEM = 232448  # kMaxSmem: 227 KB, the most a CTA can have
+SC_SM_SMEM = 233472  # 228 KB an SM, of which the card keeps
+SC_CTA_RESERVED = 1024  # per CTA
+SC_REGS = 128  # registers a thread at most: 2 CTAs of 256 (launch bounds)
 
 
 @dataclasses.dataclass(frozen=True)
 class ConvPlan:
-    """How ``csrc/spiking_conv.cu`` cuts one layer: CTA tile
-    ``SC_TILES[tile]`` and ``grid`` CTAs of ``threads`` threads."""
+    """How ``csrc/spiking_conv.cu`` runs one layer: the CTA's weights
+    staged once (``resident``) or with each chunk of input channels,
+    CTAs of ``co`` output channels x a ``th`` x ``tw`` tile of output
+    pixels (the 4 steps of a block each), ``threads`` threads, input
+    channels staged ``kc`` at a time, ``smem`` bytes of shared memory,
+    ``grid`` CTAs."""
 
-    tile: int
+    resident: bool
+    co: int
+    th: int
+    tw: int
+    threads: int
+    kc: int
+    smem: int
     grid: int
 
-    @property
-    def shape(self) -> Tuple[int, int, int]:
-        return SC_TILES[self.tile]
 
-    @property
-    def threads(self) -> int:
-        th, tw, px = self.shape
-        return th * tw // px * (SC_CO // 4)
-
-
-def spiking_conv_grid(tile: int, k: int, n: int, ho: int, wo: int,
-                      cout: int) -> int:
-    """CTAs of one layer under CTA tile ``tile`` (``grid_of`` in the
-    source, which checks the plan's grid against it)."""
-    th, tw, _ = SC_TILES[tile]
-    tiles = (-(-ho // th) * -(-wo // tw) if k == 3
-             else -(-(ho * wo) // (th * tw)))
-    return n * tiles * -(-cout // SC_CO)
+def spiking_conv_smem(resident: bool, k: int, stride: int, cin: int,
+                      co: int, th: int, tw: int, kc: int,
+                      x_bytes: int) -> int:
+    """Shared memory bytes of one CTA (the source's ``conv_smem``): fp32
+    weights ``[Cin][k*k][co]`` if resident, else two buffers of a
+    chunk's ``[kc][k*k][co]``; the raw rows of a chunk (a halo pixel's
+    step, ``kc`` channels of x's type, padded by 16 bytes); the chunk as
+    fp32 planes ``[kc][pixel][step]``, each padded to 4 mod 32 words."""
+    hin = (th - 1) * stride + 3 if k == 3 else th
+    win = (tw - 1) * stride + 3 if k == 3 else tw
+    plane = hin * win * SC_TB
+    plane += (36 - plane % 32) % 32
+    row = -(-kc * x_bytes // 16) * 16 + 16
+    return (4 * (cin if resident else 2 * kc) * k * k * co
+            + hin * win * SC_TB * row + 4 * kc * plane)
 
 
-def spiking_conv_plan(k: int, n: int, ho: int, wo: int, cout: int,
+def spiking_conv_grid(n: int, ho: int, wo: int, cout: int, co: int, th: int,
+                      tw: int) -> int:
+    """CTAs of one layer (``grid_of`` in the source, which checks the
+    plan's grid against it)."""
+    return n * -(-ho // th) * -(-wo // tw) * -(-cout // co)
+
+
+def spiking_conv_ctas_per_sm(plan: ConvPlan) -> int:
+    """CTAs of ``plan`` that fit one SM: by shared memory, by threads
+    (2048), by registers (at most ``SC_REGS`` a thread)."""
+    return max(1, min(SC_SM_SMEM // (plan.smem + SC_CTA_RESERVED),
+                      2048 // plan.threads,
+                      65536 // (SC_REGS * plan.threads)))
+
+
+def spiking_conv_plans(k: int, stride: int, n: int, ho: int, wo: int,
+                       cin: int, cout: int,
+                       x_dtype: torch.dtype) -> List[ConvPlan]:
+    """Every plan the kernel takes for a layer: a channel tile of 64, 32,
+    16 or 8 (no wider than Cout needs), 256 or 128 threads, pixel tiles
+    16 or 8 columns wide, weights resident or streamed with the chunks,
+    and the widest chunk of 32, 16 or 8 input channels (all of them if
+    fewer) that fits one CTA an SM, and the widest that fits two. Every
+    plan sums each output in the same order, so all give the same
+    bits."""
+    x_bytes = x_dtype.itemsize
+    plans = []
+    widest = max(8, -(-cout // 8) * 8)
+    for co in (c for c in (64, 32, 16, 8) if c <= widest):
+        for threads in SC_THREADS:
+            tp = threads // (co // 8)
+            for tw, resident in itertools.product((16, 8), (True, False)):
+                if tp % tw:
+                    continue
+                for most in (SC_MAX_SMEM, SC_SM_SMEM // 2 - SC_CTA_RESERVED):
+                    for kc in sorted({min(cin, c) for c in (32, 16, 8)},
+                                     reverse=True):
+                        smem = spiking_conv_smem(resident, k, stride, cin, co,
+                                                 tp // tw, tw, kc, x_bytes)
+                        plan = ConvPlan(
+                            resident, co, tp // tw, tw, threads, kc, smem,
+                            spiking_conv_grid(n, ho, wo, cout, co, tp // tw,
+                                              tw))
+                        if smem <= most:
+                            if plan not in plans:
+                                plans.append(plan)
+                            break
+    return plans
+
+
+def _plan_cost(plan: ConvPlan, k: int, stride: int, cin: int,
+               sms: int) -> float:
+    """Relative time of a plan, fitted to every plan's time on the GEN1
+    layers on the H100 (``scripts/spiking_conv_ab.py plans``; PERF.md,
+    PR 9). The CTAs an SM (``ceil(grid / sms)``) run in rounds of as
+    many as fit; a round costs the work of the CTAs it runs, slowed by
+    the square root of the share of 16 warps an SM they leave idle. A
+    part-filled last round costs less than a full one, since CTAs do not
+    finish in step: the slots are 3/4 whole rounds, 1/4 the even spread
+    ``grid / sms``. A CTA's work, a step: its multiply-adds over its
+    whole tile (ragged edges included; 5% more at 64 channels, whose
+    weight loads cross 256 bytes and meet in the banks), ten more per
+    staged halo element and per streamed weight, and a chunk's barriers
+    and pipeline bubble (512 a thread)."""
+    per_sm = spiking_conv_ctas_per_sm(plan)
+    a_sm = -(-plan.grid // sms)
+    conc = min(per_sm, a_sm)
+    rounds = -(-a_sm // per_sm)
+    slots = 0.75 * rounds * conc + 0.25 * plan.grid / sms
+    work = plan.th * plan.tw * plan.co * cin * k * k
+    if plan.co == 64:
+        work *= 1.05
+    hin = (plan.th - 1) * stride + 3 if k == 3 else plan.th
+    win = (plan.tw - 1) * stride + 3 if k == 3 else plan.tw
+    work += 10 * hin * win * cin
+    if not plan.resident:
+        work += 10 * k * k * plan.co * cin / SC_TB
+    work += 512 * plan.threads * -(-cin // plan.kc) / SC_TB
+    warps = conc * plan.threads // 32
+    return slots * work / min(1.0, warps / 16) ** 0.5
+
+
+@functools.lru_cache(maxsize=256)
+def spiking_conv_plan(k: int, stride: int, n: int, ho: int, wo: int,
+                      cin: int, cout: int, x_dtype: torch.dtype,
                       sms: int) -> ConvPlan:
     """The launch plan of one ``spiking_conv_seq`` layer on a card of
-    ``sms`` SMs: the largest CTA tile that gives at least one CTA an SM,
-    else the tile that gives the most CTAs (``chip_smoke.py`` [3] times
-    every tile). Every tile sums each output in the same order, so the
-    plan never changes results; it does not depend on the dtypes, the
-    stride or Cin."""
-    grids = [spiking_conv_grid(t, k, n, ho, wo, cout)
-             for t in range(len(SC_TILES))]
-    tile = next((t for t, g in enumerate(grids) if g >= sms),
-                max(range(len(grids)), key=grids.__getitem__))
-    return ConvPlan(tile, grids[tile])
+    ``sms`` SMs: of :func:`spiking_conv_plans`, the one of least
+    :func:`_plan_cost` (the first of equals). The plan never changes
+    results (``chip_smoke.py`` [3] holds every plan bit-equal and times
+    it). Cached: a layer's plan is computed once."""
+    plans = spiking_conv_plans(k, stride, n, ho, wo, cin, cout, x_dtype)
+    if not plans:
+        raise ValueError(f"spiking_conv_seq: no launch plan for k={k}, "
+                         f"Cin={cin}, Cout={cout}")
+    return min(plans, key=lambda p: _plan_cost(p, k, stride, cin, sms))
 
 
 @functools.lru_cache(maxsize=None)
@@ -432,6 +526,36 @@ def spiking_conv_seq_reference(
     return z, v.to(sd), i.to(sd)
 
 
+_KERNEL_WEIGHTS: "collections.OrderedDict" = collections.OrderedDict()
+_KERNEL_WEIGHTS_MAX = 64  # weight tensors kept: a GEN1 net has 22 convs
+
+
+def spiking_conv_weights(w: torch.Tensor,
+                         x_dtype: torch.dtype) -> torch.Tensor:
+    """``w [k, k, Cin, Cout]`` rounded to ``x_dtype``, as the fp32
+    ``[Cin][k][k][Cout]`` that ``csrc/spiking_conv.cu`` reads (a chunk's
+    weights in one run). Eval weights do not change between steps, so
+    the copy is kept, keyed on w's storage, view and version (an
+    in-place update makes a new key); the entry holds w, so no other
+    tensor takes its storage while it is kept. Inference tensors have no
+    version and are copied every call."""
+    key = None
+    if not w.is_inference():
+        key = (w.device, w.untyped_storage().data_ptr(), w.storage_offset(),
+               tuple(w.shape), w.stride(), w.dtype, w._version, x_dtype)
+        hit = _KERNEL_WEIGHTS.get(key)
+        if hit is not None:
+            _KERNEL_WEIGHTS.move_to_end(key)
+            return hit[1]
+    with torch.no_grad():
+        out = w.to(x_dtype).float().permute(2, 0, 1, 3).contiguous()
+    if key is not None:
+        _KERNEL_WEIGHTS[key] = (w, out)
+        if len(_KERNEL_WEIGHTS) > _KERNEL_WEIGHTS_MAX:
+            _KERNEL_WEIGHTS.popitem(last=False)
+    return out
+
+
 def spiking_conv_seq(
     x_seq: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     v0: torch.Tensor, i0: torch.Tensor, cell: str = "lif", stride: int = 1,
@@ -463,7 +587,8 @@ def spiking_conv_seq(
     if x_seq.device.type != "cuda":
         raise ValueError(f"unsupported device {x_seq.device}")
     _require_contiguous(x_seq=x_seq, v0=v0, i0=i0)
-    plan = spiking_conv_plan(w.shape[0], x_seq.shape[1], ho, wo, w.shape[3],
+    plan = spiking_conv_plan(w.shape[0], stride, x_seq.shape[1], ho, wo,
+                             x_seq.shape[4], w.shape[3], x_seq.dtype,
                              sm_count(x_seq.device.index))
     return spiking_conv_seq_launch(x_seq, w, a, b, v0, i0, cell, stride,
                                    plan)
@@ -476,11 +601,13 @@ def spiking_conv_seq_launch(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One launch of ``csrc/spiking_conv.cu`` under ``plan``, for
     arguments :func:`spiking_conv_seq` has checked (``chip_smoke.py``
-    times the plan's other tiles through it)."""
+    runs every other plan of the layer through it); the entry point
+    refuses a plan that is not its geometry's. The weights go as
+    :func:`spiking_conv_weights` keeps them."""
     T, n, h, wd, cin = x_seq.shape
     k, cout = w.shape[0], w.shape[3]
     ho, wo = v0.shape[1:3]
-    w = w.to(x_seq.dtype).contiguous()
+    w = spiking_conv_weights(w, x_seq.dtype)
     a, b = a.float().contiguous(), b.float().contiguous()
     z = torch.empty((T, n, ho, wo, cout), dtype=x_seq.dtype,
                     device=x_seq.device)
@@ -493,8 +620,9 @@ def spiking_conv_seq_launch(
             x_seq.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
             v0.data_ptr(), i0.data_ptr(), z.data_ptr(), v_t.data_ptr(),
             i_t.data_ptr(), T, n, h, wd, cin, ho, wo, cout, k, stride,
-            plan.tile, plan.grid, _CELLS[cell], _CODES[x_seq.dtype],
-            _CODES[v0.dtype], c_mem, c_syn, stream,
+            int(plan.resident), plan.co, plan.th, plan.tw, plan.threads, plan.kc, plan.smem, plan.grid,
+            _CELLS[cell], _CODES[x_seq.dtype], _CODES[v0.dtype], c_mem,
+            c_syn, stream,
         )
     if rc != 0:
         raise RuntimeError(f"spiking_conv_seq launch failed (code {rc})")

@@ -99,14 +99,16 @@ def test_spiking_conv_matches_plain_version(card, k, stride, cell, x_dtype,
     most 0.1% (fp32; 1% in bf16) of final state elements outside rtol
     1e-4, atol 1e-5 (fp32) or two ulps of the storage dtype. Odd sizes,
     Cin off the chunk size, Cout off the channel tile and one Cout that
-    is no multiple of 4 (the scalar store path)."""
-    for shape, cout in (((5, 2, 13, 19, 6), 40), ((3, 1, 9, 7, 10), 18)):
+    is no multiple of 8 (the scalar store path); Cin = 32, a whole
+    chunk."""
+    for shape, cout in (((5, 2, 13, 19, 6), 40), ((3, 1, 9, 7, 10), 18),
+                        ((6, 2, 11, 17, 32), 40)):
         _check_conv_gates(k, stride, cell, x_dtype, state_dtype, shape, cout)
 
 
 def _check_conv_gates(k, stride, cell, x_dtype, state_dtype, shape, cout):
     """One launch, then the gates of chip_smoke.py [3] against the plain
-    version; every CTA tile of the kernel gives the plan's bits."""
+    version; every plan of the layer gives the plan's bits."""
     from chip_smoke import outside_share, spike_agreement
 
     limit = 0.001 if x_dtype == torch.float32 else 0.01
@@ -116,16 +118,15 @@ def _check_conv_gates(k, stride, cell, x_dtype, state_dtype, shape, cout):
     torch.cuda.synchronize()
     assert cuda_kernels.LAUNCHES["spiking_conv_seq"] == 1
     ho, wo = args[4].shape[1:3]
-    for tile in range(len(cuda_kernels.SC_TILES)):
-        plan = cuda_kernels.ConvPlan(tile, cuda_kernels.spiking_conv_grid(
-            tile, k, shape[1], ho, wo, cout))
+    want = cuda_kernels.spiking_conv_seq_reference(*args, cell=cell,
+                                                   stride=stride)
+    for plan in cuda_kernels.spiking_conv_plans(k, stride, shape[1], ho, wo,
+                                                shape[4], cout, x_dtype):
         other = cuda_kernels.spiking_conv_seq_launch(*args, cell, stride,
                                                      plan)
         for g, o in zip(got, other):
             torch.testing.assert_close(o.float(), g.float(), rtol=0, atol=0,
                                        equal_nan=True)
-    want = cuda_kernels.spiking_conv_seq_reference(*args, cell=cell,
-                                                   stride=stride)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
     if cell == "lif":
@@ -151,23 +152,29 @@ PLAN_CASES = {  # (k, stride, cell, [T, N, H, W, Cin], Cout)
 @pytest.mark.parametrize("x_dtype,state_dtype", DTYPE_PAIRS)
 @pytest.mark.parametrize("case", sorted(PLAN_CASES))
 def test_spiking_conv_plan_variants(card, case, x_dtype, state_dtype):
-    """The launch plan and every CTA tile against the plain version on
-    the shapes where the plan leaves the largest tile: Cin = 2, 8 x 10
-    and 15 x 19 outputs (ragged pixel tiles), stride 2 on odd inputs,
-    N = 1, Cout off a multiple of 32 (a ragged channel tile)."""
+    """The launch plan and every other plan against the plain version on
+    the shapes where the tiles are ragged: Cin = 2, 8 x 10 and 15 x 19
+    outputs, stride 2 on odd inputs, N = 1, Cout off a multiple of 32 (a
+    ragged channel tile)."""
     k, stride, cell, shape, cout = PLAN_CASES[case]
     _check_conv_gates(k, stride, cell, x_dtype, state_dtype, shape, cout)
 
 
 @pytest.mark.cuda
 def test_spiking_conv_rejects_a_wrong_grid(card):
-    """The entry point checks the plan's grid against its tile."""
-    args = _conv_inputs(3, 1, torch.float32, torch.float32,
-                        (2, 1, 8, 10, 16), 32)
-    grid = cuda_kernels.spiking_conv_grid(1, 3, 1, 8, 10, 32)
-    with pytest.raises(RuntimeError, match="code -1"):
-        cuda_kernels.spiking_conv_seq_launch(
-            *args, "lif", 1, cuda_kernels.ConvPlan(1, grid + 1))
+    """The entry point checks the plan's grid and shared memory against
+    its geometry."""
+    import dataclasses
+
+    for x_dtype in (torch.float32, torch.bfloat16):
+        args = _conv_inputs(3, 1, x_dtype, torch.float32,
+                            (2, 1, 8, 10, 16), 32)
+        plan = cuda_kernels.spiking_conv_plan(3, 1, 1, 8, 10, 16, 32,
+                                              x_dtype, 132)
+        for bad in (dataclasses.replace(plan, grid=plan.grid + 1),
+                    dataclasses.replace(plan, smem=plan.smem + 16)):
+            with pytest.raises(RuntimeError, match="code -1"):
+                cuda_kernels.spiking_conv_seq_launch(*args, "lif", 1, bad)
 
 
 @pytest.mark.cuda
