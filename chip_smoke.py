@@ -97,15 +97,17 @@ Phases (any failure raises and the script exits non-zero):
    stride-8 head, fp32 and bf16 states, LIF and LI, over the sequence
    (T = 42) at start 0 and 5 and at T = 1 (each per-step launch) at
    start 0: every element bit-equal, or at most rtol 1e-5 of the largest
-   cotangent with the count of elements that differ printed; kernel ms,
-   bound and share, the plain backward's ms. Then ``Trainer.fit`` for 3
+   cotangent with the count of elements that differ printed; kernel ms
+   (queued), bound and share, the plain backward's ms and the launch
+   plan (chunk, checkpoints shared or global, their bytes). Then ``Trainer.fit`` for 3
    steps on each schedule in both training configurations (fp32, and
    bf16 states with fp32 activations, ``config/fast.yaml``) at full GEN1
    width:
    22 backward launches a time-batched step and 22 x (T - r) a per-step
    one, no ``spiking_conv_seq``, finite losses, weights and running
    stats moved; a train step's ms (CUDA events), peak memory, and the
-   device idle share of one profiled step; and at fp32 with cuDNN off
+   device idle share and cell backward kernels' ms of one profiled step;
+   and at fp32 with cuDNN off
    each schedule's first-step loss and gradients against the same
    schedule's through the plain cell, gradients within rtol 2e-3.
 
@@ -892,7 +894,7 @@ def phase_streaming(torch, cuda_kernels, TinyYolo, batch, dev, frames=8):
 
 KERNEL_KINDS = (  # (kind, substrings of a CUDA kernel's name), first match
     ("cell kernel", ("temporal_cell_kernel",)),
-    ("cell backward kernel", ("temporal_cell_bwd_kernel",)),
+    ("cell backward kernel", ("temporal_cell_bwd",)),
     ("spiking conv kernel", ("spiking_conv_kernel",)),
     ("conv layout", ("nchwtonhwc", "nhwctonchw", "transpose", "permute")),
     ("conv", ("conv", "xmma", "gemm", "cutlass", "implicit", "fprop",
@@ -1493,35 +1495,64 @@ def cell_bwd_bound(cell, T, M, sx, ss):
         else "operations"
 
 
+def cell_bwd_cases():
+    """[10]'s backward cases: label -> (shape, starts). GEN1 stage 1 and
+    the stride-8 head over the sequence (T = 42, the time-batched
+    schedule) at start 0 and 5, and at T = 1 (the per-step schedule's
+    every launch) at start 0."""
+    h, w = IN_HW
+    return {"stage1": ((STEPS, BATCH, h // 2, w // 2, 64), (0, TRAIN_START)),
+            "head_li": ((STEPS, BATCH, h // 8, w // 8, 256),
+                        (0, TRAIN_START)),
+            "stage1_t1": ((1, BATCH, h // 2, w // 2, 64), (0,)),
+            "head_t1": ((1, BATCH, h // 8, w // 8, 256), (0,))}
+
+
+def cell_bwd_inputs(torch, shape, dev):
+    """[10]'s seeded fp32 draws for one shape: x, v0, i0, gz, gv, gi."""
+    rng = np.random.default_rng(2)
+    return [torch.from_numpy(rng.standard_normal(s, dtype=np.float32)
+                             * scale).to(dev)
+            for s, scale in ((shape, 2.0), (shape[1:], 1.0),
+                             (shape[1:], 1.0), (shape, 1.0),
+                             (shape[1:], 1.0), (shape[1:], 1.0))]
+
+
+def cell_bwd_args(torch, draw, xd, sd):
+    """The draws in one (x, state) dtype pair, in the backward's order."""
+    x, gz = (a.to(getattr(torch, xd)) for a in draw[0::3])
+    v0, i0, gv, gi = (a.to(getattr(torch, sd))
+                      for a in (draw[1], draw[2], draw[4], draw[5]))
+    return x, v0, i0, gz, gv, gi
+
+
+def cell_bwd_plan_text(cuda_kernels, cell, x, v0) -> str:
+    """The launch plan the backward takes for these arguments."""
+    T, m = x.shape[0], v0.numel()
+    if cell != "lif" or T < 2:
+        return "one reverse pass, no checkpoints"
+    p = cuda_kernels.cell_bwd_plan(T, m, x.dtype, v0.dtype,
+                                   m % (16 // x.element_size()) == 0)
+    where = "shared" if p.shared else "global"
+    return (f"C={p.chunk}, {p.rows} checkpoints a state in {where} memory "
+            f"({p.ckpt_bytes / 1e6:.1f} MB, {p.smem} B shared a CTA), "
+            f"{p.threads} threads{'' if p.vec else ', scalar'}")
+
+
 def phase_cell_backward(torch, cuda_kernels, dev):
     """[10] first part: the backward kernel against autograd through the
-    plain version, at GEN1 stage 1 and the stride-8 head, both training
-    state dtypes, LIF and LI: over the sequence (T = 42, the time-batched
-    schedule) at start 0 and 5, and at T = 1 (the per-step schedule's
-    every launch, a branch of its own in the kernel) at start 0. The
-    gate: every element bit-equal (the kernel sums in autograd's order);
-    a run that is not prints the elements that differ and fails past
-    rtol 1e-5 of the largest cotangent. Returns per-case rows and the
-    worst error."""
-    h, w = IN_HW
-    shapes = {"stage1": ((STEPS, BATCH, h // 2, w // 2, 64), (0, TRAIN_START)),
-              "head_li": ((STEPS, BATCH, h // 8, w // 8, 256),
-                          (0, TRAIN_START)),
-              "stage1_t1": ((1, BATCH, h // 2, w // 2, 64), (0,)),
-              "head_t1": ((1, BATCH, h // 8, w // 8, 256), (0,))}
+    plain version on ``cell_bwd_cases()``, both training state dtypes,
+    LIF and LI. The gate: every element bit-equal (the kernel sums in
+    autograd's order); a run that is not prints the elements that
+    differ and fails past rtol 1e-5 of the largest cotangent. Prints
+    each case's launch plan. Returns per-case rows and the worst
+    error."""
     rows, worst = [], 0.0
-    for label, (shape, starts) in shapes.items():
-        rng = np.random.default_rng(2)
-        draw = [torch.from_numpy(rng.standard_normal(s, dtype=np.float32)
-                                 * scale).to(dev)
-                for s, scale in ((shape, 2.0), (shape[1:], 1.0),
-                                 (shape[1:], 1.0), (shape, 1.0),
-                                 (shape[1:], 1.0), (shape[1:], 1.0))]
+    for label, (shape, starts) in cell_bwd_cases().items():
+        draw = cell_bwd_inputs(torch, shape, dev)
         T, M = shape[0], int(np.prod(shape[1:]))
         for xd, sd in TRAIN_PAIRS:
-            x, gz = (a.to(getattr(torch, xd)) for a in draw[0::3])
-            v0, i0, gv, gi = (a.to(getattr(torch, sd))
-                              for a in (draw[1], draw[2], draw[4], draw[5]))
+            x, v0, i0, gz, gv, gi = cell_bwd_args(torch, draw, xd, sd)
             for cell in ("lif", "li"):
                 for start in starts:
                     cuda_kernels.reset_launches()
@@ -1547,11 +1578,9 @@ def phase_cell_backward(torch, cuda_kernels, dev):
                         check(err <= 1e-5 * scale,
                               f"{label} {cell} {xd}/{sd} start={start}: {name} "
                               f"max abs err {err} past rtol 1e-5 of {scale}")
-                    # one launch at T = 1 is shorter than the wrapper's
-                    # host time: time it queued behind a busy card
-                    timer = queued_ms if T == 1 else functools.partial(
-                        cuda_time_ms, reps=10)
-                    ms = timer(lambda: cuda_kernels.temporal_cell_seq_bwd(
+                    # queued behind a busy card: the wrapper's host time
+                    # (checks, allocations) is a tenth of a head case
+                    ms = queued_ms(lambda: cuda_kernels.temporal_cell_seq_bwd(
                         x, v0, i0, gz, gv, gi, cell, start))
                     plain_ms = cuda_time_ms(lambda: torch.autograd.grad(
                         outs, leaves, (gz, gv, gi), retain_graph=True),
@@ -1565,11 +1594,12 @@ def phase_cell_backward(torch, cuda_kernels, dev):
                                      differ=differ))
                     print(f"  {label:9s} {cell:3s} {xd}/{sd:8s} start={start}: "
                           f"{'bit-equal' if not differ else f'{differ} elements differ'}"
-                          f"; kernel {ms:.4f} ms"
-                          f"{' (queued)' if T == 1 else ''}, bound "
+                          f"; kernel {ms:.4f} ms (queued), bound "
                           f"{bound_ms:.4f} ms "
                           f"({by}, {bound_ms / ms:.0%} of it), plain backward "
-                          f"{plain_ms:.3f} ms", flush=True)
+                          f"{plain_ms:.3f} ms; plan: "
+                          f"{cell_bwd_plan_text(cuda_kernels, cell, x, v0)}",
+                          flush=True)
         del draw, x, gz, v0, i0, gv, gi
         torch.cuda.empty_cache()
     return rows, worst
@@ -1676,6 +1706,8 @@ def phase_train(torch, cuda_kernels, TinyYolo, Trainer, batches, dev):
             peak_gb = torch.cuda.max_memory_allocated() / 1e9
             kernels, busy, wall = profiled(torch, step)
             by_kind = kind_ms(kernels)
+            bwd_n = sum(kernel_kind(e.name) == "cell backward kernel"
+                        for e in kernels)
             print(f"  {tag}: fit {TRAIN_STEPS} steps in {fit_s:.1f} s, starts "
                   f"{starts}, losses {[round(v, 4) for v in losses]}; "
                   f"launches {n['temporal_cell_seq']} forward (remat "
@@ -1684,8 +1716,9 @@ def phase_train(torch, cuda_kernels, TinyYolo, Trainer, batches, dev):
                   f"events, median of 3), {STEPS * BATCH / (step_ms / 1e3):.0f}"
                   f" frames/s, peak memory {peak_gb:.2f} GB; one step under "
                   f"the profiler: device busy {busy:.1f} of {wall:.1f} ms, "
-                  f"idle share {max(0.0, 1 - busy / wall):.3f}; device ms by "
-                  f"kind: " + ", ".join(
+                  f"idle share {max(0.0, 1 - busy / wall):.3f}; {bwd_n} cell "
+                  f"backward kernels {by_kind.get('cell backward kernel', 0):.2f}"
+                  f" ms; device ms by kind: " + ", ".join(
                       f"{k} {v:.1f}" for k, v in sorted(
                           by_kind.items(), key=lambda kv: -kv[1])[:6]),
                   flush=True)

@@ -186,13 +186,23 @@ class Conv(Layer):
             )
 
     def step(self, x, state, ctx):
-        y = F.conv2d(
-            x.permute(0, 3, 1, 2), self.w.to(x.dtype),
-            stride=self.stride, padding=self.padding,
-        )
+        return self._conv(x, self.w.to(x.dtype)), state
+
+    def _conv(self, x, w):
+        y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=self.stride,
+                     padding=self.padding)
         # cuDNN and oneDNN answer a channels-last input in channels-last,
         # so this is a view; a backend that answers NCHW pays one copy
-        return y.permute(0, 2, 3, 1).contiguous(), state
+        return y.permute(0, 2, 3, 1).contiguous()
+
+    def step_unrounded(self, x):
+        """The conv of x's values and the weight rounded to x's dtype,
+        summed and kept in fp32: what jitted JAX's per-step train
+        forward hands a Norm that follows in bf16 (XLA keeps the sums in
+        fp32 in front of the Norm's fp32 cast; with
+        ``--xla_allow_excess_precision=false`` it rounds them, as eager
+        JAX does)."""
+        return self._conv(x.float(), self.w.to(x.dtype).float())
 
 
 class Norm(Layer):
@@ -240,22 +250,23 @@ class Norm(Layer):
         mean0, var0 = running if running else (self.mean, self.var)
         return ((1 - m) * mean0 + m * mean, (1 - m) * var0 + m * unbiased)
 
-    def _normalize(self, x, mean, var):
+    def _normalize(self, x, mean, var, dtype=None):
         y = (x.float() - mean) * torch.rsqrt(var + self.eps) * self.scale
         if self.bias is not None:
             y = y + self.bias
-        return y.to(x.dtype)
+        return y.to(dtype or x.dtype)
 
     def _unbiased(self, x, var):
         n = x.shape[-4] * x.shape[-3] * x.shape[-2]
         return var.detach().flatten() * (n / max(n - 1, 1))
 
-    def step(self, x, state, ctx):
+    def step(self, x, state, ctx, dtype=None):
+        """``dtype``: train mode's output dtype, if not x's."""
         if ctx is not None and ctx.train:
             # batch mean and biased variance over (B, H, W), in fp32
             var, mean = torch.var_mean(x.float(), dim=(0, 1, 2),
                                        correction=0, keepdim=True)
-            return self._normalize(x, mean, var), self._fold(
+            return self._normalize(x, mean, var, dtype), self._fold(
                 state, mean.detach().flatten(), self._unbiased(x, var))
         k, b = self.coeffs()
         if x.dtype == torch.float32:
@@ -471,6 +482,19 @@ class Block(Layer):
                 if li in fused:
                     y = self._run_fused(layers[li:li + 3], li, y, st_b, new_b)
                     li += 3
+                    continue
+                if (not seq and ctx.train and y.dtype != torch.float32
+                        and isinstance(layers[li], Conv)
+                        and li + 1 < len(layers)
+                        and isinstance(layers[li + 1], Norm)):
+                    # [Conv -> Norm] of a train step in bf16: the Norm
+                    # reads the conv's fp32 sums and rounds its output,
+                    # as in jitted JAX (Conv.step_unrounded)
+                    new_b[f"l{li}"] = st_b[f"l{li}"]
+                    y, new_b[f"l{li + 1}"] = layers[li + 1].step(
+                        layers[li].step_unrounded(y), st_b[f"l{li + 1}"],
+                        ctx, y.dtype)
+                    li += 2
                     continue
                 if (not seq and not ctx.train and isinstance(layers[li], Norm)
                         and li + 1 < len(layers)

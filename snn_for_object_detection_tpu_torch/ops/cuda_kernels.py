@@ -47,14 +47,16 @@ def reset_launches() -> None:
 def _temporal_lib(name: str = "temporal_cell_seq_launch"):
     fn = getattr(cuda_build.load("temporal_cell.cu"), name)
     if fn.argtypes is None:
-        # pointers (6 forward, 11 backward); T, M; start, cell, x and
-        # state type codes; c_mem, c_syn (and alpha); stream
+        # pointers (6 forward, 10 backward); T, M; start, cell, x and
+        # state type codes; c_mem, c_syn (and alpha; then the backward's
+        # plan: chunk, threads, vec, smem); stream
         bwd = name == "temporal_cell_seq_bwd_launch"
         fn.argtypes = (
-            [ctypes.c_void_p] * (11 if bwd else 6)
+            [ctypes.c_void_p] * (10 if bwd else 6)
             + [ctypes.c_longlong] * 2
             + [ctypes.c_int] * 4
             + [ctypes.c_float] * (3 if bwd else 2)
+            + [ctypes.c_int] * (4 if bwd else 0)
             + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
@@ -199,16 +201,165 @@ def _launch_forward(x_seq, v0, i0, cell, start):
     return z, v_t, i_t
 
 
+# ---- the launch plan of the cell backward (csrc/temporal_cell.cu) ----
+
+CELL_BWD_CHUNKS = (2, 4, 6, 8, 12, 16)  # chunk lengths the source builds
+CELL_BWD_THREADS = (256, 128)
+CELL_BWD_MAX_SMEM = 232448  # kMaxSmem: 227 KB, the most a CTA can have
+CELL_BWD_SM_SMEM = 233472  # 228 KB an SM, of which the card keeps
+CELL_BWD_CTA_RESERVED = 1024  # per CTA
+CELL_BWD_REGS = 255  # registers a thread at most (launch bounds of 256)
+# a thread's s values (chunk x elements a thread) that the source builds
+# on the vector paths (chunk_built): beyond them ptxas spills at 255
+# registers; the scalar path builds every chunk
+CELL_BWD_MAX_S = 48
+# registers a thread of each chunked kernel built, by elements a thread
+# (1, 4 for fp32 x, 8 for bf16 x) and chunk: what ptxas -v reports for
+# sm_90a (CUDA 12.8), the most over the state types
+_CELL_BWD_REGS_SEEN = {
+    1: {2: 40, 4: 44, 6: 52, 8: 62, 12: 80, 16: 94},
+    4: {2: 71, 4: 100, 6: 128, 8: 166, 12: 233},
+    8: {2: 124, 4: 172, 6: 232},
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class CellBwdPlan:
+    """How ``csrc/temporal_cell.cu``'s chunked backward runs LIF at T >=
+    2: chunks of ``chunk`` steps, ``threads`` threads a CTA, a thread's
+    16 bytes of x at a time (``vec``) or one element; ``rows`` =
+    ceil(T / chunk) - 2 checkpoints a state, in shared memory
+    (``shared``: ``smem`` bytes a CTA) or in global rows ``[2, rows,
+    M]`` that the wrapper allocates; ``ckpt_bytes`` of checkpoints in
+    all."""
+
+    chunk: int
+    threads: int
+    shared: bool
+    rows: int
+    vec: bool
+    smem: int
+    ckpt_bytes: int
+
+
+def cell_bwd_built(chunk: int, width: int) -> bool:
+    """Whether the source builds the chunked kernel for ``chunk`` steps a
+    chunk and ``width`` elements a thread (its ``chunk_built``)."""
+    return chunk in CELL_BWD_CHUNKS and (
+        width == 1 or chunk * width <= CELL_BWD_MAX_S)
+
+
+def cell_bwd_regs(chunk: int, width: int) -> int:
+    """Registers a thread of a built chunked kernel takes at ``chunk``
+    steps a chunk and ``width`` elements a thread
+    (``_CELL_BWD_REGS_SEEN``): mostly the chunk's s (fp32) and its loads
+    of x and gz, which pass 2 keeps in flight."""
+    return _CELL_BWD_REGS_SEEN[width][chunk]
+
+
+def cell_bwd_plan_of(T: int, m: int, x_dtype: torch.dtype,
+                     state_dtype: torch.dtype, chunk: int, threads: int,
+                     shared: bool, vec: bool = True) -> CellBwdPlan:
+    """The plan of ``chunk`` steps a chunk (one of ``CELL_BWD_CHUNKS``;
+    longer than T gives one short chunk), ``threads`` threads and the
+    checkpoints in shared or global memory, for LIF over ``T >= 2``
+    steps of ``m`` elements (no checkpoints, so nothing global, where
+    T takes at most two chunks)."""
+    xb, ss = x_dtype.itemsize, state_dtype.itemsize
+    width = 16 // xb if vec and m % (16 // xb) == 0 else 1
+    rows = max(0, -(-T // chunk) - 2)
+    shared = shared or rows == 0
+    smem = threads * rows * 2 * width * ss if shared else 0
+    return CellBwdPlan(chunk, threads, shared, rows, width > 1, smem,
+                       2 * rows * m * ss)
+
+
+def cell_bwd_plans(T: int, m: int, x_dtype: torch.dtype,
+                   state_dtype: torch.dtype,
+                   vec: bool = True) -> List[CellBwdPlan]:
+    """Every plan the chunked kernel takes for LIF over ``T >= 2`` steps
+    of ``m`` elements: a chunk no longer than T that the source builds
+    for the width (:func:`cell_bwd_built`), 256 or 128 threads, the
+    checkpoints in shared memory where they fit a CTA, and in global
+    memory. Every plan gives the same bits."""
+    if T < 2:
+        raise ValueError(f"T = {T}: the chunked backward runs T >= 2")
+    xb = x_dtype.itemsize
+    width = 16 // xb if vec and m % (16 // xb) == 0 else 1
+    plans = []
+    for chunk in (c for c in CELL_BWD_CHUNKS if c <= T):
+        if not cell_bwd_built(chunk, width):
+            continue
+        for threads, shared in itertools.product(CELL_BWD_THREADS,
+                                                 (True, False)):
+            plan = cell_bwd_plan_of(T, m, x_dtype, state_dtype, chunk,
+                                    threads, shared, vec)
+            if plan.smem <= CELL_BWD_MAX_SMEM and plan not in plans:
+                plans.append(plan)
+    return plans
+
+
+def _cell_bwd_cost(plan: CellBwdPlan, T: int, m: int, x_bytes: int) -> float:
+    """Relative time of a plan, fitted to every plan's time at
+    ``chip_smoke.py`` [10]'s two T = 42 shapes on the H100
+    (``scripts/cell_bwd_ab.py plans``; PERF.md): the bytes it
+    moves (x over every chunk but the last in pass 1 and again in pass
+    2, gz, gx; global checkpoints written and read) at the card's rate,
+    slowed in proportion where an SM holds fewer than 3 warps for each
+    element a thread (12 warps with fp32 x, 24 with bf16 x: a thread's
+    math grows with its elements, its bytes do not). The warps an SM
+    are the CTAs that fit its registers, shared memory and threads."""
+    width = 16 // x_bytes if plan.vec else 1
+    chunks = -(-T // plan.chunk)
+    nbytes = m * x_bytes * (T + (chunks - 1) * plan.chunk + 2 * T)
+    if not plan.shared:
+        nbytes += 2 * plan.ckpt_bytes
+    regs = -(-cell_bwd_regs(plan.chunk, width) // 8) * 8
+    ctas = min(65536 // (regs * plan.threads), 2048 // plan.threads,
+               CELL_BWD_SM_SMEM // (plan.smem + CELL_BWD_CTA_RESERVED))
+    warps = ctas * plan.threads // 32
+    return nbytes / min(1.0, warps / (3 * width))
+
+
+@functools.lru_cache(maxsize=256)
+def cell_bwd_plan(T: int, m: int, x_dtype: torch.dtype,
+                  state_dtype: torch.dtype, vec: bool = True) -> CellBwdPlan:
+    """The launch plan of the LIF backward over ``T >= 2`` steps of ``m``
+    elements: of :func:`cell_bwd_plans`, the one of least
+    :func:`_cell_bwd_cost` (the first of equals). At GEN1's T = 42 with
+    fp32 x: chunks of 6, 5 checkpoints a state in shared memory; with
+    bf16 x: chunks of 2 with global checkpoints (fewer registers, more
+    warps). The plan never changes results (``chip_smoke.py`` [10] and
+    ``scripts/cell_bwd_ab.py plans`` hold every plan bit-equal)."""
+    plans = cell_bwd_plans(T, m, x_dtype, state_dtype, vec)
+    return min(plans, key=lambda p: _cell_bwd_cost(p, T, m,
+                                                   x_dtype.itemsize))
+
+
+def _bwd_vec(x_seq, v0, tensors_x, tensors_state) -> bool:
+    """Whether the backward can take 16-byte loads of x: the flat size a
+    multiple of the width and every pointer aligned (as the entry point
+    checks)."""
+    width = 16 // x_seq.element_size()
+    sv = width * v0.element_size()
+    return (v0.numel() % width == 0
+            and all(t.data_ptr() % 16 == 0 for t in tensors_x)
+            and all(t.data_ptr() % sv == 0 for t in tensors_state))
+
+
 def temporal_cell_seq_bwd(
     x_seq: torch.Tensor, v0: torch.Tensor, i0: torch.Tensor,
     gz: torch.Tensor, gv: torch.Tensor, gi: torch.Tensor,
-    cell: str = "lif", start: int = 0,
+    cell: str = "lif", start: int = 0, plan: Optional[CellBwdPlan] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The VJP of :func:`temporal_cell_seq` on the card: ``(gx, gv0,
     gi0)`` for the cotangents ``gz`` (x's dtype, ``[T, ...]``) and
     ``gv``, ``gi`` (the state dtype) of ``(z_seq, v_T, i_T)``. One
     launch of ``csrc/temporal_cell.cu``'s backward kernel; its plain
-    version is autograd through :func:`temporal_cell_seq_reference`."""
+    version is autograd through :func:`temporal_cell_seq_reference`.
+    LIF at T >= 2 runs under ``plan`` (default :func:`cell_bwd_plan`;
+    ``chip_smoke.py`` and the card tests run others), with its
+    checkpoint rows allocated here when they are global."""
     _check_cell_args(x_seq, v0, i0, cell)
     if x_seq.device.type != "cuda":
         raise ValueError("the backward kernel takes CUDA tensors, not "
@@ -223,20 +374,30 @@ def temporal_cell_seq_bwd(
     gx = torch.empty_like(x_seq)
     gv0 = torch.empty_like(v0)
     gi0 = torch.empty_like(i0)
-    # the state entering steps 1 .. T-1 (LIF only: LI's gradient does
-    # not depend on the state)
-    rows = T - 1 if cell == "lif" and T > 1 else 0
-    ws = torch.empty((2, rows, m), dtype=v0.dtype, device=v0.device)
+    vec = _bwd_vec(x_seq, v0, (x_seq, gz, gx), (v0, i0, gv, gi, gv0, gi0))
+    ckpt = None
+    chunk, threads, smem = 0, 256, 0
+    if cell == "lif" and T >= 2:
+        if plan is None:
+            plan = cell_bwd_plan(T, m, x_seq.dtype, v0.dtype, vec)
+        if plan.vec and not vec:
+            raise ValueError("the plan takes 16-byte loads that these "
+                             "tensors do not allow")
+        if not plan.shared:
+            ckpt = torch.empty((2, plan.rows, m), dtype=v0.dtype,
+                               device=v0.device)
+        chunk, threads, smem, vec = (plan.chunk, plan.threads, plan.smem,
+                                     plan.vec)
     c_mem, c_syn = _euler(cell)
     with torch.cuda.device(x_seq.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _temporal_lib("temporal_cell_seq_bwd_launch")(
             x_seq.data_ptr(), v0.data_ptr(), i0.data_ptr(), gz.data_ptr(),
             gv.data_ptr(), gi.data_ptr(), gx.data_ptr(), gv0.data_ptr(),
-            gi0.data_ptr(), ws[0].data_ptr(), ws[1].data_ptr(), T, m,
-            int(start), _CELLS[cell], _CODES[x_seq.dtype],
+            gi0.data_ptr(), None if ckpt is None else ckpt.data_ptr(), T,
+            m, int(start), _CELLS[cell], _CODES[x_seq.dtype],
             _CODES[v0.dtype], c_mem, c_syn, neurons.LIFParams().alpha,
-            stream,
+            chunk, threads, int(vec), smem, stream,
         )
     if rc != 0:
         raise RuntimeError(f"temporal_cell_seq_bwd launch failed (code {rc})")

@@ -559,7 +559,8 @@ def test_temporal_cell_backward_matches_plain_version(card, cell, x_dtype,
     version (it sums in autograd's order): the vector path, the scalar
     path and T = 1 (the per-step schedule), with and without truncation;
     one launch a call, and autograd through ``temporal_cell_seq`` on the
-    card runs it."""
+    card runs it. LIF also under every plan of the chunked kernel, T
+    around each chunk length (``_chunked_backward_matches_plain_version``)."""
     for shape in ((9, 3, 7, 5, 24), (5, 1, 3, 5, 7), (1, 2, 4, 16)):
         x, v0, i0, gz, gv, gi = _bwd_inputs(shape, x_dtype, state_dtype)
         for start in (0, 4):
@@ -586,6 +587,58 @@ def test_temporal_cell_backward_matches_plain_version(card, cell, x_dtype,
             assert cuda_kernels.LAUNCHES["temporal_cell_seq_bwd"] == 2
             for g, w in zip(via, got):
                 assert torch.equal(g, w)
+    if cell == "lif":
+        _chunked_backward_matches_plain_version(x_dtype, state_dtype)
+
+
+# T around each chunk length C (C - 1, C, C + 1, 2C + 3) and the GEN1
+# sequence; starts 0, on the boundary of chunks of 2 and 4, and past the
+# first chunk of up to 8
+CHUNK_STEPS = sorted({t for c in cuda_kernels.CELL_BWD_CHUNKS
+                      for t in (c - 1, c, c + 1, 2 * c + 3)} | {42})
+CHUNK_STARTS = (0, 4, 9)
+
+
+def _chunked_backward_matches_plain_version(x_dtype, state_dtype):
+    """LIF under every chunk length the source builds, checkpoints in
+    shared and in global memory, 256 and 128 threads, on the vector and
+    the scalar path:
+    every element bit-equal to autograd through the plain version."""
+    for shape in ((3, 7, 5, 24), (1, 3, 5, 7)):
+        for T in CHUNK_STEPS:
+            if T < 2:
+                continue
+            x, v0, i0, gz, gv, gi = _bwd_inputs((T, *shape), x_dtype,
+                                                state_dtype, seed=T)
+            m = v0.numel()
+            for start in CHUNK_STARTS:
+                leaves = [a.detach().requires_grad_() for a in (x, v0, i0)]
+                want = torch.autograd.grad(
+                    cuda_kernels.temporal_cell_seq_reference(*leaves, "lif",
+                                                             start),
+                    leaves, (gz, gv, gi), allow_unused=True,
+                    materialize_grads=True)
+                width = 16 // x.element_size() if m % (
+                    16 // x.element_size()) == 0 else 1
+                for chunk in cuda_kernels.CELL_BWD_CHUNKS:
+                    if not cuda_kernels.cell_bwd_built(chunk, width):
+                        continue
+                    threads = 128 if chunk in (4, 12) else 256
+                    for shared in (True, False):
+                        plan = cuda_kernels.cell_bwd_plan_of(
+                            T, m, x_dtype, state_dtype, chunk, threads,
+                            shared)
+                        assert plan.vec == (m % (16 // x.element_size())
+                                            == 0)
+                        got = cuda_kernels.temporal_cell_seq_bwd(
+                            x, v0, i0, gz, gv, gi, "lif", start, plan)
+                        for g, w in zip(got, want):
+                            assert g.dtype == w.dtype
+                            torch.testing.assert_close(
+                                g.float(), w.float(), rtol=0, atol=0,
+                                equal_nan=True,
+                                msg=lambda msg: f"T={T} start={start} "
+                                f"{plan}: {msg}")
 
 
 @pytest.mark.cuda

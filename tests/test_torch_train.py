@@ -131,9 +131,11 @@ def _port_vjp(inputs, cell, start, state_dtype, x_dtype="float32"):
     tv = _t(v0, state_dtype).requires_grad_()
     ti = _t(i0, state_dtype).requires_grad_()
     out = cuda_kernels.temporal_cell_seq(tx, tv, ti, cell, start)
+    # LIF at T = 1 frozen: x reaches nothing, its cotangent is 0
     grads = torch.autograd.grad(
         out, (tx, tv, ti),
-        (_t(gz, x_dtype), _t(gv, state_dtype), _t(gi, state_dtype)))
+        (_t(gz, x_dtype), _t(gv, state_dtype), _t(gi, state_dtype)),
+        allow_unused=True, materialize_grads=True)
     return out, grads
 
 
@@ -169,12 +171,18 @@ def test_cell_vjp_matches_jax(cell, start, state_dtype):
                                    atol=rtol * np.abs(w).max())
 
 
-def _kernel_order_vjp(inputs, cell, start, state_dtype, x_dtype):
+def _kernel_order_vjp(inputs, cell, start, state_dtype, x_dtype, chunk=None):
     """The backward kernel's arithmetic (csrc/temporal_cell.cu,
-    ``cell_step_vjp`` and the carry), in numpy fp32, op for op."""
+    ``cell_step_vjp`` and the carry), in numpy fp32, op for op, with
+    LIF's states recomputed in chunks of ``chunk`` steps (default: one
+    chunk of T) as the chunked kernel does: pass 1 runs the forward over
+    every chunk but the last and keeps the state entering each, pass 2
+    re-runs each chunk from its checkpoint, last chunk first, for the
+    s = v_dec - v_th of every step, then walks it backward."""
     x, v0, i0, gz, gv_t, gi_t = inputs
     f32 = np.float32
     sd = getattr(torch, state_dtype)
+    T = x.shape[0]
 
     def rnd(a, dtype=sd):
         return torch.from_numpy(np.asarray(a, f32)).to(dtype).float().numpy()
@@ -182,41 +190,65 @@ def _kernel_order_vjp(inputs, cell, start, state_dtype, x_dtype):
     c_mem, c_syn = (f32(c) for c in neurons.euler_factors(
         neurons.LIFParams()))
     step = neurons.lif_step if cell == "lif" else neurons.li_step
-    states, v, i = [], rnd(v0), rnd(i0)
-    for t in range(x.shape[0]):  # pass 1: the state entering each step
-        states.append((v, i))
+
+    def advance(v, i, t):
+        if t < start:
+            return v, i
         with torch.no_grad():
             _, (vn, i_n) = step(_t(x[t]), (_t(v), _t(i)))
-        if t >= start:
-            v, i = rnd(vn.numpy()), rnd(i_n.numpy())
+        return rnd(vn.numpy()), rnd(i_n.numpy())
+
+    def lif_s(v, i):
+        d = (f32(0) - v) + i
+        return neurons.fma(_t(d), float(c_mem), _t(v)).numpy() - f32(1)
+
+    C = chunk or max(T, 1)
+    K = -(-T // C)
+    checkpoints, v, i = {}, rnd(v0), rnd(i0)
+    for k in range(K - 1):  # pass 1
+        if k > 0:
+            checkpoints[k] = (v, i)
+        for t in range(k * C, (k + 1) * C):
+            v, i = advance(v, i, t)
     Gv, Gi = gv_t.astype(f32), gi_t.astype(f32)
     gx = np.zeros_like(x)
-    for t in reversed(range(x.shape[0])):  # pass 2
-        gvr, gir = rnd(Gv), rnd(Gi)
-        active = t >= start
-        gvn = gvr if active else np.zeros_like(gvr)
-        gin = gir if active else np.zeros_like(gir)
-        g = gz[t].astype(f32)
-        if cell == "lif":
-            v, i = states[t]
-            d = (f32(0) - v) + i
-            s = neurons.fma(_t(d), float(c_mem), _t(v)).numpy() - f32(1)
-            q = f32(100) * np.abs(s) + f32(1)
-            g_vdec = np.where(s > 0, f32(0), gvn) + g / (q * q)
-        else:
-            g_vdec = gvn + g
-        g_d = g_vdec * c_mem
-        gv = rnd(g_vdec + (-g_d))
-        gi_f = (gin * (-c_syn) + gin) + g_d
-        gx[t] = gin if cell == "lif" else gi_f
-        gi = rnd(gi_f)
-        Gv, Gi = (gv, gi) if active else (gv + gvr, gi + gir)
+    for k in reversed(range(K)):  # pass 2
+        if k == 0 and K > 1:
+            v, i = rnd(v0), rnd(i0)
+        elif k < K - 1:
+            v, i = checkpoints[k]
+        t0, L = k * C, min(C, T - k * C)
+        s = []
+        for j in range(L):
+            s.append(lif_s(v, i))
+            if j + 1 < L:
+                v, i = advance(v, i, t0 + j)
+        for j in reversed(range(L)):
+            t = t0 + j
+            gvr, gir = rnd(Gv), rnd(Gi)
+            active = t >= start
+            gvn = gvr if active else np.zeros_like(gvr)
+            gin = gir if active else np.zeros_like(gir)
+            g = gz[t].astype(f32)
+            if cell == "lif":
+                q = f32(100) * np.abs(s[j]) + f32(1)
+                g_vdec = np.where(s[j] > 0, f32(0), gvn) + g / (q * q)
+            else:
+                g_vdec = gvn + g
+            g_d = g_vdec * c_mem
+            gv = rnd(g_vdec + (-g_d))
+            gi_f = (gin * (-c_syn) + gin) + g_d
+            gx[t] = gin if cell == "lif" else gi_f
+            gi = rnd(gi_f)
+            Gv, Gi = (gv, gi) if active else (gv + gvr, gi + gir)
     return rnd(gx, getattr(torch, x_dtype)), rnd(Gv), rnd(Gi)
 
 
-@pytest.mark.parametrize("x_dtype,state_dtype", [
-    ("float32", "float32"), ("bfloat16", "bfloat16"),
-    ("bfloat16", "float8_e5m2"), ("float32", "bfloat16")])
+TRAIN_DTYPE_PAIRS = [("float32", "float32"), ("bfloat16", "bfloat16"),
+                     ("bfloat16", "float8_e5m2"), ("float32", "bfloat16")]
+
+
+@pytest.mark.parametrize("x_dtype,state_dtype", TRAIN_DTYPE_PAIRS)
 @pytest.mark.parametrize("start", [0, 3])
 @pytest.mark.parametrize("cell", ["lif", "li"])
 def test_cell_vjp_in_the_kernels_order(cell, start, x_dtype, state_dtype):
@@ -229,6 +261,67 @@ def test_cell_vjp_in_the_kernels_order(cell, start, x_dtype, state_dtype):
     got = _kernel_order_vjp(inputs, cell, start, state_dtype, x_dtype)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w.float().numpy())
+
+
+@pytest.mark.parametrize("x_dtype,state_dtype", TRAIN_DTYPE_PAIRS)
+@pytest.mark.parametrize("start", [0, 3, 8])
+@pytest.mark.parametrize("T", [1, 7, 8, 9, 17])
+@pytest.mark.parametrize("chunk", [1, 3, 8])
+def test_cell_vjp_in_the_chunked_order(chunk, T, start, x_dtype,
+                                       state_dtype):
+    """LIF's states recomputed from a checkpoint every ``chunk`` steps
+    (the chunked kernel's order; starts on a chunk boundary, inside one
+    and past a whole chunk; T shorter than a chunk, equal, one longer
+    and several): bit-equal to autograd through the plain version,
+    which keeps every state."""
+    inputs = _cell_inputs(T, state_dtype, x_dtype, shape=(T, 2, 4, 5, 8))
+    _, want = _port_vjp(inputs, "lif", start, state_dtype, x_dtype)
+    got = _kernel_order_vjp(inputs, "lif", start, state_dtype, x_dtype,
+                            chunk)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.float().numpy())
+
+
+@pytest.mark.parametrize("x_dtype,state_dtype", TRAIN_DTYPE_PAIRS)
+def test_cell_bwd_plan_fits_the_card(x_dtype, state_dtype):
+    """Every plan of the chunked backward, and the one picked, fits an
+    H100: shared memory within a CTA's 227 KB and equal to the source's
+    count (threads x rows x both states x a thread's elements), the
+    register budget (C x V s values a thread at most 48 on the vector
+    paths) and the registers ptxas gives it below 255 a thread, C <= T, ceil(T / C) - 2
+    checkpoint rows a state, global rows only where there are any; a
+    long sequence whose checkpoints fit no CTA takes global rows."""
+    xt, st = getattr(torch, x_dtype), getattr(torch, state_dtype)
+    xb, ss = xt.itemsize, st.itemsize
+    for T in (2, 3, 7, 8, 9, 17, 42, 300, 1000):
+        for m in (105, 2520, 4 * 30 * 38 * 256, 4 * 120 * 152 * 64):
+            vec = m % (16 // xb) == 0
+            width = 16 // xb if vec else 1
+            plans = cuda_kernels.cell_bwd_plans(T, m, xt, st, vec)
+            pick = cuda_kernels.cell_bwd_plan(T, m, xt, st, vec)
+            assert pick in plans
+            for p in plans:
+                assert p.chunk <= T and cuda_kernels.cell_bwd_built(
+                    p.chunk, width)
+                assert p.chunk * width <= 48 or width == 1
+                assert cuda_kernels.cell_bwd_regs(p.chunk, width) \
+                    < cuda_kernels.CELL_BWD_REGS == 255
+                assert p.rows == max(0, -(-T // p.chunk) - 2)
+                assert p.vec == vec
+                assert p.ckpt_bytes == 2 * p.rows * m * ss
+                if p.shared:
+                    assert p.smem == p.threads * p.rows * 2 * width * ss
+                    assert p.smem <= 232448
+                else:
+                    assert p.smem == 0 and p.rows > 0
+            if not any(p.shared for p in plans):
+                assert pick.rows > 0 and not pick.shared
+    if (x_dtype, state_dtype) == ("float32", "float32"):
+        # 61 checkpoints a state at C = 16 take 244 KB at 128 threads
+        assert not cuda_kernels.cell_bwd_plan(
+            1000, 4 * 120 * 152 * 64, xt, st).shared
+    with pytest.raises(ValueError, match="T >= 2"):
+        cuda_kernels.cell_bwd_plans(1, 2520, xt, st)
 
 
 # ---- train-mode Norm ----

@@ -46,11 +46,14 @@ T, B, GAIN = 6, 2, 4.0
 GRAD_TOL = dict(rtol=2e-3, atol=1e-7)
 
 
-def _models(time_window=16):
-    jm = JNarrow(num_classes=2, in_hw=HW, time_window=time_window)
+def _models(time_window=16, compute_dtype="float32", state_dtype="float32"):
+    jm = JNarrow(num_classes=2, in_hw=HW, time_window=time_window,
+                 compute_dtype=compute_dtype, state_dtype=state_dtype)
     params, stats = _jax_weights(jm, 0, GAIN)
     pm = PNarrow(num_classes=2, in_hw=HW, device="cpu",
-                 time_window=time_window)
+                 time_window=time_window,
+                 compute_dtype=getattr(torch, compute_dtype),
+                 state_dtype=getattr(torch, state_dtype))
     load_jax_params(pm, params, stats)
     return jm, params, stats, pm
 
@@ -71,15 +74,14 @@ def _port_grads(pm, schedule, X, lab, r):
     return loss.item(), grads, stats
 
 
-@pytest.fixture(scope="module")
-def runs():
+def _both_runs(compute_dtype="float32", state_dtype="float32"):
     """Both schedules at r = 0 and 2, each from the initial weights and
     stats, in JAX (one jitted value_and_grad per schedule, r traced) and
     in the port."""
     X, lab = _frames(0, t=T), _labels(1)
     out = {}
     for schedule in (False, True):
-        jm, params, stats, _ = _models()
+        jm, params, stats, _ = _models(16, compute_dtype, state_dtype)
         fwd = jm.forward_seq if schedule else jm.forward
 
         def loss_fn(p, r):
@@ -92,9 +94,20 @@ def runs():
             (loss, new_stats), grads = step(params, jnp.int32(r))
             want = (float(loss), _flatten(jax.device_get(grads)),
                     _flatten(jax.device_get(new_stats)))
-            _, _, _, pm = _models()
+            _, _, _, pm = _models(16, compute_dtype, state_dtype)
             out[schedule, r] = (want, _port_grads(pm, schedule, X, lab, r))
     return out
+
+
+@pytest.fixture(scope="module")
+def runs():
+    return _both_runs()
+
+
+@pytest.fixture(scope="module")
+def bf16_runs():
+    """``_both_runs`` with bf16 activations, fp32 and bf16 states."""
+    return {sd: _both_runs("bfloat16", sd) for sd in ("float32", "bfloat16")}
 
 
 @pytest.mark.parametrize("r", [0, 2])
@@ -115,6 +128,42 @@ def test_narrow_gradients_match_jax(runs, schedule, r):
     for name, s in stats.items():
         np.testing.assert_allclose(s, j_stats[name], rtol=1e-5, atol=1e-6,
                                    err_msg=name)
+
+
+def _hwio_to_oihw(g):
+    return g.transpose(3, 2, 0, 1) if g.ndim == 4 else g
+
+
+@pytest.mark.parametrize("r", [0, 2])
+@pytest.mark.parametrize("schedule", [False, True])
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
+def test_narrow_bf16_gradients_match_jax(runs, bf16_runs, state_dtype,
+                                         schedule, r):
+    """bf16 activations (fp32 or bf16 states) on each schedule: the loss
+    within rtol 1e-5 of jitted JAX's, so no spike flips (per step, the
+    train Norm reads the conv's fp32 sums as XLA hands them to it,
+    ``Conv.step_unrounded``), and every parameter gradient close to
+    JAX's, measured against what bf16 itself does to it: rounding to
+    bf16 moves each of JAX's gradients by D (its bf16 gradient against
+    its fp32 one, same weights and data, fp32 states; 17-350% relative
+    L2 here). The port rounds where JAX does, up to the order of sums
+    and the cotangents XLA keeps in fp32, so its distance from JAX's
+    bf16 gradient must be a small part of D: at most a quarter, in L2
+    (measured: at most 0.092 of D; a tensor where D is 0 must match
+    exactly). The conv weights' bf16 cotangents are summed across steps
+    in fp32 here and in bf16 in JAX (its cast once a forward): casting
+    once in the port moved the worst conv weight's distance from JAX
+    from 1.71% to 1.68% of its gradient (L2, per step, fp32 states,
+    r = 0), so the port casts a step."""
+    (j_loss, j_grads, _), (loss, grads, _) = \
+        bf16_runs[state_dtype][schedule, r]
+    (_, f_grads, _), _ = runs[schedule, r]
+    np.testing.assert_allclose(loss, j_loss, rtol=1e-5)
+    assert set(grads) == set(j_grads)
+    for name, g in grads.items():
+        want = _hwio_to_oihw(j_grads[name])
+        bf16_shift = np.linalg.norm(want - _hwio_to_oihw(f_grads[name]))
+        assert np.linalg.norm(g - want) <= 0.25 * bf16_shift, name
 
 
 @pytest.mark.parametrize("r", [0, 2])
