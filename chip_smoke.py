@@ -6,6 +6,7 @@
                                        # (3: spiking_conv_seq and
                                        # fused_pointwise_conv_bn_lif)
     python3 chip_smoke.py --only 10    # [1] and the training phase
+    python3 chip_smoke.py --only 11    # [1] and the CLI on recordings
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -109,10 +110,29 @@ Phases (any failure raises and the script exits non-zero):
    device idle share and cell backward kernels' ms of one profiled step;
    and at fp32 with cuDNN off
    each schedule's first-step loss and gradients against the same
-   schedule's through the plain cell, gradients within rtol 2e-3.
+   schedule's through the plain cell, gradients within rtol 2e-3;
+11. the CLI on recordings: a synthetic GEN1 set (2 recordings per split,
+   2000 ms, seed 0) written by the port's ``make_synthetic_dataset``, read
+   by ``PropheseeDataModule`` (the native rasterizer, worker threads);
+   ``python -m snn_for_object_detection_tpu_torch`` run in-process
+   (``cli.main``) with ``config/config.yaml`` + ``config/synthetic.yaml``
+   (full-width TinyYolo, B=4, T=24, time window 6), read by the port's
+   own YAML reader: ``fit`` cut to one epoch of 4 batches and one
+   validation of 2, time-batched at fp32 and per-step with
+   ``config/fast.yaml``; then ``test`` from the fp32 checkpoint
+   per-step, fused (``fuse_seq=true time_window=0``) and with
+   ``config/infer_fp8.yaml``, and ``validate``. Gates: finite losses
+   and mAP; checkpoint, config snapshot and metrics file; restored
+   weights bit-equal to the saved ones; the cell kernel and its backward
+   in each ``fit``, ``spiking_conv_seq`` in the fused ``test``; the
+   native rasterizer used; a one-worker loader bit-equal across two
+   passes. Prints the loader's ms per batch alone (1 and 4 workers, T=42
+   and T=24), ``fit`` ms per step beside ``train_step`` on an in-memory
+   batch, the idle share of one profiled step fed by the loader, and
+   each ``test``'s ms per batch.
 
-Model and data values, with their source (the YAML files are not read:
-PyYAML is not a dependency of the port):
+Model and data values of [3]-[10], with their source (those phases pass
+them as arguments; [11] reads the YAML files):
 config/config.yaml:9-13 num_classes 2, in_hw [240, 304], loss_ratio
 0.04, time_window 16, iou_threshold 0.4; config/config.yaml:22,25
 batch_size 4, num_steps 42; config/infer_fp8.yaml:28-29 compute_dtype
@@ -1788,6 +1808,274 @@ def phase_train(torch, cuda_kernels, TinyYolo, Trainer, batches, dev):
     return total
 
 
+# [11]: the CLI on recordings. Synthetic GEN1 set (recordings per split,
+# ms each, seed), the fit runs' cut (train batches, validation batches),
+# test batches, and the loader timings: (label, num_steps, time_shift,
+# num_load_file) of config/config.yaml and config/synthetic.yaml, the
+# worker counts, and the batches timed after the warm-up ones
+CLI_RECORDINGS, CLI_DURATION_MS, CLI_SEED = 2, 2000, 0
+CLI_TRAIN_BATCHES, CLI_VAL_BATCHES, CLI_TEST_BATCHES = 4, 2, 4
+LOADER_CASES = (("config.yaml T=42", 42, 16, 8),
+                ("synthetic.yaml T=24", 24, 0, 4))
+LOADER_WORKERS = (1, 4)
+LOADER_WARMUP, LOADER_TIMED = 2, 10
+
+
+def loader_ms(PropheseeDataModule, data_dir, num_steps, time_shift,
+              num_load_file, workers):
+    """Host ms of the loader alone (B=4, uint8 frames): from making it to
+    its first batch, and per batch after its warm-up batches."""
+    t0 = time.perf_counter()
+    loader = PropheseeDataModule(
+        data_dir=data_dir, batch_size=BATCH, num_workers=workers,
+        num_load_file=num_load_file, num_steps=num_steps,
+        time_shift=time_shift).train_loader()
+    try:
+        next(loader)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        for _ in range(LOADER_WARMUP - 1):
+            next(loader)
+        t0 = time.perf_counter()
+        for _ in range(LOADER_TIMED):
+            next(loader)
+        return first_ms, (time.perf_counter() - t0) * 1e3 / LOADER_TIMED
+    finally:
+        loader.close()
+
+
+def check_finite(metrics, tag):
+    check(bool(metrics) and all(np.isfinite(v) for v in metrics.values()),
+          f"{tag}: metrics {metrics}")
+
+
+def eval_loop_ms(torch, run, sub) -> float:
+    """Host ms of the CLI's eval loop over all its batches: ``sub``
+    (``test`` or ``validate``) of the trainer ``cli.main`` built, run
+    again on the model it restored and a loader made anew, with one
+    synchronise at the end."""
+    loader = run.data.test_loader() if sub == "test" else \
+        run.data.val_loader()
+    t0 = time.perf_counter()
+    getattr(run.trainer, sub)(run.model, loader)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_cli(torch, cuda_kernels, smi):
+    """[11] the CLI on recordings: a synthetic GEN1 set written by the
+    port's ``make_synthetic_dataset``, then ``python -m
+    snn_for_object_detection_tpu_torch`` run in-process on it through
+    ``cli.main``: ``fit`` of full-width TinyYolo with
+    ``config/config.yaml`` + ``config/synthetic.yaml`` (240x304, B=4,
+    T=24, time window 6), cut to one epoch of CLI_TRAIN_BATCHES batches
+    and one validation of CLI_VAL_BATCHES, time-batched at fp32 and
+    per-step with ``config/fast.yaml``'s bf16 states; then ``test`` from
+    the fp32 run's checkpoint per-step, fused (``fuse_seq=true
+    time_window=0``, time-batched) and with ``config/infer_fp8.yaml``,
+    and ``validate``. Gates: finite losses and mAP; the checkpoint, the
+    config snapshot and the metrics file; each ``test`` restores the
+    saved weights bit for bit; the cell kernel and its backward in each
+    fit (22 backward launches a time-batched step), ``spiking_conv_seq``
+    in the fused test (22 a batch); the native rasterizer loaded and
+    called; two passes of a one-worker loader with one seed bit-equal.
+    Prints the loader's ms per batch alone, the CLI's fit ms per step
+    beside ``train_step`` on an in-memory batch, the idle share of one
+    profiled step fed by the loader and of one on an in-memory batch, and
+    each eval run's ``cli.main`` time and its eval loop's ms per batch
+    (run again, timed whole)."""
+    from snn_for_object_detection_tpu_torch import cli
+    from snn_for_object_detection_tpu_torch.data import PropheseeDataModule
+    from snn_for_object_detection_tpu_torch.data.synthetic import (
+        make_synthetic_dataset,
+    )
+    from snn_for_object_detection_tpu_torch.native import COUNTS
+    from snn_for_object_detection_tpu_torch.train.checkpoint import (
+        load_single,
+    )
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(repo, "build", "chip_smoke_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    data_dir = make_synthetic_dataset(
+        os.path.join(root, "data"), records_per_split=CLI_RECORDINGS,
+        duration_ms=CLI_DURATION_MS, seed=CLI_SEED)
+    print(f"  synthetic GEN1 set: {CLI_RECORDINGS} recordings of "
+          f"{CLI_DURATION_MS} ms per split, seed {CLI_SEED}, written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def config(name):
+        return ["--config", os.path.join(repo, "config", name)]
+
+    base = [*config("config.yaml"), *config("synthetic.yaml"),
+            f"--data.init_args.data_dir={data_dir}",
+            "--trainer.max_epochs=1",
+            f"--trainer.limit_train_batches={CLI_TRAIN_BATCHES}",
+            f"--trainer.limit_val_batches={CLI_VAL_BATCHES}",
+            f"--trainer.limit_test_batches={CLI_TEST_BATCHES}",
+            "--trainer.check_val_every_n_epoch=1",
+            "--trainer.log_every_n_steps=1"]
+
+    # the loader alone
+    for label, steps, shift, files in LOADER_CASES:
+        for workers in LOADER_WORKERS:
+            first, ms = loader_ms(PropheseeDataModule, data_dir, steps,
+                                  shift, files, workers)
+            print(f"  loader alone, {label} B={BATCH}, num_workers "
+                  f"{workers}: {ms:.2f} ms per batch (host clock, "
+                  f"{LOADER_TIMED} batches after {LOADER_WARMUP}); first "
+                  f"batch {first:.2f} ms after making it [{smi}]",
+                  flush=True)
+    passes = []
+    for _ in range(2):
+        loader = PropheseeDataModule(
+            data_dir=data_dir, batch_size=BATCH, num_workers=1,
+            num_load_file=4, num_steps=24, time_shift=0,
+            seed=3).train_loader()
+        passes.append([next(loader) for _ in range(3)])
+        loader.close()
+    check(all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+              for a, b in zip(*passes)),
+          "two passes of a one-worker loader with one seed differ")
+
+    fits = {}
+    for tag, extra in (
+        ("fp32 time-batched", ["--trainer.time_batched=true"]),
+        ("bf16 states per-step", [*config("fast.yaml"),
+                                  "--trainer.time_batched=false"]),
+    ):
+        out_dir = os.path.join(root, "fit_" + tag.replace(" ", "_"))
+        cuda_kernels.reset_launches()
+        rasterized = COUNTS["rasterize_records"]
+        t0 = time.perf_counter()
+        run = cli.main(["fit", *base, *extra,
+                        f"--trainer.out_dir={out_dir}"])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        n = dict(cuda_kernels.LAUNCHES)
+        last = os.path.join(out_dir, "checkpoints", "last")
+        for path in (last, os.path.join(out_dir, "config.yaml"),
+                     os.path.join(out_dir, "metrics.jsonl")):
+            check(os.path.exists(path), f"fit {tag}: no {path}")
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        steps = [r for r in records if "train_loss" in r]
+        losses = [r["train_loss"] for r in steps]
+        check(len(losses) == CLI_TRAIN_BATCHES
+              and all(np.isfinite(v) for v in losses),
+              f"fit {tag}: train losses {losses}")
+        val = [r for r in records if "val_loss" in r]
+        check(len(val) == 1, f"fit {tag}: {len(val)} validations")
+        check_finite({k: v for k, v in val[0].items()
+                      if k not in ("step", "time")}, f"fit {tag} val")
+        check(n["temporal_cell_seq"] > 0 and n["temporal_cell_seq_bwd"] > 0,
+              f"fit {tag}: launches {n}")
+        if run.trainer.time_batched:
+            check(n["temporal_cell_seq_bwd"]
+                  == CELLS_PER_STEP * CLI_TRAIN_BATCHES,
+                  f"fit {tag}: {n['temporal_cell_seq_bwd']} backward "
+                  f"launches, want {CELLS_PER_STEP * CLI_TRAIN_BATCHES}")
+        check(COUNTS["loads"] >= 1
+              and COUNTS["rasterize_records"] > rasterized,
+              f"fit {tag}: the native rasterizer was not used ({COUNTS})")
+        saved = load_single(last)["params"]
+        check(all(torch.equal(saved[name].to(p.device), p.detach())
+                  for name, p in run.model.named_parameters()),
+              f"fit {tag}: the checkpoint is not the trained weights")
+        gaps = np.diff([r["time"] for r in steps]) * 1e3
+        fit_ms, fit_median = float(np.mean(gaps)), float(np.median(gaps))
+
+        # train_step on an in-memory batch of the same shape, then one
+        # step fed by the loader under the profiler
+        loader = run.data.train_loader()
+        X, lab = next(loader)
+        dev = run.model.device
+        X = torch.as_tensor(X, device=dev)
+        lab = torch.as_tensor(lab, device=dev)
+        r = run.model.time_window // 2
+
+        def step():
+            run.trainer.train_step(run.model, X, lab, r)
+
+        step_ms = cuda_time_ms(step, reps=3, warmup=1)
+
+        def fed_step():
+            Xb, labb = next(loader)
+            run.trainer.train_step(
+                run.model, torch.as_tensor(Xb, device=dev),
+                torch.as_tensor(labb, device=dev), r)
+
+        fed_step()
+        _, busy, wall = profiled(torch, fed_step)
+        _, mem_busy, mem_wall = profiled(torch, step)
+        loader.close()
+        fits[tag] = out_dir
+        print(f"  fit {tag}: {CLI_TRAIN_BATCHES} steps and a validation "
+              f"in {fit_s:.1f} s; losses {[round(v, 4) for v in losses]}; "
+              f"val {val[0]['val_loss']:.4f}, mAP {val[0]['map']:.4f}; "
+              f"launches {n['temporal_cell_seq']} cell, "
+              f"{n['temporal_cell_seq_bwd']} backward, "
+              f"{n['spiking_conv_seq']} fused; CLI fit {fit_ms:.1f} ms per "
+              f"step (host clock from logged step 1 to "
+              f"{CLI_TRAIN_BATCHES} over {len(gaps)} steps; median "
+              f"{fit_median:.1f}, each {[round(g, 1) for g in gaps]}), "
+              f"train_step on an in-memory batch from r={r} "
+              f"{step_ms:.1f} ms (CUDA events, median of 3), gap "
+              f"{fit_ms - step_ms:.1f} ms; one step fed by the loader "
+              f"under the profiler: busy {busy:.1f} of {wall:.1f} ms, "
+              f"idle share {1 - busy / wall:.3f} (an in-memory "
+              f"batch: busy {mem_busy:.1f} of {mem_wall:.1f} ms, idle share "
+              f"{1 - mem_busy / mem_wall:.3f}) [{smi}]",
+              flush=True)
+        del run, loader, X, lab
+        torch.cuda.empty_cache()
+
+    ckpt = os.path.join(fits["fp32 time-batched"], "checkpoints", "last")
+    saved = load_single(ckpt)["params"]
+    for sub, tag, extra in (
+        ("test", "per-step", ["--trainer.time_batched=false"]),
+        ("test", "fused", ["--model.init_args.fuse_seq=true",
+                           "--model.init_args.time_window=0",
+                           "--trainer.time_batched=true"]),
+        ("test", "infer_fp8", config("infer_fp8.yaml")),
+        ("validate", "time-batched", ["--trainer.time_batched=true"]),
+    ):
+        out_dir = os.path.join(root, f"{sub}_{tag}")
+        cuda_kernels.reset_launches()
+        t0 = time.perf_counter()
+        run = cli.main([sub, *base, *extra, f"--ckpt_path={ckpt}",
+                        f"--trainer.out_dir={out_dir}"])
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        n = dict(cuda_kernels.LAUNCHES)
+        check_finite(run.result, f"{sub} {tag}")
+        check(all(torch.equal(saved[name].to(p.device), p.detach())
+                  for name, p in run.model.named_parameters()),
+              f"{sub} {tag}: restored weights differ from the checkpoint")
+        limit = CLI_VAL_BATCHES if sub == "validate" else CLI_TEST_BATCHES
+        if tag == "fused":
+            check(n["spiking_conv_seq"] == CELLS_PER_STEP * limit
+                  and n["temporal_cell_seq"] == 0,
+                  f"{sub} {tag}: launches {n}")
+        else:
+            check(n["temporal_cell_seq"] > 0 and n["spiking_conv_seq"] == 0,
+                  f"{sub} {tag}: launches {n}")
+        loop_ms = eval_loop_ms(torch, run, sub)
+        print(f"  {sub} {tag} ({run.model.compute_dtype} activations, "
+              f"{run.model.state_dtype} states): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in run.result.items())
+              + f"; cli.main {main_s:.2f} s (set-up and checkpoint "
+              f"included); its eval loop again {loop_ms:.1f} ms over "
+              f"{limit} batches, {loop_ms / limit:.1f} ms per batch (host "
+              f"clock, loader included, one synchronise at the end); "
+              f"launches {n['temporal_cell_seq']} cell, "
+              f"{n['spiking_conv_seq']} fused [{smi}]", flush=True)
+        del run
+        torch.cuda.empty_cache()
+    print(f"  native rasterizer: {COUNTS['loads']} load, "
+          f"{COUNTS['rasterize_records']} windows rasterized", flush=True)
+
+
 def main(argv) -> int:
     import torch
 
@@ -1811,6 +2099,8 @@ def main(argv) -> int:
     print(f"[1] device: {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; nvidia-smi: {smi}", flush=True)
+    # for the library calls timed beside the kernels; the model's own
+    # convs run full fp32 whatever these say (models/compile.py _Conv2d)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"    cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
@@ -1836,6 +2126,9 @@ def main(argv) -> int:
             phase_cell_backward(torch, cuda_kernels, "cuda")
             phase_train(torch, cuda_kernels, TinyYolo, Trainer, batches,
                         "cuda")
+        if 11 in only:
+            print("[11] the CLI on recordings", flush=True)
+            phase_cli(torch, cuda_kernels, smi)
         print(f"partial run of phases {sorted(only)} done in "
               f"{time.perf_counter() - t_start:.1f} s")
         return 0
@@ -1886,6 +2179,11 @@ def main(argv) -> int:
     bwd_rows, bwd_worst = phase_cell_backward(torch, cuda_kernels, "cuda")
     bwd_launches = phase_train(torch, cuda_kernels, TinyYolo, Trainer,
                                batches, "cuda")
+    print(f"[11] the CLI on recordings: python -m "
+          f"snn_for_object_detection_tpu_torch fit / test / validate with "
+          f"config/config.yaml + config/synthetic.yaml on synthetic GEN1 "
+          f"recordings, TinyYolo {IN_HW}, B={BATCH}", flush=True)
+    phase_cli(torch, cuda_kernels, smi)
 
     ref = next(r for r in rows if (r["shape"], r["cell"], r["x"], r["start"])
                == ("stage1", "lif", "float32", 0))

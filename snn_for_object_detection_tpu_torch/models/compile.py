@@ -42,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 from snn_for_object_detection_tpu_torch.models import spec as S
 from snn_for_object_detection_tpu_torch.ops import neurons
 from snn_for_object_detection_tpu_torch.ops.cuda_kernels import (
+    full_fp32_conv,
     spiking_conv_seq,
     temporal_cell_seq,
 )
@@ -163,6 +164,26 @@ class Return(Layer):
     seq = step
 
 
+def _full_fp32_backward(node) -> None:
+    """Run ``node``, a conv's backward, with cuDNN's TF32 off: autograd
+    reads the flag when it runs the node, outside any context the
+    forward was called in. A hook just before the node turns it off, one
+    just after gives the process's value back. (The node stays autograd's
+    own: a custom ``autograd.Function`` would run each checkpointed
+    segment's last conv again in the recompute.)"""
+    saved = []
+
+    def before(grad_outputs):
+        saved.append(torch.backends.cudnn.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+
+    def after(grad_inputs, grad_outputs):
+        torch.backends.cudnn.allow_tf32 = saved.pop()
+
+    node.register_prehook(before)
+    node.register_hook(after)
+
+
 class Conv(Layer):
     """Bias-free conv, symmetric padding ``k // 2``. The weight is kept
     OIHW; activations stay NHWC (a channels-last view for the conv)."""
@@ -189,8 +210,13 @@ class Conv(Layer):
         return self._conv(x, self.w.to(x.dtype)), state
 
     def _conv(self, x, w):
-        y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=self.stride,
-                     padding=self.padding)
+        # fp32 convs sum in full fp32, as JAX's, whatever the process's
+        # torch.backends.cudnn.allow_tf32: forward and backward
+        with full_fp32_conv():
+            y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=self.stride,
+                         padding=self.padding)
+        if y.grad_fn is not None:
+            _full_fp32_backward(y.grad_fn)
         # cuDNN and oneDNN answer a channels-last input in channels-last,
         # so this is a view; a backend that answers NCHW pays one copy
         return y.permute(0, 2, 3, 1).contiguous()

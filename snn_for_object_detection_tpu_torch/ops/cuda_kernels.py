@@ -456,7 +456,7 @@ def temporal_cell_seq(
 
 
 @contextlib.contextmanager
-def _full_fp32_conv():
+def full_fp32_conv():
     """cuDNN runs fp32 convs in TF32 unless told not to; the plain
     versions sum in full fp32, as the kernels and XLA do."""
     saved = torch.backends.cudnn.allow_tf32
@@ -675,7 +675,7 @@ def spiking_conv_seq_reference(
     v, i = v0.float(), i0.float()
     z = torch.empty(x_seq.shape[:2] + v0.shape[1:], dtype=xd,
                     device=x_seq.device)
-    with _full_fp32_conv():
+    with full_fp32_conv():
         for t in range(x_seq.shape[0]):
             y = F.conv2d(x_seq[t].to(cdt).permute(0, 3, 1, 2), w_oihw,
                          stride=stride, padding=k // 2

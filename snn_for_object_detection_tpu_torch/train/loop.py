@@ -26,8 +26,15 @@ forward, ``model.loss``, ``model.detect`` (softmax + NMS) and COCO mAP
 on the host.
 
 Batches are any iterable of numpy ``(X [T, B, H, W, C], labels [B, N,
-5])`` pairs; ``fit`` takes an object with ``train_loader()`` and
-``val_loader()`` returning such iterables.
+5])`` pairs (``data.PropheseeDataModule``'s loaders give uint8 frames,
+which the model casts on the device); ``fit`` takes an object with
+``train_loader()`` and ``val_loader()`` returning such iterables, and
+``predict`` one with ``predict_loader()`` and ``get_labels()``. Every
+loop closes the iterator it reads (its ``close()``, where it has one),
+so a loader's worker threads stop with the loop.
+
+``predict`` (streaming visualization): sample 0 of each batch frame by
+frame through ``SODa.predict``, each frame handed to a plotter.
 """
 
 from __future__ import annotations
@@ -310,6 +317,7 @@ class Trainer:
         gradient_clip_norm: Optional[float] = None,
         accumulate_grad_batches: int = 1,
         fast_dev_run: bool = False,
+        limit_predict_batches: int = 1,
         prefetch_batches: int = 0,
         spatial_devices: int = 1,
         time_batched: bool = False,
@@ -344,6 +352,7 @@ class Trainer:
         self.limit_train_batches = limit_train_batches
         self.limit_val_batches = limit_val_batches
         self.limit_test_batches = limit_test_batches
+        self.limit_predict_batches = limit_predict_batches
         self.check_val_every_n_epoch = check_val_every_n_epoch
         self.early_stopping_patience = early_stopping_patience
         self.monitor = monitor
@@ -480,51 +489,57 @@ class Trainer:
             print(f"resumed from {ckpt_path} at step {step}", flush=True)
 
         train_iter = iter(data.train_loader())
-        t_epoch = time.time()
-        while self.max_epochs < 0 or epoch < self.max_epochs:
-            losses = []
-            for _ in range(self.limit_train_batches):
-                X, labels = next(train_iter)
-                loss = self.train_step(
-                    model,
-                    torch.as_tensor(np.asarray(X), device=model.device),
-                    torch.as_tensor(np.asarray(labels, np.float32),
-                                    device=model.device),
-                    self.draw_start(model, generator),
-                )
-                step += 1
-                losses.append(float(loss))
-                if step % self.log_every_n_steps == 0:
-                    logger.log(step, {"train_loss": float(np.mean(
-                        losses[-self.log_every_n_steps:]))})
-            epoch += 1
-            logger.log(step, {"epoch": epoch,
-                              "epoch_train_loss": float(np.mean(losses)),
-                              "epoch_time_s": time.time() - t_epoch})
+        try:
             t_epoch = time.time()
+            while self.max_epochs < 0 or epoch < self.max_epochs:
+                losses = []
+                for _ in range(self.limit_train_batches):
+                    X, labels = next(train_iter)
+                    loss = self.train_step(
+                        model,
+                        torch.as_tensor(np.asarray(X), device=model.device),
+                        torch.as_tensor(np.asarray(labels, np.float32),
+                                        device=model.device),
+                        self.draw_start(model, generator),
+                    )
+                    step += 1
+                    losses.append(float(loss))
+                    if step % self.log_every_n_steps == 0:
+                        logger.log(step, {"train_loss": float(np.mean(
+                            losses[-self.log_every_n_steps:]))})
+                epoch += 1
+                logger.log(step, {"epoch": epoch,
+                                  "epoch_train_loss": float(np.mean(losses)),
+                                  "epoch_time_s": time.time() - t_epoch})
+                t_epoch = time.time()
 
-            if epoch % self.check_val_every_n_epoch == 0:
-                with self._ema_weights(model):
-                    metrics = self.validate(model, data.val_loader())
-                logger.log(step, metrics)
-                metric = metrics.get(self.monitor, 0.0)
-                # the early-stopping state is updated before the save, so
-                # a resume sees this validation's outcome
-                if metric > best_metric:
-                    best_metric, checks_since_best = metric, 0
-                else:
-                    checks_since_best += 1
-                ckpt.save(step, self._payload(
-                    model, step=step, epoch=epoch, best_metric=best_metric,
-                    checks_since_best=checks_since_best),
-                    metric=metric, meta={"metrics": metrics, "epoch": epoch})
-                # patience counts validation checks, as Lightning's
-                if (epoch >= self.min_epochs
-                        and self.early_stopping_patience > 0
-                        and checks_since_best >= self.early_stopping_patience):
-                    print(f"early stopping at epoch {epoch} (best "
-                          f"{self.monitor}={best_metric:.4f})", flush=True)
-                    break
+                if epoch % self.check_val_every_n_epoch == 0:
+                    with self._ema_weights(model):
+                        metrics = self.validate(model, data.val_loader())
+                    logger.log(step, metrics)
+                    metric = metrics.get(self.monitor, 0.0)
+                    # the early-stopping state is updated before the save, so
+                    # a resume sees this validation's outcome
+                    if metric > best_metric:
+                        best_metric, checks_since_best = metric, 0
+                    else:
+                        checks_since_best += 1
+                    ckpt.save(step, self._payload(
+                        model, step=step, epoch=epoch,
+                        best_metric=best_metric,
+                        checks_since_best=checks_since_best),
+                        metric=metric,
+                        meta={"metrics": metrics, "epoch": epoch})
+                    # patience counts validation checks, as Lightning's
+                    patience = self.early_stopping_patience
+                    if (epoch >= self.min_epochs and patience > 0
+                            and checks_since_best >= patience):
+                        print(f"early stopping at epoch {epoch} (best "
+                              f"{self.monitor}={best_metric:.4f})", flush=True)
+                        break
+        finally:
+            # stop the loader's worker threads even when a step raises
+            _close(train_iter)
         return {"step": step, "epoch": epoch, "best_metric": best_metric}
 
     # ---- evaluation ----
@@ -546,20 +561,24 @@ class Trainer:
         generator = torch.Generator().manual_seed(self.seed)
         map_metric = MeanAveragePrecision()
         losses = []
-        for X, labels in itertools.islice(batches, limit):
-            r = self.draw_start(model, generator)
-            loss, dets = self.eval_step(
-                model,
-                torch.as_tensor(np.asarray(X), device=model.device),
-                torch.as_tensor(np.asarray(labels, np.float32),
-                                device=model.device),
-                r,
-            )
-            losses.append(float(loss))
-            preds, targets = detections_to_map_inputs(
-                dets.cpu().numpy(), np.asarray(labels)
-            )
-            map_metric.update(preds, targets)
+        try:
+            for X, labels in itertools.islice(batches, limit):
+                r = self.draw_start(model, generator)
+                loss, dets = self.eval_step(
+                    model,
+                    torch.as_tensor(np.asarray(X), device=model.device),
+                    torch.as_tensor(np.asarray(labels, np.float32),
+                                    device=model.device),
+                    r,
+                )
+                losses.append(float(loss))
+                preds, targets = detections_to_map_inputs(
+                    dets.cpu().numpy(), np.asarray(labels)
+                )
+                map_metric.update(preds, targets)
+        finally:
+            # islice alone would leave a loader's threads running
+            _close(batches)
         out = {f"{prefix}_loss": float(np.mean(losses)) if losses else 0.0}
         out.update({k: float(v) for k, v in map_metric.compute().items()})
         return out
@@ -570,3 +589,50 @@ class Trainer:
     def test(self, model, batches: Iterable) -> Dict[str, float]:
         return self._run_eval(model, batches, self.limit_test_batches,
                               "test")
+
+    def predict(self, model, data, plotter, limit: Optional[int] = None
+                ) -> None:
+        """Streaming visualization (the reference's soda.py:191-200): run
+        sample 0 of each batch frame by frame through ``model.predict``
+        and hand the frames to ``plotter`` (anything with ``labels``,
+        ``apply(frame, dets, gt)`` and ``__call__(video, time_step,
+        name)``). Detections are shown from frame ``time_window`` on; the
+        last frame is drawn again with the ground truth. MT labels
+        ``(frame_idx, class, x1..y2)`` lose their frame index first.
+
+        :param limit: Batches to render; default ``limit_predict_batches``;
+            ``limit <= 0`` renders every batch the loader yields.
+        """
+        if limit is None:
+            limit = self.limit_predict_batches
+        plotter.labels = data.get_labels()
+        batches = data.predict_loader()
+        try:
+            for batch_idx, (X, labels) in enumerate(itertools.islice(
+                    batches, limit if limit > 0 else None)):
+                frames = np.asarray(X)[:, 0]  # [T, H, W, 2]
+                state = model.init_state(1)
+                video = []
+                dets = None
+                for t in range(frames.shape[0]):
+                    dets, state = model.predict(
+                        torch.as_tensor(frames[t], device=model.device),
+                        state)
+                    shown = None if t < model.time_window \
+                        else dets.cpu().numpy()
+                    video.append(plotter.apply(frames[t], shown, None))
+                gt = np.asarray(labels[0])
+                if gt.ndim == 2 and gt.shape[1] == 6:
+                    gt = gt[:, 1:]
+                video.append(plotter.apply(frames[-1], dets.cpu().numpy(),
+                                           gt))
+                plotter(video, data.time_step, str(batch_idx))
+        finally:
+            _close(batches)
+
+
+def _close(batches) -> None:
+    """Close an iterator that has ``close()`` (a loader's generator)."""
+    close = getattr(batches, "close", None)
+    if close is not None:
+        close()

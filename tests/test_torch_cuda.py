@@ -698,3 +698,44 @@ def test_narrow_training_on_the_card(card):
             assert torch.isfinite(g).all()
             torch.testing.assert_close(g, grads[key][name], rtol=2e-3,
                                        atol=1e-7, msg=name)
+
+
+@pytest.mark.cuda
+def test_conv_layer_is_full_fp32_whatever_the_tf32_flag(card):
+    """The Conv layer's fp32 forward and gradients are the same bits with
+    the process's ``cudnn.allow_tf32`` on as with it off, where a plain
+    ``F.conv2d`` under the flag on is not. cuDNN runs deterministic
+    algorithms here (its backward of the input may otherwise differ from
+    run to run in the last bits)."""
+    import torch.nn.functional as F
+
+    from snn_for_object_detection_tpu_torch.models import compile as C
+
+    layer = C.Conv(64, 128, 3, 1, (30, 38)).cuda()
+    layer.reset_parameters(torch.Generator().manual_seed(0))
+    x0 = torch.randn(4, 30, 38, 64,
+                     generator=torch.Generator().manual_seed(1)).cuda()
+
+    def run(flag, plain=False):
+        torch.backends.cudnn.allow_tf32 = flag
+        x = x0.clone().requires_grad_(True)
+        layer.w.grad = None
+        if plain:
+            y = F.conv2d(x.permute(0, 3, 1, 2), layer.w, padding=1)
+            y = y.permute(0, 2, 3, 1)
+        else:
+            y, _ = layer.step(x, None, C.Ctx())
+        y.square().sum().backward()
+        return y.detach(), x.grad, layer.w.grad
+
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.deterministic = True
+    try:
+        off, on, plain_on = run(False), run(True), run(True, plain=True)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = saved
+    for a, b in zip(off, on):
+        assert torch.equal(a, b)
+    assert not torch.equal(off[2], plain_on[2])

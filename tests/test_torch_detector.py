@@ -392,10 +392,12 @@ def _port_sources():
     yield os.path.join(REPO, "chip_smoke.py")
 
 
-def test_port_imports_no_jax():
-    """No module of the port, and not chip_smoke.py, imports JAX or the
-    JAX package; importing the port leaves JAX out of sys.modules."""
-    banned = ("jax", "jaxlib", "snn_for_object_detection_tpu")
+def test_port_imports_no_jax(tmp_path):
+    """No module of the port, and not chip_smoke.py, imports JAX, the JAX
+    package or PyYAML; importing the port leaves JAX out of sys.modules,
+    and so does a CLI ``test`` run on the CPU, which leaves PyYAML out
+    too (the port reads the configs with its own reader)."""
+    banned = ("jax", "jaxlib", "snn_for_object_detection_tpu", "yaml")
     for path in _port_sources():
         tree = ast.parse(open(path).read(), path)
         for node in ast.walk(tree):
@@ -416,3 +418,47 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, check=True)
     assert out.stdout.strip() == "[]", out.stdout
+    out = subprocess.run([sys.executable, "-c", CLI_RUN, str(tmp_path)],
+                         cwd=REPO, capture_output=True, text=True)
+    assert out.returncode == 0, out.stderr
+    assert "test_loss=" in out.stdout, out.stdout
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
+# a narrow TinyYolo tested from a weights-only checkpoint by the port's
+# CLI on a synthetic test split, then the banned modules that were loaded
+CLI_RUN = """
+import sys
+from snn_for_object_detection_tpu_torch import cli, data, utils
+from snn_for_object_detection_tpu_torch.data.synthetic import (
+    make_synthetic_dataset)
+from snn_for_object_detection_tpu_torch.models.tiny_yolo import TinyYolo
+from snn_for_object_detection_tpu_torch.train.checkpoint import save_single
+
+
+class Narrow(TinyYolo):
+    backbone_plan = ((8, 1), (16, 1))
+    neck_plan = ((16, 1), (16, 1), (16, 1))
+
+
+root = sys.argv[1]
+make_synthetic_dataset(root, records_per_split=1, duration_ms=600,
+                       splits=("test",))
+m = Narrow(num_classes=2, device="cpu")
+save_single(root + "/ckpt", {
+    "params": dict(m.named_parameters()),
+    "stats": {n: b for n, b in m.named_buffers()
+              if n.endswith((".mean", ".var"))}})
+cli.main(["test", "--config", "config/config.yaml", "--device", "cpu",
+          "--model.class_path=__main__.Narrow",
+          "--model.init_args.time_window=0",
+          f"--data.init_args.data_dir={root}",
+          "--data.init_args.batch_size=1", "--data.init_args.num_steps=3",
+          "--data.init_args.num_workers=1",
+          "--data.init_args.num_load_file=1",
+          "--data.init_args.time_shift=2",
+          "--trainer.limit_test_batches=1",
+          f"--trainer.out_dir={root}/run", f"--ckpt_path={root}/ckpt"])
+print(sorted(m for m in sys.modules if m.split(".")[0] in
+             ("jax", "jaxlib", "yaml", "snn_for_object_detection_tpu")))
+"""

@@ -669,3 +669,39 @@ def test_optimizer_options_left_out_raise():
     with pytest.raises(ValueError, match="fused"):
         _tiny_model(fuse_seq=True).forward_seq(
             torch.zeros(2, 1, 32, 40, 2), fuse=True, train=True)
+
+
+def test_conv_runs_without_tf32_in_forward_and_backward(monkeypatch):
+    """The Conv layer turns cuDNN's TF32 off for its forward and for its
+    backward (which autograd runs outside the forward's call), and gives
+    the process's flag back; the values are those of ``F.conv2d``."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    aten = torch.ops.aten
+    seen = []
+
+    class Spy(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in (aten.convolution.default,
+                        aten.convolution_backward.default):
+                seen.append((func.__name__,
+                             torch.backends.cudnn.allow_tf32))
+            return func(*args, **(kwargs or {}))
+
+    layer = PC.Conv(3, 4, 3, 2, (7, 9))
+    layer.reset_parameters(torch.Generator().manual_seed(0))
+    x = torch.randn(2, 7, 9, 3, generator=torch.Generator().manual_seed(1))
+    x.requires_grad_(True)
+    want_y = torch.nn.functional.conv2d(
+        x.detach().permute(0, 3, 1, 2), layer.w.detach(), stride=2,
+        padding=1).permute(0, 2, 3, 1)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    with Spy():
+        y, _ = layer.step(x, None, PC.Ctx())
+        assert torch.backends.cudnn.allow_tf32
+        y.square().sum().backward()
+    assert seen == [("convolution.default", False),
+                    ("convolution_backward.default", False)]
+    assert torch.backends.cudnn.allow_tf32
+    assert torch.equal(y, want_y)
+    assert x.grad is not None and layer.w.grad is not None
