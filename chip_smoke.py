@@ -7,6 +7,8 @@
                                        # fused_pointwise_conv_bn_lif)
     python3 chip_smoke.py --only 10    # [1] and the training phase
     python3 chip_smoke.py --only 11    # [1] and the CLI on recordings
+    python3 chip_smoke.py --only 12,13 # [1], the trained net, hybrid,
+                                       # "auto" and 1Mpx
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -131,6 +133,38 @@ Phases (any failure raises and the script exits non-zero):
    batch, the idle share of one profiled step fed by the loader, and
    each ``test``'s ms per batch.
 
+12. the trained net: ``nets/tiny_yolo_synth_torch/model/state.pt`` (the
+   JAX-trained synthetic net, written by
+   ``scripts/export_synth_net_torch.py``; read with
+   ``torch.load(weights_only=True)``, no JAX) in full-width GEN1 TinyYolo:
+   [7]'s gates (fused against the fused schedule on the plain versions,
+   at fp32 against the unfused path, spike agreement >= 0.99 a cell, the
+   witness) and [8]'s (megakernel against its plain version and
+   ``SODa.step``, LI relative L2, the witness), untimed, both dtype
+   configurations, each printed beside the untrained net's; the relative
+   L2 distance between the three train schedules' first-step gradients
+   (fp32, cuDNN off); ``python -m snn_for_object_detection_tpu_torch
+   test`` with ``nets/tiny_yolo_synth_torch/config.yaml`` and
+   ``--ckpt_path`` on a synthetic GEN1 set, per-step and fused: finite
+   metrics and an mAP above the same runs' from a checkpoint of [4]'s
+   random weights;
+13. hybrid, "auto" and 1Mpx: the cell kernel and its backward at the 1Mpx
+   stage-1 shape ``[42, 2, 360, 640, 64]`` (4.95 GB at fp32), LIF and
+   LI, fp32 and bf16 states, start 0 and 5, with [3]'s and [10]'s rules
+   (forward bit-equal; backward bit-equal or within rtol 1e-5 of the
+   largest cotangent); ``Trainer(time_batched="hybrid").fit`` at GEN1
+   full width in both training configurations (7 backward launches over
+   the sequence and 15 x (T - r) at T = 1 a step, no ``spiking_conv_seq``),
+   its first-step gradients at fp32 with cuDNN off against the plain
+   cell's (rtol 2e-3), its step's ms, peak memory and idle share beside
+   [10]'s; "auto" at ``config/config.yaml`` + ``config/1mpx.yaml``
+   (720x1280, 7 classes, T=42, B=2, fp32): each schedule's ms and peak
+   memory or its out-of-memory error, train and eval step; then the CLI's
+   ``fit`` (2 train batches, 1 validation) and ``test`` (1 batch) with
+   ``time_batched: auto`` and ``config/fast.yaml``'s bf16 states at T=42
+   on a synthetic 1Mpx set: "auto" resolves, finite losses and mAP, the
+   cell kernel and its backward launched; the loader's ms per 1Mpx batch.
+
 Model and data values of [3]-[10], with their source (those phases pass
 them as arguments; [11] reads the YAML files):
 config/config.yaml:9-13 num_classes 2, in_hw [240, 304], loss_ratio
@@ -164,6 +198,13 @@ MAX_LABELS = 64
 EVENT_DENSITY = 0.05  # share of pixels with an event per frame and polarity
 BN_GAIN = 8.0
 CELLS_PER_STEP = 22  # 19 LIF + 3 LI in TinyYolo
+BACKBONE_CELLS = 7  # of them in the backbone (stages 1-2: 3 + 4 LIF)
+# what [7], [8] and [10] measured, by net ("untrained": [4]'s random
+# weights; "trained": [12]'s), for [12] to print side by side; and
+# [10]'s and [13]'s train steps (ms, peak GB, idle share) by
+# (x dtype, state dtype, schedule)
+AGREEMENTS = {}
+TRAIN_STEP_TIMES = {}
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 outside the
 # tensor cores (JAX's fp32 semantics forbid TF32), dense bf16
 HBM_BYTES_PER_S = 3.35e12
@@ -750,10 +791,12 @@ def make_batches(n: int, seed: int):
 
 
 def build_model(TinyYolo, compute_dtype, state_dtype, dev,
-                time_window=TIME_WINDOW, fuse_seq=False):
+                time_window=TIME_WINDOW, fuse_seq=False, weights=None):
     """TinyYolo with seeded random conv weights. BatchNorm gains are set
     to BN_GAIN: at identity gains the untrained net never spikes on
-    sparse frames, at 8 its LIF layers fire 0.2-16% of the time."""
+    sparse frames, at 8 its LIF layers fire 0.2-16% of the time.
+    ``weights``: a checkpoint payload (``params``, ``stats``) to load
+    instead, e.g. the trained net of [12]."""
     import torch
 
     model = TinyYolo(
@@ -763,6 +806,12 @@ def build_model(TinyYolo, compute_dtype, state_dtype, dev,
         fuse_seq=fuse_seq, device=dev, seed=0,
     )
     with torch.no_grad():
+        if weights is not None:
+            for name, value in weights["params"].items():
+                model.get_parameter(name).copy_(value)
+            for name, value in weights["stats"].items():
+                model.get_buffer(name).copy_(value)
+            return model
         for name, p in model.named_parameters():
             if name.endswith(".scale"):
                 p.fill_(BN_GAIN)
@@ -1059,14 +1108,17 @@ def spike_agreements(a, b):
 
 
 def phase_fused_path(torch, cuda_kernels, C, TinyYolo, Trainer, batches,
-                     dev):
+                     dev, weights=None, timed=True, net="untrained"):
     """Phase 7: Trainer.test of the fused model (time_window 0) and of
     the unfused one on the same batches and weights, in both dtype
-    configurations; each eval step timed and profiled; the fused final
-    states against the fused schedule on the plain versions and against
-    the unfused schedule, and the witness: the fused kernels no further
-    from the exact-sum run than the plain versions. Returns the spiking
-    conv kernel's launches over the fused ``test`` runs."""
+    configurations; each eval step timed and profiled (``timed``); the
+    fused final states against the fused schedule on the plain versions
+    and against the unfused schedule, and the witness: the fused kernels
+    no further from the exact-sum run than the plain versions. Each
+    agreement goes into AGREEMENTS under ``net``. ``weights``: the
+    trained net's payload ([12]) instead of [4]'s random weights.
+    Returns the spiking conv kernel's launches over the fused ``test``
+    runs."""
     from snn_for_object_detection_tpu_torch.ops.megakernel import (
         model_cells,
         run_distance,
@@ -1081,7 +1133,7 @@ def phase_fused_path(torch, cuda_kernels, C, TinyYolo, Trainer, batches,
         for fuse in (True, False):
             name = f"{xd}/{sd} {'fused' if fuse else 'unfused'}"
             model = build_model(TinyYolo, xd, sd, dev, time_window=0,
-                                fuse_seq=fuse)
+                                fuse_seq=fuse, weights=weights)
             trainer = Trainer(limit_test_batches=EVAL_BATCHES, seed=0,
                               time_batched=True)
             torch.cuda.synchronize()
@@ -1120,17 +1172,20 @@ def phase_fused_path(torch, cuda_kernels, C, TinyYolo, Trainer, batches,
                         list(outs[key][0]), model_cells(model, outs[key][1]),
                         *exact) for key in outs if key not in (False,
                                                                "exact")}
-            parts = time_step_parts(torch, model, trainer, X, lab, start=0)
-            step_ms = parts["step"]
-            print(f"  {name}: {metrics}")
-            print(f"  {name}: launches {launches}; eval step {step_ms:.1f} "
-                  f"ms (median of 5, host clock), "
-                  f"{STEPS * BATCH / (step_ms / 1e3):.0f} frames/s; peak "
-                  f"memory {peak_gb:.2f} GB; parts, synchronised apart: "
-                  + ", ".join(f"{k} {v:.2f} ms" for k, v in parts.items()
-                              if k != "step"), flush=True)
-            profile_step(torch, cuda_kernels, model, trainer, X, lab,
-                         start=0)
+            print(f"  {name}: {metrics}; launches {launches}",
+                  flush=True)
+            if timed:
+                parts = time_step_parts(torch, model, trainer, X, lab,
+                                        start=0)
+                step_ms = parts["step"]
+                print(f"  {name}: eval step {step_ms:.1f} ms (median of 5, "
+                      f"host clock), {STEPS * BATCH / (step_ms / 1e3):.0f} "
+                      f"frames/s; peak memory {peak_gb:.2f} GB; parts, "
+                      "synchronised apart: " + ", ".join(
+                          f"{k} {v:.2f} ms" for k, v in parts.items()
+                          if k != "step"), flush=True)
+                profile_step(torch, cuda_kernels, model, trainer, X, lab,
+                             start=0)
             del model
             torch.cuda.empty_cache()
         check(all(bool(torch.isfinite(t).all()) for t in outs[True][0]),
@@ -1146,9 +1201,11 @@ def phase_fused_path(torch, cuda_kernels, C, TinyYolo, Trainer, batches,
                   f"max |pred diff| {max_pred:.3g}"
                   f"{'' if gated else ' (not asserted)'}", flush=True)
             check(len(agree) == CELLS_PER_STEP, "cell count")
+            AGREEMENTS[net, f"[7] {xd}/{sd} fused vs {what}"] = min(agree)
             check(not gated or min(agree) >= 0.99,
                   f"{xd}/{sd}: fused vs {what}: spike agreement {agree}")
         ok = witness_passes(dist[True], dist["plain"])
+        AGREEMENTS[net, f"[7] {xd}/{sd} witness"] = ok
         print(f"  {xd}/{sd}: witness, distance from the exact-sum run "
               f"(conv sums in float64): fused kernels: {dist[True]}; plain "
               f"versions: {dist['plain']}; {'passes' if ok else 'FAILS'}",
@@ -1258,13 +1315,16 @@ def megakernel_witness(torch, cuda_kernels, mk, tag, dev):
     return failed
 
 
-def phase_megakernel(torch, cuda_kernels, TinyYolo, batch, dev):
+def phase_megakernel(torch, cuda_kernels, TinyYolo, batch, dev,
+                     weights=None, timed=True, net="untrained"):
     """Phase 8: the B=1 streaming megakernel on TinyYolo GEN1, in both
     dtype configurations, through ``StreamingMegakernel.step``: one
     launch per frame and nothing else; the final state against the plain
     version on the card and (fp32) against the per-step ``SODa.step``;
-    ``predict`` and ``to_model_state``; timings and the per-phase
-    timeline. Returns (launches, fp32 row of the kernels line)."""
+    then (``timed``) ``predict`` and ``to_model_state``, timings and the
+    per-phase timeline. Agreements go into AGREEMENTS under ``net``;
+    ``weights`` as in ``phase_fused_path``. Returns (launches, fp32 row
+    of the kernels line)."""
     from snn_for_object_detection_tpu_torch.ops.megakernel import (
         StreamingMegakernel,
         streaming_megakernel_reference,
@@ -1275,7 +1335,7 @@ def phase_megakernel(torch, cuda_kernels, TinyYolo, batch, dev):
     total, row = 0, None
     for xd, sd in (("float32", "float32"), ("bfloat16", "float8_e5m2")):
         tag = f"{xd}/{sd}"
-        model = build_model(TinyYolo, xd, sd, dev)
+        model = build_model(TinyYolo, xd, sd, dev, weights=weights)
         mk = StreamingMegakernel(model)
         plan = mk.plan
         cuda_kernels.reset_launches()
@@ -1318,6 +1378,9 @@ def phase_megakernel(torch, cuda_kernels, TinyYolo, batch, dev):
               f"ulps max {max(li_out):.4f}; max abs err {err:.3g}",
               flush=True)
         failed = megakernel_witness(torch, cuda_kernels, mk, tag, dev)
+        AGREEMENTS[net, f"[8] {tag} vs plain"] = min(agree)
+        AGREEMENTS[net, f"[8] {tag} LI relative L2"] = max(li_rel)
+        AGREEMENTS[net, f"[8] {tag} witness"] = not failed
         check(min(agree) >= 0.99, f"{tag}: spike agreement {agree}")
         li_limit = 0.05 if xd == "float32" else 0.1
         check(max(li_rel) <= li_limit, f"{tag}: LI states' relative L2 "
@@ -1339,7 +1402,12 @@ def phase_megakernel(torch, cuda_kernels, TinyYolo, batch, dev):
                   f"{min(agree_s):.6f}, mean {statistics.mean(agree_s):.6f} "
                   f"over {len(agree_s)} cells; max |pred diff| "
                   f"{pred_diff:.3g}", flush=True)
+            AGREEMENTS[net, f"[8] {tag} vs SODa.step"] = min(agree_s)
             check(min(agree_s) >= 0.99, f"{tag}: vs SODa.step {agree_s}")
+        if not timed:
+            del model, mk, plan, state, plain, got
+            torch.cuda.empty_cache()
+            continue
 
         # predict and the flat state
         dets, flat = mk.predict(X[0], got)
@@ -1657,103 +1725,140 @@ def kind_ms(kernels):
     return by_kind
 
 
-def phase_train(torch, cuda_kernels, TinyYolo, Trainer, batches, dev):
-    """[10] second part: ``Trainer.fit`` for TRAIN_STEPS steps on each
-    schedule in both training configurations at full GEN1 width. Each
-    step must launch the cell backward kernel 22 times (time-batched) or
-    22 x (T - r) times (per step) and no spiking conv kernel; the loss
-    stays finite, the weights and the running stats move. Then one train
-    step from r = 5 timed (CUDA events, median of 3), its peak memory,
-    and the device idle share of one more step under ``torch.profiler``.
-    Last, at fp32 with cuDNN off, each schedule's first-step loss and
-    gradients must agree with the same schedule's through the plain cell.
-    Returns the backward kernel's launches over the fit runs."""
+def backward_launches(schedule, r):
+    """Cell backward launches of one train step from start r: one a cell
+    over the sequence (time-batched), one a cell and active step (per
+    step), or the backbone's cells over the sequence and the neck's and
+    heads' a step (hybrid)."""
+    if schedule == "hybrid":
+        return BACKBONE_CELLS + (CELLS_PER_STEP - BACKBONE_CELLS) * (STEPS - r)
+    return CELLS_PER_STEP * (1 if schedule else STEPS - r)
+
+
+SCHEDULE_NAMES = {False: "per-step", True: "time-batched",
+                  "hybrid": "hybrid"}
+
+
+def fit_schedule(torch, cuda_kernels, TinyYolo, Trainer, batches, dev, xd,
+                 sd, schedule):
+    """``Trainer.fit`` for TRAIN_STEPS steps on one schedule and training
+    configuration at full GEN1 width: ``backward_launches`` a step and
+    no spiking conv kernel; finite losses; the weights and the running
+    stats moved. Then one train step from r = TRAIN_START timed (CUDA
+    events, median of 3), its peak memory, and the device idle share of
+    one more step under ``torch.profiler``. Returns the fit's launches
+    and the step's numbers."""
+    from snn_for_object_detection_tpu_torch.models import compile as C
+
     out_root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "build", "chip_smoke_train")
     X = torch.as_tensor(batches[0][0], device=dev)
     lab = torch.as_tensor(batches[0][1], device=dev)
-    total = 0
-    for xd, sd in TRAIN_PAIRS:
-        for schedule in (False, True):
-            tag = f"{xd}/{sd} {'time-batched' if schedule else 'per-step'}"
-            model = build_model(TinyYolo, xd, sd, dev)
-            w0 = [p.detach().clone() for p in model.parameters()]
-            s0 = [b.clone() for n, b in model.named_buffers()
-                  if n.endswith((".mean", ".var"))]
-            out_dir = os.path.join(out_root, f"{xd}_{sd}_{int(schedule)}")
-            shutil.rmtree(out_dir, ignore_errors=True)
-            trainer = Trainer(max_epochs=1, limit_train_batches=TRAIN_STEPS,
-                              check_val_every_n_epoch=10 ** 6,
-                              log_every_n_steps=1, out_dir=out_dir, seed=0,
-                              time_batched=schedule)
-            starts = []
-            draw = trainer.draw_start
-            trainer.draw_start = lambda m, g: starts.append(draw(m, g)) \
-                or starts[-1]
-            cuda_kernels.reset_launches()
-            t0 = time.perf_counter()
-            trainer.fit(model, _Batches(batches))
-            torch.cuda.synchronize()
-            fit_s = time.perf_counter() - t0
-            n = dict(cuda_kernels.LAUNCHES)
-            want = CELLS_PER_STEP * sum(1 if schedule else STEPS - r
-                                        for r in starts)
-            check(n["temporal_cell_seq_bwd"] == want,
-                  f"{tag}: {n['temporal_cell_seq_bwd']} backward launches "
-                  f"for starts {starts}, want {want}")
-            check(n["spiking_conv_seq"] == 0, f"{tag}: a fused launch")
-            total += n["temporal_cell_seq_bwd"]
-            with open(os.path.join(out_dir, "metrics.jsonl")) as f:
-                losses = [r["train_loss"] for r in map(json.loads, f)
-                          if "train_loss" in r]
-            check(len(losses) == TRAIN_STEPS
-                  and all(np.isfinite(v) for v in losses),
-                  f"{tag}: train losses {losses}")
-            moved = sum(not torch.equal(p, q)
-                        for p, q in zip(model.parameters(), w0))
-            stats_moved = sum(not torch.equal(b, q) for b, q in zip(
-                (b for n_, b in model.named_buffers()
-                 if n_.endswith((".mean", ".var"))), s0))
-            check(moved >= 0.9 * len(w0) and stats_moved >= 0.9 * len(s0),
-                  f"{tag}: {moved} of {len(w0)} weights and {stats_moved} of "
-                  f"{len(s0)} running stats moved")
+    tag = f"{xd}/{sd} {SCHEDULE_NAMES[schedule]}"
+    model = build_model(TinyYolo, xd, sd, dev)
+    w0 = [p.detach().clone() for p in model.parameters()]
+    s0 = [b.clone() for n, b in model.named_buffers()
+          if n.endswith((".mean", ".var"))]
+    out_dir = os.path.join(out_root, f"{xd}_{sd}_{schedule}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    trainer = Trainer(max_epochs=1, limit_train_batches=TRAIN_STEPS,
+                      check_val_every_n_epoch=10 ** 6,
+                      log_every_n_steps=1, out_dir=out_dir, seed=0,
+                      time_batched=schedule)
+    starts = []
+    draw = trainer.draw_start
+    trainer.draw_start = lambda m, g: starts.append(draw(m, g)) \
+        or starts[-1]
+    # the forward launches by sequence length (the kernel's own count
+    # is LAUNCHES["temporal_cell_seq"])
+    lengths = []
+    kernel_cell = C.temporal_cell_seq
 
-            def step():
-                trainer.train_step(model, X, lab, TRAIN_START)
+    def counted(x, *args, **kwargs):
+        lengths.append(x.shape[0])
+        return kernel_cell(x, *args, **kwargs)
 
-            torch.cuda.reset_peak_memory_stats()
-            step_ms = cuda_time_ms(step, reps=3, warmup=1)
-            peak_gb = torch.cuda.max_memory_allocated() / 1e9
-            kernels, busy, wall = profiled(torch, step)
-            by_kind = kind_ms(kernels)
-            bwd_n = sum(kernel_kind(e.name) == "cell backward kernel"
-                        for e in kernels)
-            print(f"  {tag}: fit {TRAIN_STEPS} steps in {fit_s:.1f} s, starts "
-                  f"{starts}, losses {[round(v, 4) for v in losses]}; "
-                  f"launches {n['temporal_cell_seq']} forward (remat "
-                  f"recomputes them), {n['temporal_cell_seq_bwd']} backward; "
-                  f"train step from r={TRAIN_START} {step_ms:.1f} ms (CUDA "
-                  f"events, median of 3), {STEPS * BATCH / (step_ms / 1e3):.0f}"
-                  f" frames/s, peak memory {peak_gb:.2f} GB; one step under "
-                  f"the profiler: device busy {busy:.1f} of {wall:.1f} ms, "
-                  f"idle share {max(0.0, 1 - busy / wall):.3f}; {bwd_n} cell "
-                  f"backward kernels {by_kind.get('cell backward kernel', 0):.2f}"
-                  f" ms; device ms by kind: " + ", ".join(
-                      f"{k} {v:.1f}" for k, v in sorted(
-                          by_kind.items(), key=lambda kv: -kv[1])[:6]),
-                  flush=True)
-            del model, trainer, w0, s0
-            torch.cuda.empty_cache()
+    C.temporal_cell_seq = counted
+    cuda_kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        trainer.fit(model, _Batches(batches))
+    finally:
+        C.temporal_cell_seq = kernel_cell
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    n = dict(cuda_kernels.LAUNCHES)
+    want = sum(backward_launches(schedule, r) for r in starts)
+    check(n["temporal_cell_seq_bwd"] == want,
+          f"{tag}: {n['temporal_cell_seq_bwd']} backward launches "
+          f"for starts {starts}, want {want}")
+    check(n["spiking_conv_seq"] == 0, f"{tag}: a fused launch")
+    check(n["temporal_cell_seq"] == len(lengths), f"{tag}: forward launches")
+    by_len = {t: lengths.count(t) for t in sorted(set(lengths))}
+    if schedule == "hybrid":
+        # every backbone cell over T, every neck and head cell a step,
+        # each run again at most once by the backward's recompute
+        seq_min = BACKBONE_CELLS * TRAIN_STEPS
+        step_min = sum(backward_launches(schedule, r) - BACKBONE_CELLS
+                       for r in starts)
+        check(set(by_len) == {1, STEPS}
+              and seq_min <= by_len[STEPS] <= 2 * seq_min
+              and step_min <= by_len[1] <= 2 * step_min,
+              f"{tag}: forward launches by length {by_len}, want "
+              f"{seq_min}-{2 * seq_min} over T={STEPS} and "
+              f"{step_min}-{2 * step_min} at T=1")
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        losses = [r["train_loss"] for r in map(json.loads, f)
+                  if "train_loss" in r]
+    check(len(losses) == TRAIN_STEPS
+          and all(np.isfinite(v) for v in losses),
+          f"{tag}: train losses {losses}")
+    moved = sum(not torch.equal(p, q)
+                for p, q in zip(model.parameters(), w0))
+    stats_moved = sum(not torch.equal(b, q) for b, q in zip(
+        (b for n_, b in model.named_buffers()
+         if n_.endswith((".mean", ".var"))), s0))
+    check(moved >= 0.9 * len(w0) and stats_moved >= 0.9 * len(s0),
+          f"{tag}: {moved} of {len(w0)} weights and {stats_moved} of "
+          f"{len(s0)} running stats moved")
 
-    # each schedule's gradients against the same schedule with the plain
-    # cell (autograd through temporal_cell_seq_reference, on the card):
-    # the cell is the only difference and is bit-equal both ways, so the
-    # spikes match and what is left is the order of a few sums in the
-    # backward. The two schedules are not compared with each other here:
-    # their BatchNorm moments round apart (one batched reduction against
-    # one a step, as in JAX), and on this untrained net at gains 8 one
-    # flipped spike moves the gradients past any tolerance; the CPU tests
-    # hold both schedules against JAX and each other at narrow width.
+    def step():
+        trainer.train_step(model, X, lab, TRAIN_START)
+
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_time_ms(step, reps=3, warmup=1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    kernels, busy, wall = profiled(torch, step)
+    by_kind = kind_ms(kernels)
+    bwd_n = sum(kernel_kind(e.name) == "cell backward kernel"
+                for e in kernels)
+    idle = max(0.0, 1 - busy / wall)
+    print(f"  {tag}: fit {TRAIN_STEPS} steps in {fit_s:.1f} s, starts "
+          f"{starts}, losses {[round(v, 4) for v in losses]}; "
+          f"launches {n['temporal_cell_seq']} forward (by sequence length "
+          f"{by_len}; remat recomputes them), {n['temporal_cell_seq_bwd']} "
+          f"backward; train step from r={TRAIN_START} {step_ms:.1f} ms (CUDA "
+          f"events, median of 3), {STEPS * BATCH / (step_ms / 1e3):.0f}"
+          f" frames/s, peak memory {peak_gb:.2f} GB; one step under "
+          f"the profiler: device busy {busy:.1f} of {wall:.1f} ms, "
+          f"idle share {idle:.3f}; {bwd_n} cell "
+          f"backward kernels {by_kind.get('cell backward kernel', 0):.2f}"
+          f" ms; device ms by kind: " + ", ".join(
+              f"{k} {v:.1f}" for k, v in sorted(
+                  by_kind.items(), key=lambda kv: -kv[1])[:6]),
+          flush=True)
+    TRAIN_STEP_TIMES[xd, sd, schedule] = (step_ms, peak_gb, idle)
+    del model, trainer, w0, s0
+    torch.cuda.empty_cache()
+    return n["temporal_cell_seq_bwd"]
+
+
+def plain_cell_grads(torch, cuda_kernels, TinyYolo, schedules, X, lab, dev):
+    """At fp32 with cuDNN off, each schedule's first-step loss and
+    gradients from r = TRAIN_START against the same schedule's with
+    ``compile.temporal_cell_seq`` swapped for the plain version: the
+    losses within 1e-6, the gradients within rtol 2e-3, atol 1e-7.
+    Returns the kernels' runs by schedule."""
     from snn_for_object_detection_tpu_torch.models import compile as C
 
     kernel_cell = C.temporal_cell_seq
@@ -1761,7 +1866,7 @@ def phase_train(torch, cuda_kernels, TinyYolo, Trainer, batches, dev):
     runs = {}
     try:
         model = build_model(TinyYolo, "float32", "float32", dev)
-        for schedule in (False, True):
+        for schedule in schedules:
             for how in ("kernel", "plain"):
                 C.temporal_cell_seq = kernel_cell if how == "kernel" \
                     else cuda_kernels.temporal_cell_seq_reference
@@ -1769,7 +1874,7 @@ def phase_train(torch, cuda_kernels, TinyYolo, Trainer, batches, dev):
                 runs[schedule, how] = first_step_grads(
                     torch, model, schedule, X, lab, TRAIN_START)
                 n = cuda_kernels.LAUNCHES
-                want = CELLS_PER_STEP * (1 if schedule else STEPS - TRAIN_START)
+                want = backward_launches(schedule, TRAIN_START)
                 check((n["temporal_cell_seq_bwd"], n["temporal_cell_seq"] > 0)
                       == ((want, True) if how == "kernel" else (0, False)),
                       f"{how} cell: {n['temporal_cell_seq']} forward and "
@@ -1777,7 +1882,7 @@ def phase_train(torch, cuda_kernels, TinyYolo, Trainer, batches, dev):
     finally:
         C.temporal_cell_seq = kernel_cell
         torch.backends.cudnn.enabled = True
-    for schedule in (False, True):
+    for schedule in schedules:
         (l_k, g_k), (l_p, g_p) = runs[schedule, "kernel"], runs[schedule,
                                                                "plain"]
         check(abs(l_k - l_p) <= 1e-6 * abs(l_p),
@@ -1790,21 +1895,51 @@ def phase_train(torch, cuda_kernels, TinyYolo, Trainer, batches, dev):
             same += bool(torch.equal(a, b))
             worst = max(worst, float((a - b).abs().max())
                         / max(float(b.abs().max()), 1e-30))
-        print(f"  {'time-batched' if schedule else 'per-step'} at fp32, "
-              f"cuDNN off, r={TRAIN_START}: the kernels' first step against "
+        print(f"  {SCHEDULE_NAMES[schedule]} at fp32, cuDNN off, "
+              f"r={TRAIN_START}: the kernels' first step against "
               f"the plain cell's: losses {l_k!r} / {l_p!r}, {same} of "
               f"{len(g_k)} gradients bit-equal, every one within rtol 2e-3, "
               f"atol 1e-7 (max difference over a tensor's largest entry "
               f"{worst:.3g})", flush=True)
-    (l_s, g_s), (l_b, g_b) = runs[False, "kernel"], runs[True, "kernel"]
-    flat_s = torch.cat([g.flatten() for g in g_s.values()])
-    flat_b = torch.cat([g_b[n].flatten() for n in g_s])
-    print(f"  the two schedules, not a gate: losses {l_s:.6f} / {l_b:.6f}, "
-          f"gradients' relative L2 distance "
-          f"{float((flat_s - flat_b).norm() / flat_b.norm()):.3g}",
-          flush=True)
-    del model, runs
+    del model
     torch.cuda.empty_cache()
+    return {s: runs[s, "kernel"] for s in schedules}
+
+
+def grads_distance(a, b) -> float:
+    """Relative L2 distance of two runs' whole gradients."""
+    import torch
+
+    fa = torch.cat([g.flatten() for g in a.values()])
+    fb = torch.cat([b[n].flatten() for n in a])
+    return float((fa - fb).norm() / fb.norm())
+
+
+def phase_train(torch, cuda_kernels, TinyYolo, Trainer, batches, dev):
+    """[10] second part: ``fit_schedule`` on the per-step and the
+    time-batched schedule in both training configurations, then
+    ``plain_cell_grads`` of both. The two schedules are not compared with
+    each other there: their BatchNorm moments round apart (one batched
+    reduction against one a step, as in JAX), and on this untrained net
+    at gains 8 one flipped spike moves the gradients past any tolerance;
+    the CPU tests hold both schedules against JAX and each other at
+    narrow width. Returns the backward kernel's launches over the fit
+    runs."""
+    total = 0
+    for xd, sd in TRAIN_PAIRS:
+        for schedule in (False, True):
+            total += fit_schedule(torch, cuda_kernels, TinyYolo, Trainer,
+                                  batches, dev, xd, sd, schedule)
+    X = torch.as_tensor(batches[0][0], device=dev)
+    lab = torch.as_tensor(batches[0][1], device=dev)
+    runs = plain_cell_grads(torch, cuda_kernels, TinyYolo, (False, True), X,
+                            lab, dev)
+    (l_s, g_s), (l_b, g_b) = runs[False], runs[True]
+    AGREEMENTS["untrained", "[10] gradients' relative L2, per-step vs "
+               "time-batched"] = grads_distance(g_s, g_b)
+    print(f"  the two schedules, not a gate: losses {l_s:.6f} / {l_b:.6f}, "
+          f"gradients' relative L2 distance {grads_distance(g_s, g_b):.3g}",
+          flush=True)
     return total
 
 
@@ -1822,14 +1957,14 @@ LOADER_WARMUP, LOADER_TIMED = 2, 10
 
 
 def loader_ms(PropheseeDataModule, data_dir, num_steps, time_shift,
-              num_load_file, workers):
-    """Host ms of the loader alone (B=4, uint8 frames): from making it to
-    its first batch, and per batch after its warm-up batches."""
+              num_load_file, workers, dataset="gen1", batch_size=BATCH):
+    """Host ms of the loader alone (uint8 frames): from making it to its
+    first batch, and per batch after its warm-up batches."""
     t0 = time.perf_counter()
     loader = PropheseeDataModule(
-        data_dir=data_dir, batch_size=BATCH, num_workers=workers,
-        num_load_file=num_load_file, num_steps=num_steps,
-        time_shift=time_shift).train_loader()
+        data_dir=data_dir, dataset=dataset, batch_size=batch_size,
+        num_workers=workers, num_load_file=num_load_file,
+        num_steps=num_steps, time_shift=time_shift).train_loader()
     try:
         next(loader)
         first_ms = (time.perf_counter() - t0) * 1e3
@@ -2076,6 +2211,390 @@ def phase_cli(torch, cuda_kernels, smi):
           f"{COUNTS['rasterize_records']} windows rasterized", flush=True)
 
 
+# [12]: the JAX-trained synthetic net (scripts/export_synth_net_torch.py),
+# and the test batches of its CLI runs
+TRAINED_NET = os.path.join("nets", "tiny_yolo_synth_torch")
+TRAINED_PARAMS = 4_228_544
+TRAINED_TEST_BATCHES = 4
+
+
+def phase_trained_net(torch, cuda_kernels, C, TinyYolo, Trainer, batches,
+                      smi, dev):
+    """[12] the trained net: ``nets/tiny_yolo_synth_torch/model/state.pt``
+    (read by ``torch.load(weights_only=True)``, no JAX) in full-width GEN1
+    TinyYolo. [7]'s gates (``phase_fused_path``, both dtype
+    configurations) and [8]'s (``phase_megakernel``) on those weights,
+    untimed; every agreement printed beside the untrained net's. The
+    relative L2 distance of the three train schedules' first-step
+    gradients (fp32, cuDNN off, r = TRAIN_START). Then ``python -m
+    snn_for_object_detection_tpu_torch test`` (``cli.main``) with the
+    net's config and ``--ckpt_path`` on a synthetic GEN1 set, per-step
+    and fused, against the same runs from a checkpoint of [4]'s random
+    weights: finite metrics, and a higher mAP for the trained net on both
+    schedules (the weights crossed)."""
+    from snn_for_object_detection_tpu_torch import cli
+    from snn_for_object_detection_tpu_torch.data.synthetic import (
+        make_synthetic_dataset,
+    )
+    from snn_for_object_detection_tpu_torch.train.checkpoint import (
+        load_single,
+        save_single,
+    )
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    net = os.path.join(repo, TRAINED_NET)
+    weights = load_single(os.path.join(net, "model"))
+    n = sum(v.numel() for v in weights["params"].values())
+    check(n == TRAINED_PARAMS, f"the trained net has {n} params")
+    print(f"  {TRAINED_NET}/model: step {weights['step']}, epoch "
+          f"{weights['epoch']}, {n} params", flush=True)
+    phase_fused_path(torch, cuda_kernels, C, TinyYolo, Trainer, batches, dev,
+                     weights=weights, timed=False, net="trained")
+    phase_megakernel(torch, cuda_kernels, TinyYolo, batches[0], dev,
+                     weights=weights, timed=False, net="trained")
+
+    X = torch.as_tensor(batches[0][0], device=dev)
+    lab = torch.as_tensor(batches[0][1], device=dev)
+    model = build_model(TinyYolo, "float32", "float32", dev, weights=weights)
+    torch.backends.cudnn.enabled = False
+    try:
+        runs = {s: first_step_grads(torch, model, s, X, lab, TRAIN_START)
+                for s in (False, True, "hybrid")}
+    finally:
+        torch.backends.cudnn.enabled = True
+    for a, b in ((False, True), (True, "hybrid"), (False, "hybrid")):
+        d = grads_distance(runs[a][1], runs[b][1])
+        key = (f"[10] gradients' relative L2, {SCHEDULE_NAMES[a]} vs "
+               f"{SCHEDULE_NAMES[b]}")
+        AGREEMENTS["trained", key] = d
+    print("  first-step losses at fp32, cuDNN off, r=" + str(TRAIN_START)
+          + ": " + ", ".join(f"{SCHEDULE_NAMES[s]} {runs[s][0]:.6f}"
+                             for s in runs), flush=True)
+    del model, runs
+    torch.cuda.empty_cache()
+    print("  agreements, [4]'s untrained net (random weights, BatchNorm "
+          "gain 8) / the trained net:", flush=True)
+    for key in sorted({k for _, k in AGREEMENTS}):
+        a, b = (AGREEMENTS.get((w, key), "not run")
+                for w in ("untrained", "trained"))
+        print(f"    {key}: {a} / {b}", flush=True)
+
+    root = os.path.join(repo, "build", "chip_smoke_trained")
+    shutil.rmtree(root, ignore_errors=True)
+    data_dir = make_synthetic_dataset(
+        os.path.join(root, "data"), records_per_split=CLI_RECORDINGS,
+        duration_ms=CLI_DURATION_MS, seed=CLI_SEED)
+    random_net = build_model(TinyYolo, "float32", "float32", dev)
+    random_ckpt = os.path.join(root, "random")
+    save_single(random_ckpt, {
+        "params": {k: p.detach() for k, p in random_net.named_parameters()},
+        "stats": {k: b for k, b in random_net.named_buffers()
+                  if k.endswith((".mean", ".var"))}})
+    del random_net
+    results = {}
+    for which, ckpt in (("trained", os.path.join(net, "model")),
+                        ("random", random_ckpt)):
+        for tag, extra in (
+            ("per-step", ["--trainer.time_batched=false"]),
+            ("fused", ["--model.init_args.fuse_seq=true",
+                       "--model.init_args.time_window=0",
+                       "--trainer.time_batched=true"]),
+        ):
+            cuda_kernels.reset_launches()
+            t0 = time.perf_counter()
+            run = cli.main([
+                "test", "--config", os.path.join(net, "config.yaml"),
+                f"--data.init_args.data_dir={data_dir}",
+                f"--trainer.limit_test_batches={TRAINED_TEST_BATCHES}",
+                *extra, f"--ckpt_path={ckpt}",
+                f"--trainer.out_dir={os.path.join(root, which + '_' + tag)}"])
+            torch.cuda.synchronize()
+            main_s = time.perf_counter() - t0
+            launches = dict(cuda_kernels.LAUNCHES)
+            check_finite(run.result, f"test {which} {tag}")
+            if tag == "fused":
+                check(launches["spiking_conv_seq"]
+                      == CELLS_PER_STEP * TRAINED_TEST_BATCHES
+                      and launches["temporal_cell_seq"] == 0,
+                      f"test {which} {tag}: launches {launches}")
+            else:
+                check(launches["temporal_cell_seq"] > 0
+                      and launches["spiking_conv_seq"] == 0,
+                      f"test {which} {tag}: launches {launches}")
+            results[which, tag] = run.result
+            print(f"  test {which} {tag} ({run.model.state_dtype} states, "
+                  f"B={run.data.batch_size}, T={run.data.num_steps}, "
+                  f"{TRAINED_TEST_BATCHES} batches): "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in run.result.items())
+                  + f"; cli.main {main_s:.2f} s [{smi}]", flush=True)
+            del run
+            torch.cuda.empty_cache()
+    for tag in ("per-step", "fused"):
+        got, rnd = results["trained", tag]["map"], results["random", tag]["map"]
+        check(got > rnd, f"test {tag}: the trained net's mAP {got} is not "
+              f"above the random weights' {rnd}")
+
+
+# [13]: the 1Mpx geometry (config/1mpx.yaml: 720x1280, 7 classes, B=2,
+# time_batched: auto). The cell kernels at its stage-1 shape; the synthetic
+# 1Mpx set of the CLI runs (recordings per split, ms each); the CLI runs'
+# T (config/config.yaml's 42) and cut (train, validation, test batches)
+MPX_HW, MPX_CLASSES, MPX_BATCH = (720, 1280), 7, 2
+MPX_STAGE1 = (STEPS, MPX_BATCH, MPX_HW[0] // 2, MPX_HW[1] // 2, 64)
+MPX_RECORDINGS, MPX_DURATION_MS = 2, 3000
+MPX_STEPS = 42
+MPX_TRAIN_BATCHES, MPX_VAL_BATCHES, MPX_TEST_BATCHES = 2, 1, 1
+MPX_LOADER_WORKERS = (1, 4)
+MPX_H_CHUNKS = 4  # slices of H that autograd's plain backward runs apart
+
+
+def mpx_cell_cases(torch, cuda_kernels, dev):
+    """[13] the cell kernel and its backward at the 1Mpx stage-1 shape
+    ``[42, 2, 360, 640, 64]`` (1.24e9 elements, 4.95 GB at fp32: offsets
+    past 2**32 bytes), fp32 x with fp32 and bf16 states, LIF and LI,
+    start 0 and TRAIN_START: the forward bit-equal to its plain version;
+    the backward bit-equal to autograd through the plain version, or
+    within rtol 1e-5 of the largest cotangent ([10]'s rule). The cell is
+    elementwise over (B, H, W, C), so autograd's plain backward runs on
+    MPX_H_CHUNKS slices of H and each slice of the kernel's gradient is
+    held against it. Prints each kernel's ms (CUDA events, median), its
+    bound and its share. Returns the worst error."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    T, M = MPX_STAGE1[0], int(np.prod(MPX_STAGE1[1:]))
+
+    def draw(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    x, gz = draw(MPX_STAGE1, 2.0), draw(MPX_STAGE1)
+    state = [draw(MPX_STAGE1[1:]) for _ in range(4)]
+    worst = 0.0
+    rows = MPX_STAGE1[2]
+    for xd, sd in TRAIN_PAIRS:
+        v0, i0, gv, gi = (a.to(getattr(torch, sd)) for a in state)
+        for cell in ("lif", "li"):
+            for start in (0, TRAIN_START):
+                tag = f"{cell} {xd}/{sd} start={start}"
+                got = cuda_kernels.temporal_cell_seq(x, v0, i0, cell, start)
+                want = cuda_kernels.temporal_cell_seq_reference(
+                    x, v0, i0, cell, start)
+                for name, g, w in zip(("z", "v_T", "i_T"), got, want):
+                    same = (g == w) | (g.isnan() & w.isnan())
+                    check(bool(same.all()), f"1Mpx stage 1 {tag}: {name} "
+                          f"differs from the plain version on "
+                          f"{int((~same).sum())} elements")
+                del got, want
+                fwd_ms = cuda_time_ms(lambda: cuda_kernels.temporal_cell_seq(
+                    x, v0, i0, cell, start), reps=5, warmup=1)
+                sx, ss = x.element_size(), v0.element_size()
+                fwd_bytes = 2 * T * M * sx + 4 * M * ss
+                fwd_bound = max(fwd_bytes / HBM_BYTES_PER_S,
+                                T * M * CELL_OPS / FP32_FLOPS) * 1e3
+
+                cuda_kernels.reset_launches()
+                got = cuda_kernels.temporal_cell_seq_bwd(
+                    x, v0, i0, gz, gv, gi, cell, start)
+                torch.cuda.synchronize()
+                check(cuda_kernels.LAUNCHES["temporal_cell_seq_bwd"] == 1,
+                      "one backward launch a call")
+                differ, errs = 0, {}
+                for h0 in range(0, rows, rows // MPX_H_CHUNKS):
+                    sl = slice(h0, h0 + rows // MPX_H_CHUNKS)
+                    leaves = [a.detach().requires_grad_()
+                              for a in (x[:, :, sl], v0[:, sl], i0[:, sl])]
+                    outs = cuda_kernels.temporal_cell_seq_reference(
+                        *leaves, cell, start)
+                    want = torch.autograd.grad(
+                        outs, leaves, (gz[:, :, sl], gv[:, sl], gi[:, sl]))
+                    del outs, leaves
+                    parts = (got[0][:, :, sl], got[1][:, sl], got[2][:, sl])
+                    for name, g, w in zip(("gx", "gv0", "gi0"), parts, want):
+                        g, w = g.float(), w.float()
+                        differ += int(((g != w)
+                                       & ~(g.isnan() & w.isnan())).sum())
+                        err, scale = errs.get(name, (0.0, 0.0))
+                        errs[name] = (max(err, float((g - w).abs().max())),
+                                      max(scale, float(w.abs().max())))
+                    del want, parts
+                for name, (err, scale) in errs.items():
+                    worst = max(worst, err)
+                    check(err <= 1e-5 * scale, f"1Mpx stage 1 {tag}: {name} "
+                          f"max abs err {err} past rtol 1e-5 of {scale}")
+                del got
+                bwd_ms = cuda_time_ms(lambda: cuda_kernels.temporal_cell_seq_bwd(
+                    x, v0, i0, gz, gv, gi, cell, start), reps=3, warmup=1)
+                bwd_bound, by = cell_bwd_bound(cell, T, M, sx, ss)
+                print(f"  1Mpx stage 1 {list(MPX_STAGE1)} {tag}: forward "
+                      f"bit-equal, kernel {fwd_ms:.3f} ms, bound "
+                      f"{fwd_bound:.3f} ms ({fwd_bound / fwd_ms:.0%}); "
+                      f"backward {'bit-equal' if not differ else f'{differ} elements differ'}"
+                      f", kernel {bwd_ms:.3f} ms, bound {bwd_bound:.3f} ms "
+                      f"({by}, {bwd_bound / bwd_ms:.0%}); plan: "
+                      f"{cell_bwd_plan_text(cuda_kernels, cell, x, v0)}",
+                      flush=True)
+        del v0, i0, gv, gi
+    del x, gz, state
+    torch.cuda.empty_cache()
+    return worst
+
+
+def schedule_table(trainer) -> str:
+    """"auto"'s measurements, mode by mode: each schedule's ms and peak
+    memory, or its out-of-memory error."""
+    out = []
+    for mode, results in trainer.schedule_timings.items():
+        for sched, r in results.items():
+            what = (f"OOM ({r['oom'][:90]})" if r["oom"] else
+                    f"{r['ms']:.0f} ms, peak {r['peak_gb']:.2f} GB")
+            out.append(f"{mode} {SCHEDULE_NAMES[sched]}: {what}")
+        if mode in trainer._auto_schedule:
+            out.append(f"{mode} -> "
+                       f"{SCHEDULE_NAMES[trainer._auto_schedule[mode]]}")
+    return "; ".join(out)
+
+
+def phase_hybrid_auto_1mpx(torch, cuda_kernels, TinyYolo, Trainer, batches,
+                           smi, dev):
+    """[13] hybrid, "auto" and 1Mpx: ``mpx_cell_cases``; then
+    ``fit_schedule`` on the hybrid schedule in both training
+    configurations at GEN1 full width (7 backward launches over the
+    sequence and 15 a step, each forward launch over T or at T = 1, no
+    fused launch) and its first-step gradients against the plain cell's
+    (``plain_cell_grads``), its step beside [10]'s two schedules. Then
+    "auto" at ``config/config.yaml`` + ``config/1mpx.yaml`` (full-width
+    TinyYolo, 720x1280, 7 classes, T=42, B=2, fp32): every schedule's ms
+    and peak memory or its OOM, for the train and the eval step (no gate
+    on the winner). Then the CLI's ``fit`` and ``test`` with that
+    ``time_batched: auto`` and ``config/fast.yaml``'s bf16 states on a
+    synthetic 1Mpx set written by ``make_synthetic_dataset``: "auto"
+    resolves, finite losses and mAP, the cell kernel and its backward
+    launched. Prints the loader's ms per 1Mpx batch. Returns the hybrid
+    fits' backward launches."""
+    from snn_for_object_detection_tpu_torch import cli
+    from snn_for_object_detection_tpu_torch.data import PropheseeDataModule
+    from snn_for_object_detection_tpu_torch.data.synthetic import (
+        make_synthetic_dataset,
+    )
+    from snn_for_object_detection_tpu_torch.utils.config import load_config
+
+    t0 = time.perf_counter()
+    mpx_cell_cases(torch, cuda_kernels, dev)
+    print(f"  1Mpx cell cases in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    t0 = time.perf_counter()
+    total = 0
+    for xd, sd in TRAIN_PAIRS:
+        total += fit_schedule(torch, cuda_kernels, TinyYolo, Trainer,
+                              batches, dev, xd, sd, "hybrid")
+    X = torch.as_tensor(batches[0][0], device=dev)
+    lab = torch.as_tensor(batches[0][1], device=dev)
+    plain_cell_grads(torch, cuda_kernels, TinyYolo, ("hybrid",), X, lab, dev)
+    for (xd, sd, sched), (ms, gb, idle) in sorted(
+            TRAIN_STEP_TIMES.items(), key=lambda kv: str(kv[0])):
+        print(f"  train step {xd}/{sd} {SCHEDULE_NAMES[sched]}: {ms:.1f} ms, "
+              f"peak {gb:.2f} GB, idle share {idle:.3f} [{smi}]", flush=True)
+    print(f"  hybrid at GEN1 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+
+    def config(name):
+        return os.path.join(repo, "config", name)
+
+    t0 = time.perf_counter()
+    cfg = load_config([config("config.yaml"), config("1mpx.yaml")])
+    model, data, trainer = cli.build(cfg, dev)
+    check(trainer.time_batched == "auto" and model.in_hw == MPX_HW
+          and model.num_classes == MPX_CLASSES
+          and data.batch_size == MPX_BATCH, "config/1mpx.yaml")
+    Xz = torch.zeros((data.num_steps, data.batch_size, *model.in_hw,
+                      model.in_channels), dtype=torch.uint8, device=dev)
+    labz = torch.full((data.batch_size, data.max_labels, 5), -1.0,
+                      device=dev)
+    for train in (True, False):
+        try:
+            trainer._schedule_for(model, Xz, labz, train)
+        except RuntimeError as e:
+            if "no schedule compiled" not in str(e):
+                raise
+            print(f"  {e}", flush=True)
+    print(f"  auto at 1Mpx, T={data.num_steps}, B={data.batch_size}, fp32 "
+          f"({model.num_anchors} anchors): {schedule_table(trainer)} "
+          f"[{smi}]; measured in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    del model, trainer, Xz, labz
+    torch.cuda.empty_cache()
+
+    root = os.path.join(repo, "build", "chip_smoke_1mpx")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    data_dir = make_synthetic_dataset(
+        os.path.join(root, "data"), dataset="1mpx",
+        records_per_split=MPX_RECORDINGS, duration_ms=MPX_DURATION_MS,
+        height=MPX_HW[0], width=MPX_HW[1], num_classes=MPX_CLASSES,
+        seed=CLI_SEED)
+    print(f"  synthetic 1Mpx set: {MPX_RECORDINGS} recordings of "
+          f"{MPX_DURATION_MS} ms per split written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for workers in MPX_LOADER_WORKERS:
+        first, ms = loader_ms(PropheseeDataModule, data_dir, MPX_STEPS, 16,
+                              8, workers, dataset="1mpx",
+                              batch_size=MPX_BATCH)
+        print(f"  loader alone, 1Mpx T={MPX_STEPS} B={MPX_BATCH}, "
+              f"num_workers {workers}: {ms:.2f} ms per batch (host clock, "
+              f"{LOADER_TIMED} batches after {LOADER_WARMUP}); first batch "
+              f"{first:.2f} ms [{smi}]", flush=True)
+    base = ["--config", config("config.yaml"), "--config",
+            config("1mpx.yaml"), "--config", config("fast.yaml"),
+            f"--data.init_args.data_dir={data_dir}",
+            f"--data.init_args.num_steps={MPX_STEPS}",
+            "--trainer.max_epochs=1",
+            f"--trainer.limit_train_batches={MPX_TRAIN_BATCHES}",
+            f"--trainer.limit_val_batches={MPX_VAL_BATCHES}",
+            f"--trainer.limit_test_batches={MPX_TEST_BATCHES}",
+            "--trainer.check_val_every_n_epoch=1",
+            "--trainer.log_every_n_steps=1",
+            f"--trainer.out_dir={os.path.join(root, 'run')}"]
+    for sub in ("fit", "test"):
+        extra = [] if sub == "fit" else [
+            f"--ckpt_path={os.path.join(root, 'run', 'checkpoints', 'last')}"]
+        cuda_kernels.reset_launches()
+        t0 = time.perf_counter()
+        run = cli.main([sub, *base, *extra])
+        torch.cuda.synchronize()
+        sub_s = time.perf_counter() - t0
+        n = dict(cuda_kernels.LAUNCHES)
+        modes = {"fit": {"train", "eval"}, "test": {"eval"}}[sub]
+        check(set(run.trainer._auto_schedule) == modes,
+              f"{sub}: 'auto' resolved {run.trainer._auto_schedule}")
+        check(n["temporal_cell_seq"] > 0
+              and (sub == "test" or n["temporal_cell_seq_bwd"] > 0),
+              f"{sub}: launches {n}")
+        if sub == "fit":
+            with open(os.path.join(root, "run", "metrics.jsonl")) as f:
+                records = [json.loads(line) for line in f]
+            losses = [r["train_loss"] for r in records if "train_loss" in r]
+            val = [r for r in records if "val_loss" in r]
+            check(len(losses) == MPX_TRAIN_BATCHES
+                  and all(np.isfinite(v) for v in losses) and len(val) == 1,
+                  f"fit: losses {losses}, validations {len(val)}")
+            check_finite({k: v for k, v in val[0].items()
+                          if k not in ("step", "time")}, "fit val")
+            result = f"losses {[round(v, 4) for v in losses]}, val " + \
+                ", ".join(f"{k} {v:.4f}" for k, v in val[0].items()
+                          if k not in ("step", "time"))
+        else:
+            check_finite(run.result, "test")
+            result = ", ".join(f"{k} {v:.4f}" for k, v in run.result.items())
+        print(f"  {sub} 1Mpx ({run.model.state_dtype} states, T={MPX_STEPS},"
+              f" B={MPX_BATCH}) with time_batched auto in {sub_s:.1f} s: "
+              f"{result}; {schedule_table(run.trainer)}; launches "
+              f"{n['temporal_cell_seq']} cell, {n['temporal_cell_seq_bwd']} "
+              f"backward [{smi}]", flush=True)
+        del run
+        torch.cuda.empty_cache()
+    return total
+
+
 def main(argv) -> int:
     import torch
 
@@ -2129,6 +2648,18 @@ def main(argv) -> int:
         if 11 in only:
             print("[11] the CLI on recordings", flush=True)
             phase_cli(torch, cuda_kernels, smi)
+        if 12 in only:
+            t0 = time.perf_counter()
+            print("[12] the trained net", flush=True)
+            phase_trained_net(torch, cuda_kernels, C, TinyYolo, Trainer,
+                              batches, smi, "cuda")
+            print(f"  [12] in {time.perf_counter() - t0:.1f} s", flush=True)
+        if 13 in only:
+            t0 = time.perf_counter()
+            print("[13] hybrid, auto and 1Mpx", flush=True)
+            phase_hybrid_auto_1mpx(torch, cuda_kernels, TinyYolo, Trainer,
+                                   batches, smi, "cuda")
+            print(f"  [13] in {time.perf_counter() - t0:.1f} s", flush=True)
         print(f"partial run of phases {sorted(only)} done in "
               f"{time.perf_counter() - t_start:.1f} s")
         return 0
@@ -2184,6 +2715,20 @@ def main(argv) -> int:
           f"config/config.yaml + config/synthetic.yaml on synthetic GEN1 "
           f"recordings, TinyYolo {IN_HW}, B={BATCH}", flush=True)
     phase_cli(torch, cuda_kernels, smi)
+    t0 = time.perf_counter()
+    print(f"[12] the trained net: {TRAINED_NET}/model/state.pt in TinyYolo "
+          f"GEN1 {IN_HW}: [7]'s and [8]'s gates, the schedules' gradients, "
+          f"the CLI's test against random weights", flush=True)
+    phase_trained_net(torch, cuda_kernels, C, TinyYolo, Trainer, batches,
+                      smi, "cuda")
+    print(f"  [12] in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    print(f"[13] hybrid, auto and 1Mpx: the cell kernels at "
+          f"{list(MPX_STAGE1)}, Trainer(time_batched='hybrid').fit at GEN1, "
+          f"'auto' and the CLI at config/1mpx.yaml {MPX_HW}", flush=True)
+    bwd_launches += phase_hybrid_auto_1mpx(torch, cuda_kernels, TinyYolo,
+                                           Trainer, batches, smi, "cuda")
+    print(f"  [13] in {time.perf_counter() - t0:.1f} s", flush=True)
 
     ref = next(r for r in rows if (r["shape"], r["cell"], r["x"], r["start"])
                == ("stage1", "lif", "float32", 0))
@@ -2248,8 +2793,8 @@ def main(argv) -> int:
           f"temporal_cell_seq_bwd the stage-1 fp32 LIF case at start 0. "
           f"Launches: temporal_cell_seq in [4], spiking_conv_seq in [7], "
           f"streaming_megakernel in [8] (both dtype configurations), "
-          f"temporal_cell_seq_bwd in [10]'s Trainer.fit runs (both "
-          f"schedules and training configurations); "
+          f"temporal_cell_seq_bwd in [10]'s and [13]'s Trainer.fit runs "
+          f"(the three schedules, both training configurations); "
           f"fused_pointwise_conv_bn_lif has no path")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -10,7 +10,7 @@ written to the buffers when the forward returns) and, with ``remat``,
 activations recomputed in the backward: per step on the per-step
 schedule, per segment on the time-batched one.
 
-Two schedules give the same predictions:
+Three schedules give the same predictions:
 
 - :meth:`forward` runs one frame at a time; steps ``t < start_step``
   are skipped entirely (the reference's ``X[r:]`` truncation);
@@ -20,7 +20,10 @@ Two schedules give the same predictions:
   With ``fuse_seq=True`` and no truncation it runs each ``[Conv -> Norm
   -> LIF/LI]`` triple as one ``spiking_conv_seq`` call instead; that
   sums the convs in another order, so spikes near the threshold can
-  flip against the unfused schedule.
+  flip against the unfused schedule;
+- :meth:`forward_hybrid` runs the backbone as :meth:`forward_seq` does
+  (never fused) and the neck and head stems as :meth:`forward` does,
+  one step at a time on the backbone's output.
 
 The head's box/cls tails are stateless 1x1 convs, so both schedules
 apply them once, to the last step's stem activations.
@@ -146,6 +149,9 @@ class SODa(nn.Module):
         num_scales = len(neck_returns)
         sizes = anchor_ops.default_scale_sizes(num_scales)
         ratios = anchor_ops.DEFAULT_RATIOS
+        # the anchor tables' parameters, checked by the reference
+        # checkpoint importer
+        self.scale_sizes, self.anchor_ratios = sizes, ratios
         anchors_per_pixel = sizes.shape[1] * len(ratios)
         self.num_box_out = anchors_per_pixel * 4
         self.num_class_out = anchors_per_pixel * (num_classes + 1)
@@ -242,10 +248,18 @@ class SODa(nn.Module):
         """Backbone + neck + head stems for one frame; the stateless
         box/cls tails are left to :meth:`_tail_readout`."""
         ctx = C.Ctx(train=train)
-        new_state = {}
-        y, new_state["backbone"] = self.backbone.step(
+        y, backbone = self.backbone.step(
             x.to(self.compute_dtype), state["backbone"], ctx
         )
+        base_outs, rest = self._neck_heads(y, state, ctx)
+        return base_outs, {"backbone": backbone, **rest}
+
+    def _neck_heads(self, y: torch.Tensor, state,
+                    ctx: C.Ctx) -> Tuple[tuple, Dict]:
+        """Neck + head stems for one backbone output ``y``: the per-step
+        suffix of :meth:`_trunk` and the step of :meth:`forward_hybrid`.
+        The returned state covers the neck and heads only."""
+        new_state = {}
         _, new_state["neck"] = self.neck.step(y, state["neck"], ctx)
         base_outs = []
         for idx, (head, fmap) in enumerate(zip(self.heads(), ctx.taps)):
@@ -256,6 +270,18 @@ class SODa(nn.Module):
             }
             base_outs.append(base_out)
         return tuple(base_outs), new_state
+
+    def _neck_heads_step(self, y: torch.Tensor, state,
+                         train: bool = False) -> Tuple[tuple, Dict]:
+        return self._neck_heads(y, state, C.Ctx(train=train))
+
+    def _zero_stems(self, batch: int, device) -> tuple:
+        """The stem activations a forward that runs no step reads out."""
+        return tuple(
+            torch.zeros((batch, *h["base"].out_hw, h["base"].out_channels),
+                        dtype=self.compute_dtype, device=device)
+            for h in self.heads()
+        )
 
     def _tail_readout(self, base_outs, state) -> Preds:
         """Box/cls tails on stem activations, flattened in (h, w,
@@ -310,11 +336,7 @@ class SODa(nn.Module):
         if state is None:
             state = self.init_state(B)
         with contextlib.nullcontext() if train else torch.no_grad():
-            base_outs = tuple(
-                torch.zeros((B, *h["base"].out_hw, h["base"].out_channels),
-                            dtype=self.compute_dtype, device=X.device)
-                for h in self.heads()
-            )
+            base_outs = self._zero_stems(B, X.device)
             for t in range(max(int(start_step), 0), T):
                 if train and self.remat:
                     base_outs, state = checkpoint(
@@ -375,18 +397,59 @@ class SODa(nn.Module):
             new_state = self.commit_stats(new_state)
         return preds, new_state
 
+    def forward_hybrid(self, X: torch.Tensor, start_step: int = 0,
+                       state=None, train: bool = False) -> Tuple[Preds, Dict]:
+        """Mixed schedule, same results as :meth:`forward`: the backbone
+        runs time-batched over the whole sequence, as in
+        :meth:`forward_seq` but never fused (its cells commit state, and
+        in training its BatchNorm folds statistics, only for ``t >=
+        start_step``); then the neck and head stems run one step at a
+        time on the backbone's output from ``start_step`` on, as in
+        :meth:`forward`. ``train=True``: BatchNorm on batch statistics;
+        with ``remat`` the backbone checkpointed a segment, the neck and
+        heads a step; the running statistics written once, after both
+        parts. Without it the call runs under ``no_grad``."""
+        start_step = int(start_step)
+        T, B = X.shape[0], X.shape[1]
+        if state is None:
+            state = self.init_state(B)
+        remat = train and self.remat
+        ctx = C.Ctx(start_step=start_step, train=train, remat=remat)
+        with contextlib.nullcontext() if train else torch.no_grad():
+            y_seq, backbone = self.backbone.seq(
+                X.to(self.compute_dtype), state["backbone"], ctx
+            )
+            rest = {k: v for k, v in state.items() if k != "backbone"}
+            base_outs = self._zero_stems(B, X.device)
+            for t in range(max(start_step, 0), T):
+                if remat:
+                    base_outs, rest = checkpoint(
+                        self._neck_heads_step, y_seq[t], rest, True,
+                        use_reentrant=False)
+                else:
+                    base_outs, rest = self._neck_heads_step(y_seq[t], rest,
+                                                            train)
+            new_state = {"backbone": backbone, **rest}
+            preds = self._tail_readout(base_outs, new_state)
+        if train:
+            new_state = self.commit_stats(new_state)
+        return preds, new_state
+
     def forward_fn(self, schedule):
         """``Trainer(time_batched=...)`` flag -> forward: ``False`` ->
-        :meth:`forward`, ``True`` -> :meth:`forward_seq`."""
-        if schedule == "hybrid":
-            raise C.not_ported("the hybrid schedule", "other schedules")
-        if schedule is False:
-            return self.forward
-        if schedule is True:
-            return self.forward_seq
-        raise ValueError(
-            f"unknown schedule {schedule!r}; expected False or True"
-        )
+        :meth:`forward`, ``True`` -> :meth:`forward_seq`, ``"hybrid"``
+        -> :meth:`forward_hybrid`."""
+        try:
+            return {
+                False: self.forward,
+                True: self.forward_seq,
+                "hybrid": self.forward_hybrid,
+            }[schedule]
+        except (KeyError, TypeError):
+            raise ValueError(
+                f"unknown schedule {schedule!r}; expected False, True or "
+                "'hybrid'"
+            ) from None
 
     # ----- loss -----
 

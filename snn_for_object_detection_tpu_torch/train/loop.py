@@ -25,6 +25,13 @@ Evaluation (``validate`` / ``test``), each batch: a start ``r``, the
 forward, ``model.loss``, ``model.detect`` (softmax + NMS) and COCO mAP
 on the host.
 
+The schedule (``time_batched``): ``False`` -> ``model.forward``, ``True``
+-> ``model.forward_seq``, ``"hybrid"`` -> ``model.forward_hybrid``: one
+function, three orders of work. ``"auto"`` times the three on a copy of
+the model at the first batch's geometry, once for the train step and
+once for the eval step, and keeps the fastest for the life of the
+trainer; only ``torch.OutOfMemoryError`` disqualifies a schedule.
+
 Batches are any iterable of numpy ``(X [T, B, H, W, C], labels [B, N,
 5])`` pairs (``data.PropheseeDataModule``'s loaders give uint8 frames,
 which the model casts on the device); ``fit`` takes an object with
@@ -40,6 +47,8 @@ frame through ``SODa.predict``, each frame handed to a plotter.
 from __future__ import annotations
 
 import contextlib
+import copy
+import gc
 import itertools
 import json
 import math
@@ -261,6 +270,32 @@ class Optimizer:
                         zip(state["acc"], self.params)]
 
 
+# the order in which "auto" times the schedules (JAX's)
+SCHEDULES = (False, "hybrid", True)
+
+
+def time_call(fn: Callable[[], Any], device: torch.device,
+              reps: int = 2) -> float:
+    """Seconds per call of ``fn``: one warm call (which also builds the
+    kernels on their first use), then ``reps`` calls between CUDA events
+    on the card, on ``time.perf_counter`` on the CPU."""
+    fn()
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(device)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3 / reps
+
+
 def _stats(model) -> Dict[str, torch.Tensor]:
     return {name: buf for name, buf in model.named_buffers()
             if name.endswith((".mean", ".var"))}
@@ -273,11 +308,14 @@ class Trainer:
         (per-step, each step checkpointed in training), ``True`` through
         ``model.forward_seq`` (every cell one ``temporal_cell_seq`` call
         over the sequence, conv -> norm -> cell segments checkpointed in
-        training). Both compute the same function. A model built with
-        ``fuse_seq=True`` runs its fused triples in evaluation only, and
-        there only at ``time_window == 0``: the JAX eval step passes a
-        traced start whenever the window is open, even when the draw is
-        0, and a traced start never fuses.
+        training), ``"hybrid"`` through ``model.forward_hybrid`` (the
+        backbone time-batched, the neck and heads per step). All three
+        compute the same function. ``"auto"`` picks one by measurement
+        (:meth:`_schedule_for`). A model built with ``fuse_seq=True``
+        runs its fused triples in evaluation on the time-batched
+        schedule only, and there only at ``time_window == 0``: the JAX
+        eval step passes a traced start whenever the window is open,
+        even when the draw is 0, and a traced start never fuses.
     :param seed: Seed of the ``torch.Generator`` that draws each batch's
         truncation start. ``fit`` draws from one generator over the run;
         every ``validate`` / ``test`` call starts the draw anew from the
@@ -292,9 +330,9 @@ class Trainer:
     :param prefetch_batches: Must be 0: background prefetch threads are
         not ported (the JAX default is 2).
 
-    ``mesh``, ``spatial_devices`` > 1, ``debug_nans``, ``profile_dir``,
-    ``logger`` back ends and the ``"hybrid"`` / ``"auto"`` schedules raise
-    ``NotImplementedError`` naming their ROADMAP item.
+    ``mesh``, ``spatial_devices`` > 1, ``debug_nans``, ``profile_dir``
+    and ``logger`` back ends raise ``NotImplementedError`` naming their
+    ROADMAP item.
     """
 
     def __init__(
@@ -320,15 +358,17 @@ class Trainer:
         limit_predict_batches: int = 1,
         prefetch_batches: int = 0,
         spatial_devices: int = 1,
-        time_batched: bool = False,
+        time_batched: Any = False,
         ema_decay: Optional[float] = None,
         optimizer: Any = "adamax",
         lr_schedule: Optional[Dict[str, Any]] = None,
         logger: Any = None,
     ):
-        if time_batched not in (False, True):
-            raise not_ported(f"time_batched={time_batched!r}",
-                             "other schedules")
+        if time_batched not in (False, True, "hybrid", "auto"):
+            raise ValueError(
+                f"time_batched must be False, True, 'hybrid' or 'auto', "
+                f"got {time_batched!r}"
+            )
         for what, on in (("a device mesh", mesh is not None),
                          ("spatial_devices > 1", spatial_devices != 1)):
             if on:
@@ -363,6 +403,10 @@ class Trainer:
         self.gradient_clip_norm = gradient_clip_norm
         self.accumulate_grad_batches = max(accumulate_grad_batches, 1)
         self.time_batched = time_batched
+        # "auto": the schedule picked for "train" and "eval", and every
+        # schedule's measurement ({"ms", "peak_gb", "oom"}) by mode
+        self._auto_schedule: Dict[str, Any] = {}
+        self.schedule_timings: Dict[str, Dict[Any, Dict[str, Any]]] = {}
         self.ema_decay = None if ema_decay is None else float(ema_decay)
         self.optimizer = optimizer
         self.lr_schedule = lr_schedule
@@ -383,6 +427,103 @@ class Trainer:
 
     # ---- training ----
 
+    # ---- schedules ----
+
+    def _schedule_for(self, model, X: torch.Tensor, labels: torch.Tensor,
+                      train: bool):
+        """The schedule of a train (``train``) or eval step on ``X``.
+        Other values pass through; ``"auto"`` is measured at ``X``'s and
+        ``labels``' geometry, separately for the train and the eval step
+        (the winner can differ), and kept for the life of the trainer."""
+        if self.time_batched != "auto":
+            return self.time_batched
+        mode = "train" if train else "eval"
+        if mode not in self._auto_schedule:
+            self._auto_schedule[mode] = self._measure_schedules(
+                model, X, labels, train)
+        return self._auto_schedule[mode]
+
+    @staticmethod
+    def _eval_preds(model, schedule, X: torch.Tensor, start_step: int):
+        fwd = model.forward_fn(schedule)
+        if fwd == model.forward_seq and model.time_window:
+            return fwd(X, start_step=start_step, fuse=False)[0]
+        return fwd(X, start_step=start_step)[0]
+
+    def _measure_schedules(self, model, X: torch.Tensor,
+                           labels: torch.Tensor, train: bool):
+        """Time one step of each schedule, in :data:`SCHEDULES`' order,
+        and return the fastest. The train step is the loss and its
+        gradients (no optimizer update, which every schedule shares),
+        the eval step the forward and the loss; both from start 0 on
+        zero frames of ``X``'s shape and dtype and labels of -1 of
+        ``labels``' shape, on a deep copy of ``model``, so that neither
+        its weights nor its BatchNorm statistics move. A schedule that
+        runs out of device memory is disqualified; any other error
+        propagates."""
+        mode = "train" if train else "eval"
+        device = X.device
+        on_card = device.type == "cuda"
+        X0 = torch.zeros_like(X)
+        labels0 = torch.full_like(labels, -1.0)
+        probe = copy.deepcopy(model)
+        params = list(probe.parameters())
+
+        def step_fn(schedule):
+            if train:
+                def step():
+                    preds, _ = probe.forward_fn(schedule)(
+                        X0, start_step=0, train=True)
+                    loss = probe.loss(preds, labels0)
+                    torch.autograd.grad(loss, params, allow_unused=True)
+            else:
+                def step():
+                    with torch.inference_mode():
+                        probe.loss(self._eval_preds(probe, schedule, X0, 0),
+                                   labels0)
+            return step
+
+        results: Dict[Any, Dict[str, Any]] = {}
+        for schedule in SCHEDULES:
+            if on_card:
+                torch.cuda.reset_peak_memory_stats(device)
+            oom = None
+            try:
+                seconds = time_call(step_fn(schedule), device)
+            except torch.OutOfMemoryError as e:
+                oom = f"{type(e).__name__}: {e}"[:200]
+            if oom is not None:
+                # the traceback that held the failed attempt's tensors
+                # went with the except clause; free them before the
+                # next schedule
+                gc.collect()
+                if on_card:
+                    torch.cuda.empty_cache()
+                results[schedule] = {"ms": None, "peak_gb": None, "oom": oom}
+                print(f"[trainer] schedule {schedule!r} disqualified: {oom}",
+                      flush=True)
+                continue
+            peak = (torch.cuda.max_memory_allocated(device) / 1e9
+                    if on_card else None)
+            results[schedule] = {"ms": seconds * 1e3, "peak_gb": peak,
+                                 "oom": None}
+            print(f"[trainer] schedule {schedule!r}: {seconds * 1e3:.0f} "
+                  f"ms/step" + (f", peak {peak:.2f} GB" if on_card else ""),
+                  flush=True)
+        del probe, params
+        self.schedule_timings[mode] = results
+        timed = {s: r["ms"] for s, r in results.items() if r["ms"] is not None}
+        if not timed:
+            T, B, H, W = X.shape[:4]
+            raise RuntimeError(
+                "time_batched='auto': no schedule compiled at "
+                f"T={T} B={B} {H}x{W}"
+            )
+        best = min(timed, key=timed.get)
+        print(f"[trainer] time_batched='auto' -> {best!r} ({mode} step)",
+              flush=True)
+        return best
+
     def configure(self, model) -> None:
         """Fresh optimizer state (and EMA at the current weights) for
         ``model``'s parameters."""
@@ -402,8 +543,9 @@ class Trainer:
         (detached, on the model's device). Needs :meth:`configure`."""
         if self.opt is None:
             raise RuntimeError("call configure(model) before train_step")
-        fwd = model.forward_fn(self.time_batched)
-        preds, _ = fwd(X, start_step=start_step, train=True)
+        schedule = self._schedule_for(model, X, labels, train=True)
+        preds, _ = model.forward_fn(schedule)(X, start_step=start_step,
+                                              train=True)
         loss = model.loss(preds, labels)
         grads = torch.autograd.grad(loss, self.opt.params,
                                     allow_unused=True)
@@ -548,12 +690,9 @@ class Trainer:
                   start_step: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Forward from ``start_step``, loss and detections: ``(loss,
         dets [B, 300, 6])``, both on the model's device."""
-        fwd = model.forward_fn(self.time_batched)
+        schedule = self._schedule_for(model, X, labels, train=False)
         with torch.inference_mode():
-            if self.time_batched and model.time_window:
-                preds, _ = fwd(X, start_step=start_step, fuse=False)
-            else:
-                preds, _ = fwd(X, start_step=start_step)
+            preds = self._eval_preds(model, schedule, X, start_step)
             return model.loss(preds, labels), model.detect(preds)
 
     def _run_eval(self, model, batches: Iterable, limit: int,

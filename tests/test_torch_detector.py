@@ -355,8 +355,18 @@ def test_unported_modes_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PNarrow(num_classes=2, in_hw=HW, device="cpu",
                 state_dtype="float8_e4m3fn")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(time_batched="hybrid")
+
+
+def test_hybrid_schedule_accepted():
+    """The hybrid schedule is ported: ``forward_fn`` maps each trainer
+    flag to its forward, and refuses an unknown one."""
+    pm = PNarrow(num_classes=2, in_hw=HW, device="cpu")
+    assert pm.forward_fn("hybrid") == pm.forward_hybrid
+    assert pm.forward_fn(False) == pm.forward
+    assert pm.forward_fn(True) == pm.forward_seq
+    assert Trainer(time_batched="hybrid").time_batched == "hybrid"
+    with pytest.raises(ValueError, match="unknown schedule"):
+        pm.forward_fn("auto")
 
 
 def test_load_jax_params_rejects_missing_and_unused_leaves(narrow):

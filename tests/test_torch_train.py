@@ -646,8 +646,16 @@ def test_fast_dev_run_and_early_stopping(tmp_path):
     assert trainer.fit(_tiny_model(), _Data())["epoch"] < 5
 
 
+@pytest.mark.parametrize("schedule", ["hybrid", "auto"])
+def test_other_schedules_accepted(schedule):
+    """The hybrid and "auto" schedules are ported: the trainer takes
+    them as they are (an unknown one is refused)."""
+    assert Trainer(time_batched=schedule).time_batched == schedule
+    with pytest.raises(ValueError, match="time_batched"):
+        Trainer(time_batched="fused")
+
+
 @pytest.mark.parametrize("kwargs", [
-    {"time_batched": "hybrid"}, {"time_batched": "auto"},
     {"mesh": object()}, {"spatial_devices": 2}, {"debug_nans": True},
     {"profile_dir": "trace"}, {"logger": {"class_path": "x"}},
     {"prefetch_batches": 2},

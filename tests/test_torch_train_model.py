@@ -187,11 +187,19 @@ def test_adamax_trajectory_matches_jax_trainer(tmp_path):
     the port's ``Trainer.train_step``, per-step schedule, time window 3:
     for each step a JAX key is taken whose draw is the start r wanted
     (0, 1, 2, 0, ...), and that r is given to the port."""
+    adamax_trajectory(tmp_path, False)
+
+
+def adamax_trajectory(tmp_path, schedule):
+    """Eight Adamax steps of JAX's and the port's Trainer on
+    ``schedule``: losses within rtol 1e-3 a step, weights after them
+    within rtol 1e-3, atol 1e-5."""
     window, steps = 3, 8
     jm, params, stats, pm = _models(time_window=window)
-    jt = JTrainer(out_dir=str(tmp_path / "jax"), seed=0, prefetch_batches=0)
+    jt = JTrainer(out_dir=str(tmp_path / "jax"), seed=0, prefetch_batches=0,
+                  time_batched=schedule)
     jt.mesh_for_batch(B)
-    opt, jit_train, _ = jt._build_steps(jm, False)
+    opt, jit_train, _ = jt._build_steps(jm, schedule)
     opt_state = opt.init(params)
     keys, starts, k = [], [], 0
     while len(keys) < steps:
@@ -201,7 +209,7 @@ def test_adamax_trajectory_matches_jax_trainer(tmp_path):
         if int(jax.random.randint(key, (), 0, window)) == want:
             keys.append(key)
             starts.append(want)
-    trainer = Trainer(seed=0)
+    trainer = Trainer(seed=0, time_batched=schedule)
     trainer.configure(pm)
     j_losses, losses = [], []
     for s in range(steps):
