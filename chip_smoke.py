@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only 11    # [1] and the CLI on recordings
     python3 chip_smoke.py --only 12,13 # [1], the trained net, hybrid,
                                        # "auto" and 1Mpx
+    python3 chip_smoke.py --only 14    # [1] and the model zoo
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -164,6 +165,29 @@ Phases (any failure raises and the script exits non-zero):
    ``time_batched: auto`` and ``config/fast.yaml``'s bf16 states at T=42
    on a synthetic 1Mpx set: "auto" resolves, finite losses and mAP, the
    cell kernel and its backward launched; the loader's ms per 1Mpx batch.
+14. the model zoo (``config/vgg.yaml``: VggSNN with PLIF cells, widths
+   64 / 128 / 256, GEN1, B=4, T=42): (a) ``plif_cell_seq``, the PLIF
+   form of the cell kernels, against ``plif_cell_seq_reference`` at
+   VGG's stage-1 shape ``[42, 4, 240, 304, 32]`` and its deepest
+   ``[42, 4, 15, 19, 256]``, fp32, bf16 and bf16 activations with e5m2
+   states: the forward bit-equal at starts 0 and 5; the backward (T = 42
+   at start 5, and T = 1) with gx, gv0, gi0 bit-equal or within rtol
+   1e-5 of the largest as [10], the per-channel factor gradients within
+   1e-4 of the largest (the kernel sums in another order); kernel ms
+   against the bytes bound, plain ms, and the chunked kernels'
+   registers; (b) the eval step per step, time-batched, hybrid and
+   fused: the PLIF and LI kernels' launches (the fused step's three LI
+   head stems in ``spiking_conv_seq``), final-state spike agreement
+   >= 0.99 a cell against the time-batched step; (c) ``python -m
+   snn_for_object_detection_tpu_torch fit`` with ``config/config.yaml``
+   + ``config/vgg.yaml`` on a synthetic GEN1 set (3 steps,
+   time-batched) and ``test`` from its checkpoint: finite losses and
+   metrics, PLIF's backward kernel in every step, the raw time constants
+   moved, the weights restored; (d) the plain PyTorch cells
+   (``VggSNN(neuron="alif" | "sli")`` and a net with Synapse, ConvLSTM,
+   ``Pool(3, stride=2)`` and a bilinear Up): one eval and one train step
+   each, timed; (e) ``YoloSNN(scale="s")``: a train and an eval step,
+   then its B=1 megakernel with [8]'s gates and the witness.
 
 Model and data values of [3]-[10], with their source (those phases pass
 them as arguments; [11] reads the YAML files):
@@ -2595,6 +2619,667 @@ def phase_hybrid_auto_1mpx(torch, cuda_kernels, TinyYolo, Trainer, batches,
     return total
 
 
+# [14]: the model zoo. config/vgg.yaml: VggSNN with neuron plif, widths
+# (64, 128, 256) at GEN1 (config/config.yaml's 240x304, B=4, T=42). The
+# PLIF kernel's shapes: VGG's stage-1 cell (Conv 32 at 240x304) and its
+# deepest (Conv 256 after three pools, 15x19); the raw time constants
+# drawn around their init (inverse softplus of 200 and 100) so that every
+# channel has its own factors; the starts of the forward check; the
+# reduced-depth nets of (d) and YoloSNN's scale in (e)
+VGG_WIDTHS = (64, 128, 256)
+PLIF_SHAPES = {
+    "vgg_stage1": (STEPS, BATCH, IN_HW[0], IN_HW[1], VGG_WIDTHS[0] // 2),
+    "vgg_deep": (STEPS, BATCH, 15, 19, VGG_WIDTHS[2]),
+}
+PLIF_STARTS = (0, TRAIN_START)
+PLIF_RAW_SPREAD = (40.0, 20.0)  # std of raw_tau_syn, raw_tau_mem draws
+PLIF_FACTOR_TOL = 1e-4  # [C] gradients: atol of the largest |gradient|
+CELL_BWD_REGS_MAX = 255  # a thread's registers at the launch bounds
+YOLO_SCALE = "s"
+
+
+def plif_factors(torch, neurons, ch, dev, seed=5):
+    """Per-channel ``(c_mem, c_syn)`` of raw time constants drawn around
+    their init, as the model computes them (``neurons.plif_factors``)."""
+    rng = np.random.default_rng(seed)
+    init = neurons.plif_params_init(ch)
+    raw = neurons.PLIFParams(*(
+        (p + torch.from_numpy(rng.normal(0.0, sd, ch).astype(np.float32))
+         ).to(dev) for p, sd in zip(init, PLIF_RAW_SPREAD)))
+    return neurons.plif_factors(raw)
+
+
+def plif_bound(T, M, C, sx, ss, backward=False):
+    """Least time (ms) of PLIF's forward or backward and what bounds it:
+    the forward's bytes as ``temporal_cell_seq``'s plus the two [C]
+    factor vectors; the backward's as ``cell_bwd_bound``'s LIF plus the
+    factors read and the two fp32 [M] factor sums written, and two
+    more operations an element-step (the factor products)."""
+    if not backward:
+        nbytes = 2 * T * M * sx + 4 * M * ss + 2 * C * 4
+        ops = T * M * CELL_OPS
+    else:
+        nbytes = 3 * T * M * sx + 6 * M * ss + 2 * C * 4 + 2 * M * 4
+        ops = T * M * (CELL_BWD_OPS["lif"] + 4)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_FLOPS * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", nbytes)
+
+
+def plif_plan_text(cuda_kernels, x, v0) -> str:
+    T, m = x.shape[0], v0.numel()
+    if T < 2:
+        return "one reverse pass, no checkpoints"
+    p = cuda_kernels.plif_bwd_plan(T, m, x.dtype, v0.dtype,
+                                   m % (16 // x.element_size()) == 0)
+    where = "shared" if p.shared else "global"
+    return (f"C={p.chunk}, {p.rows} checkpoints a state in {where} memory "
+            f"({p.ckpt_bytes / 1e6:.1f} MB, {p.smem} B shared a CTA), "
+            f"{p.threads} threads{'' if p.vec else ', scalar'}")
+
+
+def phase_plif_kernels(torch, cuda_kernels, neurons, dev):
+    """[14] (a): ``plif_cell_seq`` against ``plif_cell_seq_reference`` at
+    ``PLIF_SHAPES``, fp32, bf16 and bf16 activations with e5m2 states.
+    Forward at starts 0 and 5: every output bit-equal (the same ops in
+    the same order). Backward (the per-step T = 1 launch too, on the
+    stage-1 shape): gx, gv0, gi0 against autograd through the plain
+    version, bit-equal or within rtol 1e-5 of the largest cotangent as
+    [10]; the [C] factor gradients (the kernel sums each element over t,
+    then the rows; autograd sums each step over the rows, then the
+    steps) within ``PLIF_FACTOR_TOL`` of the largest. Times the kernels
+    with CUDA events beside their bytes bound and the plain versions;
+    prints the registers of the chunked kernels (the plan model's
+    ``_PLIF_BWD_REGS_SEEN``). Returns forward rows, backward rows and
+    the worst errors."""
+    regs = {}
+    for xd, sd, vec in itertools.product(
+            ("float32", "bfloat16"), ("float32", "bfloat16", "float8_e5m2"),
+            (True, False)):
+        width = 16 // getattr(torch, xd).itemsize if vec else 1
+        regs[width] = max(regs.get(width, 0), cuda_kernels.
+                          plif_bwd_regs_on_card(getattr(torch, xd),
+                                                getattr(torch, sd), vec))
+    print(f"  plif chunked backward: registers a thread by elements a "
+          f"thread, the most over the state types: {regs} (the plan "
+          f"model's {cuda_kernels._PLIF_BWD_REGS_SEEN})", flush=True)
+    check(all(r < CELL_BWD_REGS_MAX for r in regs.values()),
+          f"plif chunked backward spills: {regs} registers")
+    fwd_rows, bwd_rows, worst_f, worst_b = [], [], 0.0, 0.0
+    for label, shape in PLIF_SHAPES.items():
+        T, M, ch = shape[0], int(np.prod(shape[1:])), shape[-1]
+        c_mem, c_syn = plif_factors(torch, neurons, ch, dev)
+        draw = cell_bwd_inputs(torch, shape, dev)
+        for xd, sd in DTYPE_PAIRS:
+            x, v0, i0, gz, gv, gi = cell_bwd_args(torch, draw, xd, sd)
+            for start in PLIF_STARTS:
+                got = cuda_kernels.plif_cell_seq(x, v0, i0, c_mem, c_syn,
+                                                 start)
+                want = cuda_kernels.plif_cell_seq_reference(
+                    x, v0, i0, c_mem, c_syn, start)
+                torch.cuda.synchronize()
+                for name, g, w in zip(("z", "v_T", "i_T"), got, want):
+                    g, w = g.float(), w.float()
+                    same = (g == w) | (g.isnan() & w.isnan())
+                    finite = g.isfinite() & w.isfinite()
+                    err = float((g - w)[finite].abs().max()) \
+                        if bool(finite.any()) else 0.0
+                    worst_f = max(worst_f, err)
+                    check(bool(same.all()),
+                          f"plif {label} {xd}/{sd} start={start}: {name} "
+                          f"differs from the plain version (max abs err "
+                          f"{err}, {int((~same).sum())} elements)")
+                spikes = float(got[0].float().mean())
+                del got, want
+            ms = cuda_time_ms(lambda: cuda_kernels.plif_cell_seq(
+                x, v0, i0, c_mem, c_syn), reps=10)
+            plain_ms = cuda_time_ms(lambda: cuda_kernels.
+                                    plif_cell_seq_reference(
+                                        x, v0, i0, c_mem, c_syn),
+                                    reps=2, warmup=1)
+            bound_ms, by, nbytes = plif_bound(T, M, ch, x.element_size(),
+                                              v0.element_size())
+            fwd_rows.append(dict(shape=label, x=xd, state=sd, ms=ms,
+                                 plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=by, gb=nbytes / 1e9))
+            print(f"  plif forward {label} {xd}/{sd}: bit-equal at starts "
+                  f"{PLIF_STARTS} (spike share {spikes:.3f}); kernel "
+                  f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({by}, "
+                  f"{nbytes / 1e9:.3f} GB, {bound_ms / ms:.0%} of it), "
+                  f"plain {plain_ms:.2f} ms", flush=True)
+            cases = [(x, v0, i0, gz, gv, gi, TRAIN_START, "T=42")]
+            if label == "vgg_stage1":
+                cases.append((x[:1].contiguous(), v0, i0,
+                              gz[:1].contiguous(), gv, gi, 0, "T=1"))
+            for bx, bv, bi, bgz, bgv, bgi, start, tag in cases:
+                cuda_kernels.reset_launches()
+                got = cuda_kernels.plif_cell_seq_bwd(
+                    bx, bv, bi, c_mem, c_syn, bgz, bgv, bgi, start)
+                gcm, gcs = cuda_kernels.plif_factor_grads(*got[3:])
+                torch.cuda.synchronize()
+                check(cuda_kernels.LAUNCHES["plif_cell_seq_bwd"] == 1,
+                      "one PLIF backward launch a call")
+                leaves = [a.detach().requires_grad_()
+                          for a in (bx, bv, bi, c_mem, c_syn)]
+                outs = cuda_kernels.plif_cell_seq_reference(*leaves, start)
+                want = torch.autograd.grad(outs, leaves, (bgz, bgv, bgi),
+                                           retain_graph=True)
+                differ = 0
+                for name, g, wnt in zip(("gx", "gv0", "gi0"), got[:3],
+                                        want[:3]):
+                    g, wnt = g.float(), wnt.float()
+                    same = (g == wnt) | (g.isnan() & wnt.isnan())
+                    differ += int((~same).sum())
+                    err = float((g - wnt).abs().max())
+                    worst_b = max(worst_b, err)
+                    scale = float(wnt.abs().max())
+                    check(err <= 1e-5 * scale,
+                          f"plif {label} {tag} {xd}/{sd}: {name} max abs "
+                          f"err {err} past rtol 1e-5 of {scale}")
+                factor_err = []
+                for name, g, wnt in (("c_mem", gcm, want[3]),
+                                     ("c_syn", gcs, want[4])):
+                    err = float((g - wnt).abs().max())
+                    scale = float(wnt.abs().max())
+                    factor_err.append(err / max(scale, 1e-30))
+                    check(scale > 0 and err <= PLIF_FACTOR_TOL * scale,
+                          f"plif {label} {tag} {xd}/{sd}: the {name} "
+                          f"gradient max abs err {err} past "
+                          f"{PLIF_FACTOR_TOL} of {scale}")
+                ms = cuda_time_ms(lambda: cuda_kernels.plif_cell_seq_bwd(
+                    bx, bv, bi, c_mem, c_syn, bgz, bgv, bgi, start), reps=10)
+                plain_ms = cuda_time_ms(lambda: torch.autograd.grad(
+                    outs, leaves, (bgz, bgv, bgi), retain_graph=True),
+                    reps=2, warmup=1)
+                del got, want, outs, leaves
+                bound_ms, by, nbytes = plif_bound(
+                    bx.shape[0], M, ch, bx.element_size(), bv.element_size(),
+                    backward=True)
+                bwd_rows.append(dict(shape=label, tag=tag, x=xd, state=sd,
+                                     ms=ms, plain_ms=plain_ms,
+                                     bound_ms=bound_ms, bound_by=by,
+                                     differ=differ))
+                print(f"  plif backward {label} {tag} {xd}/{sd} start="
+                      f"{start}: gx/gv0/gi0 "
+                      f"{'bit-equal' if not differ else f'{differ} elements differ'}"
+                      f", [C] gradients within {max(factor_err):.2e} of the "
+                      f"largest; kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
+                      f"({by}, {bound_ms / ms:.0%} of it), plain backward "
+                      f"{plain_ms:.1f} ms; plan: "
+                      f"{plif_plan_text(cuda_kernels, bx, bv)}", flush=True)
+            del x, v0, i0, gz, gv, gi
+        del draw
+        torch.cuda.empty_cache()
+    return fwd_rows, bwd_rows, worst_f, worst_b
+
+
+PLIF_LAYERS, LI_HEADS = 6, 3  # VggSNN's cells: 2 + 4 PLIF, 3 head LI
+ZOO_FIT_BATCHES, ZOO_VAL_BATCHES, ZOO_TEST_BATCHES = 3, 1, 1
+ZOO_REPS = 3  # timed calls (after one warm-up) of each (b)/(d)/(e) step
+
+
+def build_vgg(torch, VggSNN, neuron, dev, time_window=TIME_WINDOW,
+              fuse_seq=False, widths=VGG_WIDTHS):
+    """VggSNN at GEN1 with seeded random weights, BatchNorm gains at
+    BN_GAIN (as [4]'s TinyYolo: at identity gains the untrained net
+    hardly spikes on sparse frames) and, for PLIF, raw time constants
+    spread around their init (``PLIF_RAW_SPREAD``), every channel its own
+    factors; fp32."""
+    model = VggSNN(num_classes=NUM_CLASSES, in_hw=IN_HW,
+                   loss_ratio=LOSS_RATIO, time_window=time_window,
+                   iou_threshold=IOU, neuron=neuron, widths=widths,
+                   fuse_seq=fuse_seq, device=dev, seed=0)
+    rng = np.random.default_rng(9)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".scale"):
+                p.fill_(BN_GAIN)
+            elif name.endswith(("raw_tau_syn", "raw_tau_mem")):
+                sd = PLIF_RAW_SPREAD[name.endswith("raw_tau_mem")]
+                p.add_(torch.from_numpy(rng.normal(0.0, sd, p.shape)
+                                        .astype(np.float32)).to(dev))
+    return model
+
+
+def timed_ms(torch, fn, reps=ZOO_REPS):
+    """Host-clock median (ms) of ``reps`` synchronised calls after one
+    warm-up, and the peak device memory (GB) over them."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), torch.cuda.max_memory_allocated() / 1e9
+
+
+def print_profile(torch, fn, tag):
+    """One call of ``fn`` under the profiler: device busy time, idle
+    share and time by kernel kind; returns (count, ms) by kind."""
+    kernels, busy_ms, wall_ms = profiled(torch, fn)
+    by_kind = {}
+    for e in kernels:
+        n, us = by_kind.get(kernel_kind(e.name), (0, 0.0))
+        by_kind[kernel_kind(e.name)] = (n + 1, us + e.time_range.elapsed_us())
+    print(f"    {tag}: profiled: device busy {busy_ms:.2f} ms of "
+          f"{wall_ms:.2f} ms, idle share "
+          f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; by kind: " + "; ".join(
+              f"{k} {n}x {us / 1e3:.2f} ms" for k, (n, us) in sorted(
+                  by_kind.items(), key=lambda kv: -kv[1][1])[:6]),
+          flush=True)
+    return {k: (n, us / 1e3) for k, (n, us) in by_kind.items()}
+
+
+def zoo_eval(torch, cuda_kernels, C, VggSNN, batch, dev):
+    """[14] (b): the PLIF VggSNN's eval step (``Trainer.eval_step``, time
+    window 0) per step, time-batched, hybrid and fused on one batch, the
+    same weights. Launches per step: PLIF ``plif_cell_seq`` and the head
+    LI ``temporal_cell_seq`` (T a cell per step, one a sequence), the
+    fused step ``spiking_conv_seq`` on the three LI head stems and no
+    ``temporal_cell_seq``. Final-state spike agreement (v == 0) a cell
+    against the time-batched step >= 0.99, as [7] gates TinyYolo at fp32
+    (cuDNN sums a conv in another order at another batch, and the fused
+    kernel in its own). Prints each step's ms and peak memory."""
+    X = torch.as_tensor(batch[0], device=dev)
+    lab = torch.as_tensor(batch[1], device=dev)
+    outs, T = {}, X.shape[0]
+    want_launches = {
+        False: dict(plif_cell_seq=PLIF_LAYERS * T,
+                    temporal_cell_seq=LI_HEADS * T),
+        True: dict(plif_cell_seq=PLIF_LAYERS, temporal_cell_seq=LI_HEADS),
+        "hybrid": dict(plif_cell_seq=2 + (PLIF_LAYERS - 2) * T,
+                       temporal_cell_seq=LI_HEADS * T),
+        "fused": dict(plif_cell_seq=PLIF_LAYERS, spiking_conv_seq=LI_HEADS),
+    }
+    from snn_for_object_detection_tpu_torch.train.loop import Trainer
+
+    for schedule in (True, False, "hybrid", "fused"):
+        fused = schedule == "fused"
+        model = build_vgg(torch, VggSNN, "plif", dev, time_window=0,
+                          fuse_seq=fused)
+        trainer = Trainer(seed=0, time_batched=True if fused else schedule)
+        cuda_kernels.reset_launches()
+        with torch.inference_mode():
+            outs[schedule] = model.forward_fn(trainer.time_batched)(X)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in cuda_kernels.LAUNCHES.items() if v}
+        check(launches == want_launches[schedule],
+              f"[14] (b) {schedule}: launches {launches}, want "
+              f"{want_launches[schedule]}")
+        check(all(bool(torch.isfinite(t).all()) for t in outs[schedule][0]),
+              f"[14] (b) {schedule}: predictions not finite")
+        ms, peak = timed_ms(torch, lambda: trainer.eval_step(model, X, lab,
+                                                              0))
+        agree = ""
+        if schedule is not True:
+            a, diff = spike_agreements(outs[schedule], outs[True])
+            check(len(a) == PLIF_LAYERS + LI_HEADS, "cell count")
+            check(min(a) >= 0.99, f"[14] (b) {schedule} vs time-batched: "
+                  f"spike agreement {a}")
+            agree = (f"; vs time-batched: spike agreement min {min(a):.6f}, "
+                     f"mean {statistics.mean(a):.6f} over {len(a)} cells, "
+                     f"max |pred diff| {diff:.3g}")
+        print(f"  (b) eval {schedule}: launches {launches}; eval step "
+              f"{ms:.1f} ms (host clock, median of {ZOO_REPS}), peak "
+              f"{peak:.2f} GB{agree}", flush=True)
+        if schedule is True:
+            by_kind = print_profile(
+                torch, lambda: trainer.eval_step(model, X, lab, 0),
+                "eval time-batched")
+            # the cells' bound over the step: x read and z written at
+            # every step, (v, i) read and written once, the factors
+            cells = [m for m in model.modules()
+                     if isinstance(m, (C.Cell, C.PLIF))]
+            nbytes = sum(plif_bound(T, X.shape[1] * m.out_hw[0]
+                                    * m.out_hw[1] * m.out_channels,
+                                    m.out_channels, 4, 4)[2] for m in cells)
+            seen, cell_ms = by_kind.get("cell kernel", (0, 0.0))
+            print(f"    cell kernels: {seen} of the step's {len(cells)} "
+                  f"launches in the profile, {cell_ms:.3f} ms; the "
+                  f"{len(cells)}'s bound {nbytes / HBM_BYTES_PER_S * 1e3:.3f}"
+                  f" ms ({nbytes / 1e9:.3f} GB)", flush=True)
+        if schedule is False:
+            # as [5]: cuDNN picks its conv algorithm by batch (T*B frames
+            # against B), and at BatchNorm gain 8 a flipped spike moves
+            # the heads; PyTorch's own conv sums both schedules alike
+            torch.backends.cudnn.enabled = False
+            try:
+                with torch.inference_mode():
+                    off = {s: model.forward_fn(s)(X) for s in (False, True)}
+            finally:
+                torch.backends.cudnn.enabled = True
+            a, diff = spike_agreements(off[False], off[True])
+            print(f"  (b) per-step vs time-batched with cuDNN off: spike "
+                  f"agreement min {min(a):.6f}, max |pred diff| {diff:.3g}",
+                  flush=True)
+            check(min(a) == 1.0 and diff <= 1e-4, "[14] (b) per-step vs "
+                  f"time-batched with cuDNN off: agreement {a}, pred diff "
+                  f"{diff}")
+        del model
+        torch.cuda.empty_cache()
+    return {"plif_cell_seq": sum(want_launches[s]["plif_cell_seq"]
+                                 for s in want_launches)}
+
+
+def zoo_cli(torch, cuda_kernels, smi):
+    """[14] (c): ``python -m snn_for_object_detection_tpu_torch fit`` with
+    ``config/config.yaml`` + ``config/vgg.yaml`` (VggSNN PLIF, widths 64 /
+    128 / 256, GEN1, B=4, T=42) on a synthetic GEN1 set, time-batched,
+    cut to one epoch of ZOO_FIT_BATCHES batches and one validation; then
+    ``test`` from its checkpoint. Gates: finite losses and metrics; in
+    ``fit`` PLIF's forward and backward kernels (6 backward launches a
+    step) and the head LI's (3), no plain cell; the raw time constants
+    moved; ``test`` restores every weight bit for bit. Returns the
+    launches of both runs."""
+    from snn_for_object_detection_tpu_torch import cli
+    from snn_for_object_detection_tpu_torch.data.synthetic import (
+        make_synthetic_dataset,
+    )
+    from snn_for_object_detection_tpu_torch.models import VggSNN
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(repo, "build", "chip_smoke_zoo")
+    shutil.rmtree(root, ignore_errors=True)
+    data_dir = make_synthetic_dataset(
+        os.path.join(root, "data"), records_per_split=CLI_RECORDINGS,
+        duration_ms=CLI_DURATION_MS, seed=CLI_SEED)
+    out_dir = os.path.join(root, "fit")
+    base = ["--config", os.path.join(repo, "config", "config.yaml"),
+            "--config", os.path.join(repo, "config", "vgg.yaml"),
+            f"--data.init_args.data_dir={data_dir}",
+            "--trainer.max_epochs=1", "--trainer.min_epochs=0",
+            f"--trainer.limit_train_batches={ZOO_FIT_BATCHES}",
+            f"--trainer.limit_val_batches={ZOO_VAL_BATCHES}",
+            f"--trainer.limit_test_batches={ZOO_TEST_BATCHES}",
+            "--trainer.check_val_every_n_epoch=1",
+            "--trainer.log_every_n_steps=1", "--trainer.time_batched=true",
+            f"--trainer.out_dir={out_dir}"]
+    init = VggSNN(num_classes=NUM_CLASSES, in_hw=IN_HW, neuron="plif",
+                  device="cpu")
+    raw0 = {n: p.detach().clone() for n, p in init.named_parameters()
+            if "raw_tau" in n}
+    del init
+    cuda_kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = cli.main(["fit", *base])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_n = {k: v for k, v in cuda_kernels.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(type(run.model) is VggSNN and run.model.neuron == "plif",
+          f"[14] (c): the model is {type(run.model).__name__}")
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    losses = [r["train_loss"] for r in records if "train_loss" in r]
+    check(len(losses) == ZOO_FIT_BATCHES
+          and all(np.isfinite(v) for v in losses),
+          f"[14] (c) fit: train losses {losses}")
+    want = dict(plif_cell_seq_bwd=PLIF_LAYERS * ZOO_FIT_BATCHES,
+                temporal_cell_seq_bwd=LI_HEADS * ZOO_FIT_BATCHES)
+    check(all(fit_n.get(k) == v for k, v in want.items())
+          and fit_n.get("plif_cell_seq", 0) > 0
+          and fit_n.get("temporal_cell_seq", 0) > 0
+          and "spiking_conv_seq" not in fit_n,
+          f"[14] (c) fit: launches {fit_n}, want {want} backward launches")
+    moved = {n: float((p.detach().cpu() - raw0[n]).abs().max())
+             for n, p in run.model.named_parameters() if "raw_tau" in n}
+    check(len(moved) == 2 * PLIF_LAYERS and all(
+        np.isfinite(v) for v in moved.values()) and max(moved.values()) > 0,
+          f"[14] (c) fit: the raw time constants did not move: {moved}")
+    trained = {n: p.detach().clone() for n, p in run.model.named_parameters()}
+    del run
+    torch.cuda.empty_cache()
+    cuda_kernels.reset_launches()
+    t0 = time.perf_counter()
+    test = cli.main(["test", *base, "--ckpt_path="
+                     + os.path.join(out_dir, "checkpoints", "last")])
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    test_n = {k: v for k, v in cuda_kernels.LAUNCHES.items() if v}
+    check_finite(test.result, "[14] (c) test")
+    check(all(torch.equal(trained[n], p.detach())
+              for n, p in test.model.named_parameters()),
+          "[14] (c) test: the checkpoint's weights were not restored")
+    check(test_n.get("plif_cell_seq", 0) > 0 and "plif_cell_seq_bwd"
+          not in test_n, f"[14] (c) test: launches {test_n}")
+    print(f"  (c) fit (config/config.yaml + config/vgg.yaml, time-batched, "
+          f"{ZOO_FIT_BATCHES} steps + {ZOO_VAL_BATCHES} validation batch): "
+          f"{fit_s:.1f} s, losses {[round(v, 4) for v in losses]}, peak "
+          f"{peak:.2f} GB; launches {fit_n}; raw time constants moved by "
+          f"at most {max(moved.values()):.3g} (median "
+          f"{statistics.median(moved.values()):.3g} over "
+          f"{len(moved)} tensors); test from its checkpoint: {test_s:.1f} "
+          f"s, {test.result}; launches {test_n} [{smi}]", flush=True)
+    del test
+    torch.cuda.empty_cache()
+    return {k: fit_n.get(k, 0) + test_n.get(k, 0)
+            for k in ("plif_cell_seq", "plif_cell_seq_bwd")}
+
+
+def zoo_net(C, SODa, S):
+    """[14] (d)'s net of the other plain leaves at GEN1: Synapse after a
+    spiking stem, max Pool(3, stride=2), a k=3 ConvLSTM, two taps with a
+    bilinear Up between (240x304 -> 120x152 -> 59x75 -> 30x38, 15x19 ->
+    30x38)."""
+
+    class ZooNet(SODa):
+        def backbone_cfgs(self):
+            return [S.Conv(16, 3, 2), S.Norm(), S.LIF(),
+                    S.Conv(16, 3, 1), S.Norm(), S.Synapse(),
+                    S.Pool("M", 3, 2), S.LSTM(hidden_size=16, kernel_size=3)]
+
+        def neck_cfgs(self):
+            return [S.Conv(32, 3, 2), S.Norm(), S.LIF(), S.Return(),
+                    S.Conv(32, 3, 2), S.Norm(), S.LIF(),
+                    S.Up(2, "bilinear"), S.Conv(32, 3, 1), S.Norm(),
+                    S.LIF(), S.Return()]
+
+        def head_cfgs(self, box_out, cls_out):
+            return [[S.Conv(kernel_size=1), S.Norm(), S.LI(), S.Tanh()],
+                    [S.Conv(box_out, 1)], [S.Conv(cls_out, 1)]]
+
+    return ZooNet
+
+
+def zoo_plain_cells(torch, cuda_kernels, C, batch, dev):
+    """[14] (d): the cells JAX runs as ``lax.scan`` and the port as plain
+    PyTorch on the card: ``VggSNN(neuron="alif" | "sli")`` and
+    ``zoo_net`` (Synapse, ConvLSTM, Pool(3, 2), bilinear Up), fp32 at
+    GEN1, B=4, T=42: one eval step and one train step each (time-
+    batched); finite loss and predictions. Prints each step's ms and peak
+    memory. Returns the rows (name, eval ms, train ms, peak GB)."""
+    from snn_for_object_detection_tpu_torch.models import VggSNN, spec as S
+    from snn_for_object_detection_tpu_torch.models.detector import SODa
+    from snn_for_object_detection_tpu_torch.train.loop import Trainer
+
+    X = torch.as_tensor(batch[0], device=dev)
+    lab = torch.as_tensor(batch[1], device=dev)
+    rows = []
+    for name in ("alif", "sli", "zoo_net"):
+        if name == "zoo_net":
+            model = zoo_net(C, SODa, S)(
+                num_classes=NUM_CLASSES, in_hw=IN_HW, device=dev, seed=0)
+            with torch.no_grad():
+                for pn, p in model.named_parameters():
+                    if pn.endswith(".scale"):
+                        p.fill_(BN_GAIN)
+        else:
+            model = build_vgg(torch, VggSNN, name, dev)
+        trainer = Trainer(seed=0, time_batched=True)
+        trainer.configure(model)
+        loss = float(trainer.train_step(model, X, lab, TRAIN_START))
+        check(np.isfinite(loss), f"[14] (d) {name}: loss {loss}")
+        with torch.inference_mode():
+            (cls_p, box_p), _ = model.forward_seq(X)
+        check(bool(torch.isfinite(cls_p).all() & torch.isfinite(box_p).all()),
+              f"[14] (d) {name}: predictions not finite")
+        eval_ms, eval_gb = timed_ms(
+            torch, lambda: trainer.eval_step(model, X, lab, 0))
+        train_ms, train_gb = timed_ms(
+            torch, lambda: trainer.train_step(model, X, lab, TRAIN_START))
+        cells = sorted({type(m).__name__ for m in model.modules()
+                        if isinstance(m, C.STATEFUL_LAYERS)})
+        rows.append((name, eval_ms, train_ms, max(eval_gb, train_gb)))
+        print(f"  (d) {name} ({', '.join(cells)}; plain PyTorch cells on "
+              f"the card): eval step {eval_ms:.1f} ms, peak {eval_gb:.2f} "
+              f"GB; train step {train_ms:.1f} ms (start {TRAIN_START}), "
+              f"peak {train_gb:.2f} GB; loss {loss:.4f}", flush=True)
+        del model, trainer
+        torch.cuda.empty_cache()
+    return rows
+
+
+def zoo_yolo(torch, cuda_kernels, batch, dev):
+    """[14] (e): ``YoloSNN(scale="s")`` at GEN1 (B=4, T=42, fp32): one
+    train step and one eval step, time-batched, finite. Then the B=1
+    ``StreamingMegakernel`` (JAX's accepts the net): one launch a frame
+    and no other; [8]'s gates on one frame from the zero state (spike
+    agreement >= 0.99 a LIF cell and LI relative L2 <= 5% against the
+    plain version on the card, >= 0.99 against ``SODa.step``); the same
+    agreements after MK_FRAMES frames, printed (on the untrained net at
+    BatchNorm gain 8, 24 LIF cells deep, the order of the convs' sums
+    flips spikes that add up over the frames); the witness on
+    MK_WITNESS_SEEDS, MK_FRAMES frames each; per-frame ms of the kernel,
+    its plain version and ``SODa.step`` beside the bound."""
+    from snn_for_object_detection_tpu_torch.models import YoloSNN
+    from snn_for_object_detection_tpu_torch.models.compile import Cell
+    from snn_for_object_detection_tpu_torch.ops.megakernel import (
+        StreamingMegakernel,
+        streaming_megakernel_reference,
+    )
+    from snn_for_object_detection_tpu_torch.train.loop import Trainer
+
+    X = torch.as_tensor(batch[0], device=dev)
+    lab = torch.as_tensor(batch[1], device=dev)
+    model = build_model(functools.partial(YoloSNN, scale=YOLO_SCALE),
+                        "float32", "float32", dev)
+    params = sum(p.numel() for p in model.parameters())
+    cells = sum(isinstance(m, Cell) for m in model.modules())
+    trainer = Trainer(seed=0, time_batched=True)
+    trainer.configure(model)
+    loss = float(trainer.train_step(model, X, lab, TRAIN_START))
+    check(np.isfinite(loss), f"[14] (e): loss {loss}")
+    train_ms, train_gb = timed_ms(
+        torch, lambda: trainer.train_step(model, X, lab, TRAIN_START), reps=1)
+    eval_ms, eval_gb = timed_ms(
+        torch, lambda: trainer.eval_step(model, X, lab, 0), reps=1)
+    print(f"  (e) YoloSNN(scale={YOLO_SCALE!r}) GEN1: {params} params, "
+          f"{cells} cells, plans {model.backbone_plan} + {model.neck_plan}; "
+          f"train step {train_ms:.1f} ms, peak {train_gb:.2f} GB, loss "
+          f"{loss:.4f}; eval step {eval_ms:.1f} ms, peak {eval_gb:.2f} GB",
+          flush=True)
+    del trainer, model
+    torch.cuda.empty_cache()
+
+    # the megakernel on the seeded weights, as [8], not the trained ones
+    model = build_model(functools.partial(YoloSNN, scale=YOLO_SCALE),
+                        "float32", "float32", dev)
+    frames = X[:MK_FRAMES, 0]
+    mk = StreamingMegakernel(model)
+    plan = mk.plan
+    cuda_kernels.reset_launches()
+    runs = {"kernel": (None, []), "plain": (mk._flat_state(None), []),
+            "step": (None, [])}
+    agreement = {}
+    for t in range(MK_FRAMES):
+        state, _ = runs["kernel"]
+        (cls_p, box_p), state = mk.step(frames[t], state)
+        runs["kernel"] = (state, [cls_p, box_p])
+        if t == 0:
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in cuda_kernels.LAUNCHES.items() if v}
+        pc, pb, plain = streaming_megakernel_reference(
+            plan, frames[t], runs["plain"][0])
+        runs["plain"] = (plain, [pc, pb])
+        with torch.inference_mode():
+            preds, ss = model.step(frames[t][None], runs["step"][0])
+        runs["step"] = (ss, list(preds))
+        if t in (0, MK_FRAMES - 1):
+            agree, li_rel = [], []
+            for g, w, slot in zip(mk._flat_state(state), plain, plan.slots):
+                if "head" in slot.path[0]:
+                    li_rel.append(relative_l2(g, w))
+                elif slot.field == 0:
+                    agree.append(spike_agreement(g == 0, w == 0))
+            agree_s, _ = spike_agreements(((cls_p, box_p), state),
+                                          (tuple(preds), ss))
+            agreement[t + 1] = (min(agree), max(li_rel), min(agree_s),
+                                len(agree))
+    check(launches == {"streaming_megakernel": 1},
+          f"[14] (e) megakernel: launches {launches} for one frame")
+    # [8]'s gates on one frame from the zero state; after MK_FRAMES
+    # frames (as [8] runs TinyYolo) the agreements are printed: the
+    # witness below tells order noise from a fault
+    one, many = agreement[1], agreement[MK_FRAMES]
+    check(one[0] >= 0.99 and one[1] <= 0.05 and one[2] >= 0.99,
+          f"[14] (e) megakernel, one frame: agreement with the plain "
+          f"version {one[0]}, LI relative L2 {one[1]}, with SODa.step "
+          f"{one[2]}")
+    failed = megakernel_witness(torch, cuda_kernels, mk, "(e) YoloSNN", dev)
+    check(not failed, f"[14] (e): the megakernel is further from the "
+          f"exact-sum run than the plain version on seeds {failed}")
+    st = mk._flat_state(runs["kernel"][0])
+    ms = per_frame_ms(lambda: cuda_kernels.streaming_megakernel(
+        plan, frames[0], st))
+    plain_ms = per_frame_ms(lambda: streaming_megakernel_reference(
+        plan, frames[0], st), frames=2, reps=3)
+    with torch.inference_mode():
+        step_ms = per_frame_ms(lambda: model.step(frames[0][None],
+                                                  runs["step"][0]),
+                               frames=4, reps=3)
+    bound_ms, by, macs, nbytes = megakernel_bound(plan, 4, 4)
+    phases = plan.cuda["phases"].shape[0]
+    print(f"  (e) megakernel: one launch a frame; after 1 / {MK_FRAMES} "
+          f"frames, vs the plain version: spike agreement min "
+          f"{one[0]:.6f} / {many[0]:.6f} over {one[3]} LIF cells, LI "
+          f"relative L2 max {one[1]:.4f} / {many[1]:.4f}; vs SODa.step "
+          f"min {one[2]:.6f} / {many[2]:.6f}; witness passes; "
+          f"{ms:.4f} ms/frame, plain {plain_ms:.2f} ms, SODa.step "
+          f"{step_ms:.2f} ms; bound {bound_ms:.4f} ms ({by}, "
+          f"{2 * macs / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
+          f"{phases} phases, {len(plan.slots)} state "
+          f"slots", flush=True)
+    del model, mk, plan
+    torch.cuda.empty_cache()
+    return MK_FRAMES
+
+
+def phase_zoo(torch, cuda_kernels, C, neurons, smi, batches, dev):
+    """[14]: the model zoo at GEN1. (a) the PLIF kernels against their
+    plain versions; (b) the PLIF VggSNN's eval step on the four
+    schedules; (c) ``fit`` and ``test`` through the CLI on
+    ``config/vgg.yaml``; (d) the plain cells; (e) YoloSNN and its
+    megakernel. Returns (a)'s rows and worst errors and the launches of
+    the PLIF kernels on the ``config/vgg.yaml`` path ((b) and (c))."""
+    from snn_for_object_detection_tpu_torch.models import VggSNN
+
+    t0 = time.perf_counter()
+    fwd_rows, bwd_rows, worst_f, worst_b = phase_plif_kernels(
+        torch, cuda_kernels, neurons, dev)
+    print(f"  [14] (a) in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    launches = zoo_eval(torch, cuda_kernels, C, VggSNN, batches[0], dev)
+    print(f"  [14] (b) in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    fit = zoo_cli(torch, cuda_kernels, smi)
+    launches["plif_cell_seq"] += fit["plif_cell_seq"]
+    launches["plif_cell_seq_bwd"] = fit["plif_cell_seq_bwd"]
+    print(f"  [14] (c) in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    zoo_plain_cells(torch, cuda_kernels, C, batches[0], dev)
+    print(f"  [14] (d) in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    zoo_yolo(torch, cuda_kernels, batches[0], dev)
+    print(f"  [14] (e) in {time.perf_counter() - t0:.1f} s", flush=True)
+    return fwd_rows, bwd_rows, worst_f, worst_b, launches
+
+
 def main(argv) -> int:
     import torch
 
@@ -2660,6 +3345,12 @@ def main(argv) -> int:
             phase_hybrid_auto_1mpx(torch, cuda_kernels, TinyYolo, Trainer,
                                    batches, smi, "cuda")
             print(f"  [13] in {time.perf_counter() - t0:.1f} s", flush=True)
+        if 14 in only:
+            t0 = time.perf_counter()
+            print("[14] the model zoo", flush=True)
+            phase_zoo(torch, cuda_kernels, C, neurons, smi, batches,
+                      "cuda")
+            print(f"  [14] in {time.perf_counter() - t0:.1f} s", flush=True)
         print(f"partial run of phases {sorted(only)} done in "
               f"{time.perf_counter() - t_start:.1f} s")
         return 0
@@ -2729,6 +3420,14 @@ def main(argv) -> int:
     bwd_launches += phase_hybrid_auto_1mpx(torch, cuda_kernels, TinyYolo,
                                            Trainer, batches, smi, "cuda")
     print(f"  [13] in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    print(f"[14] the model zoo: the PLIF kernels at {PLIF_SHAPES}, VggSNN "
+          f"PLIF (config/vgg.yaml) at GEN1 {IN_HW}: eval on four "
+          f"schedules, fit and test through the CLI; the plain cells; "
+          f"YoloSNN(scale={YOLO_SCALE!r}) and its megakernel", flush=True)
+    plif_fwd, plif_bwd, plif_worst_f, plif_worst_b, plif_launches = \
+        phase_zoo(torch, cuda_kernels, C, neurons, smi, batches, "cuda")
+    print(f"  [14] in {time.perf_counter() - t0:.1f} s", flush=True)
 
     ref = next(r for r in rows if (r["shape"], r["cell"], r["x"], r["start"])
                == ("stage1", "lif", "float32", 0))
@@ -2744,11 +3443,20 @@ def main(argv) -> int:
     bwd_ref = next(r for r in bwd_rows
                    if (r["shape"], r["cell"], r["state"], r["start"])
                    == ("stage1", "lif", "float32", 0))
+    # the PLIF form of the cell: the VGG stage-1 fp32 case
+    plif_fwd_ref = next(r for r in plif_fwd if (r["shape"], r["x"])
+                        == ("vgg_stage1", "float32"))
+    plif_bwd_ref = next(r for r in plif_bwd if (r["shape"], r["tag"], r["x"])
+                        == ("vgg_stage1", "T=42", "float32"))
     kernels = []
     for name, source, line, n, err, r in (
         ("temporal_cell_seq", "temporal_cell.cu", 207, launches, worst, ref),
         ("temporal_cell_seq_bwd", "temporal_cell.cu", 356, bwd_launches,
          bwd_worst, bwd_ref),
+        ("plif_cell_seq", "plif_cell.cu", 207,
+         plif_launches["plif_cell_seq"], plif_worst_f, plif_fwd_ref),
+        ("plif_cell_seq_bwd", "plif_cell.cu", 356,
+         plif_launches["plif_cell_seq_bwd"], plif_worst_b, plif_bwd_ref),
         ("spiking_conv_seq", "spiking_conv.cu", 657, conv_launches,
          conv_worst, conv_ref),
         ("fused_pointwise_conv_bn_lif", "pointwise.cu", 88, 0, pw_worst,
@@ -2790,12 +3498,19 @@ def main(argv) -> int:
           f"fused_pointwise_conv_bn_lif {BATCH * 120 * 152} rows, 64->64, "
           f"fp32; streaming_megakernel one GEN1 frame at fp32 (SODa.step, "
           f"its per-layer yardstick: {mk_row['step_ms']:.3f} ms); "
-          f"temporal_cell_seq_bwd the stage-1 fp32 LIF case at start 0. "
+          f"temporal_cell_seq_bwd the stage-1 fp32 LIF case at start 0; "
+          f"plif_cell_seq and plif_cell_seq_bwd (the PLIF form of the "
+          f"cell, csrc/plif_cell.cu; JAX runs PLIF as a lax.scan, "
+          f"models/compile.py:599) VggSNN's stage-1 fp32 case "
+          f"{list(PLIF_SHAPES['vgg_stage1'])}, the backward at start "
+          f"{TRAIN_START}. "
           f"Launches: temporal_cell_seq in [4], spiking_conv_seq in [7], "
           f"streaming_megakernel in [8] (both dtype configurations), "
           f"temporal_cell_seq_bwd in [10]'s and [13]'s Trainer.fit runs "
           f"(the three schedules, both training configurations); "
-          f"fused_pointwise_conv_bn_lif has no path")
+          f"plif_cell_seq in [14] (b)'s four eval schedules and (c)'s "
+          f"fit and test of config/vgg.yaml, plif_cell_seq_bwd in (c)'s "
+          f"fit; fused_pointwise_conv_bn_lif has no path")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -59,12 +59,14 @@ __device__ __forceinline__ float round_to(float a) {
   return to_f32(from_f32<T>(a));
 }
 
-enum Cell { kLIF = 0, kLI = 1 };
+enum Cell { kLIF = 0, kLI = 1, kPLIF = 2 };
 
 // One Euler step of the cell on fp32 (v, i) with input x; updates (v, i)
 // in place (unrounded) and returns the output: the spike (0 or 1) for
 // LIF, the membrane v for LI. c_mem = dt * tau_mem_inv and c_syn =
-// dt * tau_syn_inv are the fp32 Euler factors (ops/neurons.py).
+// dt * tau_syn_inv are the fp32 Euler factors (ops/neurons.py): LIF's
+// constants, or PLIF's per-channel dt * softplus(raw) of the element's
+// channel (PLIF is LIF with those factors).
 //
 // LIF (norse lif_feed_forward_step): decay -> spike -> reset -> inject.
 // LI (li_feed_forward_step): the current jump comes before the voltage
@@ -74,7 +76,7 @@ enum Cell { kLIF = 0, kLI = 1 };
 template <int CELL, bool PLAIN_RESET = false>
 __device__ __forceinline__ float cell_step(float x, float& v, float& i,
                                            float c_mem, float c_syn) {
-  if (CELL == kLIF) {
+  if (CELL != kLI) {
     const float d = __fadd_rn(__fsub_rn(0.0f, v), i);
     const float v_dec = __fmaf_rn(d, c_mem, v);
     const float i_dec = __fmaf_rn(i, -c_syn, i);

@@ -1,20 +1,23 @@
 """Spec compiler: DSL config lists -> ``nn.Module`` trees.
 
-Counterpart of ``snn_for_object_detection_tpu/models/compile.py`` for the
-TinyYolo menu and the streaming megakernel's: ``Conv``, eval-mode
-``Norm``, ``LIF``/``LI``, ``ReLU``, ``SiLU``, ``Tanh``, ``Pool`` with
-``kernel_size == stride``, nearest ``Up``, ``Pass``, ``Return`` taps,
-and ``Residual`` / ``Dense`` blocks. Shape
-inference runs once at build time, as in the JAX compiler. Each layer
-has two forms:
+Counterpart of ``snn_for_object_detection_tpu/models/compile.py``:
+``Conv``, ``Norm``, the cells ``LIF``, ``LI``, ``PLIF``, ``ALIF``,
+``SLI``, ``Synapse`` and the conv ``LSTM``, ``ReLU``, ``SiLU``,
+``Tanh``, ``Pool`` (any stride), ``Up`` (nearest and the interpolating
+modes), ``Pass``, ``Return`` taps, and ``Residual`` / ``Dense`` blocks.
+Shape inference runs once at build time, as in the JAX compiler. Each
+layer has two forms:
 
 - ``step(x, state, ctx)`` for one frame ``x [B, H, W, C]``;
 - ``seq(X, state, ctx)`` for a whole sequence ``X [T, B, H, W, C]``:
-  stateless layers fold T into the batch, cells run the whole time loop
-  in one ``temporal_cell_seq`` call with the truncation start
-  ``ctx.start_step``. With ``ctx.fuse`` and no truncation, a block runs
-  each ``[Conv k x k -> Norm -> LIF/LI]`` triple of a branch as one
-  ``spiking_conv_seq`` call instead (the JAX compiler's fused plan).
+  stateless layers fold T into the batch, LIF/LI cells run the whole
+  time loop in one ``temporal_cell_seq`` call and PLIF in one
+  ``plif_cell_seq`` call, with the truncation start ``ctx.start_step``;
+  ALIF, SLI, Synapse and the LSTM loop over T in plain PyTorch (JAX runs
+  them as a per-layer ``lax.scan``, which no Pallas kernel replaces).
+  With ``ctx.fuse`` and no truncation, a block runs each ``[Conv k x k
+  -> Norm -> LIF/LI]`` triple of a branch as one ``spiking_conv_seq``
+  call instead (the JAX compiler's fused plan).
 
 Under ``ctx.train`` Norm normalises with per-step batch statistics and
 hands its new running statistics on as its state (the model writes them
@@ -25,15 +28,17 @@ JAX compiler's ``_segment_plan``.
 
 Activations are NHWC at every boundary (the JAX layout). Submodules are
 named after the JAX pytree keys (``b0.l3.w`` for ``["b0"]["l3"]["w"]``),
-so ``models/convert.py`` maps weights one to one. Every other leaf and
-mode raises ``NotImplementedError`` naming its ROADMAP.md item.
+so ``models/convert.py`` maps weights one to one. ``Conv(s2d=True)`` and
+state recording raise ``NotImplementedError`` naming their ROADMAP.md
+items.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -43,6 +48,7 @@ from snn_for_object_detection_tpu_torch.models import spec as S
 from snn_for_object_detection_tpu_torch.ops import neurons
 from snn_for_object_detection_tpu_torch.ops.cuda_kernels import (
     full_fp32_conv,
+    plif_cell_seq,
     spiking_conv_seq,
     temporal_cell_seq,
 )
@@ -77,9 +83,12 @@ class Ctx:
 
 class Layer(nn.Module):
     """A compiled layer with static output shape. ``has_tap``: a
-    ``Return`` is in it, so a remat segment must not hold it."""
+    ``Return`` is in it, so a remat segment must not hold it.
+    ``closes_segment``: it carries state (a cell or a block), so a remat
+    segment ends after it."""
 
     has_tap = False
+    closes_segment = False
 
     def __init__(self, out_channels: int, out_hw: Tuple[int, int]):
         super().__init__()
@@ -152,6 +161,93 @@ class Up(Layer):
         return y.repeat_interleave(self.scale, dim=2), state
 
 
+class StridedPool(Layer):
+    """Pooling with ``stride != kernel_size`` (compile.py:494-521), on
+    the uncropped map, no padding: ``A`` / ``S`` a depthwise conv of
+    ones in the activation dtype (``A`` divided by k * k), ``M`` the
+    elementwise max of the k * k strided slices."""
+
+    def __init__(self, ch, in_hw, k: int, s: int, kind: str):
+        super().__init__(ch, ((in_hw[0] - k) // s + 1,
+                              (in_hw[1] - k) // s + 1))
+        self.k, self.s, self.kind = k, s, kind
+
+    def step(self, x, state, ctx):
+        (oh, ow), k, s = self.out_hw, self.k, self.s
+        if self.kind == "M":
+            y = None
+            for di in range(k):
+                for dj in range(k):
+                    sl = x[:, di:di + (oh - 1) * s + 1:s,
+                           dj:dj + (ow - 1) * s + 1:s]
+                    y = sl if y is None else torch.maximum(y, sl)
+            return y, state
+        c = x.shape[-1]
+        w = torch.ones((c, 1, k, k), dtype=x.dtype, device=x.device)
+        with full_fp32_conv():
+            y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=s, groups=c)
+        y = y.permute(0, 2, 3, 1).contiguous()
+        return (y / (k * k) if self.kind == "A" else y), state
+
+
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """JAX's Keys cubic kernel (a = -0.5) of ``jax.image.resize``, its
+    multiply-adds contracted as XLA contracts them."""
+    fma = neurons.fma
+    out = fma(fma(x, 1.5, torch.full_like(x, -2.5)) * x, x,
+              torch.ones_like(x))
+    far = fma(fma(fma(x, -0.5, torch.full_like(x, 2.5)), x,
+                  torch.full_like(x, -4.0)), x, torch.full_like(x, 2.0))
+    out = torch.where(x >= 1.0, far, out)
+    return torch.where(x >= 2.0, 0.0, out)
+
+
+def _triangle(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp_min(1.0 - x.abs(), 0.0)
+
+
+def resize_weights(in_size: int, out_size: int,
+                   kernel: Callable) -> torch.Tensor:
+    """``[in_size, out_size]`` fp32 interpolation weights of one axis, as
+    ``jax.image.resize`` computes them (``compute_weight_mat``): half-
+    pixel centres, each output's weights divided by their sum (so the
+    edges renormalise), zero where the sample falls outside the input.
+    Upsampling only, where JAX's antialiasing changes nothing."""
+    inv_scale = torch.tensor(1.0 / (out_size / in_size), dtype=torch.float32)
+    sample = (torch.arange(out_size, dtype=torch.float32) + 0.5) \
+        * inv_scale - 0.5
+    x = (sample[None, :] - torch.arange(in_size, dtype=torch.float32)[:, None]
+         ).abs()
+    w = kernel(x)
+    total = w.sum(dim=0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[None, :], w, 0.0)
+
+
+class Resize(Layer):
+    """Up in the modes ``linear`` / ``bilinear`` / ``trilinear`` (all
+    bilinear on a 2-D map) and ``bicubic``: ``jax.image.resize``
+    (compile.py:539-545) by an integer scale, the triangle or Keys
+    cubic kernel (a = -0.5; torch's ``bicubic`` takes a = -0.75) as the
+    two weight matrices of :func:`resize_weights`, applied to H and
+    then W in the activation dtype, the weights rounded to it."""
+
+    def __init__(self, ch, in_hw, scale: int, mode: str):
+        super().__init__(ch, (in_hw[0] * scale, in_hw[1] * scale))
+        kernel = _keys_cubic if mode == "bicubic" else _triangle
+        self.mode = mode
+        self.register_buffer("wh", resize_weights(
+            in_hw[0], in_hw[0] * scale, kernel), persistent=False)
+        self.register_buffer("ww", resize_weights(
+            in_hw[1], in_hw[1] * scale, kernel), persistent=False)
+
+    def step(self, x, state, ctx):
+        y = torch.einsum("bhwc,hH->bHwc", x, self.wh.to(x.dtype))
+        return torch.einsum("bHwc,wW->bHWc", y, self.ww.to(x.dtype)), state
+
+
 class Return(Layer):
     """Pyramid tap; in sequence mode the tap is the whole sequence."""
 
@@ -184,6 +280,29 @@ def _full_fp32_backward(node) -> None:
     node.register_hook(after)
 
 
+def _conv_nhwc(x, w, stride: int, padding: int):
+    """``x`` NHWC conv OIHW ``w``, NHWC out."""
+    # fp32 convs sum in full fp32, as JAX's, whatever the process's
+    # torch.backends.cudnn.allow_tf32: forward and backward
+    with full_fp32_conv():
+        y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=stride,
+                     padding=padding)
+    if y.grad_fn is not None:
+        _full_fp32_backward(y.grad_fn)
+    # cuDNN and oneDNN answer a channels-last input in channels-last,
+    # so this is a view; a backend that answers NCHW pays one copy
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def _kaiming_(w: nn.Parameter, generator: torch.Generator) -> None:
+    """Kaiming normal, fan_out mode, relu gain (compile.py:236-241), of
+    an OIHW weight."""
+    out, _, kh, kw = w.shape
+    std = (2.0 / (kh * kw * out)) ** 0.5
+    with torch.no_grad():
+        w.copy_(std * torch.randn(w.shape, generator=generator))
+
+
 class Conv(Layer):
     """Bias-free conv, symmetric padding ``k // 2``. The weight is kept
     OIHW; activations stay NHWC (a channels-last view for the conv)."""
@@ -198,28 +317,13 @@ class Conv(Layer):
         self.w = nn.Parameter(torch.empty(out_ch, in_ch, k, k))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Kaiming normal, fan_out mode, relu gain (compile.py:236-241)."""
-        out, _, kh, kw = self.w.shape
-        std = (2.0 / (kh * kw * out)) ** 0.5
-        with torch.no_grad():
-            self.w.copy_(
-                std * torch.randn(self.w.shape, generator=generator)
-            )
+        _kaiming_(self.w, generator)
 
     def step(self, x, state, ctx):
         return self._conv(x, self.w.to(x.dtype)), state
 
     def _conv(self, x, w):
-        # fp32 convs sum in full fp32, as JAX's, whatever the process's
-        # torch.backends.cudnn.allow_tf32: forward and backward
-        with full_fp32_conv():
-            y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=self.stride,
-                         padding=self.padding)
-        if y.grad_fn is not None:
-            _full_fp32_backward(y.grad_fn)
-        # cuDNN and oneDNN answer a channels-last input in channels-last,
-        # so this is a view; a backend that answers NCHW pays one copy
-        return y.permute(0, 2, 3, 1).contiguous()
+        return _conv_nhwc(x, w, self.stride, self.padding)
 
     def step_unrounded(self, x):
         """The conv of x's values and the weight rounded to x's dtype,
@@ -348,6 +452,8 @@ class Cell(Layer):
     """LIF or LI layer. Both forms go through ``temporal_cell_seq``
     (the step form with T = 1), so on the card no plain cell math runs."""
 
+    closes_segment = True
+
     def __init__(self, kind: str, ch, hw, state_dtype):
         super().__init__(ch, hw)
         self.kind = kind
@@ -369,7 +475,150 @@ class Cell(Layer):
         return z, type(state)(v, i)
 
 
-_NOT_PORTED_LEAVES = (S.PLIF, S.ALIF, S.SLI, S.Synapse, S.LSTM)
+class PLIF(Layer):
+    """Parametric LIF (compile.py:570-601): LIF with learnable per-channel
+    time constants, the parameters ``raw_tau_syn`` and ``raw_tau_mem``
+    (``[C]``, softplus of each is the inverse time constant). Both forms
+    go through ``plif_cell_seq`` with the factors ``dt * softplus(raw)``
+    (the step form with T = 1), so on the card no plain cell math runs;
+    autograd carries the factors' gradients back to the raw parameters.
+    Not fused into ``spiking_conv_seq`` (JAX's fused plan takes LIF/LI
+    only)."""
+
+    closes_segment = True
+
+    def __init__(self, ch, hw, state_dtype):
+        super().__init__(ch, hw)
+        self.state_dtype = state_dtype
+        init = neurons.plif_params_init(ch)
+        self.raw_tau_syn = nn.Parameter(init.raw_tau_syn)
+        self.raw_tau_mem = nn.Parameter(init.raw_tau_mem)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        init = neurons.plif_params_init(self.out_channels)
+        with torch.no_grad():
+            self.raw_tau_syn.copy_(init.raw_tau_syn)
+            self.raw_tau_mem.copy_(init.raw_tau_mem)
+
+    def init_state(self, batch, device):
+        return neurons.lif_init((batch, *self.out_hw, self.out_channels),
+                                dtype=self.state_dtype, device=device)
+
+    def factors(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        return neurons.plif_factors(
+            neurons.PLIFParams(self.raw_tau_syn, self.raw_tau_mem))
+
+    def step(self, x, state, ctx):
+        z, v, i = plif_cell_seq(x[None], state.v, state.i, *self.factors())
+        return z[0], neurons.LIFState(v, i)
+
+    def seq(self, X, state, ctx):
+        z, v, i = plif_cell_seq(X, state.v, state.i, *self.factors(),
+                                start=ctx.start_step)
+        return z, neurons.LIFState(v, i)
+
+
+class PlainCell(Layer):
+    """ALIF, SLI or Synapse (compile.py:603-678): the cell's step in fp32
+    on the state widened from its dtype, the new state rounded back to
+    it and the output to the input's dtype. The sequence form is a loop
+    over T with the state frozen for ``t < ctx.start_step`` (JAX's
+    ``_cell_apply_seq`` scan, ``_masked_state``); the state is carried
+    in its dtype, so autograd rounds its cotangent there, as JAX's
+    ``astype`` pair does. Plain PyTorch on the card too: JAX runs these
+    cells as ``lax.scan``, which no Pallas kernel replaces."""
+
+    closes_segment = True
+
+    def __init__(self, ch, hw, state_dtype, init: Callable,
+                 step_fn: Callable):
+        super().__init__(ch, hw)
+        self.state_dtype = state_dtype
+        self._init, self._step_fn = init, step_fn
+
+    def init_state(self, batch, device):
+        return self._init((batch, *self.out_hw, self.out_channels),
+                          dtype=self.state_dtype, device=device)
+
+    def step(self, x, state, ctx):
+        out, new = self._step_fn(x.float(), type(state)(
+            *(a.float() for a in state)))
+        return out.to(x.dtype), type(state)(
+            *(a.to(self.state_dtype) for a in new))
+
+    def seq(self, X, state, ctx):
+        return _step_loop(self, X, state, ctx)
+
+
+def _step_loop(layer, X, state, ctx):
+    """A stateful layer's sequence form as a loop of its step, the state
+    held for ``t < ctx.start_step`` (the output still emitted)."""
+    outs = []
+    for t, keep in enumerate(ctx.step_mask(X.shape[0])):
+        out, new = layer.step(X[t], state, ctx)
+        outs.append(out)
+        if keep:
+            state = new
+    return torch.stack(outs), state
+
+
+class ConvLSTM(Layer):
+    """Convolutional LSTM (compile.py:680-737): the conv of ``[x, h]``
+    with same padding gives the gates i, f, o, g in fp32;
+    ``c' = sigmoid(f) c + sigmoid(i) tanh(g)``, ``h' = sigmoid(o)
+    tanh(c')``; the output is h' in the input's dtype and (h', c') is
+    the state in its dtype. The conv runs in the activation dtype (full
+    fp32 at fp32); the weight ``w`` is OIHW ``[4 hidden, in + hidden, k,
+    k]``. The sequence form loops over T (the conv reads the carried h),
+    the state frozen for ``t < ctx.start_step``."""
+
+    closes_segment = True
+
+    def __init__(self, in_ch, hidden, k, hw, state_dtype):
+        super().__init__(hidden, hw)
+        self.hidden, self.padding = hidden, k // 2
+        self.state_dtype = state_dtype
+        self.w = nn.Parameter(torch.empty(4 * hidden, in_ch + hidden, k, k))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _kaiming_(self.w, generator)
+
+    def init_state(self, batch, device):
+        shape = (batch, *self.out_hw, self.hidden)
+        return (torch.zeros(shape, dtype=self.state_dtype, device=device),
+                torch.zeros(shape, dtype=self.state_dtype, device=device))
+
+    def step(self, x, state, ctx):
+        h_prev, c_prev = state
+        combined = torch.cat([x, h_prev.to(x.dtype)], dim=-1)
+        gates = _conv_nhwc(combined, self.w.to(x.dtype), 1,
+                           self.padding).float()
+        i_g, f_g, o_g, g_g = gates.split(self.hidden, dim=-1)
+        c_new = neurons.fma(torch.sigmoid(f_g), c_prev.float(),
+                            torch.sigmoid(i_g) * torch.tanh(g_g))
+        h_new = torch.sigmoid(o_g) * torch.tanh(c_new)
+        sd = self.state_dtype
+        return h_new.to(x.dtype), (h_new.to(sd), c_new.to(sd))
+
+    def seq(self, X, state, ctx):
+        return _step_loop(self, X, state, ctx)
+
+
+def _plain_cell(layer, in_ch, in_hw, state_dtype) -> PlainCell:
+    if isinstance(layer, S.ALIF):
+        p = neurons.ALIFParams(beta=layer.beta,
+                               tau_adapt_inv=layer.tau_adapt_inv)
+        init = lambda shape, dtype, device: neurons.alif_init(  # noqa: E731
+            shape, dtype, device, p)
+        step = lambda x, st: neurons.alif_step(x, st, p)  # noqa: E731
+    elif isinstance(layer, S.SLI):
+        init, step = neurons.sli_init, neurons.sli_step
+    else:
+        p = neurons.SynapseParams(sigma_inhibition=layer.sigma_inhibition)
+        init = lambda shape, dtype, device: neurons.synapse_init(  # noqa: E731
+            shape, dtype, device, p)
+        step = lambda x, st: neurons.synapse_step(x, st, p)  # noqa: E731
+    return PlainCell(in_ch, in_hw, state_dtype, init, step)
 
 
 def _compile_leaf(layer: S.LayerSpec, in_ch: int, in_hw, state_dtype):
@@ -383,14 +632,16 @@ def _compile_leaf(layer: S.LayerSpec, in_ch: int, in_hw, state_dtype):
         return SiLU(in_ch, in_hw)
     if isinstance(layer, S.Pool):
         k = layer.kernel_size
-        if (layer.stride if layer.stride is not None else k) != k:
-            raise not_ported("Pool with stride != kernel_size",
-                             "other leaves")
+        s = layer.stride if layer.stride is not None else k
+        if s != k:
+            return StridedPool(in_ch, in_hw, k, s, layer.type)
         return Pool(in_ch, in_hw, k, layer.type)
     if isinstance(layer, S.Up):
-        if layer.mode != "nearest":
-            raise not_ported(f"Up mode {layer.mode!r}", "other leaves")
-        return Up(in_ch, in_hw, layer.scale)
+        if layer.mode == "nearest":
+            return Up(in_ch, in_hw, layer.scale)
+        if layer.mode in ("linear", "bilinear", "trilinear", "bicubic"):
+            return Resize(in_ch, in_hw, layer.scale, layer.mode)
+        raise NotImplementedError(f"Up mode {layer.mode!r}")
     if isinstance(layer, S.Return):
         return Return(in_ch, in_hw)
     if isinstance(layer, S.Conv):
@@ -400,14 +651,20 @@ def _compile_leaf(layer: S.LayerSpec, in_ch: int, in_hw, state_dtype):
         return Conv(in_ch, out, layer.kernel_size, layer.stride, in_hw)
     if isinstance(layer, S.Norm):
         return Norm(in_ch, in_hw, layer.bias, layer.eps, layer.momentum)
+    if getattr(layer, "state_storage", False):
+        raise not_ported("state recording (state_storage=True)",
+                         "recording")
     if isinstance(layer, (S.LIF, S.LI)):
-        if layer.state_storage:
-            raise not_ported("state recording (state_storage=True)",
-                             "recording")
         kind = "lif" if isinstance(layer, S.LIF) else "li"
         return Cell(kind, in_ch, in_hw, state_dtype)
-    if isinstance(layer, _NOT_PORTED_LEAVES):
-        raise not_ported(f"the {type(layer).__name__} leaf", "other leaves")
+    if isinstance(layer, S.PLIF):
+        return PLIF(in_ch, in_hw, state_dtype)
+    if isinstance(layer, (S.ALIF, S.SLI, S.Synapse)):
+        return _plain_cell(layer, in_ch, in_hw, state_dtype)
+    if isinstance(layer, S.LSTM):
+        hidden = in_ch if layer.hidden_size is None else layer.hidden_size
+        return ConvLSTM(in_ch, hidden, layer.kernel_size, in_hw,
+                        state_dtype)
     raise TypeError(f"Unknown layer spec: {layer!r}")
 
 
@@ -428,11 +685,20 @@ def _fused_groups(layers: List[Layer]) -> List[int]:
     return starts
 
 
+# cells that widen their input to fp32 first: jitted JAX hands them an
+# eval Norm's sum in fp32 on the step path (Norm.step_into_cell)
+_FP32_INPUT_CELLS = (Cell, PLIF, PlainCell)
+# the leaves that carry state from step to step
+STATEFUL_LAYERS = _FP32_INPUT_CELLS + (ConvLSTM,)
+
+
 class Block(Layer):
     """A config list: one sequential branch, or ``Residual`` (branch
     outputs summed) / ``Dense`` (concatenated on the channel axis)
     branches. Branch ``bi`` is the child ``b{bi}``; its layer ``li`` is
     ``b{bi}.l{li}``."""
+
+    closes_segment = True
 
     def __init__(self, cfgs, in_ch, in_hw, returns=None,
                  state_dtype=torch.float32):
@@ -524,7 +790,7 @@ class Block(Layer):
                     continue
                 if (not seq and not ctx.train and isinstance(layers[li], Norm)
                         and li + 1 < len(layers)
-                        and isinstance(layers[li + 1], Cell)):
+                        and isinstance(layers[li + 1], _FP32_INPUT_CELLS)):
                     # [Norm -> cell] of a step: the cell takes the fp32
                     # sum and its output is rounded once, as in JAX
                     dtype = y.dtype
@@ -604,7 +870,9 @@ class Block(Layer):
 def _segment_plan(layers: List[Layer]) -> List[Tuple[bool, List[int]]]:
     """``(bare, layer indices)`` runs of a branch for sequence-mode
     remat (JAX ``_segment_plan``): a segment closes after each cell or
-    nested block; a layer with a tap runs bare."""
+    nested block (JAX's closes after LIF/LI only, not after the other
+    cells: the recompute gives the same values either way, and shorter
+    segments hold less at once); a layer with a tap runs bare."""
     plan, cur = [], []
     for li, layer in enumerate(layers):
         if layer.has_tap:
@@ -614,7 +882,7 @@ def _segment_plan(layers: List[Layer]) -> List[Tuple[bool, List[int]]]:
             plan.append((True, [li]))
             continue
         cur.append(li)
-        if isinstance(layer, (Cell, Block)):
+        if layer.closes_segment:
             plan.append((False, cur))
             cur = []
     if cur:

@@ -31,8 +31,9 @@ def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
 def load_jax_params(model: nn.Module, params: Dict[str, Any],
                     stats: Dict[str, Any]) -> None:
     """Copy JAX ``(params, stats)`` (nested dicts of arrays) into
-    ``model`` in place. Conv kernels go from HWIO to OIHW; Norm
-    ``scale`` (and ``bias``), ``mean`` and ``var`` copy as they are.
+    ``model`` in place. Conv and ConvLSTM kernels go from HWIO to OIHW;
+    Norm ``scale`` (and ``bias``), ``mean`` and ``var`` and PLIF's
+    ``raw_tau_syn`` and ``raw_tau_mem`` copy as they are.
 
     Raises ``ValueError`` on a leaf the model lacks, a model tensor no
     leaf fills, or a shape mismatch, and ``NotImplementedError`` on the
@@ -42,7 +43,7 @@ def load_jax_params(model: nn.Module, params: Dict[str, Any],
     quantized = sorted(k for k in flat if k.endswith(".w_q"))
     if quantized:
         raise not_ported(f"int8 conv weights ({quantized[0]})",
-                         "other leaves")
+                         "int8 PTQ")
     flat_stats = _flatten(stats)
     both = flat.keys() & flat_stats.keys()
     if both:

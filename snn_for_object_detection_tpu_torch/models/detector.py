@@ -25,8 +25,10 @@ Three schedules give the same predictions:
   (never fused) and the neck and head stems as :meth:`forward` does,
   one step at a time on the backbone's output.
 
-The head's box/cls tails are stateless 1x1 convs, so both schedules
-apply them once, to the last step's stem activations.
+Light head box/cls tails (no state and no BatchNorm, TinyYolo's bare
+1x1 convs) run once, on the last step's stem activations (JAX's
+``_head_tails_light``); tails with a cell or a Norm run at every step
+of every schedule, their state and statistics carried like the rest.
 """
 
 from __future__ import annotations
@@ -183,16 +185,14 @@ class SODa(nn.Module):
                     f"head cls branch must end with {self.num_class_out} "
                     "channels"
                 )
-            for tail in (box, cls):
-                if any(isinstance(m, (C.Norm, C.Cell))
-                       for m in tail.modules()):
-                    raise C.not_ported(
-                        "head box/cls tails with state or BatchNorm",
-                        "other leaves",
-                    )
             self.add_module(f"head{idx}", nn.ModuleDict(
                 {"base": base, "box": box, "cls": cls}
             ))
+        # tails with no state and no BatchNorm run once, after the steps
+        self.head_tails_light = not any(
+            isinstance(m, (C.Norm,) + C.STATEFUL_LAYERS)
+            for h in self.heads() for part in ("box", "cls")
+            for m in h[part].modules())
         self.init(torch.Generator().manual_seed(seed))
         self.to(device)
         self.eval()
@@ -215,9 +215,10 @@ class SODa(nn.Module):
 
     def init(self, generator: torch.Generator) -> None:
         """(Re)draw every conv weight from ``generator`` (a CPU
-        generator) and reset BatchNorm to identity."""
+        generator), reset PLIF's time constants to LIF's and BatchNorm
+        to identity."""
         for m in self.modules():
-            if isinstance(m, C.Conv):
+            if isinstance(m, (C.Conv, C.ConvLSTM, C.PLIF)):
                 m.reset_parameters(generator)
             elif isinstance(m, C.Norm):
                 with torch.no_grad():
@@ -245,8 +246,8 @@ class SODa(nn.Module):
 
     def _trunk(self, x: torch.Tensor, state,
                train: bool = False) -> Tuple[tuple, Dict]:
-        """Backbone + neck + head stems for one frame; the stateless
-        box/cls tails are left to :meth:`_tail_readout`."""
+        """Backbone + neck + head stems for one frame; the box/cls tails
+        are left to :meth:`_tails`."""
         ctx = C.Ctx(train=train)
         y, backbone = self.backbone.step(
             x.to(self.compute_dtype), state["backbone"], ctx
@@ -271,32 +272,69 @@ class SODa(nn.Module):
             base_outs.append(base_out)
         return tuple(base_outs), new_state
 
-    def _neck_heads_step(self, y: torch.Tensor, state,
-                         train: bool = False) -> Tuple[tuple, Dict]:
-        return self._neck_heads(y, state, C.Ctx(train=train))
+    def _step_out(self, x: torch.Tensor, state,
+                  train: bool = False) -> Tuple[tuple, Dict]:
+        """One frame of the per-step schedule: the stem activations when
+        the tails are light (they run after the last step), else the
+        predictions, with the tails' state; and the new state."""
+        base_outs, state = self._trunk(x, state, train)
+        if self.head_tails_light:
+            return base_outs, state
+        return self._tails(base_outs, state, C.Ctx(train=train))
 
-    def _zero_stems(self, batch: int, device) -> tuple:
-        """The stem activations a forward that runs no step reads out."""
+    def _neck_heads_out(self, y: torch.Tensor, state,
+                        train: bool = False) -> Tuple[tuple, Dict]:
+        """:meth:`_step_out` for the neck and heads of
+        :meth:`forward_hybrid` on one backbone output."""
+        ctx = C.Ctx(train=train)
+        base_outs, state = self._neck_heads(y, state, ctx)
+        if self.head_tails_light:
+            return base_outs, state
+        return self._tails(base_outs, state, C.Ctx(train=train))
+
+    def _zero_out(self, batch: int, device) -> tuple:
+        """What a per-step forward that runs no step reads out: zero stem
+        activations for light tails, else zero predictions."""
+        if not self.head_tails_light:
+            return (torch.zeros((batch, self.num_anchors,
+                                 self.num_classes + 1), device=device),
+                    torch.zeros((batch, self.num_anchors, 4), device=device))
         return tuple(
             torch.zeros((batch, *h["base"].out_hw, h["base"].out_channels),
                         dtype=self.compute_dtype, device=device)
             for h in self.heads()
         )
 
-    def _tail_readout(self, base_outs, state) -> Preds:
-        """Box/cls tails on stem activations, flattened in (h, w,
-        anchor) order and concatenated across scales, fp32."""
-        cls_list, box_list = [], []
+    def _readout(self, out, state) -> Preds:
+        """The predictions of what a per-step forward carried out of its
+        last step (:meth:`_step_out`)."""
+        if self.head_tails_light:
+            return self._tails(out, state, C.Ctx())[0]
+        return out
+
+    def _flatten_preds(self, box_outs, cls_outs) -> Preds:
+        """Tail outputs flattened in (h, w, anchor) order and
+        concatenated across scales, fp32."""
+        b = box_outs[0].shape[0]
+        return (torch.cat([c.reshape(b, -1, self.num_classes + 1).float()
+                           for c in cls_outs], dim=1),
+                torch.cat([o.reshape(b, -1, 4).float() for o in box_outs],
+                          dim=1))
+
+    def _tails(self, base_outs, state, ctx: C.Ctx) -> Tuple[Preds, Dict]:
+        """Box/cls tails of one step on the stem activations: the
+        predictions, and the state with the tails' new state (light
+        tails leave it as it is)."""
+        box_outs, cls_outs = [], []
+        state = dict(state)
         for idx, (head, base_out) in enumerate(zip(self.heads(), base_outs)):
-            hst, ctx = state[f"head{idx}"], C.Ctx()
-            box_out, _ = head["box"].step(base_out, hst["box"], ctx)
-            cls_out, _ = head["cls"].step(base_out, hst["cls"], ctx)
-            b = box_out.shape[0]
-            box_list.append(box_out.reshape(b, -1, 4).float())
-            cls_list.append(
-                cls_out.reshape(b, -1, self.num_classes + 1).float()
-            )
-        return torch.cat(cls_list, dim=1), torch.cat(box_list, dim=1)
+            hst = dict(state[f"head{idx}"])
+            box_out, hst["box"] = head["box"].step(base_out, hst["box"], ctx)
+            cls_out, hst["cls"] = head["cls"].step(base_out, hst["cls"], ctx)
+            state[f"head{idx}"] = hst
+            box_outs.append(box_out)
+            cls_outs.append(cls_out)
+        return self._flatten_preds(box_outs, cls_outs), state
 
     # ----- forwards -----
 
@@ -307,7 +345,7 @@ class SODa(nn.Module):
         if state is None:
             state = self.init_state(x.shape[0])
         base_outs, state = self._trunk(x, state)
-        return self._tail_readout(base_outs, state), state
+        return self._tails(base_outs, state, C.Ctx())
 
     def commit_stats(self, state) -> Dict:
         """Write the running statistics a train forward carried in
@@ -320,7 +358,8 @@ class SODa(nn.Module):
         state["neck"] = C.commit_norm_stats(self.neck, state["neck"])
         for idx, head in enumerate(self.heads()):
             hst = dict(state[f"head{idx}"])
-            hst["base"] = C.commit_norm_stats(head["base"], hst["base"])
+            for part in ("base", "box", "cls"):
+                hst[part] = C.commit_norm_stats(head[part], hst[part])
             state[f"head{idx}"] = hst
         return state
 
@@ -336,14 +375,15 @@ class SODa(nn.Module):
         if state is None:
             state = self.init_state(B)
         with contextlib.nullcontext() if train else torch.no_grad():
-            base_outs = self._zero_stems(B, X.device)
+            out = self._zero_out(B, X.device)
             for t in range(max(int(start_step), 0), T):
                 if train and self.remat:
-                    base_outs, state = checkpoint(
-                        self._trunk, X[t], state, True, use_reentrant=False)
+                    out, state = checkpoint(
+                        self._step_out, X[t], state, True,
+                        use_reentrant=False)
                 else:
-                    base_outs, state = self._trunk(X[t], state, train)
-            preds = self._tail_readout(base_outs, state)
+                    out, state = self._step_out(X[t], state, train)
+            preds = self._readout(out, state)
         if train:
             state = self.commit_stats(state)
         return preds, state
@@ -383,16 +423,27 @@ class SODa(nn.Module):
                 X.to(self.compute_dtype), state["backbone"], ctx
             )
             _, new_state["neck"] = self.neck.seq(y, state["neck"], ctx)
-            base_outs = []
+            base_outs, box_outs, cls_outs = [], [], []
             for idx, (head, fmap_seq) in enumerate(
                     zip(self.heads(), ctx.taps)):
-                hst = state[f"head{idx}"]
-                base_seq, nst = head["base"].seq(fmap_seq, hst["base"], ctx)
-                new_state[f"head{idx}"] = {
-                    "base": nst, "box": hst["box"], "cls": hst["cls"]
-                }
-                base_outs.append(base_seq[-1])
-            preds = self._tail_readout(base_outs, new_state)
+                hst = dict(state[f"head{idx}"])
+                base_seq, hst["base"] = head["base"].seq(
+                    fmap_seq, hst["base"], ctx)
+                if self.head_tails_light:
+                    base_outs.append(base_seq[-1])
+                else:
+                    # tails with state or statistics: every step
+                    box_seq, hst["box"] = head["box"].seq(
+                        base_seq, hst["box"], ctx)
+                    cls_seq, hst["cls"] = head["cls"].seq(
+                        base_seq, hst["cls"], ctx)
+                    box_outs.append(box_seq[-1])
+                    cls_outs.append(cls_seq[-1])
+                new_state[f"head{idx}"] = hst
+            if self.head_tails_light:
+                preds = self._readout(tuple(base_outs), new_state)
+            else:
+                preds = self._flatten_preds(box_outs, cls_outs)
         if train:
             new_state = self.commit_stats(new_state)
         return preds, new_state
@@ -420,17 +471,16 @@ class SODa(nn.Module):
                 X.to(self.compute_dtype), state["backbone"], ctx
             )
             rest = {k: v for k, v in state.items() if k != "backbone"}
-            base_outs = self._zero_stems(B, X.device)
+            out = self._zero_out(B, X.device)
             for t in range(max(start_step, 0), T):
                 if remat:
-                    base_outs, rest = checkpoint(
-                        self._neck_heads_step, y_seq[t], rest, True,
+                    out, rest = checkpoint(
+                        self._neck_heads_out, y_seq[t], rest, True,
                         use_reentrant=False)
                 else:
-                    base_outs, rest = self._neck_heads_step(y_seq[t], rest,
-                                                            train)
+                    out, rest = self._neck_heads_out(y_seq[t], rest, train)
             new_state = {"backbone": backbone, **rest}
-            preds = self._tail_readout(base_outs, new_state)
+            preds = self._readout(out, new_state)
         if train:
             new_state = self.commit_stats(new_state)
         return preds, new_state

@@ -27,6 +27,8 @@ from snn_for_object_detection_tpu_torch.ops import cuda_build, neurons
 LAUNCHES: Dict[str, int] = {
     "temporal_cell_seq": 0,
     "temporal_cell_seq_bwd": 0,
+    "plif_cell_seq": 0,
+    "plif_cell_seq_bwd": 0,
     "spiking_conv_seq": 0,
     "fused_pointwise_conv_bn_lif": 0,
     "streaming_megakernel": 0,
@@ -45,8 +47,24 @@ def reset_launches() -> None:
 
 
 def _temporal_lib(name: str = "temporal_cell_seq_launch"):
-    fn = getattr(cuda_build.load("temporal_cell.cu"), name)
-    if fn.argtypes is None:
+    # PLIF's entry points are plif_cell.cu's, LIF's and LI's
+    # temporal_cell.cu's (one header of kernels, two sources built at once)
+    source = "plif_cell.cu" if name.startswith("plif") else "temporal_cell.cu"
+    fn = getattr(cuda_build.load(source), name)
+    if fn.argtypes is None and name.startswith("plif"):
+        fn.argtypes = {
+            # 6 pointers, cm, cs; T, M; C, start, x and state type codes
+            "plif_cell_seq_launch": [ctypes.c_void_p] * 8
+            + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4,
+            # 10 pointers, cm, cs, gcm, gcs; T, M; C, start, x and state
+            # type codes; alpha; chunk, threads, vec, smem
+            "plif_cell_seq_bwd_launch": [ctypes.c_void_p] * 14
+            + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
+            + [ctypes.c_float] + [ctypes.c_int] * 4,
+            "plif_cell_bwd_regs": [ctypes.c_int] * 3,
+        }[name] + ([] if name == "plif_cell_bwd_regs" else [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    elif fn.argtypes is None:
         # pointers (6 forward, 10 backward); T, M; start, cell, x and
         # state type codes; c_mem, c_syn (and alpha; then the backward's
         # plan: chunk, threads, vec, smem); stream
@@ -164,6 +182,13 @@ def temporal_cell_seq_reference(
     """
     _check_cell_args(x_seq, v0, i0, cell)
     step = neurons.lif_step if cell == "lif" else neurons.li_step
+    return _cell_loop(step, x_seq, v0, i0, start)
+
+
+def _cell_loop(step, x_seq, v0, i0, start):
+    """The plain versions' time loop: ``step(x_t, (v, i))`` in fp32, the
+    state through :class:`_StoreRound` into and out of every step, held
+    for ``t < start``."""
     sd = v0.dtype
     v, i = v0.float(), i0.float()
     z = []
@@ -299,7 +324,8 @@ def cell_bwd_plans(T: int, m: int, x_dtype: torch.dtype,
     return plans
 
 
-def _cell_bwd_cost(plan: CellBwdPlan, T: int, m: int, x_bytes: int) -> float:
+def _cell_bwd_cost(plan: CellBwdPlan, T: int, m: int, x_bytes: int,
+                   regs: Optional[int] = None) -> float:
     """Relative time of a plan, fitted to every plan's time at
     ``chip_smoke.py`` [10]'s two T = 42 shapes on the H100
     (``scripts/cell_bwd_ab.py plans``; PERF.md): the bytes it
@@ -308,13 +334,16 @@ def _cell_bwd_cost(plan: CellBwdPlan, T: int, m: int, x_bytes: int) -> float:
     slowed in proportion where an SM holds fewer than 3 warps for each
     element a thread (12 warps with fp32 x, 24 with bf16 x: a thread's
     math grows with its elements, its bytes do not). The warps an SM
-    are the CTAs that fit its registers, shared memory and threads."""
+    are the CTAs that fit its registers (``regs`` a thread, default
+    LIF's kernel's), shared memory and threads."""
     width = 16 // x_bytes if plan.vec else 1
     chunks = -(-T // plan.chunk)
     nbytes = m * x_bytes * (T + (chunks - 1) * plan.chunk + 2 * T)
     if not plan.shared:
         nbytes += 2 * plan.ckpt_bytes
-    regs = -(-cell_bwd_regs(plan.chunk, width) // 8) * 8
+    if regs is None:
+        regs = cell_bwd_regs(plan.chunk, width)
+    regs = -(-regs // 8) * 8
     ctas = min(65536 // (regs * plan.threads), 2048 // plan.threads,
                CELL_BWD_SM_SMEM // (plan.smem + CELL_BWD_CTA_RESERVED))
     warps = ctas * plan.threads // 32
@@ -453,6 +482,222 @@ def temporal_cell_seq(
     if x_seq.device.type != "cuda":
         raise ValueError(f"unsupported device {x_seq.device}")
     return _TemporalCellSeq.apply(x_seq, v0, i0, cell, int(start))
+
+
+# ---- PLIF: the LIF kernels with per-channel factors ----
+
+
+def _check_plif_args(x_seq, v0, i0, c_mem, c_syn):
+    _check_cell_args(x_seq, v0, i0, "lif")
+    ch = v0.shape[-1] if v0.dim() else 0
+    for name, c in (("c_mem", c_mem), ("c_syn", c_syn)):
+        if c.dtype != torch.float32 or tuple(c.shape) != (ch,):
+            raise ValueError(f"{name} must be fp32 [{ch}] (the state's "
+                             f"trailing axis), not {c.dtype} "
+                             f"{tuple(c.shape)}")
+        if c.device != x_seq.device:
+            raise ValueError(f"{name} on {c.device}, x_seq on "
+                             f"{x_seq.device}")
+
+
+def plif_cell_seq_reference(
+    x_seq: torch.Tensor, v0: torch.Tensor, i0: torch.Tensor,
+    c_mem: torch.Tensor, c_syn: torch.Tensor, start: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`plif_cell_seq`: a loop over T of
+    ``neurons.plif_step_factors`` in fp32 with the state stored in its
+    dtype and frozen for ``t < start``, exactly as
+    :func:`temporal_cell_seq_reference` runs LIF. Autograd through it is
+    the plain version of the backward kernel, the factors' gradients
+    included (each step's summed over the batch by ``neurons.fma``'s
+    backward, then across steps)."""
+    _check_plif_args(x_seq, v0, i0, c_mem, c_syn)
+    return _cell_loop(
+        lambda x, st: neurons.plif_step_factors(x, st, c_mem, c_syn),
+        x_seq, v0, i0, start)
+
+
+def _launch_plif_forward(x_seq, v0, i0, c_mem, c_syn, start):
+    _require_contiguous(x_seq=x_seq, v0=v0, i0=i0, c_mem=c_mem, c_syn=c_syn)
+    z = torch.empty_like(x_seq)
+    v_t = torch.empty_like(v0)
+    i_t = torch.empty_like(i0)
+    with torch.cuda.device(x_seq.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _temporal_lib("plif_cell_seq_launch")(
+            x_seq.data_ptr(), v0.data_ptr(), i0.data_ptr(),
+            z.data_ptr(), v_t.data_ptr(), i_t.data_ptr(),
+            c_mem.data_ptr(), c_syn.data_ptr(), x_seq.shape[0], v0.numel(),
+            v0.shape[-1], int(start), _CODES[x_seq.dtype], _CODES[v0.dtype],
+            stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"plif_cell_seq launch failed (code {rc})")
+    LAUNCHES["plif_cell_seq"] += 1
+    return z, v_t, i_t
+
+
+# the chunk plif_cell.cu builds for PLIF's chunked backward, by elements a
+# thread (its plif_chunk): a thread keeps each step's entering (v, i),
+# twice LIF's s values, so the chunks are shorter than LIF's
+PLIF_BWD_CHUNK = {1: 8, 4: 4, 8: 2}
+# registers a thread of PLIF's chunked kernels take, by elements a thread
+# (fp32 x: 1 or 4, bf16 x: 1 or 8): what the H100 reported
+# (``plif_cell_bwd_regs``, chip_smoke.py [14], CUDA 12.8), the most over
+# the state types
+_PLIF_BWD_REGS_SEEN = {1: 78, 4: 150, 8: 185}
+
+
+def plif_bwd_regs_on_card(x_dtype: torch.dtype, state_dtype: torch.dtype,
+                          vec: bool) -> int:
+    """Registers a thread of PLIF's chunked backward takes, as the card's
+    ``cudaFuncGetAttributes`` reports them (builds the source)."""
+    regs = _temporal_lib("plif_cell_bwd_regs")(
+        _CODES[x_dtype], _CODES[state_dtype], int(vec))
+    if regs < 0:
+        raise RuntimeError("plif_cell_bwd_regs failed")
+    return regs
+
+
+@functools.lru_cache(maxsize=256)
+def plif_bwd_plan(T: int, m: int, x_dtype: torch.dtype,
+                  state_dtype: torch.dtype, vec: bool = True) -> CellBwdPlan:
+    """The launch plan of PLIF's backward over ``T >= 2`` steps of ``m``
+    elements: the chunk its width is built with (``PLIF_BWD_CHUNK``),
+    and of 256 or 128 threads with the checkpoints in shared or global
+    memory the one of least :func:`_cell_bwd_cost` (LIF's model, with
+    PLIF's registers). The plan never changes results."""
+    if T < 2:
+        raise ValueError(f"T = {T}: the chunked backward runs T >= 2")
+    width = 16 // x_dtype.itemsize if vec and m % (16 // x_dtype.itemsize) \
+        == 0 else 1
+    chunk = PLIF_BWD_CHUNK[width]
+    plans = []
+    for threads, shared in itertools.product(CELL_BWD_THREADS, (True, False)):
+        plan = cell_bwd_plan_of(T, m, x_dtype, state_dtype, chunk, threads,
+                                shared, vec)
+        if plan.smem <= CELL_BWD_MAX_SMEM and plan not in plans:
+            plans.append(plan)
+    return min(plans, key=lambda p: _cell_bwd_cost(
+        p, T, m, x_dtype.itemsize, _PLIF_BWD_REGS_SEEN[width]))
+
+
+def plif_cell_seq_bwd(
+    x_seq: torch.Tensor, v0: torch.Tensor, i0: torch.Tensor,
+    c_mem: torch.Tensor, c_syn: torch.Tensor, gz: torch.Tensor,
+    gv: torch.Tensor, gi: torch.Tensor, start: int = 0,
+    plan: Optional[CellBwdPlan] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """The VJP of :func:`plif_cell_seq` on the card: ``(gx, gv0, gi0,
+    gcm, gcs)``, the last two each element's fp32 sum over t of the
+    cotangents of its channel's ``c_mem`` and of ``-c_syn`` (``[*state]``;
+    :class:`_PLIFCellSeq` sums them to ``[C]``). One launch of
+    ``csrc/plif_cell.cu``'s backward: the chunked kernel at T >= 2
+    under ``plan`` (default :func:`plif_bwd_plan`), the single pass at
+    T <= 1."""
+    _check_plif_args(x_seq, v0, i0, c_mem, c_syn)
+    if x_seq.device.type != "cuda":
+        raise ValueError("the backward kernel takes CUDA tensors, not "
+                         f"{x_seq.device}")
+    if (gz.shape, gz.dtype) != (x_seq.shape, x_seq.dtype) or any(
+            (g.shape, g.dtype) != (v0.shape, v0.dtype) for g in (gv, gi)):
+        raise ValueError("cotangents must match (z_seq, v_T, i_T) in shape "
+                         "and dtype")
+    _require_contiguous(x_seq=x_seq, v0=v0, i0=i0, c_mem=c_mem, c_syn=c_syn)
+    gz, gv, gi = gz.contiguous(), gv.contiguous(), gi.contiguous()
+    T, m = x_seq.shape[0], v0.numel()
+    gx = torch.empty_like(x_seq)
+    gv0 = torch.empty_like(v0)
+    gi0 = torch.empty_like(i0)
+    gcm = torch.empty(v0.shape, dtype=torch.float32, device=v0.device)
+    gcs = torch.empty_like(gcm)
+    vec = _bwd_vec(x_seq, v0, (x_seq, gz, gx),
+                   (v0, i0, gv, gi, gv0, gi0)) and all(
+        g.data_ptr() % (4 * 16 // x_seq.element_size()) == 0
+        for g in (gcm, gcs))
+    ckpt = None
+    chunk, threads, smem = 0, 256, 0
+    if T >= 2:
+        if plan is None:
+            plan = plif_bwd_plan(T, m, x_seq.dtype, v0.dtype, vec)
+        if plan.vec and not vec:
+            raise ValueError("the plan takes 16-byte loads that these "
+                             "tensors do not allow")
+        if not plan.shared:
+            ckpt = torch.empty((2, plan.rows, m), dtype=v0.dtype,
+                               device=v0.device)
+        chunk, threads, smem, vec = (plan.chunk, plan.threads, plan.smem,
+                                     plan.vec)
+    with torch.cuda.device(x_seq.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _temporal_lib("plif_cell_seq_bwd_launch")(
+            x_seq.data_ptr(), v0.data_ptr(), i0.data_ptr(), gz.data_ptr(),
+            gv.data_ptr(), gi.data_ptr(), gx.data_ptr(), gv0.data_ptr(),
+            gi0.data_ptr(), None if ckpt is None else ckpt.data_ptr(),
+            c_mem.data_ptr(), c_syn.data_ptr(), gcm.data_ptr(),
+            gcs.data_ptr(), T, m, v0.shape[-1], int(start),
+            _CODES[x_seq.dtype], _CODES[v0.dtype], neurons.LIFParams().alpha,
+            chunk, threads, int(vec), smem, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"plif_cell_seq_bwd launch failed (code {rc})")
+    LAUNCHES["plif_cell_seq_bwd"] += 1
+    return gx, gv0, gi0, gcm, gcs
+
+
+def plif_factor_grads(gcm: torch.Tensor, gcs: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``[C]`` gradients of ``(c_mem, c_syn)`` from the backward
+    kernel's per-element sums: one ``torch.sum`` over the rows (a fixed
+    order), ``c_syn``'s negated (the kernel sums the cotangent of
+    ``-c_syn``)."""
+    ch = gcm.shape[-1]
+    return gcm.reshape(-1, ch).sum(0), -gcs.reshape(-1, ch).sum(0)
+
+
+class _PLIFCellSeq(torch.autograd.Function):
+    """PLIF's forward kernel, and the backward kernel for its VJP. Saves
+    ``(x_seq, v0, i0, c_mem, c_syn)`` and the start: the backward
+    recomputes the states."""
+
+    @staticmethod
+    def forward(ctx, x_seq, v0, i0, c_mem, c_syn, start):
+        ctx.start = start
+        ctx.save_for_backward(x_seq, v0, i0, c_mem, c_syn)
+        return _launch_plif_forward(x_seq, v0, i0, c_mem, c_syn, start)
+
+    @staticmethod
+    def backward(ctx, gz, gv, gi):
+        x_seq, v0, i0, c_mem, c_syn = ctx.saved_tensors
+        gx, gv0, gi0, gcm, gcs = plif_cell_seq_bwd(
+            x_seq, v0, i0, c_mem, c_syn, gz, gv, gi, ctx.start)
+        return (gx, gv0, gi0, *plif_factor_grads(gcm, gcs), None)
+
+
+def plif_cell_seq(
+    x_seq: torch.Tensor, v0: torch.Tensor, i0: torch.Tensor,
+    c_mem: torch.Tensor, c_syn: torch.Tensor, start: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Whole-layer PLIF over T steps: ``(z_seq, v_T, i_T)``, LIF with the
+    per-channel Euler factors ``c_mem`` and ``c_syn`` (fp32 ``[C]``,
+    ``dt * softplus(raw)`` of the layer's learnable time constants, for
+    the trailing axis of the state).
+
+    Arguments and outputs as :func:`temporal_cell_seq`. On a CPU tensor
+    this is :func:`plif_cell_seq_reference`, and autograd runs through
+    it. On a CUDA tensor it launches ``csrc/plif_cell.cu`` (the PLIF
+    form of the cell kernels) on the current stream or raises, and its
+    gradient, the
+    factors' included, is one launch of the backward kernel
+    (:func:`plif_cell_seq_bwd`) and a sum over rows.
+    """
+    _check_plif_args(x_seq, v0, i0, c_mem, c_syn)
+    if x_seq.device.type == "cpu":
+        return plif_cell_seq_reference(x_seq, v0, i0, c_mem, c_syn, start)
+    if x_seq.device.type != "cuda":
+        raise ValueError(f"unsupported device {x_seq.device}")
+    return _PLIFCellSeq.apply(x_seq, v0, i0, c_mem.contiguous(),
+                              c_syn.contiguous(), int(start))
 
 
 @contextlib.contextmanager

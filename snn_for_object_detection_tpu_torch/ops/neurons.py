@@ -1,12 +1,13 @@
-"""LIF / LI neuron cells as plain PyTorch functions.
+"""Neuron cells as plain PyTorch functions.
 
 Counterpart of ``snn_for_object_detection_tpu/ops/neurons.py``: the same
 norse cell semantics, ``step(x, state) -> (out, new_state)`` on tensors
-of any shape, Euler integration with ``dt = 1e-3``. These are the plain
-versions of the math that ``ops/cuda_kernels.temporal_cell_seq`` runs on
-the card. The spike is :func:`superspike`: a hard threshold forward and
-the SuperSpike surrogate gradient backward; the PLIF/ALIF/SLI/Synapse
-cells are not ported.
+of any shape, Euler integration with ``dt = 1e-3``. LIF, LI and PLIF are
+the plain versions of the math that ``ops/cuda_kernels.temporal_cell_seq``
+and ``plif_cell_seq`` run on the card; ALIF, SLI and Synapse run as they
+are written here, on the CPU and on the card. The spike is
+:func:`superspike`: a hard threshold forward and the SuperSpike
+surrogate gradient backward.
 
 Rounding. The JAX package computes ``v + dt*tau*(...)`` with a Python
 float factor, so the factor is the double product rounded once to fp32
@@ -19,6 +20,7 @@ with the CUDA kernel, which uses ``__fmaf_rn`` at the same places.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple, Tuple
 
 import torch
@@ -195,3 +197,209 @@ def li_step(
     v_new = fma((p.v_leak - v) + i_jump, c_mem, v)
     i_dec = fma(i_jump, -c_syn, i_jump)
     return v_new, LIState(v_new, i_dec)
+
+
+def _f32(value: float) -> float:
+    """A Python float rounded to fp32, as JAX rounds a weak-typed
+    scalar."""
+    return torch.tensor(value, dtype=torch.float32).item()
+
+
+# ---- PLIF: LIF with learnable per-channel time constants ----
+
+
+class PLIFParams(NamedTuple):
+    """Trainable per-channel inverse time constants, positive through
+    softplus at apply time."""
+
+    raw_tau_syn: torch.Tensor  # softplus(raw) = tau_syn_inv
+    raw_tau_mem: torch.Tensor
+
+
+def _inv_softplus(y: float) -> float:
+    return math.log(math.expm1(y))
+
+
+def plif_params_init(channels: int, tau_syn_inv: float = 1.0 / 5e-3,
+                     tau_mem_inv: float = 1.0 / 1e-2,
+                     device="cpu") -> PLIFParams:
+    """Raw parameters whose softplus is the LIF defaults."""
+    return PLIFParams(
+        raw_tau_syn=torch.full((channels,), _inv_softplus(tau_syn_inv),
+                               dtype=torch.float32, device=device),
+        raw_tau_mem=torch.full((channels,), _inv_softplus(tau_mem_inv),
+                               dtype=torch.float32, device=device),
+    )
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + exp(x))`` as JAX's ``jax.nn.softplus``
+    (``logaddexp(x, 0)``)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def plif_factors(learn: PLIFParams, p: LIFParams = LIFParams()
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(c_mem, c_syn)``: the fp32 ``[C]`` Euler factors ``dt *
+    softplus(raw)``, computed before they multiply the state (JAX's
+    ``p.dt * tau_mem_inv * (...)`` evaluates left to right)."""
+    return (p.dt * softplus(learn.raw_tau_mem),
+            p.dt * softplus(learn.raw_tau_syn))
+
+
+def plif_step_factors(
+    x: torch.Tensor, state: LIFState, c_mem: torch.Tensor,
+    c_syn: torch.Tensor, p: LIFParams = LIFParams(),
+) -> Tuple[torch.Tensor, LIFState]:
+    """:func:`lif_step` with the per-channel factors ``c_mem``, ``c_syn``
+    (fp32 ``[C]``, broadcast along the trailing axis) in place of LIF's
+    constants: the same ops in the same order."""
+    v, i = state
+    v_dec = fma((p.v_leak - v) + i, c_mem, v)
+    i_dec = fma(i, -c_syn, i)
+    z = superspike(v_dec - p.v_th, p.alpha)
+    v_new = torch.where(z.detach() != 0, torch.full_like(v_dec, p.v_reset),
+                        v_dec)
+    return z, LIFState(v_new, i_dec + x)
+
+
+def plif_step(
+    x: torch.Tensor, state: LIFState, learn: PLIFParams,
+    p: LIFParams = LIFParams(),
+) -> Tuple[torch.Tensor, LIFState]:
+    """LIF dynamics with learnable per-channel decay rates (channels on
+    the trailing axis, NHWC), fp32."""
+    return plif_step_factors(x, state, *plif_factors(learn, p), p)
+
+
+# ---- ALIF: adaptive-threshold LIF ----
+
+
+@dataclasses.dataclass(frozen=True)
+class ALIFParams:
+    tau_syn_inv: float = 1.0 / 5e-3
+    tau_mem_inv: float = 1.0 / 1e-2
+    tau_adapt_inv: float = 1.0 / 1e-1
+    beta: float = 0.2  # threshold jump per spike
+    v_leak: float = 0.0
+    v_th: float = 1.0
+    v_reset: float = 0.0
+    alpha: float = 100.0
+    dt: float = 1e-3
+
+
+class ALIFState(NamedTuple):
+    v: torch.Tensor
+    i: torch.Tensor
+    b: torch.Tensor  # adaptive threshold offset
+
+
+def alif_init(shape, dtype=torch.float32, device="cuda",
+              p: ALIFParams = ALIFParams()) -> ALIFState:
+    return ALIFState(
+        v=torch.full(shape, p.v_leak, dtype=dtype, device=device),
+        i=torch.zeros(shape, dtype=dtype, device=device),
+        b=torch.zeros(shape, dtype=dtype, device=device),
+    )
+
+
+def alif_step(
+    x: torch.Tensor, state: ALIFState, p: ALIFParams = ALIFParams()
+) -> Tuple[torch.Tensor, ALIFState]:
+    """LIF whose threshold ``v_th + b`` rises by ``beta`` a spike and
+    decays at ``tau_adapt_inv``, fp32. The spike's gradient reaches
+    ``v_dec`` and ``b_dec``; the reset and the jump carry none."""
+    v, i, b = state
+    c_mem, c_syn = euler_factors(p)
+    c_adapt = _f32(p.dt * p.tau_adapt_inv)
+    v_dec = fma((p.v_leak - v) + i, c_mem, v)
+    i_dec = fma(i, -c_syn, i)
+    b_dec = fma(b, -c_adapt, b)
+    z = superspike(v_dec - (p.v_th + b_dec), p.alpha)
+    zs = z.detach()
+    v_new = torch.where(zs != 0, torch.full_like(v_dec, p.v_reset), v_dec)
+    b_new = b_dec + _f32(p.beta) * zs
+    return z, ALIFState(v_new, i_dec + x, b_new)
+
+
+# ---- SLI: saturable leaky integrator ----
+
+
+@dataclasses.dataclass(frozen=True)
+class SLIParams:
+    tau_syn_inv: float = 1.0 / 5e-3
+    tau_mem_inv: float = 1.0 / 1e-2
+    v_leak: float = 0.0
+    v_st: float = 1.0
+    dt: float = 1e-3
+
+
+class SLIState(NamedTuple):
+    v: torch.Tensor
+    i: torch.Tensor
+
+
+def sli_init(shape, dtype=torch.float32, device="cuda",
+             p: SLIParams = SLIParams()) -> SLIState:
+    return SLIState(
+        v=torch.full(shape, p.v_leak, dtype=dtype, device=device),
+        i=torch.zeros(shape, dtype=dtype, device=device),
+    )
+
+
+def sli_step(
+    x: torch.Tensor, state: SLIState, p: SLIParams = SLIParams()
+) -> Tuple[torch.Tensor, SLIState]:
+    """LI whose input is gated by ``sigmoid(v_st - |v|)``, so the
+    membrane saturates at about ``v_st``; output is the membrane, fp32."""
+    v, i = state
+    c_mem, c_syn = euler_factors(p)
+    i_jump = fma(x, torch.sigmoid(p.v_st - v.abs()), i)
+    v_new = fma((p.v_leak - v) + i_jump, c_mem, v)
+    i_dec = fma(i_jump, -c_syn, i_jump)
+    return v_new, SLIState(v_new, i_dec)
+
+
+# ---- Synapse: mediator-concentration transmission ----
+
+
+@dataclasses.dataclass(frozen=True)
+class SynapseParams:
+    tau_med_secretion: float = 1.0 / 1e-3
+    tau_med_dissociation: float = 1.0 / 5e-3
+    sigma_inhibition: float = 0.0
+    dt: float = 1e-3
+
+    def __post_init__(self):
+        if self.sigma_inhibition != 0 and self.sigma_inhibition < 0.5:
+            raise ValueError(
+                "Valid values for sigma_inhibition are 0 or >= 0.5, got "
+                f"{self.sigma_inhibition}"
+            )
+
+
+class SynapseState(NamedTuple):
+    p: torch.Tensor
+
+
+def synapse_init(shape, dtype=torch.float32, device="cuda",
+                 p: SynapseParams = SynapseParams()) -> SynapseState:
+    return SynapseState(p=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def synapse_step(
+    x: torch.Tensor, state: SynapseState, p: SynapseParams = SynapseParams()
+) -> Tuple[torch.Tensor, SynapseState]:
+    """The mediator concentration relaxes toward the input, at the
+    secretion rate where the input is positive and the dissociation rate
+    elsewhere; with ``sigma_inhibition >= 0.5`` a parabolic inhibition
+    ``4 s (p - s p^2)``. The output is clipped at 0 (``maximum``: a tie
+    passes half the gradient, as JAX's), fp32."""
+    tau = torch.where(x > 0, _f32(p.tau_med_secretion),
+                      _f32(p.tau_med_dissociation))
+    p_new = fma((x - state.p) * tau, _f32(p.dt), state.p)
+    g = p_new
+    if p.sigma_inhibition != 0:
+        s = _f32(p.sigma_inhibition)
+        g = _f32(4.0 * p.sigma_inhibition) * fma(p_new * p_new, -s, p_new)
+    return torch.maximum(g, torch.zeros_like(g)), SynapseState(p_new)

@@ -43,8 +43,6 @@ PORT_PACKAGE = "snn_for_object_detection_tpu_torch."
 # class paths of the JAX package the port has no counterpart for yet,
 # with the ROADMAP item that ports them
 NOT_PORTED = {
-    "models.VggSNN": "other leaves",
-    "models.YoloSNN": "other leaves",
     "utils.Plotter": "the rest",
     "train.TensorBoardLogger": "training extras",
     "train.CSVLogger": "training extras",

@@ -232,8 +232,6 @@ NARROW = "--model.class_path=test_torch_detector.PNarrow"
 
 @pytest.mark.parametrize("argv,item", [
     (["fit", "--config", "config/config.yaml", "--config",
-      "config/vgg.yaml"], "other leaves"),
-    (["fit", "--config", "config/config.yaml", "--config",
       "config/logger.yaml", NARROW], "training extras"),
     (["fit", NARROW], "training extras"),  # main.py's defaults: logger.yaml
     (["fit", "--distributed"], "the rest"),
@@ -245,6 +243,17 @@ def test_configs_not_ported_raise_with_their_item(monkeypatch, tmp_path,
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
         cli.main([*argv, "--device", "cpu",
                   f"--trainer.out_dir={tmp_path}/run"])
+
+
+@pytest.mark.parametrize("overlay,cls", [("vgg.yaml", "VggSNN")])
+def test_configs_of_the_zoo_build_their_model(monkeypatch, overlay, cls):
+    """``config/vgg.yaml`` builds the port's model (PLIF VggSNN at GEN1
+    width); tests/test_torch_zoo.py runs ``fit`` and ``test`` on it."""
+    monkeypatch.chdir(REPO)
+    cfg = cli.load_config(["config/config.yaml", f"config/{overlay}"])
+    model, _, _ = cli.build(cfg, "cpu")
+    assert type(model).__name__ == cls
+    assert (model.neuron, model.widths) == ("plif", (64, 128, 256))
 
 
 def test_cli_refuses_what_it_has_no_counterpart_for(monkeypatch, tmp_path):

@@ -23,7 +23,7 @@ import yaml
 
 from snn_for_object_detection_tpu.utils import config as jconfig
 from snn_for_object_detection_tpu_torch.data import PropheseeDataModule
-from snn_for_object_detection_tpu_torch.models import TinyYolo
+from snn_for_object_detection_tpu_torch.models import TinyYolo, VggSNN, YoloSNN
 from snn_for_object_detection_tpu_torch.utils import config
 from snn_for_object_detection_tpu_torch.utils.config import (
     ConfigSyntaxError,
@@ -233,8 +233,6 @@ def test_class_paths_of_the_jax_package_name_the_port():
 
 
 @pytest.mark.parametrize("path,item", [
-    ("models.VggSNN", "other leaves"),
-    ("models.YoloSNN", "other leaves"),
     ("utils.Plotter", "the rest"),
     ("train.TensorBoardLogger", "training extras"),
     ("train.CSVLogger", "training extras"),
@@ -243,6 +241,21 @@ def test_classes_not_ported_raise_with_their_item(path, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
         config.instantiate(
             {"class_path": f"snn_for_object_detection_tpu.{path}"})
+
+
+@pytest.mark.parametrize("path,init_args,cls", [
+    ("models.VggSNN", {"num_classes": 2, "in_hw": [32, 40],
+                       "neuron": "plif", "widths": [8, 12, 16]}, VggSNN),
+    ("models.YoloSNN", {"num_classes": 2, "in_hw": [32, 40],
+                        "scale": "tiny"}, YoloSNN),
+])
+def test_zoo_classes_instantiate(path, init_args, cls):
+    """The JAX package's model zoo class paths name the port's classes
+    (the model zoo is ported)."""
+    model = config.instantiate(
+        {"class_path": f"snn_for_object_detection_tpu.{path}",
+         "init_args": init_args}, device="cpu")
+    assert type(model) is cls
 
 
 @pytest.mark.parametrize("overlay,dtypes", [

@@ -61,6 +61,75 @@ def test_temporal_cell_matches_plain_version(card, cell, x_dtype,
                                            atol=0, equal_nan=True)
 
 
+def _plif_factors(ch, seed=3):
+    """Per-channel factors of raw time constants spread around their
+    init, on the card."""
+    from snn_for_object_detection_tpu_torch.ops import neurons
+
+    rng = np.random.default_rng(seed)
+    init = neurons.plif_params_init(ch)
+    raw = neurons.PLIFParams(*(
+        (p + torch.from_numpy(rng.normal(0, sd, ch).astype(np.float32)))
+        .cuda() for p, sd in zip(init, (40.0, 20.0))))
+    return neurons.plif_factors(raw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype,state_dtype", DTYPE_PAIRS)
+def test_plif_cell_matches_plain_version(card, x_dtype, state_dtype):
+    """PLIF's forward bit-equal to ``plif_cell_seq_reference`` (the
+    vector path and the scalar one, with and without truncation); its
+    backward under every plan the source builds for the width (threads,
+    checkpoints shared or global) and at T = 1: gx, gv0, gi0 bit-equal
+    to autograd through the plain version, the [C] factor gradients
+    within 1e-4 of the largest (another order of sums)."""
+    for shape in ((9, 3, 7, 5, 24), (5, 1, 3, 5, 7)):
+        x, v0, i0 = _inputs(shape, x_dtype, state_dtype)
+        c_mem, c_syn = _plif_factors(shape[-1])
+        for start in (0, 4):
+            cuda_kernels.reset_launches()
+            got = cuda_kernels.plif_cell_seq(x, v0, i0, c_mem, c_syn, start)
+            torch.cuda.synchronize()
+            assert cuda_kernels.LAUNCHES["plif_cell_seq"] == 1
+            want = cuda_kernels.plif_cell_seq_reference(x, v0, i0, c_mem,
+                                                        c_syn, start)
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype
+                torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                           atol=0, equal_nan=True)
+        rng = np.random.default_rng(7)
+        gz = torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).cuda().to(x_dtype)
+        gv, gi = (torch.from_numpy(rng.standard_normal(shape[1:]).astype(
+            np.float32)).cuda().to(state_dtype) for _ in range(2))
+        T, m = shape[0], v0.numel()
+        vec = m % (16 // x.element_size()) == 0
+        width = 16 // x.element_size() if vec else 1
+        plans = [cuda_kernels.cell_bwd_plan_of(
+            T, m, x_dtype, state_dtype, cuda_kernels.PLIF_BWD_CHUNK[width],
+            threads, shared, vec)
+            for threads in (256, 128) for shared in (True, False)]
+        # finite states: no input past what e5m2 holds
+        x = x.float().clamp(-30, 30).to(x_dtype)
+        cases = [(x, gz, 3, p) for p in plans] + [
+            (x[:1].contiguous(), gz[:1].contiguous(), 0, None)]
+        for bx, bgz, start, plan in cases:
+            leaves = [a.detach().requires_grad_()
+                      for a in (bx, v0, i0, c_mem, c_syn)]
+            outs = cuda_kernels.plif_cell_seq_reference(*leaves, start)
+            want = torch.autograd.grad(outs, leaves, (bgz, gv, gi))
+            got = cuda_kernels.plif_cell_seq_bwd(bx, v0, i0, c_mem, c_syn,
+                                                 bgz, gv, gi, start, plan)
+            for g, w in zip(got[:3], want[:3]):
+                assert g.dtype == w.dtype
+                torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                           atol=0, equal_nan=True)
+            for g, w in zip(cuda_kernels.plif_factor_grads(*got[3:]),
+                            want[3:]):
+                torch.testing.assert_close(
+                    g, w, rtol=0, atol=1e-4 * float(w.abs().max()))
+
+
 @pytest.mark.cuda
 def test_temporal_cell_rejects_strided_input(card):
     x, v, i = _inputs((4, 2, 6, 8), torch.float32, torch.float32)

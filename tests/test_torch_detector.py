@@ -342,13 +342,30 @@ def test_cuda_model_without_a_card_raises():
 
 
 @pytest.mark.parametrize("leaf", [
-    PS.Pool(kernel_size=3, stride=2), PS.Up(mode="bilinear"), PS.PLIF(),
-    PS.ALIF(), PS.SLI(), PS.Synapse(), PS.LSTM(), PS.Up(mode="bicubic"),
     PS.Conv(8, 3, 2, s2d=True), PS.LIF(state_storage=True),
 ])
 def test_unported_leaves_raise(leaf):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PC.compile_block([PS.Conv(8, 1), leaf], 2, (8, 8))
+
+
+@pytest.mark.parametrize("leaf,layer,out", [
+    (PS.Pool(kernel_size=3, stride=2), "StridedPool", (8, (3, 3))),
+    (PS.Up(mode="bilinear"), "Resize", (8, (16, 16))),
+    (PS.PLIF(), "PLIF", (8, (8, 8))),
+    (PS.ALIF(), "PlainCell", (8, (8, 8))),
+    (PS.SLI(), "PlainCell", (8, (8, 8))),
+    (PS.Synapse(), "PlainCell", (8, (8, 8))),
+    (PS.LSTM(), "ConvLSTM", (8, (8, 8))),
+    (PS.Up(mode="bicubic"), "Resize", (8, (16, 16))),
+])
+def test_zoo_leaves_compile(leaf, layer, out):
+    """The leaves the model zoo needs compile, with JAX's shape
+    inference (tests/test_torch_zoo.py holds their values against
+    JAX's)."""
+    block = PC.compile_block([PS.Conv(8, 1), leaf], 2, (8, 8))
+    assert type(block.b0.l1).__name__ == layer
+    assert (block.out_channels, block.out_hw) == out
 
 
 def test_unported_modes_raise():
@@ -381,7 +398,8 @@ def test_load_jax_params_rejects_missing_and_unused_leaves(narrow):
 
 
 def test_load_jax_params_rejects_int8_weights(narrow):
-    """The int8 PTQ leaves of ops/quantize.py are not ported yet."""
+    """The int8 PTQ leaves of ops/quantize.py are not ported yet
+    (ROADMAP.md Queue 1, "int8 PTQ")."""
     _, params, stats, _, _ = narrow
     pm = PNarrow(num_classes=2, in_hw=HW, device="cpu")
     params = jax.tree.map(lambda a: a, params)  # a copy of the dicts
@@ -390,7 +408,7 @@ def test_load_jax_params_rejects_int8_weights(narrow):
         "w_q": w.astype(np.int8), "w_scale": np.ones(w.shape[-1], np.float32),
         "x_scale": np.float32(1.0),
     }
-    with pytest.raises(NotImplementedError, match="ROADMAP.*other leaves"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*int8 PTQ"):
         load_jax_params(pm, params, stats)
 
 

@@ -134,8 +134,11 @@ def test_cpu_call_counts_no_launch():
         torch.ones(5, 2), torch.ones(2, 8), ones, zeros, torch.zeros(5, 8),
         torch.zeros(5, 8),
     )
+    cuda_kernels.plif_cell_seq(x, torch.zeros(2, 8), torch.zeros(2, 8),
+                               ones * 0.1, ones * 0.2)
     assert cuda_kernels.LAUNCHES == {
         "temporal_cell_seq": 0, "temporal_cell_seq_bwd": 0,
+        "plif_cell_seq": 0, "plif_cell_seq_bwd": 0,
         "spiking_conv_seq": 0, "fused_pointwise_conv_bn_lif": 0,
         "streaming_megakernel": 0,
     }
