@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only 12,13 # [1], the trained net, hybrid,
                                        # "auto" and 1Mpx
     python3 chip_smoke.py --only 14    # [1] and the model zoo
+    python3 chip_smoke.py --only 15    # [1] and the last inference options
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -188,6 +189,31 @@ Phases (any failure raises and the script exits non-zero):
    ``Pool(3, stride=2)`` and a bilinear Up): one eval and one train step
    each, timed; (e) ``YoloSNN(scale="s")``: a train and an eval step,
    then its B=1 megakernel with [8]'s gates and the witness.
+15. the last inference options: (a) every kernel's e4m3-state instance
+   (``float8_e4m3fn``, stored as JAX stores it: NaN with the value's sign
+   past 464) against its plain version, x fp32 and bf16, on inputs where
+   at least 1% of the stored values overflow: the cell forward (LIF, LI;
+   [3]'s shapes), its backward (T = 42 and T = 1; NaN where autograd's
+   is, finite values as [10]), PLIF's forward and backward, three
+   ``spiking_conv_seq`` triples, one pointwise shape and one megakernel
+   frame, the last three with integer weights so that every sum is exact
+   in any order: every output bit-equal (one-byte states as uint8 views,
+   NaN positions and signs included); ms against the bound; (b) TinyYolo
+   with bf16 activations and e4m3 states through [7]'s and [8]'s gates,
+   its eval step's ms beside e5m2 states', and 3 ``Trainer.fit`` steps
+   (time-batched) against the plain cell's; (c) ``s2d_stem=True`` with
+   the stem's weights on a 2^-12 grid (exact sums): per-step and
+   time-batched eval bit-equal to the plain stem, a train step's
+   gradients within a relative L2 of 2e-3, the fused schedule's launches
+   and metrics unchanged; (d) ``forward_with_records`` (B=4, T=12): 22
+   records of [T, ...], the last equal to the returned state, 22 x T cell
+   launches and no plain cell, the backbone's recording sequence form a
+   step at a time, and ``spike_stats`` of the trained net; (e) int8 PTQ
+   of the trained net: ``calibrate`` (4 batches), ``quantize``, the int8
+   convs (``torch._int_mm``) bit-equal to their float64 plain version,
+   ``Trainer.test`` per-step and time-batched (mAP, agreement with the fp
+   net, eval ms), ``StreamingEngine.update_weights`` with the int8
+   params, and the megakernel of the int8 net with [8]'s gates.
 
 Model and data values of [3]-[10], with their source (those phases pass
 them as arguments; [11] reads the YAML files):
@@ -815,19 +841,20 @@ def make_batches(n: int, seed: int):
 
 
 def build_model(TinyYolo, compute_dtype, state_dtype, dev,
-                time_window=TIME_WINDOW, fuse_seq=False, weights=None):
+                time_window=TIME_WINDOW, fuse_seq=False, weights=None, **kw):
     """TinyYolo with seeded random conv weights. BatchNorm gains are set
     to BN_GAIN: at identity gains the untrained net never spikes on
     sparse frames, at 8 its LIF layers fire 0.2-16% of the time.
     ``weights``: a checkpoint payload (``params``, ``stats``) to load
-    instead, e.g. the trained net of [12]."""
+    instead, e.g. the trained net of [12]. ``kw``: more of TinyYolo's
+    arguments ([15]: ``s2d_stem``, ``state_storage``)."""
     import torch
 
     model = TinyYolo(
         num_classes=NUM_CLASSES, in_hw=IN_HW, loss_ratio=LOSS_RATIO,
         time_window=time_window, iou_threshold=IOU,
         compute_dtype=compute_dtype, state_dtype=state_dtype,
-        fuse_seq=fuse_seq, device=dev, seed=0,
+        fuse_seq=fuse_seq, device=dev, seed=0, **kw,
     )
     with torch.no_grad():
         if weights is not None:
@@ -1132,7 +1159,9 @@ def spike_agreements(a, b):
 
 
 def phase_fused_path(torch, cuda_kernels, C, TinyYolo, Trainer, batches,
-                     dev, weights=None, timed=True, net="untrained"):
+                     dev, weights=None, timed=True, net="untrained",
+                     pairs=(("float32", "float32"),
+                            ("bfloat16", "float8_e5m2"))):
     """Phase 7: Trainer.test of the fused model (time_window 0) and of
     the unfused one on the same batches and weights, in both dtype
     configurations; each eval step timed and profiled (``timed``); the
@@ -1140,9 +1169,10 @@ def phase_fused_path(torch, cuda_kernels, C, TinyYolo, Trainer, batches,
     and against the unfused schedule, and the witness: the fused kernels
     no further from the exact-sum run than the plain versions. Each
     agreement goes into AGREEMENTS under ``net``. ``weights``: the
-    trained net's payload ([12]) instead of [4]'s random weights.
-    Returns the spiking conv kernel's launches over the fused ``test``
-    runs."""
+    trained net's payload ([12]) instead of [4]'s random weights;
+    ``pairs``: the (activation, state) dtype configurations ([15] runs
+    e4m3 states). Returns the spiking conv kernel's launches over the
+    fused ``test`` runs."""
     from snn_for_object_detection_tpu_torch.ops.megakernel import (
         model_cells,
         run_distance,
@@ -1152,7 +1182,7 @@ def phase_fused_path(torch, cuda_kernels, C, TinyYolo, Trainer, batches,
     X = torch.as_tensor(batches[0][0], device=dev)
     lab = torch.as_tensor(batches[0][1], device=dev)
     total = 0
-    for xd, sd in (("float32", "float32"), ("bfloat16", "float8_e5m2")):
+    for xd, sd in pairs:
         outs = {}
         for fuse in (True, False):
             name = f"{xd}/{sd} {'fused' if fuse else 'unfused'}"
@@ -1340,15 +1370,20 @@ def megakernel_witness(torch, cuda_kernels, mk, tag, dev):
 
 
 def phase_megakernel(torch, cuda_kernels, TinyYolo, batch, dev,
-                     weights=None, timed=True, net="untrained"):
+                     weights=None, timed=True, net="untrained",
+                     pairs=(("float32", "float32"),
+                            ("bfloat16", "float8_e5m2")), prepare=None):
     """Phase 8: the B=1 streaming megakernel on TinyYolo GEN1, in both
     dtype configurations, through ``StreamingMegakernel.step``: one
     launch per frame and nothing else; the final state against the plain
     version on the card and (fp32) against the per-step ``SODa.step``;
     then (``timed``) ``predict`` and ``to_model_state``, timings and the
     per-phase timeline. Agreements go into AGREEMENTS under ``net``;
-    ``weights`` as in ``phase_fused_path``. Returns (launches, fp32 row
-    of the kernels line)."""
+    ``weights`` and ``pairs`` as in ``phase_fused_path``; ``prepare``
+    turns the built model into the one to run ([15]: its int8 form, which
+    the megakernel dequantizes at build time while ``SODa.step`` runs
+    int8 convs: another function, so not compared). Returns (launches,
+    fp32 row of the kernels line)."""
     from snn_for_object_detection_tpu_torch.ops.megakernel import (
         StreamingMegakernel,
         streaming_megakernel_reference,
@@ -1357,9 +1392,11 @@ def phase_megakernel(torch, cuda_kernels, TinyYolo, batch, dev,
     X = torch.as_tensor(batch[0][:MK_FRAMES, 0], device=dev)  # uint8
     fields = cuda_kernels.MK_FIELDS
     total, row = 0, None
-    for xd, sd in (("float32", "float32"), ("bfloat16", "float8_e5m2")):
+    for xd, sd in pairs:
         tag = f"{xd}/{sd}"
         model = build_model(TinyYolo, xd, sd, dev, weights=weights)
+        if prepare is not None:
+            model = prepare(model)
         mk = StreamingMegakernel(model)
         plan = mk.plan
         cuda_kernels.reset_launches()
@@ -1412,7 +1449,8 @@ def phase_megakernel(torch, cuda_kernels, TinyYolo, batch, dev,
         check(not failed, f"{tag}: the kernel is further from the "
               f"exact-sum run than the plain version on seeds {failed}")
 
-        if xd == "float32":  # the same function per step (cuDNN, cell)
+        if xd == "float32" and prepare is None:
+            # the same function per step (cuDNN, cell)
             ss = None
             cuda_kernels.reset_launches()
             for t in range(MK_FRAMES):
@@ -1510,22 +1548,28 @@ def phase_megakernel(torch, cuda_kernels, TinyYolo, batch, dev,
     return total, row
 
 
-def phase_engine(torch, cuda_kernels, TinyYolo, dev):
+def phase_engine(torch, cuda_kernels, TinyYolo, dev,
+                 pairs=(("float32", "float32"), ("bfloat16", "float8_e5m2")),
+                 modes=(False, True), weights=None, update=None):
     """Phase 9: StreamingEngine on TinyYolo GEN1, capacity 8, 6 streams
     (one removed and one added part way) over 24 steps, sync and
     pipelined, both dtype configurations: 22 cell launches per step,
-    every output [k, 6] and finite, empty during a stream's warm-up."""
+    every output [k, 6] and finite, empty during a stream's warm-up.
+    [15] passes the trained net's ``weights`` and ``update``, called with
+    each new engine before its first step (``update_weights``)."""
     from snn_for_object_detection_tpu_torch.serve import StreamingEngine
 
     rng = np.random.default_rng(9)
     frames = (rng.random((ENGINE_STEPS, ENGINE_STREAMS + 1, *IN_HW, 2))
               < EVENT_DENSITY).astype(np.uint8)
-    for xd, sd in (("float32", "float32"), ("bfloat16", "float8_e5m2")):
-        model = build_model(TinyYolo, xd, sd, dev)
-        for pipelined in (False, True):
+    for xd, sd in pairs:
+        model = build_model(TinyYolo, xd, sd, dev, weights=weights)
+        for pipelined in modes:
             tag = f"{xd}/{sd} {'pipelined' if pipelined else 'sync'}"
             eng = StreamingEngine(model, capacity=ENGINE_CAPACITY,
                                   pipelined=pipelined)
+            if update is not None:
+                update(eng)
             ages, snaps, outs, times = {}, [], [], []
             for n in range(ENGINE_STREAMS):
                 eng.add_stream(f"cam{n}")
@@ -3280,6 +3324,898 @@ def phase_zoo(torch, cuda_kernels, C, neurons, smi, batches, dev):
     return fwd_rows, bwd_rows, worst_f, worst_b, launches
 
 
+# [15]: the last inference options. e4m3 states (float8_e4m3fn, stored
+# as JAX stores them: NaN, sign kept, past 464), the space-to-depth stem,
+# state recording, int8 post-training quantization. (a)'s inputs: the
+# scale of the cells' x and of the initial states, so that at least
+# E4M3_MIN_NAN of the stored values overflow; integer weights (from
+# E4M3_INT_WEIGHTS, a share E4M3_INT_DENSITY of them nonzero) make every
+# conv sum exact, in any order, so each kernel must equal its plain
+# version bit for bit.
+E4M3 = "float8_e4m3fn"
+E4M3_X_SCALE, E4M3_STATE_SCALE, E4M3_GRAD_SCALE = 100.0, 250.0, 600.0
+E4M3_MIN_NAN = 0.01
+E4M3_Y_STD = 90.0  # the spread of a conv's BN output in (a)
+E4M3_INT_WEIGHTS, E4M3_INT_DENSITY = (-2, -1, 1, 2), 0.25
+E4M3_CONV_CASES = ("stage1_down", "stage3_down", "head0_stem")
+S2D_GRID = 2.0 ** -12  # (c): the stem weights on this grid sum exactly
+REC_STEPS = 12  # (d): T of the recording run
+PTQ_BATCHES = 4  # (e): calibration batches
+PTQ_CHECKED_STEPS = 2  # (e): per-step frames whose int8 convs are checked
+
+
+def bits_equal(got, want) -> bool:
+    """One-byte tensors equal as uint8 views; wider ones equal where
+    finite, NaN at the same places with the same sign bit (NaN payloads
+    differ between the kernels' and PyTorch's widening)."""
+    import torch
+
+    if got.element_size() == 1:
+        return bool(torch.equal(got.view(torch.uint8), want.view(torch.uint8)))
+    g, w = got.float(), want.float()
+    nan = g.isnan() & w.isnan() & (torch.signbit(g) == torch.signbit(w))
+    return bool(((g == w) | nan).all())
+
+
+def nan_share(*tensors) -> float:
+    """Share of NaN values over the tensors."""
+    n = sum(int(t.float().isnan().sum()) for t in tensors)
+    return n / sum(t.numel() for t in tensors)
+
+
+def int_weights(torch, shape, dev, seed):
+    """Integer-valued fp32 weights: E4M3_INT_WEIGHTS at E4M3_INT_DENSITY,
+    else 0 (products and sums of binary or integer inputs exact)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    vals = torch.tensor(E4M3_INT_WEIGHTS, dtype=torch.float32, device=dev)
+    pick = vals[torch.randint(len(vals), shape, generator=gen, device=dev)]
+    keep = torch.rand(shape, generator=gen, device=dev) < E4M3_INT_DENSITY
+    return pick * keep
+
+
+def big_states(torch, neurons, shape, dev, seed):
+    """(v0, i0) in e4m3: fp32 draws of spread E4M3_STATE_SCALE stored as
+    the state is (``neurons.to_state``), so a share is NaN already."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [neurons.to_state(E4M3_STATE_SCALE * torch.randn(
+        shape, generator=gen, device=dev), torch.float8_e4m3fn)
+        for _ in range(2)]
+
+
+def check_grads_nan_aware(got, want, tag):
+    """The backward's gate with NaNs: NaN at the same places with the same
+    sign bit; the finite values bit-equal or within rtol 1e-5 of the
+    largest finite cotangent ([10]'s rule). Returns (elements that
+    differ, worst finite error)."""
+    import torch
+
+    differ, worst = 0, 0.0
+    for name, g, w in zip(("gx", "gv0", "gi0"), got, want):
+        g, w = g.float(), w.float()
+        check(torch.equal(g.isnan(), w.isnan())
+              and torch.equal(torch.signbit(g[g.isnan()]),
+                              torch.signbit(w[w.isnan()])),
+              f"{tag}: {name} NaN positions or signs differ")
+        fin = w.isfinite()
+        check(torch.equal(fin, g.isfinite()), f"{tag}: {name} infs differ")
+        if bool(fin.any()):
+            d = (g[fin] - w[fin]).abs()
+            differ += int((d != 0).sum())
+            err = float(d.max())
+            scale = float(w[fin].abs().max())
+            worst = max(worst, err)
+            check(err <= 1e-5 * scale, f"{tag}: {name} max abs err {err} "
+                  f"past rtol 1e-5 of {scale}")
+    return differ, worst
+
+
+def e4m3_cells(torch, cuda_kernels, neurons, dev):
+    """(a) the cell kernels with e4m3 states: the forward on [3]'s shapes
+    (LIF and LI, starts 0 and 7), the backward on [10]'s (T = 42 at start
+    5 and T = 1), PLIF's forward and backward on [14]'s deepest shape;
+    x fp32 and bf16. Returns the forward rows of the timed cases."""
+    h, w = IN_HW
+    rows = []
+    e4 = torch.float8_e4m3fn
+    for label, shape in (("stage1", (STEPS, BATCH, h // 2, w // 2, 64)),
+                         ("head_li", (STEPS, BATCH, h // 8, w // 8, 256))):
+        gen = torch.Generator(device=dev).manual_seed(1)
+        x32 = E4M3_X_SCALE * torch.randn(shape, generator=gen, device=dev)
+        v0, i0 = big_states(torch, neurons, shape[1:], dev, 1)
+        T, M = shape[0], int(np.prod(shape[1:]))
+        for xd in ("float32", "bfloat16"):
+            x = x32.to(getattr(torch, xd))
+            for cell, start in itertools.product(("lif", "li"), (0, 7)):
+                tag = f"{label} {cell} {xd}/{E4M3} start={start}"
+                got = cuda_kernels.temporal_cell_seq(x, v0, i0, cell, start)
+                want = cuda_kernels.temporal_cell_seq_reference(
+                    x, v0, i0, cell, start)
+                torch.cuda.synchronize()
+                share = nan_share(want[1], want[2])
+                check(all(bits_equal(g, wt) for g, wt in zip(got, want)),
+                      f"{tag}: differs from the plain version")
+                check(share >= E4M3_MIN_NAN, f"{tag}: NaN share {share}")
+                msg = f"  {tag}: bit-equal, NaN share of v_T, i_T {share:.3f}"
+                if start == 0:
+                    ms = cuda_time_ms(lambda: cuda_kernels.temporal_cell_seq(
+                        x, v0, i0, cell, start), reps=20)
+                    plain_ms = cuda_time_ms(
+                        lambda: cuda_kernels.temporal_cell_seq_reference(
+                            x, v0, i0, cell, start), reps=3, warmup=1)
+                    nbytes = 2 * T * M * x.element_size() + 4 * M
+                    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                    ops_ms = T * M * CELL_OPS / FP32_FLOPS * 1e3
+                    bound = max(bytes_ms, ops_ms)
+                    rows.append(dict(shape=label, cell=cell, x=xd, ms=ms,
+                                     plain_ms=plain_ms, bound_ms=bound))
+                    msg += (f"; kernel {ms:.4f} ms, bound {bound:.4f} ms "
+                            f"({bound / ms:.0%}), plain {plain_ms:.2f} ms")
+                print(msg, flush=True)
+                del got, want
+        del x32, x
+        torch.cuda.empty_cache()
+
+    for label, shape, start in (
+            ("stage1", (STEPS, BATCH, h // 2, w // 2, 64), TRAIN_START),
+            ("stage1_t1", (1, BATCH, h // 2, w // 2, 64), 0)):
+        draw = cell_bwd_inputs(torch, shape, dev)
+        for xd in ("float32", "bfloat16"):
+            x = (E4M3_X_SCALE * draw[0]).to(getattr(torch, xd))
+            gz = draw[3].to(x.dtype)
+            v0, i0 = (neurons.to_state(E4M3_STATE_SCALE * d, e4)
+                      for d in draw[1:3])
+            gv, gi = (neurons.to_state(E4M3_GRAD_SCALE * d, e4)
+                      for d in draw[4:6])
+            for cell in ("lif", "li"):
+                tag = f"backward {label} {cell} {xd}/{E4M3} start={start}"
+                cuda_kernels.reset_launches()
+                got = cuda_kernels.temporal_cell_seq_bwd(
+                    x, v0, i0, gz, gv, gi, cell, start)
+                torch.cuda.synchronize()
+                check(cuda_kernels.LAUNCHES["temporal_cell_seq_bwd"] == 1,
+                      f"{tag}: one launch")
+                leaves = [a.detach().requires_grad_() for a in (x, v0, i0)]
+                outs = cuda_kernels.temporal_cell_seq_reference(
+                    *leaves, cell, start)
+                want = torch.autograd.grad(outs, leaves, (gz, gv, gi))
+                differ, err = check_grads_nan_aware(got, want, tag)
+                ms = queued_ms(lambda: cuda_kernels.temporal_cell_seq_bwd(
+                    x, v0, i0, gz, gv, gi, cell, start))
+                bound, by = cell_bwd_bound(cell, shape[0], v0.numel(),
+                                           x.element_size(), 1)
+                print(f"  {tag}: "
+                      f"{'bit-equal' if not differ else f'{differ} differ'}"
+                      f" (max finite err {err:.3g}), NaN share of the "
+                      f"cotangents {nan_share(*want):.3f}; kernel {ms:.4f} "
+                      f"ms (queued), bound {bound:.4f} ms ({by}, "
+                      f"{bound / ms:.0%})", flush=True)
+                del got, want, outs, leaves
+        del draw
+        torch.cuda.empty_cache()
+
+    shape = PLIF_SHAPES["vgg_deep"]
+    c_mem, c_syn = plif_factors(torch, neurons, shape[-1], dev)
+    draw = cell_bwd_inputs(torch, shape, dev)
+    for xd in ("float32", "bfloat16"):
+        x = (E4M3_X_SCALE * draw[0]).to(getattr(torch, xd))
+        v0, i0 = (neurons.to_state(E4M3_STATE_SCALE * d, e4)
+                  for d in draw[1:3])
+        tag = f"plif vgg_deep {xd}/{E4M3}"
+        got = cuda_kernels.plif_cell_seq(x, v0, i0, c_mem, c_syn, TRAIN_START)
+        want = cuda_kernels.plif_cell_seq_reference(x, v0, i0, c_mem, c_syn,
+                                                    TRAIN_START)
+        torch.cuda.synchronize()
+        share = nan_share(want[1], want[2])
+        check(all(bits_equal(g, wt) for g, wt in zip(got, want))
+              and share >= E4M3_MIN_NAN,
+              f"{tag}: forward differs (NaN share {share})")
+        gz = draw[3].to(x.dtype)
+        gv, gi = (neurons.to_state(E4M3_GRAD_SCALE * d, e4)
+                  for d in draw[4:6])
+        gx = cuda_kernels.plif_cell_seq_bwd(x, v0, i0, c_mem, c_syn, gz, gv,
+                                            gi, TRAIN_START)[:3]
+        leaves = [a.detach().requires_grad_() for a in (x, v0, i0)]
+        outs = cuda_kernels.plif_cell_seq_reference(*leaves, c_mem, c_syn,
+                                                    TRAIN_START)
+        want_g = torch.autograd.grad(outs, leaves, (gz, gv, gi))
+        differ, err = check_grads_nan_aware(gx, want_g, tag)
+        print(f"  {tag} start={TRAIN_START}: forward bit-equal (NaN share "
+              f"{share:.3f}); backward "
+              f"{'bit-equal' if not differ else f'{differ} differ'} (max "
+              f"finite err {err:.3g})", flush=True)
+    del draw
+    torch.cuda.empty_cache()
+    return rows
+
+
+def e4m3_spiking_conv(torch, cuda_kernels, neurons, dev):
+    """(a) ``spiking_conv_seq`` with e4m3 states on three of [3]'s triples,
+    x fp32 and bf16, integer weights (exact sums in the kernel and in the
+    plain version, cuDNN off): bit-equal."""
+    rows = []
+    for case in SPIKING_CONV_CASES:
+        label, k, stride, cell, cin, cout, hw, density = case
+        if label not in E4M3_CONV_CASES:
+            continue
+        x32, _, a, b, _, _ = spiking_conv_inputs(torch, case, dev)
+        w = int_weights(torch, (k, k, cin, cout), dev, 7)
+        y_std = (density * k * k * cin * E4M3_INT_DENSITY * 2.5) ** 0.5
+        a = a * (E4M3_Y_STD / y_std)
+        v0, i0 = big_states(torch, neurons,
+                            (BATCH, *conv_out_hw(k, stride, hw), cout), dev, 3)
+        for xd in ("float32", "bfloat16"):
+            x = x32.to(getattr(torch, xd))
+            tag = f"spiking_conv_seq {label} {xd}/{E4M3}"
+            got = cuda_kernels.spiking_conv_seq(x, w, a, b, v0, i0, cell,
+                                                stride)
+            torch.backends.cudnn.enabled = False
+            try:
+                want = cuda_kernels.spiking_conv_seq_reference(
+                    x, w, a, b, v0, i0, cell, stride)
+            finally:
+                torch.backends.cudnn.enabled = True
+            torch.cuda.synchronize()
+            share = nan_share(want[1], want[2])
+            check(all(bits_equal(g, wt) for g, wt in zip(got, want)),
+                  f"{tag}: differs from the plain version")
+            check(share >= E4M3_MIN_NAN, f"{tag}: NaN share {share}")
+            ms = cuda_time_ms(lambda: cuda_kernels.spiking_conv_seq(
+                x, w, a, b, v0, i0, cell, stride), reps=5)
+            bound, by = triple_bound(k, cin, cout, hw,
+                                     conv_out_hw(k, stride, hw),
+                                     x.element_size(), 1)
+            rows.append(dict(shape=label, x=xd, ms=ms, bound_ms=bound))
+            print(f"  {tag}: bit-equal (integer weights), NaN share of "
+                  f"v_T, i_T {share:.3f}; kernel {ms:.4f} ms, bound "
+                  f"{bound:.4f} ms ({by}, {bound / ms:.0%})", flush=True)
+            del got, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def e4m3_pointwise(torch, cuda_kernels, neurons, dev):
+    """(a) ``fused_pointwise_conv_bn_lif`` with e4m3 states on [3]'s GEN1
+    stage-1 shape, x fp32 and bf16: integer x and w (exact sums in the
+    kernel's order and cuBLAS's), bit-equal."""
+    n, cin, cout = POINTWISE_CASES[0]
+    _, _, a, b, _, _ = pointwise_inputs(torch, n, cin, cout, dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x32 = torch.randint(-2, 3, (n, cin), generator=gen, device=dev).float()
+    w32 = int_weights(torch, (cin, cout), dev, 8)
+    a = a * (E4M3_Y_STD / (cin * 2 * E4M3_INT_DENSITY * 2.5) ** 0.5)
+    v, i = big_states(torch, neurons, (n, cout), dev, 4)
+    for xd in ("float32", "bfloat16"):
+        x, w = x32.to(getattr(torch, xd)), w32.to(getattr(torch, xd))
+        tag = f"fused_pointwise_conv_bn_lif {n}x{cin}->{cout} {xd}/{E4M3}"
+        got = cuda_kernels.fused_pointwise_conv_bn_lif(x, w, a, b, v, i)
+        want = cuda_kernels.fused_pointwise_conv_bn_lif_reference(
+            x, w, a, b, v, i)
+        torch.cuda.synchronize()
+        share = nan_share(want[1], want[2])
+        check(all(bits_equal(g, wt) for g, wt in zip(got, want))
+              and share >= E4M3_MIN_NAN,
+              f"{tag}: differs from the plain version (NaN share {share})")
+        ms = queued_ms(lambda: cuda_kernels.fused_pointwise_conv_bn_lif(
+            x, w, a, b, v, i))
+        bound, by = pointwise_bound(n, cin, cout, x.element_size(), 1)
+        print(f"  {tag}: bit-equal (integer x and w), NaN share of v', i' "
+              f"{share:.3f}; kernel {ms:.4f} ms (queued), bound "
+              f"{bound:.4f} ms ({by}, {bound / ms:.0%})", flush=True)
+
+
+def e4m3_megakernel(torch, cuda_kernels, neurons, TinyYolo, batch, dev):
+    """(a) one GEN1 frame of the megakernel with e4m3 states, fp32 and bf16
+    activations: integer conv weights (every conv sum exact in any order,
+    split-K and tensor cores included), initial state slots of spread
+    E4M3_STATE_SCALE; bit-equal to the plain version (cuDNN off)."""
+    from snn_for_object_detection_tpu_torch.models import compile as C
+    from snn_for_object_detection_tpu_torch.ops.megakernel import (
+        StreamingMegakernel,
+        streaming_megakernel_reference,
+    )
+
+    x = torch.as_tensor(batch[0][0, 0], device=dev)
+    for xd in ("float32", "bfloat16"):
+        model = build_model(TinyYolo, xd, E4M3, dev)
+        with torch.no_grad():
+            for n, m in enumerate(model.modules()):
+                if isinstance(m, C.Conv):
+                    m.w.copy_(int_weights(torch, tuple(m.w.shape), dev, n))
+        mk = StreamingMegakernel(model)
+        vals = [big_states(torch, neurons, tuple(s.shape), dev, n)[0]
+                for n, s in enumerate(mk._flat_state(None))]
+        cuda_kernels.reset_launches()
+        cls, box, got = cuda_kernels.streaming_megakernel(mk.plan, x, vals)
+        torch.cuda.synchronize()
+        check(cuda_kernels.LAUNCHES["streaming_megakernel"] == 1,
+              "one megakernel launch")
+        torch.backends.cudnn.enabled = False
+        try:
+            pc, pb, want = streaming_megakernel_reference(mk.plan, x, vals)
+        finally:
+            torch.backends.cudnn.enabled = True
+        share = nan_share(*want)
+        same = [bits_equal(g, w) for g, w in zip(got, want)]
+        tag = f"streaming_megakernel {xd}/{E4M3}"
+        check(all(same), f"{tag}: {same.count(False)} of {len(same)} state "
+              f"slots differ from the plain version")
+        check(share >= E4M3_MIN_NAN, f"{tag}: NaN share {share}")
+        check(bits_equal(cls, pc) and bits_equal(box, pb),
+              f"{tag}: predictions differ")
+        ms = per_frame_ms(
+            lambda: cuda_kernels.streaming_megakernel(mk.plan, x, vals))
+        bound, by, _, _ = megakernel_bound(
+            mk.plan, torch.empty((), dtype=mk.plan.compute_dtype
+                                 ).element_size(), 1)
+        print(f"  {tag}: one frame, bit-equal over {len(same)} state slots "
+              f"and the predictions (integer weights), NaN share "
+              f"{share:.3f}; kernel {ms:.4f} ms, bound {bound:.4f} ms "
+              f"({by})", flush=True)
+        del model, mk, vals, got, want
+        torch.cuda.empty_cache()
+
+
+def options_e4m3_kernels(torch, cuda_kernels, neurons, TinyYolo, batch, dev):
+    """[15] (a): every e4m3 kernel instance against its plain version.
+    Prints the seconds of each part (the first builds the sources)."""
+    rows, t0 = [], time.perf_counter()
+    for part, fn in (
+        ("cells", lambda: e4m3_cells(torch, cuda_kernels, neurons, dev)),
+        ("spiking_conv_seq", lambda: e4m3_spiking_conv(
+            torch, cuda_kernels, neurons, dev)),
+        ("pointwise", lambda: e4m3_pointwise(torch, cuda_kernels, neurons,
+                                             dev) or []),
+        ("megakernel", lambda: e4m3_megakernel(
+            torch, cuda_kernels, neurons, TinyYolo, batch, dev) or []),
+    ):
+        rows += fn()
+        print(f"  (a) {part} in {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+    return rows
+
+
+def eval_step_ms(torch, model, X, lab, reps=3):
+    """Host-clock ms of one ``Trainer.eval_step`` (time-batched, start 0)
+    ending in a synchronise, median of ``reps`` after a warm-up."""
+    from snn_for_object_detection_tpu_torch.train.loop import Trainer
+
+    trainer = Trainer(time_batched=True)
+    times = []
+    for n in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.eval_step(model, X, lab, 0)
+        torch.cuda.synchronize()
+        if n:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def fit_losses(torch, cuda_kernels, C, TinyYolo, Trainer, batches, dev, sd,
+               plain):
+    """The losses of TRAIN_STEPS ``Trainer.fit`` steps, time-batched, fp32
+    activations, ``sd`` states, from [4]'s weights, cuDNN deterministic;
+    ``plain``: the cell through its plain version (autograd through it)
+    instead of the kernels. Returns (losses, backward launches)."""
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke_e4m3_fit")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    model = build_model(TinyYolo, "float32", sd, dev)
+    trainer = Trainer(max_epochs=1, limit_train_batches=TRAIN_STEPS,
+                      check_val_every_n_epoch=10 ** 6, log_every_n_steps=1,
+                      out_dir=out_dir, seed=0, time_batched=True)
+    losses = []
+    step = trainer.train_step
+    trainer.train_step = lambda *a: losses.append(step(*a)) or losses[-1]
+    if plain:
+        C.temporal_cell_seq = cuda_kernels.temporal_cell_seq_reference
+    # cuDNN's backward convs pick algorithms that sum with atomics: the two
+    # runs differ then by more than the cell, whose kernels are bit-equal
+    # to their plain versions
+    torch.backends.cudnn.deterministic = True
+    cuda_kernels.reset_launches()
+    try:
+        trainer.fit(model, _Batches(batches))
+    finally:
+        C.temporal_cell_seq = cuda_kernels.temporal_cell_seq
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.synchronize()
+    n = cuda_kernels.LAUNCHES["temporal_cell_seq_bwd"]
+    del model
+    torch.cuda.empty_cache()
+    return [float(x) for x in losses], n
+
+
+def nan_agreement(got, want) -> float:
+    """Share of elements NaN in both tensors or in neither."""
+    return float((got.float().isnan() == want.float().isnan()).float()
+                 .mean())
+
+
+def options_e4m3_model(torch, cuda_kernels, C, TinyYolo, Trainer, batches,
+                       smi, dev):
+    """[15] (b): full-width TinyYolo with bf16 activations and e4m3 states
+    on [4]'s frames and weights, where some states pass 464 and turn NaN
+    (JAX's e4m3 store), so a prediction or a loss may be NaN: the gates
+    hold the kernels to their plain versions NaN for NaN. ``Trainer.test``
+    fused ([7]'s 22 ``spiking_conv_seq`` launches a step, no cell) and
+    time-batched (22 cell launches a step), each against the same
+    schedule with the plain versions (the metrics NaN where theirs are,
+    else equal within rtol 1e-5; per cell, final-state spike agreement
+    and NaN agreement >= 0.99 fused, where the kernel sums the conv in
+    another order, every state bit-equal unfused); the megakernel over
+    MK_FRAMES frames against its plain version ([8]'s 0.99 per LIF cell
+    and NaN agreement >= 0.99 a slot on the first frame, the witness over
+    all of them, as [14] (e)); the eval step's ms beside e5m2
+    states'; TRAIN_STEPS ``Trainer.fit`` steps, time-batched, on the
+    kernels and on the plain cell: every loss NaN where the plain run's
+    is, the finite ones within rtol 1e-3."""
+    from snn_for_object_detection_tpu_torch.ops.megakernel import (
+        StreamingMegakernel,
+        plan_cells,
+        run_distance,
+        streaming_megakernel_reference,
+        witness_passes,
+    )
+
+    X = torch.as_tensor(batches[0][0], device=dev)
+    lab = torch.as_tensor(batches[0][1], device=dev)
+    for fuse in (True, False):
+        tag = f"bfloat16/{E4M3} {'fused' if fuse else 'time-batched'}"
+        model = build_model(TinyYolo, "bfloat16", E4M3, dev, time_window=0,
+                            fuse_seq=fuse)
+        name = "spiking_conv_seq" if fuse else "temporal_cell_seq"
+        kernel = getattr(C, name)
+        runs = {}
+        for plain in (False, True):
+            if plain:
+                setattr(C, name, getattr(cuda_kernels, name + "_reference"))
+            cuda_kernels.reset_launches()
+            try:
+                metrics = Trainer(limit_test_batches=EVAL_BATCHES, seed=0,
+                                  time_batched=True).test(model,
+                                                          iter(batches))
+                with torch.inference_mode():
+                    out = model.forward_seq(X)
+            finally:
+                setattr(C, name, kernel)
+            torch.cuda.synchronize()
+            runs[plain] = (metrics, out, dict(cuda_kernels.LAUNCHES))
+        launches = runs[False][2]
+        want = {k: 0 for k in launches}
+        want[name] = CELLS_PER_STEP * (EVAL_BATCHES + 1)
+        check(launches == want, f"{tag}: launches {launches}, want {want}")
+        (m_k, out_k, _), (m_p, out_p, _) = runs[False], runs[True]
+        check(all(np.isnan(m_k[k]) == np.isnan(m_p[k])
+                  and (np.isnan(m_k[k]) or abs(m_k[k] - m_p[k])
+                       <= 1e-5 * abs(m_p[k]) + 1e-6) for k in m_p),
+              f"{tag}: metrics {m_k} against the plain versions' {m_p}")
+        sk, sp = state_leaves(out_k[1]), state_leaves(out_p[1])
+        nan_share_ = nan_share(*sk)
+        if fuse:
+            agree = [spike_agreement(a == 0, b == 0)
+                     for a, b in zip(sk[::2], sp[::2])]
+            nans = [nan_agreement(a, b) for a, b in zip(sk, sp)]
+            check(min(agree) >= 0.99 and min(nans) >= 0.99,
+                  f"{tag}: spike agreement {agree}, NaN agreement {nans}")
+            gate = (f"spike agreement min {min(agree):.6f}, NaN agreement "
+                    f"min {min(nans):.6f} over {len(agree)} cells")
+        else:
+            same = [bits_equal(a, b) for a, b in zip(
+                sk + list(out_k[0]), sp + list(out_p[0]))]
+            check(all(same), f"{tag}: {same.count(False)} outputs differ")
+            gate = f"{len(same)} states and predictions bit-equal"
+        print(f"  {tag}: {launches[name]} {name} launches over "
+              f"{EVAL_BATCHES + 1} eval steps; vs the plain versions: "
+              f"{gate}; NaN share of the final states {nan_share_:.4f}; "
+              f"metrics {m_k}", flush=True)
+        del model, runs, out_k, out_p
+        torch.cuda.empty_cache()
+
+    model = build_model(TinyYolo, "bfloat16", E4M3, dev)
+    mk = StreamingMegakernel(model)
+    plan = mk.plan
+    frames = torch.as_tensor(batches[0][0][:MK_FRAMES, 0], device=dev)
+    runs = {"kernel": lambda x, s: cuda_kernels.streaming_megakernel(
+                plan, x, s),
+            "plain": lambda x, s: streaming_megakernel_reference(plan, x, s),
+            "exact": lambda x, s: streaming_megakernel_reference(
+                plan, x, s, exact_sums=True)}
+    out, first = {}, {}
+    cuda_kernels.reset_launches()
+    for name, fn in runs.items():
+        state, preds = mk._flat_state(None), []
+        for t in range(MK_FRAMES):
+            cls, box, state = fn(frames[t], state)
+            preds += [cls, box]
+            if t == 0:
+                first[name] = state
+        out[name] = (preds, plan_cells(plan, state), state)
+    torch.cuda.synchronize()
+    check(cuda_kernels.LAUNCHES["streaming_megakernel"] == MK_FRAMES,
+          "megakernel launches")
+
+    def gates(got, want):
+        agree = [spike_agreement(g == 0, w == 0)
+                 for g, w, slot in zip(got, want, plan.slots)
+                 if "head" not in slot.path[0] and slot.field == 0]
+        return agree, [nan_agreement(g, w) for g, w in zip(got, want)]
+
+    agree1, nans1 = gates(first["kernel"], first["plain"])
+    agree, nans = gates(out["kernel"][2], out["plain"][2])
+    kernel = run_distance(*out["kernel"][:2], *out["exact"][:2])
+    plainw = run_distance(*out["plain"][:2], *out["exact"][:2])
+    ok = witness_passes(kernel, plainw)
+    # [8]'s gates on the first frame and the witness over MK_FRAMES, as
+    # [14] (e) holds YoloSNN's megakernel
+    check(min(agree1) >= 0.99 and min(nans1) >= 0.99 and min(nans) >= 0.99
+          and ok, f"megakernel e4m3: first frame {agree1} / {nans1}; "
+          f"{MK_FRAMES} frames NaN agreement {nans}; witness {kernel} "
+          f"against {plainw}")
+    print(f"  streaming_megakernel bfloat16/{E4M3}: {MK_FRAMES} frames, one "
+          f"launch each; vs the plain version: first frame spike agreement "
+          f"min {min(agree1):.6f}; after {MK_FRAMES} frames spike agreement "
+          f"min {min(agree):.6f} over {len(agree)} LIF cells (not "
+          f"asserted), NaN agreement min {min(nans):.6f}; NaN share "
+          f"{nan_share(*out['kernel'][2]):.4f}; witness, distance from the "
+          f"exact-sum run: kernel {kernel}, plain version {plainw}: "
+          f"{'passes' if ok else 'FAILS'}", flush=True)
+    del model, mk, out, first
+    times = {}
+    for sd in ("float8_e5m2", E4M3):
+        model = build_model(TinyYolo, "bfloat16", sd, dev)
+        times[sd] = eval_step_ms(torch, model, X, lab)
+        del model
+    print(f"  eval step, time-batched, bf16 activations, B={BATCH}, "
+          f"T={STEPS}: e4m3 states {times[E4M3]:.1f} ms, e5m2 states "
+          f"{times['float8_e5m2']:.1f} ms (host clock, median of 3) "
+          f"[{smi}]", flush=True)
+    got, n = fit_losses(torch, cuda_kernels, C, TinyYolo, Trainer, batches,
+                        dev, E4M3, plain=False)
+    want, _ = fit_losses(torch, cuda_kernels, C, TinyYolo, Trainer, batches,
+                         dev, E4M3, plain=True)
+    check(n == CELLS_PER_STEP * TRAIN_STEPS, f"fit e4m3: {n} backward "
+          f"launches, want {CELLS_PER_STEP * TRAIN_STEPS}")
+    check([np.isnan(x) for x in got] == [np.isnan(x) for x in want]
+          and all(abs(g - w) <= 1e-3 * abs(w) for g, w in zip(got, want)
+                  if np.isfinite(w)),
+          f"fit e4m3: losses {got} against the plain cell's {want}")
+    print(f"  Trainer.fit, time-batched, fp32 activations, e4m3 states, "
+          f"{TRAIN_STEPS} steps: losses {got} ({n} backward launches); on "
+          f"the plain cell {want}", flush=True)
+    torch.cuda.empty_cache()
+
+
+def state_at(state, name):
+    """The state a record names (``backbone/b0/l2``) in a model's state
+    tree."""
+    node = state
+    for key in name.split("/"):
+        node = node[key]
+    return node
+
+
+def options_s2d(torch, cuda_kernels, TinyYolo, Trainer, batches, dev):
+    """[15] (c): full-width TinyYolo with ``s2d_stem=True`` and [4]'s
+    weights, the stem's rounded to S2D_GRID (its sums then exact in any
+    order), fp32, cuDNN off: per-step and time-batched eval bit-equal to
+    ``s2d_stem=False`` (predictions and every state); a train step's
+    gradients (time-batched, r = TRAIN_START) within a relative L2 of
+    2e-3 (the port's gradient bar: the stem's weight gradient sums the
+    packed taps in another order); and under ``fuse_seq=True`` [7]'s
+    launches (22 ``spiking_conv_seq`` a step, no cell) and metrics equal
+    to the unpacked fused model's, which runs the same kernels on the
+    same unpacked weights."""
+    X = torch.as_tensor(batches[0][0], device=dev)
+    lab = torch.as_tensor(batches[0][1], device=dev)
+    models = {}
+    for s2d in (False, True):
+        m = build_model(TinyYolo, "float32", "float32", dev, s2d_stem=s2d)
+        with torch.no_grad():
+            w = m.backbone.b0.l0.w
+            w.copy_(torch.round(w / S2D_GRID) * S2D_GRID)
+        models[s2d] = m
+    check(models[True].backbone.b0.l0.s2d, "the stem is not s2d")
+    torch.backends.cudnn.enabled = False
+    try:
+        for schedule in (False, True):
+            outs = {s2d: models[s2d].forward_fn(schedule)(X)
+                    for s2d in (False, True)}
+            same = [bits_equal(a, b) for a, b in zip(
+                list(outs[True][0]) + state_leaves(outs[True][1]),
+                list(outs[False][0]) + state_leaves(outs[False][1]))]
+            check(all(same), f"s2d {SCHEDULE_NAMES[schedule]}: "
+                  f"{same.count(False)} of {len(same)} outputs differ")
+            print(f"  s2d_stem {SCHEDULE_NAMES[schedule]} eval: predictions "
+                  f"and {len(same) - 2} state tensors bit-equal to "
+                  f"s2d_stem=False", flush=True)
+        grads = {s2d: first_step_grads(torch, models[s2d], True, X, lab,
+                                       TRAIN_START) for s2d in (False, True)}
+    finally:
+        torch.backends.cudnn.enabled = True
+    d = grads_distance(grads[True][1], grads[False][1])
+    stem = relative_l2(grads[True][1]["backbone.b0.l0.w"],
+                       grads[False][1]["backbone.b0.l0.w"])
+    check(grads[True][0] == grads[False][0] and d <= 2e-3,
+          f"s2d train step: losses {grads[True][0]} / {grads[False][0]}, "
+          f"gradients' relative L2 {d}")
+    print(f"  s2d_stem train step (time-batched, r={TRAIN_START}): loss "
+          f"{grads[True][0]:.6f} equal; gradients' relative L2 {d:.3g} (the "
+          f"stem's weight {stem:.3g})", flush=True)
+    del models, grads
+    metrics = {}
+    for s2d in (False, True):
+        model = build_model(TinyYolo, "float32", "float32", dev,
+                            time_window=0, fuse_seq=True, s2d_stem=s2d)
+        cuda_kernels.reset_launches()
+        metrics[s2d] = Trainer(limit_test_batches=EVAL_BATCHES, seed=0,
+                               time_batched=True).test(model, iter(batches))
+        torch.cuda.synchronize()
+        launches = dict(cuda_kernels.LAUNCHES)
+        want = {k: 0 for k in launches}
+        want["spiking_conv_seq"] = CELLS_PER_STEP * EVAL_BATCHES
+        check(launches == want, f"s2d={s2d} fused: launches {launches}")
+        del model
+    check(metrics[True] == metrics[False],
+          f"fused s2d: {metrics[True]} against {metrics[False]}")
+    print(f"  s2d_stem fused (fuse_seq=True): {CELLS_PER_STEP} "
+          f"spiking_conv_seq launches a step and no cell launch, as [7]; "
+          f"metrics equal to s2d_stem=False: {metrics[True]}", flush=True)
+    torch.cuda.empty_cache()
+
+
+def trained_weights():
+    from snn_for_object_detection_tpu_torch.train.checkpoint import (
+        load_single,
+    )
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    return load_single(os.path.join(repo, TRAINED_NET, "model"))
+
+
+def options_records(torch, cuda_kernels, C, TinyYolo, batches, dev):
+    """[15] (d): ``forward_with_records`` on full-width TinyYolo with
+    ``state_storage=True`` ([4]'s weights, fp32), B=4, T=REC_STEPS: a
+    record for each of the 22 cells, every leaf [T, ...], the last step's
+    state bit-equal to the returned state, 22 x T cell kernel launches
+    and no call of the plain cell; then the backbone's sequence form with
+    ``Ctx(record=True)``: its 7 cells a step at a time (7 x T launches at
+    T = 1). ``spike_stats`` of the trained net's records printed."""
+    from snn_for_object_detection_tpu_torch.utils.analysis import (
+        print_spike_report,
+        spike_stats,
+    )
+
+    X = torch.as_tensor(batches[0][0][:REC_STEPS], device=dev)
+    model = build_model(TinyYolo, "float32", "float32", dev,
+                        state_storage=True)
+    plain = cuda_kernels.temporal_cell_seq_reference
+
+    def refuse(*args, **kwargs):
+        raise RuntimeError("the plain cell ran")
+
+    cuda_kernels.temporal_cell_seq_reference = refuse
+    cuda_kernels.reset_launches()
+    try:
+        preds, state, records = model.forward_with_records(X)
+        torch.cuda.synchronize()
+        n = cuda_kernels.LAUNCHES["temporal_cell_seq"]
+        ctx = C.Ctx(record=True)
+        cuda_kernels.reset_launches()
+        _, seq_state = model.backbone.seq(X.float(), model.init_state(
+            BATCH)["backbone"], ctx)
+        torch.cuda.synchronize()
+        n_seq = cuda_kernels.LAUNCHES["temporal_cell_seq"]
+    finally:
+        cuda_kernels.temporal_cell_seq_reference = plain
+    check(n == CELLS_PER_STEP * REC_STEPS, f"records: {n} cell launches")
+    check(len(records) == CELLS_PER_STEP, f"{len(records)} records")
+    for name, (st, out) in records.items():
+        check(out.shape[0] == REC_STEPS and out.dtype == torch.float32
+              and all(f.shape[0] == REC_STEPS for f in st), f"{name} shapes")
+        last = state_at(state, name)
+        check(all(bits_equal(f[-1], g) for f, g in zip(st, last)),
+              f"{name}: the last record is not the returned state")
+    check(n_seq == BACKBONE_CELLS * REC_STEPS
+          and len(ctx.records) == BACKBONE_CELLS
+          and all(out.shape[0] == REC_STEPS
+                  for _, out in ctx.records.values()),
+          f"sequence records: {n_seq} launches, {len(ctx.records)} records")
+    rates = spike_stats(records)
+    print(f"  forward_with_records, B={BATCH}, T={REC_STEPS}: "
+          f"{len(records)} records of [T, ...], the last equal to the "
+          f"returned state, {n} cell launches ({CELLS_PER_STEP} x T), no "
+          f"plain cell; the backbone's sequence form: {n_seq} launches at "
+          f"T = 1 ({BACKBONE_CELLS} x T); firing rates "
+          f"{min(r['firing_rate'] for r in rates.values()):.4f}-"
+          f"{max(r['firing_rate'] for r in rates.values()):.4f}",
+          flush=True)
+    del model, records, state
+    model = build_model(TinyYolo, "float32", "float32", dev,
+                        weights=trained_weights(), state_storage=True)
+    _, _, records = model.forward_with_records(X)
+    print(f"  spike_stats of the trained net ({TRAINED_NET}) over "
+          f"[{REC_STEPS}, {BATCH}] frames:", flush=True)
+    print_spike_report(records)
+    del model, records
+    torch.cuda.empty_cache()
+
+
+def options_int8(torch, cuda_kernels, TinyYolo, Trainer, smi, dev):
+    """[15] (e): int8 PTQ on the trained net: ``python -m
+    snn_for_object_detection_tpu_torch test`` with its config and
+    checkpoint on a synthetic GEN1 set (as [12]; B=4, T=12, bf16 states)
+    restores the fp32 net; ``calibrate`` on PTQ_BATCHES of its test
+    batches and ``quantize``; every int8 conv of the first
+    PTQ_CHECKED_STEPS per-step frames bit-equal to its float64 plain
+    version; ``Trainer.test`` time-batched and per-step on those batches
+    (mAP of both nets, the int8 net's class agreement with the fp net);
+    the eval step's ms against the fp net on [4]'s frames; the int8 conv
+    alone beside cuDNN's; ``StreamingEngine.update_weights`` with the
+    int8 params over [9]'s streams; the megakernel of the int8 net
+    (dequantized at build) with [8]'s gates. No int8 conv runs its plain
+    version on the card."""
+    from snn_for_object_detection_tpu_torch import cli
+    from snn_for_object_detection_tpu_torch.data.synthetic import (
+        make_synthetic_dataset,
+    )
+    from snn_for_object_detection_tpu_torch.models.convert import (
+        model_params,
+        model_stats,
+    )
+    from snn_for_object_detection_tpu_torch.ops import quantize as Q
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    net = os.path.join(repo, TRAINED_NET)
+    root = os.path.join(repo, "build", "chip_smoke_ptq")
+    shutil.rmtree(root, ignore_errors=True)
+    data_dir = make_synthetic_dataset(
+        os.path.join(root, "data"), records_per_split=CLI_RECORDINGS,
+        duration_ms=CLI_DURATION_MS, seed=CLI_SEED)
+    run = cli.main([
+        "test", "--config", os.path.join(net, "config.yaml"),
+        f"--data.init_args.data_dir={data_dir}",
+        f"--trainer.limit_test_batches={PTQ_BATCHES}",
+        f"--ckpt_path={os.path.join(net, 'model')}",
+        f"--trainer.out_dir={os.path.join(root, 'out')}"])
+    model = run.model
+    loader = iter(run.data.test_loader())
+    batches = list(itertools.islice(loader, PTQ_BATCHES))
+    getattr(loader, "close", lambda: None)()
+    check(len(batches) == PTQ_BATCHES, f"{len(batches)} synthetic batches")
+    t0 = time.perf_counter()
+    absmax = Q.calibrate(model, [x for x, _ in batches])
+    cal_s = time.perf_counter() - t0
+    qmodel = Q.quantize(model, absmax)
+    convs = [m for m in qmodel.modules() if hasattr(m, "quantized")]
+    n_q = sum(m.quantized for m in convs)
+    X = torch.as_tensor(np.asarray(batches[0][0]), device=dev)
+    print(f"  the trained net restored by the CLI's test ({run.model.state_dtype}"
+          f" states): {run.result}; calibrate: {len(absmax)} convs over "
+          f"{PTQ_BATCHES} synthetic batches of {tuple(X.shape[:2])} in "
+          f"{cal_s:.1f} s ({sum(a == 0 for a in absmax.values())} never saw "
+          f"a nonzero input); quantize: {n_q} of {len(convs)} convs int8",
+          flush=True)
+    check(n_q > 0, "no conv quantized")
+
+    conv = Q.int8_conv
+    checked = []
+
+    def checking(x, w, stride, pads):
+        y = conv(x, w, stride, pads)
+        checked.append(bool(torch.equal(
+            y, Q.int8_conv_reference(x, w, stride, pads))))
+        return y
+
+    Q.int8_conv = checking
+    try:
+        st = None
+        for t in range(PTQ_CHECKED_STEPS):
+            _, st = qmodel.step(X[t], st)
+    finally:
+        Q.int8_conv = conv
+    torch.cuda.synchronize()
+    check(len(checked) == n_q * PTQ_CHECKED_STEPS and all(checked),
+          f"int8 convs: {checked.count(False)} of {len(checked)} differ from "
+          f"the float64 plain version")
+    print(f"  {len(checked)} int8 convs ({PTQ_CHECKED_STEPS} frames x {n_q}"
+          f") bit-equal to the float64 plain version (torch._int_mm, int32 "
+          f"sums)", flush=True)
+
+    for schedule in (True, False):
+        res = {}
+        for tag, m in (("fp32", model), ("int8", qmodel)):
+            Q.CALLS.update(int_mm=0, plain=0)
+            res[tag] = Trainer(limit_test_batches=PTQ_BATCHES, seed=0,
+                               time_batched=schedule).test(m, iter(batches))
+            calls = dict(Q.CALLS)
+            check(calls["plain"] == 0 and (calls["int_mm"] > 0)
+                  == (tag == "int8"), f"{tag}: int8 conv calls {calls}")
+        with torch.inference_mode():
+            (cf, _), _ = model.forward_fn(schedule)(X)
+            (cq, _), _ = qmodel.forward_fn(schedule)(X)
+        agree = float((cf.argmax(-1) == cq.argmax(-1)).float().mean())
+        print(f"  Trainer.test {SCHEDULE_NAMES[schedule]} on the "
+              f"{PTQ_BATCHES} synthetic batches: int8 map "
+              f"{res['int8']['map']:.4f}, fp32 {res['fp32']['map']:.4f}; "
+              f"class agreement with the fp32 net {agree:.4f}, relative L2 "
+              f"of the class logits {relative_l2(cq, cf):.4f}", flush=True)
+        check(all(np.isfinite(v) for v in res["int8"].values()),
+              f"int8 metrics {res['int8']}")
+    gen1 = make_batches(1, seed=0)[0]
+    X4 = torch.as_tensor(gen1[0], device=dev)
+    lab4 = torch.as_tensor(gen1[1], device=dev)
+    ms = {tag: eval_step_ms(torch, m, X4, lab4)
+          for tag, m in (("fp32", model), ("int8", qmodel))}
+    print(f"  eval step, time-batched, B={BATCH}, T={STEPS}: int8 "
+          f"{ms['int8']:.1f} ms, fp32 {ms['fp32']:.1f} ms (host clock, "
+          f"median of 3) [{smi}]", flush=True)
+
+    # the int8 conv alone (a library call: JAX runs it in XLA) at [3]'s
+    # stage-3 downsample over the T x B frames, beside cuDNN's conv
+    _, k, stride, _, cin, cout, hw, _ = next(
+        c for c in SPIKING_CONV_CASES if c[0] == "stage3_down")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    xq = torch.randint(-127, 128, (STEPS, BATCH, *hw, cin), generator=gen,
+                       device=dev).to(torch.int8)
+    wq = torch.randint(-127, 128, (cout, cin, k, k), generator=gen,
+                       device=dev).to(torch.int8)
+    frames = xq.reshape(STEPS * BATCH, *hw, cin)
+    int8_ms = cuda_time_ms(lambda: Q.int8_conv(frames, wq, stride,
+                                               (1, 1, 1, 1)), reps=5)
+    fp_ms = {dt: cuda_time_ms(conv_alone(torch, xq.to(getattr(torch, dt)),
+                                         wq.permute(2, 3, 1, 0).float(),
+                                         stride), reps=5)
+             for dt in ("float32", "bfloat16")}
+    print(f"  int8 conv (im2col + torch._int_mm) at stage3_down "
+          f"[{STEPS * BATCH}, {hw[0]}, {hw[1]}, {cin}] -> {cout}: "
+          f"{int8_ms:.3f} ms; cuDNN's conv alone {fp_ms['float32']:.3f} ms "
+          f"fp32, {fp_ms['bfloat16']:.3f} ms bf16 (CUDA events, median of "
+          f"5) [{smi}]", flush=True)
+    del xq, wq, frames
+
+    qparams, stats = model_params(qmodel), model_stats(qmodel)
+    Q.CALLS.update(int_mm=0, plain=0)
+    weights = trained_weights()
+    phase_engine(torch, cuda_kernels, TinyYolo, dev,
+                 pairs=(("float32", "float32"),), modes=(False,),
+                 weights=weights,
+                 update=lambda eng: eng.update_weights(qparams, stats))
+    check(Q.CALLS["int_mm"] == n_q * ENGINE_STEPS and Q.CALLS["plain"] == 0,
+          f"engine: int8 conv calls {Q.CALLS}")
+    print(f"  StreamingEngine.update_weights(int8 params): {Q.CALLS['int_mm']}"
+          f" int8 convs over {ENGINE_STEPS} steps", flush=True)
+    del model, qmodel, run
+    torch.cuda.empty_cache()
+    phase_megakernel(torch, cuda_kernels, TinyYolo, gen1, dev,
+                     weights=weights, timed=False, net="int8",
+                     prepare=lambda m: Q.quantize(m, absmax))
+
+
+def phase_options(torch, cuda_kernels, C, neurons, TinyYolo, Trainer,
+                  batches, smi, dev):
+    """[15]: the last inference options, (a)-(e). Returns (a)'s rows."""
+    t0 = time.perf_counter()
+    rows = options_e4m3_kernels(torch, cuda_kernels, neurons, TinyYolo,
+                                batches[0], dev)
+    print(f"  [15] (a) in {time.perf_counter() - t0:.1f} s", flush=True)
+    for part, fn in (
+        ("b", lambda: options_e4m3_model(torch, cuda_kernels, C, TinyYolo,
+                                         Trainer, batches, smi, dev)),
+        ("c", lambda: options_s2d(torch, cuda_kernels, TinyYolo, Trainer,
+                                  batches, dev)),
+        ("d", lambda: options_records(torch, cuda_kernels, C, TinyYolo,
+                                      batches, dev)),
+        ("e", lambda: options_int8(torch, cuda_kernels, TinyYolo, Trainer,
+                                   smi, dev)),
+    ):
+        t0 = time.perf_counter()
+        fn()
+        print(f"  [15] ({part}) in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    return rows
+
+
 def main(argv) -> int:
     import torch
 
@@ -3311,6 +4247,14 @@ def main(argv) -> int:
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
     if only is not None:
+        sources = sorted(os.path.basename(p) for p in glob.glob(
+            os.path.join(cuda_build.CSRC, "*.cu")))
+        t0 = time.perf_counter()
+        per_source = cuda_build.build(sources)
+        print(f"[2] build: {sources} in {time.perf_counter() - t0:.1f} s "
+              f"(nvcc per source: "
+              f"{ {k: round(v, 1) for k, v in per_source.items()} })",
+              flush=True)
         batches = make_batches(EVAL_BATCHES, seed=0)
         if 3 in only:
             print("[3] spiking_conv_seq and fused_pointwise_conv_bn_lif",
@@ -3351,6 +4295,12 @@ def main(argv) -> int:
             phase_zoo(torch, cuda_kernels, C, neurons, smi, batches,
                       "cuda")
             print(f"  [14] in {time.perf_counter() - t0:.1f} s", flush=True)
+        if 15 in only:
+            t0 = time.perf_counter()
+            print("[15] the last inference options", flush=True)
+            phase_options(torch, cuda_kernels, C, neurons, TinyYolo, Trainer,
+                          batches, smi, "cuda")
+            print(f"  [15] in {time.perf_counter() - t0:.1f} s", flush=True)
         print(f"partial run of phases {sorted(only)} done in "
               f"{time.perf_counter() - t_start:.1f} s")
         return 0
@@ -3428,6 +4378,14 @@ def main(argv) -> int:
     plif_fwd, plif_bwd, plif_worst_f, plif_worst_b, plif_launches = \
         phase_zoo(torch, cuda_kernels, C, neurons, smi, batches, "cuda")
     print(f"  [14] in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    print(f"[15] the last inference options: e4m3 states in every kernel, "
+          f"TinyYolo GEN1 {IN_HW} with e4m3 states, s2d_stem, "
+          f"forward_with_records and spike_stats, int8 PTQ of the trained "
+          f"net", flush=True)
+    phase_options(torch, cuda_kernels, C, neurons, TinyYolo, Trainer,
+                  batches, smi, "cuda")
+    print(f"  [15] in {time.perf_counter() - t0:.1f} s", flush=True)
 
     ref = next(r for r in rows if (r["shape"], r["cell"], r["x"], r["start"])
                == ("stage1", "lif", "float32", 0))

@@ -11,6 +11,7 @@
 
 namespace {
 
+using cell_math::E4M3;
 using cell_math::E5M2;
 using cell_math::from_f32;
 using cell_math::kLI;
@@ -125,7 +126,9 @@ __device__ __forceinline__ float cell_step_vjp(float s, float g, float gvn,
   if (CELL == kLIF) {
     const float q = __fadd_rn(__fmul_rn(alpha, fabsf(s)), 1.0f);
     const float sg = __fdiv_rn(g, __fmul_rn(q, q));
-    g_vdec = __fadd_rn(s > 0.0f ? 0.0f : gvn, sg);
+    // (1 - z) * gvn, as JAX differentiates the reset: NaN where a
+    // spiking element's carried cotangent is NaN or inf
+    g_vdec = __fadd_rn(__fmul_rn(s > 0.0f ? 0.0f : 1.0f, gvn), sg);
   } else {
     g_vdec = __fadd_rn(gvn, g);  // LI: the output is the new v
   }
@@ -489,6 +492,8 @@ int launch_state(int state_dtype, const void* x, const void* v0,
                                             f, s);
     case 2:
       return launch<CELL, X, E5M2>(x, v0, i0, z, vT, iT, T, M, start, f, s);
+    case 3:
+      return launch<CELL, X, E4M3>(x, v0, i0, z, vT, iT, T, M, start, f, s);
   }
   return -1;
 }
@@ -643,6 +648,8 @@ int launch_bwd_state(int state_dtype, const BwdArgs& a, const BwdPlan& p,
                                                 s);
     case 2:
       return launch_bwd<CELL, X, E5M2>(a, p, T, M, start, f, alpha, s);
+    case 3:
+      return launch_bwd<CELL, X, E4M3>(a, p, T, M, start, f, alpha, s);
   }
   return -1;
 }

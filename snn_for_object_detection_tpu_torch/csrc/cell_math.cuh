@@ -6,7 +6,9 @@
 // update are fused (__fmaf_rn) because XLA contracts them; every other
 // op rounds on its own (the sources are built with --fmad=false). bf16
 // and e5m2 stores round to nearest even, and e5m2 overflow gives inf as
-// in JAX and PyTorch.
+// in JAX and PyTorch. e4m3 stores give NaN, sign kept, for every |a| >
+// 464 and every inf and NaN, as JAX's astype does (ops/neurons.py's
+// to_state; PyTorch's cast saturates to 448).
 
 #pragma once
 
@@ -21,6 +23,9 @@ namespace cell_math {
 struct E5M2 {
   unsigned char bits;
 };
+struct E4M3 {
+  unsigned char bits;
+};
 
 __device__ __forceinline__ float to_f32(float a) { return a; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 a) {
@@ -31,6 +36,16 @@ __device__ __forceinline__ float to_f32(E5M2 a) {
   __half_raw h;
   h.x = static_cast<unsigned short>(a.bits) << 8;
   return __half2float(__half(h));
+}
+__device__ __forceinline__ float to_f32(E4M3 a) {
+  // every e4m3 value is an fp16 value: widening is exact. The hardware
+  // conversion gives a NaN without its sign; a NaN stored again keeps it
+  // (as PyTorch's widening and ops/neurons.py's to_state do)
+  if ((a.bits & 0x7F) == 0x7F) {
+    return __uint_as_float((static_cast<unsigned>(a.bits & 0x80) << 24) |
+                           0x7FC00000u);
+  }
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(a.bits, __NV_E4M3)));
 }
 
 template <typename T>
@@ -50,6 +65,19 @@ __device__ __forceinline__ E5M2 from_f32<E5M2>(float a) {
   E5M2 r;
   r.bits = __nv_cvt_float_to_fp8(a, __NV_SATFINITE, __NV_E5M2);
   if (fabsf(a) >= 61440.0f) r.bits = (r.bits & 0x80) | 0x7C;
+  return r;
+}
+template <>
+__device__ __forceinline__ E4M3 from_f32<E4M3>(float a) {
+  // The same hardware conversion, saturating to 448. JAX gives NaN with
+  // a's sign (0x7F / 0xFF) past 464 (the tie halfway to the NaN
+  // encoding, which rounds to 448), and for inf and NaN.
+  E4M3 r;
+  r.bits = __nv_cvt_float_to_fp8(a, __NV_SATFINITE, __NV_E4M3);
+  if (!(fabsf(a) <= 464.0f)) {
+    r.bits = static_cast<unsigned char>((__float_as_uint(a) >> 24) & 0x80) |
+             0x7F;
+  }
   return r;
 }
 

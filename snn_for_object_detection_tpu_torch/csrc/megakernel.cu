@@ -93,6 +93,7 @@
 
 namespace {
 
+using cell_math::E4M3;
 using cell_math::E5M2;
 using cell_math::from_f32;
 using cell_math::kLI;
@@ -797,6 +798,7 @@ const void* kernel_for(int x_dtype, int state_dtype) {
       return (const void*)megakernel<float, __nv_bfloat16>;
     }
     if (state_dtype == 2) return (const void*)megakernel<float, E5M2>;
+    if (state_dtype == 3) return (const void*)megakernel<float, E4M3>;
   } else if (x_dtype == 1) {
     if (state_dtype == 0) {
       return (const void*)megakernel<__nv_bfloat16, float>;
@@ -807,6 +809,9 @@ const void* kernel_for(int x_dtype, int state_dtype) {
     if (state_dtype == 2) {
       return (const void*)megakernel<__nv_bfloat16, E5M2>;
     }
+    if (state_dtype == 3) {
+      return (const void*)megakernel<__nv_bfloat16, E4M3>;
+    }
   }
   return nullptr;
 }
@@ -814,7 +819,7 @@ const void* kernel_for(int x_dtype, int state_dtype) {
 }  // namespace
 
 // C entry points (loaded with ctypes). Type codes: 0 fp32, 1 bf16, 2 fp8
-// e5m2 (state only); frame 0 fp32, 1 bf16, 3 uint8. Each returns 0 on
+// e5m2, 3 fp8 e4m3 (state only); frame 0 fp32, 1 bf16, 3 uint8. Each returns 0 on
 // success, -1 for an unsupported argument, -2 where the device has no
 // cooperative launch, else the cudaError_t.
 

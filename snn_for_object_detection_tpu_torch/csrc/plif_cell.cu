@@ -77,11 +77,14 @@ extern "C" int plif_cell_bwd_regs(int x_dtype, int state_dtype, int vec) {
   if (x_dtype == 0 && state_dtype == 0) { REGS(float, float) }
   else if (x_dtype == 0 && state_dtype == 1) { REGS(float, __nv_bfloat16) }
   else if (x_dtype == 0 && state_dtype == 2) { REGS(float, E5M2) }
+  else if (x_dtype == 0 && state_dtype == 3) { REGS(float, E4M3) }
   else if (x_dtype == 1 && state_dtype == 0) { REGS(__nv_bfloat16, float) }
   else if (x_dtype == 1 && state_dtype == 1) {
     REGS(__nv_bfloat16, __nv_bfloat16)
   } else if (x_dtype == 1 && state_dtype == 2) {
     REGS(__nv_bfloat16, E5M2)
+  } else if (x_dtype == 1 && state_dtype == 3) {
+    REGS(__nv_bfloat16, E4M3)
   }
 #undef REGS
   return e == cudaSuccess ? attr.numRegs : -1;

@@ -5,7 +5,7 @@
 // (`_fused_kernel` under its pallas_call) of
 // snn_for_object_detection_tpu/ops/pallas_kernels.py:
 //   in:  x[N, Cin] and w[Cin, Cout] (fp32 or bf16), a, b[Cout] fp32,
-//        v, i[N, Cout] (fp32, bf16 or fp8 e5m2)
+//        v, i[N, Cout] (fp32, bf16, fp8 e5m2 or e4m3)
 //   out: z[N, Cout] in x's type, v', i' in the state type
 //   y = x @ w summed in fp32; y = fma(y, a, b), not rounded to x's type;
 //   v_dec = fma(i - v, c_mem, v), i_dec = fma(i, -c_syn, i);
@@ -62,6 +62,7 @@
 
 namespace {
 
+using cell_math::E4M3;
 using cell_math::E5M2;
 using cell_math::from_f32;
 using cell_math::to_f32;
@@ -258,6 +259,10 @@ __device__ __forceinline__ void load2(const E5M2* p, float& a, float& b) {
   a = to_f32(p[0]);
   b = to_f32(p[1]);
 }
+__device__ __forceinline__ void load2(const E4M3* p, float& a, float& b) {
+  a = to_f32(p[0]);
+  b = to_f32(p[1]);
+}
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
@@ -266,6 +271,11 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 }
 __device__ __forceinline__ void store2(E5M2* p, float a, float b) {
   const unsigned lo = from_f32<E5M2>(a).bits, hi = from_f32<E5M2>(b).bits;
+  *reinterpret_cast<unsigned short*>(p) =
+      static_cast<unsigned short>(lo | (hi << 8));
+}
+__device__ __forceinline__ void store2(E4M3* p, float a, float b) {
+  const unsigned lo = from_f32<E4M3>(a).bits, hi = from_f32<E4M3>(b).bits;
   *reinterpret_cast<unsigned short*>(p) =
       static_cast<unsigned short>(lo | (hi << 8));
 }
@@ -625,6 +635,9 @@ int by_state(int state_dtype, const Args& p, long long grid, int smem,
     case 2:
       return blocks ? occupancy<X, E5M2>(p, smem, blocks)
                     : launch<X, E5M2>(p, grid, smem, s);
+    case 3:
+      return blocks ? occupancy<X, E4M3>(p, smem, blocks)
+                    : launch<X, E4M3>(p, grid, smem, s);
   }
   return -1;
 }
@@ -643,7 +656,7 @@ int by_x(int x_dtype, int state_dtype, const Args& p, long long grid,
 }  // namespace
 
 // C entry points (loaded with ctypes). Type codes: 0 fp32, 1 bf16,
-// 2 fp8 e5m2 (state only). Each returns 0 on success, -1 for an
+// 2 fp8 e5m2, 3 fp8 e4m3 (state only). Each returns 0 on success, -1 for an
 // unsupported argument or a plan that is not consistent, else the
 // cudaError_t of the call. Shapes are checked by the Python wrapper.
 

@@ -7,8 +7,8 @@
 //   in:  x[T, N, H, W, Cin] (fp32 or bf16); w as the wrapper hands it:
 //        fp32 [Cin][k][k][Cout], rounded to x's type first (k in {1, 3},
 //        stride in {1, 2}, zero padding k / 2); a, b[Cout] fp32 (the
-//        folded eval BatchNorm); v0, i0[N, Ho, Wo, Cout] (fp32, bf16 or
-//        fp8 e5m2)
+//        folded eval BatchNorm); v0, i0[N, Ho, Wo, Cout] (fp32, bf16,
+//        fp8 e5m2 or e4m3)
 //   out: z[T, N, Ho, Wo, Cout] in x's type, vT, iT in the state type
 // Per step: the conv summed in fp32, rounded to x's type; y * a + b in
 // fp32 (one fused multiply-add, as XLA contracts it), rounded to x's
@@ -68,6 +68,7 @@
 
 namespace {
 
+using cell_math::E4M3;
 using cell_math::E5M2;
 using cell_math::from_f32;
 using cell_math::round_to;
@@ -549,6 +550,8 @@ int launch_state(int state_dtype, int k, const Args& p, const Plan& q,
       return launch_geometry<CELL, X, __nv_bfloat16>(k, p, q, s);
     case 2:
       return launch_geometry<CELL, X, E5M2>(k, p, q, s);
+    case 3:
+      return launch_geometry<CELL, X, E4M3>(k, p, q, s);
   }
   return -1;
 }
@@ -570,7 +573,7 @@ bool fits_int(long long v) { return v >= 0 && v <= 0x7fffffff; }
 }  // namespace
 
 // C entry point (loaded with ctypes). Type codes: 0 fp32, 1 bf16, 2 fp8
-// e5m2 (state only); cell 0 = LIF, 1 = LI; the plan's fields as
+// e5m2, 3 fp8 e4m3 (state only); cell 0 = LIF, 1 = LI; the plan's fields as
 // ops/cuda_kernels.py's ConvPlan. Returns 0 on success, -1 for an
 // unsupported argument or a plan that is not its geometry's, else the
 // cudaError_t of the launch. Shapes are checked by the Python wrapper.

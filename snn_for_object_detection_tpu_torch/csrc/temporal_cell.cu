@@ -3,7 +3,8 @@
 // Replaces the Pallas TPU kernel `temporal_cell_seq`
 // (snn_for_object_detection_tpu/ops/pallas_kernels.py: `_temporal_kernel`
 // under `_temporal_pallas_core`'s pallas_call). Same function:
-//   in:  x[T, M] (fp32 or bf16), v0[M], i0[M] (fp32, bf16 or fp8 e5m2)
+//   in:  x[T, M] (fp32 or bf16), v0[M], i0[M] (fp32, bf16,
+//        fp8 e5m2 or e4m3)
 //   out: z[T, M] in x's type, v_T[M], i_T[M] in the state type
 // with fp32 update math, the state re-quantized to its storage type
 // every step, and the truncation gate: for t < start the state stays
@@ -68,7 +69,7 @@
 #include "cell_kernels.cuh"
 
 // C entry point (loaded with ctypes). Type codes: 0 fp32, 1 bf16,
-// 2 fp8 e5m2 (state only); cell 0 = LIF, 1 = LI. Returns 0 on success,
+// 2 fp8 e5m2, 3 fp8 e4m3 (state only); cell 0 = LIF, 1 = LI. Returns 0 on success,
 // -1 for an unsupported argument, else the cudaError_t of the launch.
 extern "C" int temporal_cell_seq_launch(const void* x, const void* v0,
                                         const void* i0, void* z, void* vT,

@@ -28,15 +28,21 @@ JAX compiler's ``_segment_plan``.
 
 Activations are NHWC at every boundary (the JAX layout). Submodules are
 named after the JAX pytree keys (``b0.l3.w`` for ``["b0"]["l3"]["w"]``),
-so ``models/convert.py`` maps weights one to one. ``Conv(s2d=True)`` and
-state recording raise ``NotImplementedError`` naming their ROADMAP.md
-items.
+so ``models/convert.py`` maps weights one to one.
+
+Beside the plain forms: ``Conv(s2d=True)`` runs the space-to-depth plan
+(the same function, another layout of the sums); a Conv in its int8 form
+(``ops/quantize.py``) runs int8 x int8 -> int32 sums between a per-tensor
+input scale and per-channel weight scales; ``ctx.calibrate`` has every
+Conv report its input's absmax; and with ``ctx.record`` every
+``state_storage=True`` cell adds ``(state, out)`` to ``ctx.records``
+under its JAX name (``backbone/b0/l2``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,7 +51,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from snn_for_object_detection_tpu_torch.models import spec as S
-from snn_for_object_detection_tpu_torch.ops import neurons
+from snn_for_object_detection_tpu_torch.ops import neurons, quantize
 from snn_for_object_detection_tpu_torch.ops.cuda_kernels import (
     full_fp32_conv,
     plif_cell_seq,
@@ -68,13 +74,24 @@ class Ctx:
     fused triples (only at ``start_step == 0`` and not in training: the
     fused kernel has no truncation gate and no backward; the per-step
     ``step`` never fuses); ``train`` selects batch statistics in Norm;
-    ``remat`` checkpoints a sequence call's segments."""
+    ``remat`` checkpoints a sequence call's segments.
+
+    ``record``: every cell built with ``state_storage=True`` puts
+    ``(state, out)`` in ``records`` under its name (a step: the new
+    state and the fp32 output; a sequence call: both stacked over T, the
+    state held for ``t < start_step``, the output in the input's dtype).
+    ``calibrate``: every float Conv puts its input's fp32 absmax in
+    ``absmax``, keyed by the layer (``ops/quantize.calibrate``)."""
 
     taps: List[torch.Tensor] = dataclasses.field(default_factory=list)
     start_step: int = 0
     fuse: bool = False
     train: bool = False
     remat: bool = False
+    record: bool = False
+    records: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    calibrate: bool = False
+    absmax: Dict[Any, torch.Tensor] = dataclasses.field(default_factory=dict)
 
     def step_mask(self, steps: int) -> List[bool]:
         """Step t of a sequence call is active iff ``t >= start_step``."""
@@ -303,15 +320,66 @@ def _kaiming_(w: nn.Parameter, generator: torch.Generator) -> None:
         w.copy_(std * torch.randn(w.shape, generator=generator))
 
 
+def s2d_pack_x(x: torch.Tensor) -> torch.Tensor:
+    """``[..., H, W, C] -> [..., H/2, W/2, 4C]``: 2x2 space-to-depth, the
+    row phase ``a`` outermost in the packed channel index ``a*2C + b*C +
+    c`` (JAX ``_s2d_pack_x``)."""
+    *lead, h, w, c = x.shape
+    x = x.reshape(*lead, h // 2, 2, w // 2, 2, c).transpose(-4, -3)
+    return x.reshape(*lead, h // 2, w // 2, 4 * c)
+
+
+def s2d_pack_w(w: torch.Tensor) -> torch.Tensor:
+    """OIHW ``[O, C, 3, 3] -> [O, 4C, 2, 2]`` (JAX ``_s2d_pack_w``): the
+    3x3 stride-2 taps scattered onto a kernel-2 stride-1 conv of the
+    packed grid with top/left padding 1. Output row i reads raw rows 2i-1,
+    2i, 2i+1 at (packed tap 0, phase 1), (1, 0), (1, 1); the (0, 0) slot
+    is never read and stays zero. Columns the same. Differentiable: the
+    gradient reaches the 3x3 weight."""
+    o, c = w.shape[:2]
+    wp = w.new_zeros(o, 2, 2, c, 2, 2)  # [O, a, b, C, packed row, col]
+    taps = {(0, 1): 0, (1, 0): 1, (1, 1): 2}  # (packed tap, phase) -> raw
+    for (di_p, a), di in taps.items():
+        for (dj_p, b), dj in taps.items():
+            wp[:, a, b, :, di_p, dj_p] = w[:, :, di, dj]
+    return wp.reshape(o, 4 * c, 2, 2)
+
+
 class Conv(Layer):
     """Bias-free conv, symmetric padding ``k // 2``. The weight is kept
-    OIHW; activations stay NHWC (a channels-last view for the conv)."""
+    OIHW; activations stay NHWC (a channels-last view for the conv).
 
-    def __init__(self, in_ch, out_ch, k, s, in_hw):
+    ``s2d`` (JAX ``Conv(s2d=True)``, k = 3, stride 2, even input dims):
+    the execution plan of a 2x2 space-to-depth input and the packed
+    kernel-2 stride-1 conv (padding 1 on top and left), packed at apply
+    time from the same ``[O, C, 3, 3]`` weight; the fused plan and the
+    megakernel read that weight unpacked, as JAX's do.
+
+    The int8 form (``set_int8``: ``ops/quantize.quantize``,
+    ``load_jax_params`` of JAX's ``{w_q, w_scale, x_scale}`` leaves) holds
+    the buffers ``w_q`` (int8 OIHW), ``w_scale`` (fp32 ``[O]``) and
+    ``x_scale`` (fp32 scalar) in place of ``w`` and computes JAX's chain
+    (compile.py:340-376) in the activation dtype: ``q = clip(round(x *
+    (1 / x_scale)), -127, 127)`` as int8, the int32 sums of
+    ``quantize.int8_conv`` (packed when ``s2d``), then ``y * (x_scale *
+    w_scale)``. It has no gradient: a train forward raises, as JAX's
+    ``grad`` does on int8 leaves."""
+
+    def __init__(self, in_ch, out_ch, k, s, in_hw, s2d: bool = False,
+                 name: str = ""):
         pad = k // 2
         super().__init__(
             out_ch, tuple((d + 2 * pad - k) // s + 1 for d in in_hw)
         )
+        if s2d:
+            if k != 3 or s != 2:
+                raise ValueError(
+                    f"{name}: Conv(s2d=True) requires kernel_size=3 "
+                    f"stride=2, got k={k} s={s}")
+            if in_hw[0] % 2 or in_hw[1] % 2:
+                raise ValueError(f"{name}: Conv(s2d=True) needs even input "
+                                 f"dims, got {tuple(in_hw)}")
+        self.k, self.s2d = k, s2d
         self.stride, self.padding = s, pad
         self.in_hw = tuple(in_hw)
         self.w = nn.Parameter(torch.empty(out_ch, in_ch, k, k))
@@ -319,11 +387,59 @@ class Conv(Layer):
     def reset_parameters(self, generator: torch.Generator) -> None:
         _kaiming_(self.w, generator)
 
+    @property
+    def quantized(self) -> bool:
+        return "w_q" in self._buffers
+
+    def set_int8(self, w_q: torch.Tensor, w_scale: torch.Tensor,
+                 x_scale: torch.Tensor) -> None:
+        """Turn this conv into its int8 form (``w`` goes)."""
+        if "w" in self._parameters:
+            del self.w
+        self.register_buffer("w_q", w_q.to(torch.int8))
+        self.register_buffer("w_scale", w_scale.float())
+        self.register_buffer("x_scale", x_scale.float().reshape(()))
+
+    def set_float(self, w: torch.Tensor) -> None:
+        """Turn an int8 conv back into its float form with weight ``w``."""
+        for name in ("w_q", "w_scale", "x_scale"):
+            self._buffers.pop(name, None)
+        self.w = nn.Parameter(w.float())
+
+    def float_weight(self) -> torch.Tensor:
+        """The fp32 OIHW weight: ``w``, or ``w_q * w_scale`` (JAX's
+        ``dequantize`` and megakernel build)."""
+        if self.quantized:
+            return self.w_q.float() * self.w_scale[:, None, None, None]
+        return self.w
+
     def step(self, x, state, ctx):
+        if self.quantized:
+            if ctx is not None and ctx.train:
+                raise TypeError(
+                    "int8 conv weights (w_q) cannot be trained: grad "
+                    "requires real- or complex-valued inputs, but got int8")
+            return self._int8_conv(x), state
+        if ctx is not None and ctx.calibrate:
+            ctx.absmax[self] = x.float().abs().amax()
         return self._conv(x, self.w.to(x.dtype)), state
 
     def _conv(self, x, w):
+        if self.s2d:
+            return _conv_nhwc(F.pad(s2d_pack_x(x), (0, 0, 1, 0, 1, 0)),
+                              s2d_pack_w(w), 1, 0)
         return _conv_nhwc(x, w, self.stride, self.padding)
+
+    def _int8_conv(self, x):
+        inv = (1.0 / self.x_scale).to(x.dtype)
+        q = torch.clamp(torch.round(x * inv), -127, 127).to(torch.int8)
+        if self.s2d:
+            y = quantize.int8_conv(s2d_pack_x(q), s2d_pack_w(self.w_q), 1,
+                                   (1, 0, 1, 0))
+        else:
+            p = self.padding
+            y = quantize.int8_conv(q, self.w_q, self.stride, (p, p, p, p))
+        return y.to(x.dtype) * (self.x_scale * self.w_scale).to(x.dtype)
 
     def step_unrounded(self, x):
         """The conv of x's values and the weight rounded to x's dtype,
@@ -448,27 +564,68 @@ def commit_norm_stats(block: "Block", state):
     return out
 
 
+def _recording(layer, ctx) -> bool:
+    return layer.record and ctx is not None and ctx.record
+
+
+def _record_step(layer, x, state, ctx, step):
+    """A cell's step that records: ``step(x, state) -> (out, new)`` on
+    the input widened to fp32, so ``out`` is the cell's fp32 output, as
+    JAX records it; the layer's output is ``out`` in x's dtype."""
+    out, new = step(x.float(), state)
+    ctx.records[layer.name] = (new, out)
+    return out.to(x.dtype), new
+
+
+def _record_seq(layer, X, state, ctx, step):
+    """A cell's sequence form when it records (JAX's ``_cell_apply_seq``,
+    which then runs a ``lax.scan``): ``step(x_t, state) -> (out, new)``
+    a step at a time, the state held for ``t < ctx.start_step``; the
+    record is every step's (held) state and output, stacked."""
+    outs, states = [], []
+    for t, keep in enumerate(ctx.step_mask(X.shape[0])):
+        out, new = step(X[t], state)
+        if keep:
+            state = new
+        outs.append(out)
+        states.append(state)
+    out_seq = torch.stack(outs)
+    ctx.records[layer.name] = (
+        type(state)(*(torch.stack(f) for f in zip(*states))), out_seq)
+    return out_seq, state
+
+
 class Cell(Layer):
     """LIF or LI layer. Both forms go through ``temporal_cell_seq``
-    (the step form with T = 1), so on the card no plain cell math runs."""
+    (the step form with T = 1), so on the card no plain cell math runs;
+    a recording sequence call runs it a step at a time."""
 
     closes_segment = True
 
-    def __init__(self, kind: str, ch, hw, state_dtype):
+    def __init__(self, kind: str, ch, hw, state_dtype, record: bool = False,
+                 name: str = ""):
         super().__init__(ch, hw)
         self.kind = kind
         self.state_dtype = state_dtype
+        self.record, self.name = record, name
 
     def init_state(self, batch, device):
         init = neurons.lif_init if self.kind == "lif" else neurons.li_init
         return init((batch, *self.out_hw, self.out_channels),
                     dtype=self.state_dtype, device=device)
 
-    def step(self, x, state, ctx):
+    def _step(self, x, state):
         z, v, i = temporal_cell_seq(x[None], state.v, state.i, self.kind)
         return z[0], type(state)(v, i)
 
+    def step(self, x, state, ctx):
+        if _recording(self, ctx):
+            return _record_step(self, x, state, ctx, self._step)
+        return self._step(x, state)
+
     def seq(self, X, state, ctx):
+        if _recording(self, ctx):
+            return _record_seq(self, X, state, ctx, self._step)
         z, v, i = temporal_cell_seq(
             X, state.v, state.i, self.kind, start=ctx.start_step
         )
@@ -487,9 +644,11 @@ class PLIF(Layer):
 
     closes_segment = True
 
-    def __init__(self, ch, hw, state_dtype):
+    def __init__(self, ch, hw, state_dtype, record: bool = False,
+                 name: str = ""):
         super().__init__(ch, hw)
         self.state_dtype = state_dtype
+        self.record, self.name = record, name
         init = neurons.plif_params_init(ch)
         self.raw_tau_syn = nn.Parameter(init.raw_tau_syn)
         self.raw_tau_mem = nn.Parameter(init.raw_tau_mem)
@@ -508,11 +667,18 @@ class PLIF(Layer):
         return neurons.plif_factors(
             neurons.PLIFParams(self.raw_tau_syn, self.raw_tau_mem))
 
-    def step(self, x, state, ctx):
+    def _step(self, x, state):
         z, v, i = plif_cell_seq(x[None], state.v, state.i, *self.factors())
         return z[0], neurons.LIFState(v, i)
 
+    def step(self, x, state, ctx):
+        if _recording(self, ctx):
+            return _record_step(self, x, state, ctx, self._step)
+        return self._step(x, state)
+
     def seq(self, X, state, ctx):
+        if _recording(self, ctx):
+            return _record_seq(self, X, state, ctx, self._step)
         z, v, i = plif_cell_seq(X, state.v, state.i, *self.factors(),
                                 start=ctx.start_step)
         return z, neurons.LIFState(v, i)
@@ -531,22 +697,30 @@ class PlainCell(Layer):
     closes_segment = True
 
     def __init__(self, ch, hw, state_dtype, init: Callable,
-                 step_fn: Callable):
+                 step_fn: Callable, record: bool = False, name: str = ""):
         super().__init__(ch, hw)
         self.state_dtype = state_dtype
         self._init, self._step_fn = init, step_fn
+        self.record, self.name = record, name
 
     def init_state(self, batch, device):
         return self._init((batch, *self.out_hw, self.out_channels),
                           dtype=self.state_dtype, device=device)
 
-    def step(self, x, state, ctx):
+    def _step(self, x, state):
         out, new = self._step_fn(x.float(), type(state)(
-            *(a.float() for a in state)))
+            *(neurons.from_state(a) for a in state)))
         return out.to(x.dtype), type(state)(
-            *(a.to(self.state_dtype) for a in new))
+            *(neurons.to_state(a, self.state_dtype) for a in new))
+
+    def step(self, x, state, ctx):
+        if _recording(self, ctx):
+            return _record_step(self, x, state, ctx, self._step)
+        return self._step(x, state)
 
     def seq(self, X, state, ctx):
+        if _recording(self, ctx):
+            return _record_seq(self, X, state, ctx, self._step)
         return _step_loop(self, X, state, ctx)
 
 
@@ -590,21 +764,23 @@ class ConvLSTM(Layer):
 
     def step(self, x, state, ctx):
         h_prev, c_prev = state
-        combined = torch.cat([x, h_prev.to(x.dtype)], dim=-1)
+        combined = torch.cat([x, neurons.from_state(h_prev).to(x.dtype)],
+                             dim=-1)
         gates = _conv_nhwc(combined, self.w.to(x.dtype), 1,
                            self.padding).float()
         i_g, f_g, o_g, g_g = gates.split(self.hidden, dim=-1)
-        c_new = neurons.fma(torch.sigmoid(f_g), c_prev.float(),
+        c_new = neurons.fma(torch.sigmoid(f_g), neurons.from_state(c_prev),
                             torch.sigmoid(i_g) * torch.tanh(g_g))
         h_new = torch.sigmoid(o_g) * torch.tanh(c_new)
         sd = self.state_dtype
-        return h_new.to(x.dtype), (h_new.to(sd), c_new.to(sd))
+        return h_new.to(x.dtype), (neurons.to_state(h_new, sd),
+                                   neurons.to_state(c_new, sd))
 
     def seq(self, X, state, ctx):
         return _step_loop(self, X, state, ctx)
 
 
-def _plain_cell(layer, in_ch, in_hw, state_dtype) -> PlainCell:
+def _plain_cell(layer, in_ch, in_hw, state_dtype, name) -> PlainCell:
     if isinstance(layer, S.ALIF):
         p = neurons.ALIFParams(beta=layer.beta,
                                tau_adapt_inv=layer.tau_adapt_inv)
@@ -618,10 +794,12 @@ def _plain_cell(layer, in_ch, in_hw, state_dtype) -> PlainCell:
         init = lambda shape, dtype, device: neurons.synapse_init(  # noqa: E731
             shape, dtype, device, p)
         step = lambda x, st: neurons.synapse_step(x, st, p)  # noqa: E731
-    return PlainCell(in_ch, in_hw, state_dtype, init, step)
+    return PlainCell(in_ch, in_hw, state_dtype, init, step,
+                     getattr(layer, "state_storage", False), name)
 
 
-def _compile_leaf(layer: S.LayerSpec, in_ch: int, in_hw, state_dtype):
+def _compile_leaf(layer: S.LayerSpec, in_ch: int, in_hw, state_dtype,
+                  name: str = ""):
     if isinstance(layer, S.Pass):
         return Pass(in_ch, in_hw)
     if isinstance(layer, S.Tanh):
@@ -645,22 +823,19 @@ def _compile_leaf(layer: S.LayerSpec, in_ch: int, in_hw, state_dtype):
     if isinstance(layer, S.Return):
         return Return(in_ch, in_hw)
     if isinstance(layer, S.Conv):
-        if layer.s2d:
-            raise not_ported("Conv(s2d=True)", "execution plans")
         out = in_ch if layer.out_channels is None else layer.out_channels
-        return Conv(in_ch, out, layer.kernel_size, layer.stride, in_hw)
+        return Conv(in_ch, out, layer.kernel_size, layer.stride, in_hw,
+                    layer.s2d, name)
     if isinstance(layer, S.Norm):
         return Norm(in_ch, in_hw, layer.bias, layer.eps, layer.momentum)
-    if getattr(layer, "state_storage", False):
-        raise not_ported("state recording (state_storage=True)",
-                         "recording")
     if isinstance(layer, (S.LIF, S.LI)):
         kind = "lif" if isinstance(layer, S.LIF) else "li"
-        return Cell(kind, in_ch, in_hw, state_dtype)
+        return Cell(kind, in_ch, in_hw, state_dtype, layer.state_storage,
+                    name)
     if isinstance(layer, S.PLIF):
-        return PLIF(in_ch, in_hw, state_dtype)
+        return PLIF(in_ch, in_hw, state_dtype, layer.state_storage, name)
     if isinstance(layer, (S.ALIF, S.SLI, S.Synapse)):
-        return _plain_cell(layer, in_ch, in_hw, state_dtype)
+        return _plain_cell(layer, in_ch, in_hw, state_dtype, name)
     if isinstance(layer, S.LSTM):
         hidden = in_ch if layer.hidden_size is None else layer.hidden_size
         return ConvLSTM(in_ch, hidden, layer.kernel_size, in_hw,
@@ -675,7 +850,7 @@ def _fused_groups(layers: List[Layer]) -> List[int]:
     starts, li = [], 0
     while li + 2 < len(layers):
         conv, norm, cell = layers[li:li + 3]
-        if (isinstance(conv, Conv) and conv.w.shape[-1] in (1, 3)
+        if (isinstance(conv, Conv) and conv.k in (1, 3)
                 and conv.stride in (1, 2) and isinstance(norm, Norm)
                 and isinstance(cell, Cell)):
             starts.append(li)
@@ -701,7 +876,7 @@ class Block(Layer):
     closes_segment = True
 
     def __init__(self, cfgs, in_ch, in_hw, returns=None,
-                 state_dtype=torch.float32):
+                 state_dtype=torch.float32, name: str = ""):
         if isinstance(cfgs, S.Residual):
             mode, branch_cfgs = "residual", list(cfgs)
         elif isinstance(cfgs, S.Dense):
@@ -710,16 +885,18 @@ class Block(Layer):
             mode, branch_cfgs = "plain", [list(cfgs)]
         branches = []
         out_channels, out_hw = 0, None
-        for branch_cfg in branch_cfgs:
+        for bi, branch_cfg in enumerate(branch_cfgs):
             layers = []
             ch, hw = in_ch, tuple(in_hw)
-            for element in branch_cfg:
+            for li, element in enumerate(branch_cfg):
+                lname = f"{name}/b{bi}/l{li}" if name else f"b{bi}/l{li}"
                 if isinstance(element, S.LayerSpec):
-                    layer = _compile_leaf(element, ch, hw, state_dtype)
+                    layer = _compile_leaf(element, ch, hw, state_dtype, lname)
                     if isinstance(element, S.Return) and returns is not None:
                         returns.append((ch, hw))
                 elif isinstance(element, (list, tuple)):
-                    layer = Block(element, ch, hw, returns, state_dtype)
+                    layer = Block(element, ch, hw, returns, state_dtype,
+                                  lname)
                 else:
                     raise TypeError(f"Bad config element: {element!r}")
                 layers.append(layer)
@@ -771,12 +948,16 @@ class Block(Layer):
             fused = self.fused_plan[bi] if fuse else []
             li = 0
             while li < len(layers):
-                if li in fused:
+                # an int8 conv or a recording cell takes its triple off the
+                # fused plan, as in JAX's _make_apply
+                if li in fused and not layers[li].quantized and not (
+                        ctx.record and layers[li + 2].record):
                     y = self._run_fused(layers[li:li + 3], li, y, st_b, new_b)
                     li += 3
                     continue
                 if (not seq and ctx.train and y.dtype != torch.float32
                         and isinstance(layers[li], Conv)
+                        and not layers[li].quantized
                         and li + 1 < len(layers)
                         and isinstance(layers[li + 1], Norm)):
                     # [Conv -> Norm] of a train step in bf16: the Norm
@@ -851,6 +1032,7 @@ class Block(Layer):
         conv, norm, cell = triple
         a, b = norm.coeffs()
         st = st_b[f"l{li + 2}"]
+        # the unpacked weight and stride, an s2d conv's too (JAX's meta)
         z, v, i = spiking_conv_seq(
             X, conv.w.permute(2, 3, 1, 0), a, b, st.v, st.i,
             cell.kind, conv.stride,
@@ -891,8 +1073,9 @@ def _segment_plan(layers: List[Layer]) -> List[Tuple[bool, List[int]]]:
 
 
 def compile_block(cfgs, in_ch: int, in_hw, returns: Optional[list] = None,
-                  state_dtype=torch.float32) -> Block:
+                  state_dtype=torch.float32, name: str = "") -> Block:
     """Compile a config list into a :class:`Block`. ``Return`` leaf
     ``(channels, hw)`` pairs are appended to ``returns`` in config
-    order."""
-    return Block(cfgs, in_ch, in_hw, returns, state_dtype)
+    order. ``name`` prefixes the layers' names (JAX's: ``backbone/b0/l2``
+    for a leaf of the block named ``backbone``), which recording uses."""
+    return Block(cfgs, in_ch, in_hw, returns, state_dtype, name)

@@ -29,12 +29,19 @@ Light head box/cls tails (no state and no BatchNorm, TinyYolo's bare
 1x1 convs) run once, on the last step's stem activations (JAX's
 ``_head_tails_light``); tails with a cell or a Norm run at every step
 of every schedule, their state and statistics carried like the rest.
+
+:meth:`forward_with_records` runs the per-step schedule and returns, for
+every cell built with ``state_storage=True``, its state and output at
+every step (``utils/analysis.py`` reads them). ``s2d_stem=True`` runs the
+stem conv on the space-to-depth plan; int8 weights come from
+``ops/quantize.py`` or ``load_jax_params``.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, List, Tuple
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,9 +64,6 @@ def as_dtype(dtype) -> torch.dtype:
     """A torch dtype from a dtype or its name ("bfloat16", ...)."""
     if isinstance(dtype, str):
         dtype = getattr(torch, dtype.split(".")[-1])
-    if dtype == torch.float8_e4m3fn:
-        # torch saturates e4m3 overflow where JAX gives NaN
-        raise C.not_ported("float8_e4m3fn states", "e4m3 states")
     return dtype
 
 
@@ -77,14 +81,21 @@ class SODa(nn.Module):
     :param iou_threshold: Anchor-assignment IoU threshold.
     :param learning_rate: The optimizer's (peak) learning rate.
     :param compute_dtype: Activation dtype, fp32 or bf16.
-    :param state_dtype: Neuron state storage dtype: fp32, bf16 or e5m2.
+    :param state_dtype: Neuron state storage dtype: fp32, bf16, or fp8
+        e5m2 or e4m3fn (stored as JAX stores it: ``neurons.to_state``).
     :param remat: In training, recompute activations in the backward
         instead of keeping them (``torch.utils.checkpoint``), as the JAX
         package's ``jax.checkpoint``.
+    :param state_storage: The cells record their state and output in
+        :meth:`forward_with_records` (every zoo model passes it to its
+        cells).
     :param fuse_seq: :meth:`forward_seq` fuses each ``[Conv -> Norm ->
         LIF/LI]`` triple into one ``spiking_conv_seq`` call when no
         truncation is in play and it is not training (opt-in, as in the
         JAX package).
+    :param s2d_stem: Run the first backbone layer, which must be a 3x3
+        stride-2 Conv, on the space-to-depth plan (``Conv(s2d=True)``):
+        the same weights and function, the sums in another order.
     :param device: Where the model lives. ``"cuda"`` needs a card: there
         is no fallback to the CPU.
     :param seed: Seed of the ``torch.Generator`` that draws the weights.
@@ -104,6 +115,7 @@ class SODa(nn.Module):
         state_dtype=torch.float32,
         remat: bool = True,
         fuse_seq: bool = False,
+        s2d_stem: bool = False,
         device="cuda",
         seed: int = 0,
     ):
@@ -114,9 +126,6 @@ class SODa(nn.Module):
                 "device='cuda' but no CUDA device is available; pass "
                 "device='cpu' to run the plain PyTorch versions"
             )
-        if state_storage:
-            raise C.not_ported("state recording (state_storage=True)",
-                               "recording")
         self.num_classes = num_classes
         self.in_hw = tuple(in_hw)
         self.in_channels = in_channels
@@ -127,6 +136,7 @@ class SODa(nn.Module):
         self.remat = remat
         self.state_storage = state_storage
         self.fuse_seq = fuse_seq
+        self.s2d_stem = s2d_stem
         self.compute_dtype = as_dtype(compute_dtype)
         self.state_dtype = as_dtype(state_dtype)
         if self.compute_dtype not in X_DTYPES:
@@ -136,13 +146,26 @@ class SODa(nn.Module):
         self.device = device
 
         sd = self.state_dtype
+        backbone_cfgs = self.backbone_cfgs()
+        if s2d_stem:
+            stem = backbone_cfgs[0] if backbone_cfgs else None
+            if not (isinstance(stem, S.Conv) and stem.kernel_size == 3
+                    and stem.stride == 2):
+                raise ValueError(
+                    "s2d_stem=True requires the backbone to start with "
+                    f"a Conv(kernel_size=3, stride=2); got {stem!r}"
+                )
+            backbone_cfgs = [dataclasses.replace(stem, s2d=True),
+                             *backbone_cfgs[1:]]
         self.backbone = C.compile_block(
-            self.backbone_cfgs(), in_channels, self.in_hw, state_dtype=sd
+            backbone_cfgs, in_channels, self.in_hw, state_dtype=sd,
+            name="backbone",
         )
         neck_returns: List[Tuple[int, Tuple[int, int]]] = []
         self.neck = C.compile_block(
             self.neck_cfgs(), self.backbone.out_channels,
             self.backbone.out_hw, returns=neck_returns, state_dtype=sd,
+            name="neck",
         )
         if not neck_returns:
             raise ValueError("neck_cfgs must contain at least one Return()")
@@ -170,11 +193,14 @@ class SODa(nn.Module):
             raise ValueError("head_cfgs must return [base, box, cls] lists")
         self.num_heads = num_scales
         for idx, (ch, hw) in enumerate(neck_returns):
-            base = C.compile_block(head_cfg[0], ch, hw, state_dtype=sd)
+            base = C.compile_block(head_cfg[0], ch, hw, state_dtype=sd,
+                                   name=f"head{idx}/base")
             box = C.compile_block(head_cfg[1], base.out_channels,
-                                  base.out_hw, state_dtype=sd)
+                                  base.out_hw, state_dtype=sd,
+                                  name=f"head{idx}/box")
             cls = C.compile_block(head_cfg[2], base.out_channels,
-                                  base.out_hw, state_dtype=sd)
+                                  base.out_hw, state_dtype=sd,
+                                  name=f"head{idx}/cls")
             if box.out_channels != self.num_box_out:
                 raise ValueError(
                     f"head box branch must end with {self.num_box_out} "
@@ -244,11 +270,11 @@ class SODa(nn.Module):
 
     # ----- per-step pieces -----
 
-    def _trunk(self, x: torch.Tensor, state,
-               train: bool = False) -> Tuple[tuple, Dict]:
+    def _trunk(self, x: torch.Tensor, state, train: bool = False,
+               ctx: Optional[C.Ctx] = None) -> Tuple[tuple, Dict]:
         """Backbone + neck + head stems for one frame; the box/cls tails
         are left to :meth:`_tails`."""
-        ctx = C.Ctx(train=train)
+        ctx = C.Ctx(train=train) if ctx is None else ctx
         y, backbone = self.backbone.step(
             x.to(self.compute_dtype), state["backbone"], ctx
         )
@@ -339,13 +365,48 @@ class SODa(nn.Module):
     # ----- forwards -----
 
     @torch.no_grad()
-    def step(self, x: torch.Tensor, state=None) -> Tuple[Preds, Dict]:
+    def step(self, x: torch.Tensor, state=None,
+             ctx: Optional[C.Ctx] = None) -> Tuple[Preds, Dict]:
         """One frame ``[B, H, W, C]`` -> ((cls_preds [B, A, C+1],
-        bbox_preds [B, A, 4]), new state)."""
+        bbox_preds [B, A, 4]), new state), in eval. ``ctx``: a
+        ``C.Ctx(record=True)`` or ``C.Ctx(calibrate=True)`` (JAX's
+        ``step(record=, calibrate=)`` flags) that gathers the step's
+        records or its convs' input absmax."""
         if state is None:
             state = self.init_state(x.shape[0])
-        base_outs, state = self._trunk(x, state)
-        return self._tails(base_outs, state, C.Ctx())
+        ctx = C.Ctx() if ctx is None else ctx
+        base_outs, state = self._trunk(x, state, ctx=ctx)
+        # JAX reads light tails out after its trunk, which alone returns
+        # the calibration stats: their convs report no absmax there
+        return self._tails(base_outs, state, dataclasses.replace(
+            ctx, taps=[], calibrate=ctx.calibrate and not
+            self.head_tails_light))
+
+    @torch.no_grad()
+    def forward_with_records(self, X: torch.Tensor, state=None
+                             ) -> Tuple[Preds, Dict, Dict[str, Any]]:
+        """Eval forward, one :meth:`step` a frame, that also returns every
+        ``state_storage=True`` cell's state and output at each step:
+        ``(last predictions, state, records)``, ``records[name] =
+        (state [T, ...] in the state dtype, out [T, ...] fp32)`` under
+        the cell's JAX name (``backbone/b0/l2``), as JAX's
+        ``forward_with_records``."""
+        if state is None:
+            state = self.init_state(X.shape[1])
+        steps: Dict[str, list] = {}
+        preds = None
+        for t in range(X.shape[0]):
+            ctx = C.Ctx(record=True)
+            preds, state = self.step(X[t], state, ctx)
+            for name, rec in ctx.records.items():
+                steps.setdefault(name, []).append(rec)
+        records = {}
+        for name, recs in steps.items():
+            sts, outs = zip(*recs)
+            records[name] = (type(sts[0])(*(torch.stack(f)
+                                             for f in zip(*sts))),
+                             torch.stack(outs))
+        return preds, state, records
 
     def commit_stats(self, state) -> Dict:
         """Write the running statistics a train forward carried in

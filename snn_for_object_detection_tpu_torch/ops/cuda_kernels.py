@@ -35,9 +35,11 @@ LAUNCHES: Dict[str, int] = {
 }
 
 # type codes of the C entry points
-_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e5m2: 2}
+_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e5m2: 2,
+          torch.float8_e4m3fn: 3}
 X_DTYPES = (torch.float32, torch.bfloat16)
-STATE_DTYPES = (torch.float32, torch.bfloat16, torch.float8_e5m2)
+STATE_DTYPES = (torch.float32, torch.bfloat16, torch.float8_e5m2,
+                torch.float8_e4m3fn)
 _CELLS = {"lif": 0, "li": 1}
 
 
@@ -150,16 +152,17 @@ class _StoreRound(torch.autograd.Function):
     """``x`` (fp32) rounded to the state's storage dtype and widened
     back, and its gradient rounded the same way: the state and its
     cotangent are both stored in that dtype between steps, as the JAX
-    scan's ``astype(state_dtype)`` / ``astype(f32)`` pair rounds them."""
+    scan's ``astype(state_dtype)`` / ``astype(f32)`` pair rounds them
+    (``neurons.to_state``: e4m3 overflow gives NaN, as in JAX)."""
 
     @staticmethod
     def forward(ctx, x, dtype):
         ctx.dtype = dtype
-        return x.to(dtype).to(torch.float32, copy=True)
+        return neurons.to_state(x, dtype).to(torch.float32, copy=True)
 
     @staticmethod
     def backward(ctx, g):
-        return g.to(ctx.dtype).float(), None
+        return neurons.to_state(g, ctx.dtype).float(), None
 
 
 def temporal_cell_seq_reference(
@@ -190,7 +193,7 @@ def _cell_loop(step, x_seq, v0, i0, start):
     state through :class:`_StoreRound` into and out of every step, held
     for ``t < start``."""
     sd = v0.dtype
-    v, i = v0.float(), i0.float()
+    v, i = neurons.from_state(v0), neurons.from_state(i0)
     z = []
     for t, x_t in enumerate(x_seq.unbind(0)):
         out, (v_new, i_new) = step(
@@ -202,7 +205,7 @@ def _cell_loop(step, x_seq, v0, i0, start):
         else:
             v, i = _StoreRound.apply(v, sd), _StoreRound.apply(i, sd)
     z = torch.stack(z) if z else torch.empty_like(x_seq)
-    return z, v.to(sd), i.to(sd)
+    return z, neurons.to_state(v, sd), neurons.to_state(i, sd)
 
 
 def _launch_forward(x_seq, v0, i0, cell, start):
@@ -460,7 +463,8 @@ def temporal_cell_seq(
     """Whole-layer LIF/LI over T steps: ``(z_seq, v_T, i_T)``.
 
     :param x_seq: ``[T, ...]`` cell input, fp32 or bf16.
-    :param v0: ``[...]`` initial membrane, fp32, bf16 or fp8 e5m2.
+    :param v0: ``[...]`` initial membrane, fp32, bf16 or fp8 (e5m2,
+        e4m3fn).
     :param i0: ``[...]`` initial current, same dtype as ``v0``.
     :param start: truncation start r: the state is frozen for steps
         ``t < r`` while their outputs are still emitted. It gets no
@@ -928,8 +932,9 @@ def spiking_conv_seq_reference(
             y = neurons.fma(y.to(xd).float(), a32, b32).to(xd).float()
             out, (v, i) = step(y, (v, i))
             z[t] = out.to(xd)
-            v, i = v.to(sd).float(), i.to(sd).float()
-    return z, v.to(sd), i.to(sd)
+            v = neurons.to_state(v, sd).float()
+            i = neurons.to_state(i, sd).float()
+    return z, neurons.to_state(v, sd), neurons.to_state(i, sd)
 
 
 _KERNEL_WEIGHTS: "collections.OrderedDict" = collections.OrderedDict()
@@ -976,7 +981,7 @@ def spiking_conv_seq(
     :param a: ``[Cout]`` folded BatchNorm scale, cast to fp32.
     :param b: ``[Cout]`` folded BatchNorm offset, cast to fp32.
     :param v0: ``[N, Ho, Wo, Cout]`` initial membrane, fp32, bf16 or fp8
-        e5m2.
+        (e5m2, e4m3fn).
     :param i0: initial current, same shape and dtype as ``v0``.
     :return: ``z_seq [T, N, Ho, Wo, Cout]`` in x's dtype (spikes for LIF,
         the fp32 membrane before quantization for LI); ``v_T``, ``i_T``
@@ -1070,8 +1075,8 @@ def fused_pointwise_conv_bn_lif_reference(
     v_dec = neurons.fma(if_ - vf, c_mem, vf)
     i_dec = neurons.fma(if_, -c_syn, if_)
     z = (v_dec > neurons.LIFParams().v_th).float()
-    return ((z.to(x.dtype), ((1.0 - z) * v_dec).to(v.dtype),
-             (i_dec + y).to(i.dtype)))
+    return ((z.to(x.dtype), neurons.to_state((1.0 - z) * v_dec, v.dtype),
+             neurons.to_state(i_dec + y, i.dtype)))
 
 
 # ---- the launch plan of csrc/pointwise.cu ----
@@ -1251,7 +1256,8 @@ def fused_pointwise_conv_bn_lif(
         the same dtype.
     :param a: ``[Cout]`` folded BatchNorm scale, cast to fp32; ``b`` the
         offset.
-    :param v: ``[N, Cout]`` membrane, fp32, bf16 or fp8 e5m2; ``i`` the
+    :param v: ``[N, Cout]`` membrane, fp32, bf16 or fp8 (e5m2,
+        e4m3fn); ``i`` the
         current, same dtype.
     :return: ``z`` in x's dtype, ``v'`` and ``i'`` in the state dtype.
 

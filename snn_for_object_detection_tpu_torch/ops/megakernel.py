@@ -326,12 +326,15 @@ def _emit_block(b: Plan, block: C.Block, src: int, path, taps) -> int:
                 taps.append(y)
                 li += 1
             elif isinstance(layer, C.Conv):
-                k = layer.w.shape[-1]
+                k = layer.k
                 if k not in (1, 3) or layer.stride not in (1, 2):
                     raise UnsupportedLayer(
                         f"Conv k={k} s={layer.stride} at {'/'.join(lpath)}")
                 cout = layer.out_channels
-                taps_w = layer.w.permute(2, 3, 1, 0).reshape(k * k, c, cout)
+                # an int8 conv's weight dequantized at build time, an s2d
+                # conv's unpacked (JAX megakernel.py:201-219)
+                taps_w = layer.float_weight().permute(2, 3, 1, 0).reshape(
+                    k * k, c, cout)
                 dst = b.add_buffer("ws", (*layer.out_hw, cout))
                 op = Op("conv", y, dst, k=k, stride=layer.stride,
                         w=b.add_weight(taps_w))
@@ -457,8 +460,8 @@ def _epilogue(plan: Plan, op: Op, y: torch.Tensor, s_in, s_out
         step = neurons.lif_step if op.cell == "lif" else neurons.li_step
         vi, ii = op.slots
         out, (v, i) = step(y.float(), (s_in[vi].float(), s_in[ii].float()))
-        s_out[vi] = v.to(plan.state_dtype)
-        s_out[ii] = i.to(plan.state_dtype)
+        s_out[vi] = neurons.to_state(v, plan.state_dtype)
+        s_out[ii] = neurons.to_state(i, plan.state_dtype)
         y = out.to(cdt)
     if op.act is not None:
         fn = {"tanh": torch.tanh, "relu": torch.relu, "silu": F.silu}[op.act]
@@ -587,7 +590,9 @@ class RunDistance:
 def run_distance(preds_a, cells_a, preds_b, cells_b) -> RunDistance:
     """Distance of run a from run b. ``preds_*``: sequences of prediction
     tensors; ``cells_*``: ``(kind, v, i)`` of every cell at the end of
-    the run, in one order (``plan_cells``, ``model_cells``)."""
+    the run, in one order (``plan_cells``, ``model_cells``). The relative
+    L2 distances and the prediction difference are over the elements
+    finite in both runs (an e4m3 state that overflowed is NaN)."""
     agree, rel = [], []
     for (kind, va, ia), (_, vb, ib) in zip(cells_a, cells_b):
         if kind == "lif":
@@ -595,10 +600,16 @@ def run_distance(preds_a, cells_a, preds_b, cells_b) -> RunDistance:
         else:
             for a, b in ((va, vb), (ia, ib)):
                 a, b = a.float(), b.float()
+                fin = a.isfinite() & b.isfinite()
+                a, b = a[fin], b[fin]
                 rel.append(float((a - b).norm()
                                  / b.norm().clamp_min(1e-30)))
-    diff = max((float((a.float() - b.float()).abs().max())
-                for a, b in zip(preds_a, preds_b)), default=0.0)
+    diff = 0.0
+    for a, b in zip(preds_a, preds_b):
+        d = (a.float() - b.float()).abs()
+        d = d[d.isfinite()]
+        if d.numel():
+            diff = max(diff, float(d.max()))
     return RunDistance(tuple(agree), tuple(rel), diff)
 
 

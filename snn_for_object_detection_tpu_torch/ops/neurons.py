@@ -86,6 +86,73 @@ def fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
     return _Fma.apply(a, b, c)
 
 
+# e4m3 stores: every |x| above this (the tie halfway from the largest
+# finite value 448 to the NaN encoding, which rounds to 448), every inf
+# and NaN is stored as NaN with x's sign, as JAX's astype does
+E4M3_LIMIT = 464.0
+
+
+def to_state(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` stored in the neuron-state dtype ``dtype``: ``x.to(dtype)``,
+    but for ``float8_e4m3fn`` JAX's ``astype``: round to nearest even (as
+    the card's ``cvt.rn.satfinite.e4m3x2.f32``), and NaN, sign kept (bits
+    0x7f / 0xff), for every ``|x| > E4M3_LIMIT``, inf and NaN. torch's
+    own cast saturates those to 448. Its gradient is a cast's: the
+    cotangent widened back to x's dtype."""
+    if dtype != torch.float8_e4m3fn:
+        return x.to(dtype)
+    return _ToE4M3.apply(x)
+
+
+def from_state(s: torch.Tensor) -> torch.Tensor:
+    """A stored state widened to fp32, ``s.float()``, whose cotangent is
+    stored back in the state's dtype by :func:`to_state` (JAX's
+    ``astype`` pair); torch's own backward of ``float()`` would saturate
+    an e4m3 cotangent."""
+    if s.dtype != torch.float8_e4m3fn:
+        return s.float()
+    return _FromE4M3.apply(s)
+
+
+def _e4m3(x: torch.Tensor) -> torch.Tensor:
+    """:func:`to_state`'s e4m3 rounding, written out so that the CPU and
+    the card give the same bits: ``|x|`` to a multiple of its e4m3
+    quantum ``2**(e - 4)`` (``e`` of ``frexp``, at least ``2**-9``, the
+    subnormal step), exact in fp32, then cast as an exact value."""
+    dtype = torch.float8_e4m3fn
+    xf = x.float()
+    a = xf.abs()
+    ok = a <= E4M3_LIMIT
+    _, e = torch.frexp(torch.where(ok, a, 0.0))
+    # the quantum, a power of two built from its exponent bits
+    q = ((e.to(torch.int32) - 4).clamp(min=-9) + 127).bitwise_left_shift(
+        23).view(torch.float32)
+    r = torch.copysign(torch.where(ok, torch.round(a / q) * q, 0.0), xf)
+    nan = torch.where(torch.signbit(xf), 0xFF, 0x7F).to(torch.uint8)
+    return torch.where(ok, r.to(dtype).view(torch.uint8), nan).view(dtype)
+
+
+class _ToE4M3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return _e4m3(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype)
+
+
+class _FromE4M3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, s):
+        return s.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _e4m3(g)
+
+
 class _SuperSpike(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, alpha):
@@ -97,6 +164,30 @@ class _SuperSpike(torch.autograd.Function):
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
         return g / (ctx.alpha * x.abs() + 1.0) ** 2, None
+
+
+class _Reset(torch.autograd.Function):
+    """``v_reset`` where the (detached) spike ``z`` fired, else ``v_dec``,
+    with JAX's gradient of ``(1 - z) * v_dec + z * v_reset``: ``(1 - z) *
+    g`` to ``v_dec``, which is NaN, not 0, where a spiking element's
+    cotangent is NaN or inf (an overflowed fp8 cotangent)."""
+
+    @staticmethod
+    def forward(ctx, v_dec, z, v_reset):
+        ctx.save_for_backward(z)
+        return torch.where(z != 0, torch.full_like(v_dec, v_reset), v_dec)
+
+    @staticmethod
+    def backward(ctx, g):
+        (z,) = ctx.saved_tensors
+        return (1.0 - z) * g, None, None
+
+
+def reset(v_dec: torch.Tensor, z: torch.Tensor, v_reset: float
+          ) -> torch.Tensor:
+    """The LIF reset of :func:`lif_step` (the spike ``z`` carries no
+    gradient through it)."""
+    return _Reset.apply(v_dec, z.detach(), v_reset)
 
 
 def superspike(x: torch.Tensor, alpha: float = 100.0) -> torch.Tensor:
@@ -172,16 +263,15 @@ def lif_step(
     norse ``lif_feed_forward_step`` order: decay (v, i), spike from the
     decayed v (:func:`superspike` of ``v_dec - v_th``), reset, then
     inject the input into the current. The reset gate carries no
-    gradient (JAX's ``stop_gradient(z)``): the select passes ``(1 - z)
-    * g`` to ``v_dec``.
+    gradient (JAX's ``stop_gradient(z)``): the reset passes ``(1 - z)
+    * g`` to ``v_dec`` (:func:`reset`).
     """
     v, i = state
     c_mem, c_syn = euler_factors(p)
     v_dec = fma((p.v_leak - v) + i, c_mem, v)
     i_dec = fma(i, -c_syn, i)
     z = superspike(v_dec - p.v_th, p.alpha)
-    v_new = torch.where(z.detach() != 0, torch.full_like(v_dec, p.v_reset),
-                        v_dec)
+    v_new = reset(v_dec, z, p.v_reset)
     return z, LIFState(v_new, i_dec + x)
 
 
@@ -258,8 +348,7 @@ def plif_step_factors(
     v_dec = fma((p.v_leak - v) + i, c_mem, v)
     i_dec = fma(i, -c_syn, i)
     z = superspike(v_dec - p.v_th, p.alpha)
-    v_new = torch.where(z.detach() != 0, torch.full_like(v_dec, p.v_reset),
-                        v_dec)
+    v_new = reset(v_dec, z, p.v_reset)
     return z, LIFState(v_new, i_dec + x)
 
 

@@ -19,8 +19,8 @@ Example::
         # dets: {"cam0": np.ndarray [k, 6] (class, conf, x1..y2), ...}
 
 Detections of a stream are suppressed for its first ``model.time_window``
-frames (state warm-up). Serving over a device mesh and int8 weights are
-not ported (ROADMAP.md).
+frames (state warm-up). Serving over a device mesh is not ported
+(ROADMAP.md); int8 weights (``ops/quantize.py``) serve as any other.
 """
 
 from __future__ import annotations
@@ -253,15 +253,10 @@ class StreamingEngine:
                        ) -> None:
         """Swap in JAX-layout ``(params, stats)`` without disturbing the
         stream states (a live model refresh); ``stats=None`` keeps the
-        BatchNorm statistics."""
-        if _has_int8(params):
-            raise not_ported("int8 weights (w_q)", "int8 PTQ")
+        BatchNorm statistics. JAX's int8 conv leaves
+        (``ops/quantize.py``) turn their convs int8, and ``w`` leaves
+        turn int8 convs back to float (``load_jax_params``)."""
         if stats is None:
             stats = model_stats(self.model)
         load_jax_params(self.model, params, stats)
 
-
-def _has_int8(tree) -> bool:
-    if isinstance(tree, dict):
-        return "w_q" in tree or any(_has_int8(v) for v in tree.values())
-    return False

@@ -341,12 +341,18 @@ def test_cuda_model_without_a_card_raises():
         PNarrow(num_classes=2, in_hw=HW)
 
 
-@pytest.mark.parametrize("leaf", [
-    PS.Conv(8, 3, 2, s2d=True), PS.LIF(state_storage=True),
+@pytest.mark.parametrize("leaf,flag", [
+    (PS.Conv(8, 3, 2, s2d=True), "s2d"), (PS.LIF(state_storage=True),
+                                          "record"),
 ])
-def test_unported_leaves_raise(leaf):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PC.compile_block([PS.Conv(8, 1), leaf], 2, (8, 8))
+def test_plan_and_recording_leaves_compile(leaf, flag):
+    """``Conv(s2d=True)`` and ``state_storage=True`` cells compile with
+    their option on and their JAX name (tests/test_torch_s2d.py and
+    tests/test_torch_records.py hold their values against JAX's)."""
+    block = PC.compile_block([PS.Conv(8, 1), leaf], 2, (8, 8), name="blk")
+    layer = block.b0.l1
+    assert getattr(layer, flag) is True
+    assert getattr(layer, "name", "blk/b0/l1") == "blk/b0/l1"
 
 
 @pytest.mark.parametrize("leaf,layer,out", [
@@ -368,10 +374,14 @@ def test_zoo_leaves_compile(leaf, layer, out):
     assert (block.out_channels, block.out_hw) == out
 
 
-def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PNarrow(num_classes=2, in_hw=HW, device="cpu",
-                state_dtype="float8_e4m3fn")
+def test_e4m3_states_are_taken():
+    """e4m3 states, by name or dtype, stored as JAX stores them
+    (tests/test_torch_e4m3.py)."""
+    for dtype in ("float8_e4m3fn", torch.float8_e4m3fn):
+        m = PNarrow(num_classes=2, in_hw=HW, device="cpu", state_dtype=dtype)
+        assert m.state_dtype == torch.float8_e4m3fn
+        assert {x.dtype for x in _state_leaves(m.init_state(1))} == {
+            torch.float8_e4m3fn}
 
 
 def test_hybrid_schedule_accepted():
@@ -397,19 +407,26 @@ def test_load_jax_params_rejects_missing_and_unused_leaves(narrow):
         load_jax_params(pm, missing, stats)
 
 
-def test_load_jax_params_rejects_int8_weights(narrow):
-    """The int8 PTQ leaves of ops/quantize.py are not ported yet
-    (ROADMAP.md Queue 1, "int8 PTQ")."""
+def test_load_jax_params_takes_int8_weights(narrow):
+    """The int8 PTQ leaves of ops/quantize.py make that conv int8, with
+    JAX's values (tests/test_torch_quantize.py holds the int8 forward)."""
     _, params, stats, _, _ = narrow
     pm = PNarrow(num_classes=2, in_hw=HW, device="cpu")
     params = jax.tree.map(lambda a: a, params)  # a copy of the dicts
     w = params["head0"]["box"]["b0"]["l0"]["w"]
-    params["head0"]["box"]["b0"]["l0"] = {
-        "w_q": w.astype(np.int8), "w_scale": np.ones(w.shape[-1], np.float32),
-        "x_scale": np.float32(1.0),
+    leaf = {
+        "w_q": np.round(w * 50).clip(-127, 127).astype(np.int8),
+        "w_scale": np.full(w.shape[-1], 0.02, np.float32),
+        "x_scale": np.float32(0.5),
     }
-    with pytest.raises(NotImplementedError, match="ROADMAP.*int8 PTQ"):
-        load_jax_params(pm, params, stats)
+    params["head0"]["box"]["b0"]["l0"] = leaf
+    load_jax_params(pm, params, stats)
+    conv = pm.head0.box.b0.l0
+    assert conv.quantized and conv.w_q.dtype == torch.int8
+    np.testing.assert_array_equal(conv.w_q.numpy(),
+                                  leaf["w_q"].transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(conv.w_scale.numpy(), leaf["w_scale"])
+    assert float(conv.x_scale) == 0.5
 
 
 def _port_sources():

@@ -113,8 +113,11 @@ def test_wrapper_rejects_bad_arguments():
     with pytest.raises(TypeError, match="state dtypes"):
         cuda_kernels.temporal_cell_seq(x, v, v.bfloat16())
     with pytest.raises(TypeError, match="state dtypes"):
-        e4m3 = v.to(torch.float8_e4m3fn)
-        cuda_kernels.temporal_cell_seq(x, e4m3, e4m3)
+        # e4m3 states are taken (tests/test_torch_e4m3.py), fp16 are not
+        cuda_kernels.temporal_cell_seq(x, v.half(), v.half())
+    e4m3 = v.to(torch.float8_e4m3fn)
+    assert cuda_kernels.temporal_cell_seq(x, e4m3, e4m3)[1].dtype == \
+        torch.float8_e4m3fn
     with pytest.raises(TypeError, match="x_seq dtype"):
         cuda_kernels.temporal_cell_seq(x.half(), v, v)
 

@@ -141,15 +141,35 @@ def test_not_ported_options_raise(setup):
     jm, params, stats, model = setup
     with pytest.raises(NotImplementedError, match="ROADMAP.*mesh serving"):
         StreamingEngine(model, capacity=8, mesh=object())
+
+
+def test_update_weights_takes_int8_leaves(setup):
+    """JAX's int8 conv leaves (ops/quantize.py) turn the engine's conv
+    int8, and ``w`` leaves turn it back (tests/test_torch_quantize.py
+    holds the int8 forward against JAX's)."""
+    _, params, stats, _ = setup
+    model = _port_model(params, stats)
     eng = StreamingEngine(model, capacity=2)
+    eng.add_stream("a")
     qparams = jax.tree.map(lambda a: a, params)
     w = qparams["head0"]["box"]["b0"]["l0"]["w"]
     qparams["head0"]["box"]["b0"]["l0"] = {
-        "w_q": w.astype(np.int8), "w_scale": np.ones(w.shape[-1], np.float32),
-        "x_scale": np.float32(1.0),
+        "w_q": np.round(w * 100).clip(-127, 127).astype(np.int8),
+        "w_scale": np.full(w.shape[-1], 0.01, np.float32),
+        "x_scale": np.float32(0.02),
     }
-    with pytest.raises(NotImplementedError, match="ROADMAP.*int8 PTQ"):
-        eng.update_weights(qparams, stats)
+    eng.update_weights(qparams, stats)
+    conv = model.head0.box.b0.l0
+    assert conv.quantized and "w" not in dict(conv.named_parameters())
+    np.testing.assert_array_equal(
+        conv.w_q.numpy(), qparams["head0"]["box"]["b0"]["l0"]["w_q"]
+        .transpose(3, 2, 0, 1))
+    out = eng.step({"a": frame(0)})
+    assert out["a"].shape[1] == 6
+    eng.update_weights(params, stats)
+    assert not conv.quantized
+    np.testing.assert_array_equal(conv.w.detach().numpy(),
+                                  w.transpose(3, 2, 0, 1))
 
 
 def test_update_weights_keeps_states(setup):

@@ -232,7 +232,7 @@ def _kernel_order_vjp(inputs, cell, start, state_dtype, x_dtype, chunk=None):
             g = gz[t].astype(f32)
             if cell == "lif":
                 q = f32(100) * np.abs(s[j]) + f32(1)
-                g_vdec = np.where(s[j] > 0, f32(0), gvn) + g / (q * q)
+                g_vdec = np.where(s[j] > 0, f32(0), f32(1)) * gvn + g / (q * q)
             else:
                 g_vdec = gvn + g
             g_d = g_vdec * c_mem

@@ -190,12 +190,13 @@ def test_adamax_trajectory_matches_jax_trainer(tmp_path):
     adamax_trajectory(tmp_path, False)
 
 
-def adamax_trajectory(tmp_path, schedule):
+def adamax_trajectory(tmp_path, schedule, state_dtype="float32"):
     """Eight Adamax steps of JAX's and the port's Trainer on
-    ``schedule``: losses within rtol 1e-3 a step, weights after them
-    within rtol 1e-3, atol 1e-5."""
+    ``schedule`` with ``state_dtype`` states: losses within rtol 1e-3 a
+    step, weights after them within rtol 1e-3, atol 1e-5."""
     window, steps = 3, 8
-    jm, params, stats, pm = _models(time_window=window)
+    jm, params, stats, pm = _models(time_window=window,
+                                    state_dtype=state_dtype)
     jt = JTrainer(out_dir=str(tmp_path / "jax"), seed=0, prefetch_batches=0,
                   time_batched=schedule)
     jt.mesh_for_batch(B)

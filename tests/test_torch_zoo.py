@@ -396,7 +396,7 @@ def _plif_kernel_order(inputs, start, state_dtype, chunk):
             d = (f32(0) - ve) + ie
             s = neurons.fma(t_(d), t_(c_mem), t_(ve)).numpy() - f32(1)
             q = f32(100) * np.abs(s) + f32(1)
-            g_vdec = np.where(s > 0, f32(0), gvn) + gz[t] / (q * q)
+            g_vdec = np.where(s > 0, f32(0), f32(1)) * gvn + gz[t] / (q * q)
             g_d = g_vdec * c_mem
             Gm = Gm + g_vdec * d
             Gs = Gs + gin * ie
