@@ -11,6 +11,7 @@
                                        # "auto" and 1Mpx
     python3 chip_smoke.py --only 14    # [1] and the model zoo
     python3 chip_smoke.py --only 15    # [1] and the last inference options
+    python3 chip_smoke.py --only 16    # [1], data parallel, mesh serving
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -214,6 +215,33 @@ Phases (any failure raises and the script exits non-zero):
    ``Trainer.test`` per-step and time-batched (mAP, agreement with the fp
    net, eval ms), ``StreamingEngine.update_weights`` with the int8
    params, and the megakernel of the int8 net with [8]'s gates.
+16. data parallel and mesh serving, on the trained net at full GEN1 width:
+   (a) ``Trainer(mesh=make_mesh())`` on a one-rank NCCL group, two
+   time-batched fp32 train steps (B=4, T=42, start 5, cuDNN
+   deterministic): losses and weights bit-equal to the mesh-less
+   trainer's (an all-reduce over one rank is the identity), 22 backward
+   launches a step; (b) two ranks on the one card (gloo on CUDA tensors,
+   ``torch.multiprocessing.spawn``, a FileStore), two rows each of the
+   same batches: weights bit-equal across the ranks after each step; with
+   cuDNN off (PyTorch's own conv sums each frame alike at any batch) the
+   first step's loss within rtol 1e-4, its gradients within a relative L2
+   of 0.02 and the running stats within rtol 1e-4, atol 1e-6 of the
+   one-rank trainer whose BatchNorm sums its moments in the ranks' order
+   (``ranks_order_moments``: the trained net turns another sum order into
+   flipped spikes, 5.2e-4 of the loss); printed beside it: the distances
+   from the one-rank run as it is, the one rank's own between the two sum
+   orders, and with cuDNN on (its algorithm depends on the batch) from
+   (a)'s run; (c) ``python
+   -m torch.distributed.run --nproc_per_node 1 -m
+   snn_for_object_detection_tpu_torch fit --distributed`` (NCCL) on a
+   synthetic GEN1 set: exit 0, a metrics line a step; (d)
+   ``StreamingEngine(mesh=make_mesh(["cuda:0", "cuda:0"]))``, capacity
+   8, 6 streams, 16 frames (a warm-up of 4), against the mesh-less
+   engine: detections
+   bit-equal with cuDNN off, final-state spike agreement >= 0.99 a cell
+   with it on, 22 cell launches a replica and step; (e) (b)'s train step
+   ms a rank and its all-reduce's share, (d)'s engine step ms, and [11]'s
+   loader-fed steps' idle share at ``prefetch_batches`` 0 and 2.
 
 Model and data values of [3]-[10], with their source (those phases pass
 them as arguments; [11] reads the YAML files):
@@ -4216,6 +4244,450 @@ def phase_options(torch, cuda_kernels, C, neurons, TinyYolo, Trainer,
     return rows
 
 
+# [16]: data parallel and mesh serving. (a), (b): time-batched fp32 train
+# steps from TRAIN_START on [4]'s first batches, the trained net's
+# weights; (b) two ranks on the one card (gloo on CUDA tensors), and its
+# gates against (a)'s one-rank step; (d) mesh serving; (e) the loader-fed
+# steps profiled at each prefetch depth
+DP_STEPS, DP_RANKS, DP_TIMED = 2, 2, 3
+DP_LOSS_RTOL, DP_GRAD_L2, DP_STATS_RTOL = 1e-4, 0.02, 1e-4
+DP_FRAMES, DP_FEED_STEPS, DP_FEED_START = 16, 3, 3
+DP_ENGINE_WINDOW = 4  # (d): the streams' warm-up, so 12 frames detect
+DP_RANK_TIMEOUT_S = 300
+
+
+def dp_state(torch, model):
+    """A model's weights and BatchNorm running statistics, on the host."""
+    return ({n: p.detach().cpu().clone() for n, p in model.named_parameters()},
+            {n: b.detach().cpu().clone() for n, b in model.named_buffers()
+             if n.endswith((".mean", ".var"))})
+
+
+def dp_sha(params) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for name in sorted(params):
+        h.update(params[name].numpy().tobytes())
+    return h.hexdigest()
+
+
+class ranks_order_moments:
+    """Within: every train BatchNorm's moments as the ranks of (b) sum
+    them (``distributed.global_moments``), in one process: the batch in
+    ``blocks`` blocks of rows, each block's fp32 sums added in fp64 (exact
+    in any order, so any collective's order gives the same), the mean
+    first, then the squared deviations. The trained net at full
+    width turns any other sum order into flipped spikes: in one process,
+    ``var_mean`` and this form move the first step's loss by 5.2e-4 on
+    an H100, more than (b)'s gate (the yardstick line (b) prints)."""
+
+    def __init__(self, torch, C, blocks=DP_RANKS):
+        self.torch, self.C, self.blocks = torch, C, blocks
+
+    def __enter__(self):
+        self.saved = self.C.Norm.__dict__["_moments"]
+
+        def moments(x, dims):
+            n = 1
+            for d in dims:
+                n *= x.shape[d]
+            blocks = [b.contiguous()
+                      for b in x.chunk(self.blocks, dim=dims[0])]
+
+            def summed(parts):
+                out = parts[0].double()
+                for p in parts[1:]:
+                    out = out + p.double()
+                return out.float()
+
+            mean = summed([b.sum(dim=dims, keepdim=True) for b in blocks]) / n
+            var = summed([((b - mean) ** 2).sum(dim=dims, keepdim=True)
+                          for b in blocks]) / n
+            return mean, var, n
+
+        self.C.Norm._moments = staticmethod(moments)
+        return self
+
+    def __exit__(self, *exc):
+        self.C.Norm._moments = self.saved
+
+
+def dp_train(torch, TinyYolo, Trainer, batches, trainer_kw, local=None):
+    """DP_STEPS time-batched fp32 train steps of the trained net from
+    TRAIN_START (cuDNN deterministic): each step's loss, the weights
+    after it, the first step's gradients as the optimizer saw them and
+    the running statistics after it. ``local`` picks this rank's rows of
+    a batch. Returns the run and the trainer and model, to go on."""
+    model = build_model(TinyYolo, "float32", "float32", "cuda",
+                        weights=trained_weights())
+    trainer = Trainer(seed=0, time_batched=True, prefetch_batches=0,
+                      **trainer_kw)
+    trainer.configure(model)
+    seen = []
+    step = trainer.opt.step
+
+    def record(grads):
+        if not seen:
+            seen.append({n: g.detach().cpu().clone() for (n, _), g in
+                         zip(model.named_parameters(), grads)})
+        return step(grads)
+
+    trainer.opt.step = record
+    run = {"losses": [], "weights": []}
+    for s in range(DP_STEPS):
+        X, lab = batches[s]
+        if local is not None:
+            X, lab = local(X, 1), local(lab, 0)
+        X = torch.as_tensor(np.ascontiguousarray(X), device="cuda")
+        lab = torch.as_tensor(np.ascontiguousarray(lab), device="cuda")
+        loss = trainer.train_step(model, X, lab, TRAIN_START)
+        run["losses"].append(loss.cpu())
+        params, stats = dp_state(torch, model)
+        run["weights"].append(params)
+        if s == 0:
+            run["stats"] = stats
+    trainer.opt.step = step
+    run["grads"] = seen[0]
+    return run, trainer, model, (X, lab)
+
+
+def dp_rank(rank, world, store, out):
+    """(b): one of two ranks on the one card, gloo on CUDA tensors."""
+    import torch
+
+    from snn_for_object_detection_tpu_torch.models.tiny_yolo import TinyYolo
+    from snn_for_object_detection_tpu_torch.parallel import distributed
+    from snn_for_object_detection_tpu_torch.parallel import make_mesh
+    from snn_for_object_detection_tpu_torch.train.loop import Trainer
+
+    distributed.initialize(f"file://{store}", num_processes=world,
+                           process_id=rank, backend="gloo", device="cuda:0",
+                           timeout_s=DP_RANK_TIMEOUT_S)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    mesh = make_mesh()
+    runs = {}
+    for cudnn in (False, True):
+        torch.backends.cudnn.enabled = cudnn
+        run, trainer, model, (X, lab) = dp_train(
+            torch, TinyYolo, Trainer, make_batches(DP_STEPS, seed=0),
+            {"mesh": mesh}, local=distributed.local_rows)
+        run["sha"] = [dp_sha(w) for w in run["weights"]]
+        if rank:  # rank 0's weights stand for both (the shas compare them)
+            run["weights"] = run["grads"] = None
+        runs[cudnn] = run
+    torch.backends.cudnn.deterministic = False
+    step_ms = cuda_time_ms(
+        lambda: trainer.train_step(model, X, lab, TRAIN_START),
+        reps=DP_TIMED, warmup=1)
+    grads = [torch.zeros_like(p) for p in model.parameters()]
+    grads.append(torch.zeros(1, device="cuda"))
+    reduce_ms = cuda_time_ms(
+        lambda: distributed.all_reduce_sum(grads, mesh.group),
+        reps=DP_TIMED, warmup=1)
+    runs.update(step_ms=step_ms, reduce_ms=reduce_ms, rows=int(X.shape[1]))
+    torch.save(runs, os.path.join(out, f"rank{rank}.pt"))
+    distributed.barrier("dp_done")
+    torch.distributed.destroy_process_group()
+
+
+def dp_distances(torch, got, want):
+    """(b)'s distances from a one-rank run, all of the first step (a
+    second step starts from weights the first moved apart): the loss's
+    relative difference, the gradients' relative L2, and the running
+    stats' largest difference beyond rtol DP_STATS_RTOL (atol 1e-6: some
+    running means are ~0)."""
+    a, b = float(got["losses"][0]), float(want["losses"][0])
+    loss = abs(a - b) / abs(b)
+    stats = max(float(((got["stats"][n] - v).abs()
+                       - DP_STATS_RTOL * v.abs()).max())
+                for n, v in want["stats"].items())
+    return loss, grads_distance(got["grads"], want["grads"]), stats
+
+
+def dp_two_ranks(torch, one, smi):
+    """(b): ``torch.multiprocessing.spawn`` of two ranks on a FileStore,
+    each on its two rows of [4]'s batches, cuDNN off, then on. Gated with
+    cuDNN off (PyTorch's own conv sums each frame alike at any batch)
+    against the one-rank run whose BatchNorm sums its moments in the
+    ranks' order, ``one["order"]``; printed against the one-rank run as
+    it is (``one[False]``, ``var_mean``), beside the one rank's own
+    distance between the two sum orders, and with cuDNN on (its algorithm
+    depends on the batch) against ``one[True]``."""
+    import torch.multiprocessing as mp
+
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke_dp")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    mp.spawn(dp_rank, args=(DP_RANKS, os.path.join(out, "store"), out),
+             nprocs=DP_RANKS, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+             for r in range(DP_RANKS)]
+    for cudnn in (False, True):
+        for s in range(DP_STEPS):
+            check(len({r[cudnn]["sha"][s] for r in ranks}) == 1,
+                  f"(b) cudnn={cudnn}: the ranks' weights differ after step "
+                  f"{s + 1}")
+    print(f"  (b) {DP_RANKS} ranks on one card (gloo on CUDA tensors, "
+          f"{ranks[0]['rows']} rows a rank, spawned and done in "
+          f"{spawn_s:.1f} s): weights bit-equal across the ranks after "
+          f"each of {DP_STEPS} steps, cuDNN off and on", flush=True)
+    for tag, got, want in (
+        ("cuDNN off, vs one rank summing BN in the ranks' order (gated)",
+         ranks[0][False], one["order"]),
+        ("cuDNN off, vs one rank as it is (var_mean)", ranks[0][False],
+         one[False]),
+        ("one rank, cuDNN off: ranks' order vs var_mean (yardstick)",
+         one["order"], one[False]),
+        ("cuDNN on, vs (a)'s one rank", ranks[0][True], one[True]),
+    ):
+        loss_err, grad_l2, stats_over = dp_distances(torch, got, want)
+        print(f"  (b) {tag}: first-step loss rel {loss_err:.3g} (gate "
+              f"{DP_LOSS_RTOL}), gradients relative L2 {grad_l2:.3g} (gate "
+              f"{DP_GRAD_L2}), BN running stats beyond rtol "
+              f"{DP_STATS_RTOL}: {max(stats_over, 0.0):.3g} (gate 1e-6); "
+              f"losses {[float(v) for v in got['losses']]} vs "
+              f"{[float(v) for v in want['losses']]}", flush=True)
+        if want is one["order"] and got is ranks[0][False]:
+            gates = [(loss_err <= DP_LOSS_RTOL,
+                      f"(b): loss {loss_err:.3g} from one rank"),
+                     (grad_l2 <= DP_GRAD_L2,
+                      f"(b): gradients {grad_l2:.3g} from one rank"),
+                     (stats_over <= 1e-6,
+                      f"(b): running stats {stats_over:.3g} beyond rtol")]
+    for ok, msg in gates:
+        check(ok, msg)
+    for r, run in enumerate(ranks):
+        print(f"  (e) rank {r}: train step {run['step_ms']:.1f} ms (CUDA "
+              f"events, median of {DP_TIMED}, {run['rows']} rows, two "
+              f"ranks sharing the card, cuDNN on), all-reduce of the "
+              f"gradients {run['reduce_ms']:.1f} ms, share "
+              f"{run['reduce_ms'] / run['step_ms']:.3f} [{smi}]", flush=True)
+
+
+def dp_cli(torch, data_dir, root):
+    """(c): ``python -m torch.distributed.run --nproc_per_node 1 -m
+    snn_for_object_detection_tpu_torch fit --distributed`` (NCCL) on a
+    synthetic GEN1 set: exits 0, a metrics line a step."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "fit_distributed")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "-m", "snn_for_object_detection_tpu_torch",
+           "fit", "--distributed",
+           "--config", os.path.join(repo, "config", "config.yaml"),
+           "--config", os.path.join(repo, "config", "synthetic.yaml"),
+           f"--data.init_args.data_dir={data_dir}",
+           "--trainer.max_epochs=1", "--trainer.limit_train_batches=2",
+           "--trainer.limit_val_batches=1",
+           "--trainer.check_val_every_n_epoch=1",
+           "--trainer.log_every_n_steps=1", "--trainer.time_batched=true",
+           f"--trainer.out_dir={out_dir}"]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [repo, os.environ.get("PYTHONPATH", "")]))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=repo, env=env, capture_output=True,
+                         text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    check(res.returncode == 0,
+          f"(c): torchrun fit --distributed exited {res.returncode}:\n"
+          f"{(res.stdout + res.stderr)[-3000:]}")
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    steps = [r["step"] for r in records if "train_loss" in r]
+    check(steps == [1, 2], f"(c): steps logged {steps}")
+    check(all(np.isfinite(r["train_loss"]) for r in records
+              if "train_loss" in r), "(c): train losses")
+    check(os.path.exists(os.path.join(out_dir, "checkpoints", "last")),
+          "(c): no checkpoint")
+    print(f"  (c) torchrun --nproc_per_node 1 fit --distributed (NCCL): "
+          f"exit 0 in {cli_s:.1f} s (start-up and the build's load "
+          f"included); steps logged {steps}, losses "
+          f"{[round(r['train_loss'], 4) for r in records if 'train_loss' in r]}",
+          flush=True)
+
+
+def dp_engine_run(torch, StreamingEngine, model, frames, mesh=None):
+    """(d): an engine, capacity ENGINE_CAPACITY, ENGINE_STREAMS streams,
+    DP_FRAMES steps: its outputs, final state (the replicas' rows in slot
+    order) and step ms (host clock, synchronised, median)."""
+    eng = StreamingEngine(model, capacity=ENGINE_CAPACITY, mesh=mesh)
+    for n in range(ENGINE_STREAMS):
+        eng.add_stream(f"cam{n}")
+    outs, times = [], []
+    for t in range(DP_FRAMES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(eng.step({f"cam{n}": frames[t, n]
+                              for n in range(ENGINE_STREAMS)}))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    leaves = [torch.cat(block) for block in
+              zip(*(state_leaves(s) for s in eng._states))]
+    return outs, leaves, statistics.median(times[1:])
+
+
+def dp_serving(torch, cuda_kernels, TinyYolo, weights, smi):
+    """(d): ``StreamingEngine(mesh=make_mesh(["cuda:0", "cuda:0"]))``
+    against the mesh-less engine on the trained net: bit-equal
+    detections with cuDNN off; with it on, final-state spike agreement
+    per cell >= 0.99. Returns the mesh engine's cell launches and step
+    ms."""
+    from snn_for_object_detection_tpu_torch.parallel import make_mesh
+    from snn_for_object_detection_tpu_torch.serve import StreamingEngine
+
+    rng = np.random.default_rng(16)
+    frames = (rng.random((DP_FRAMES, ENGINE_STREAMS, *IN_HW, 2))
+              < EVENT_DENSITY).astype(np.uint8)
+    model = build_model(TinyYolo, "float32", "float32", "cuda",
+                        time_window=DP_ENGINE_WINDOW, weights=weights)
+    mesh = make_mesh(["cuda:0", "cuda:0"])
+    launches = 0
+    for cudnn in (False, True):
+        torch.backends.cudnn.enabled = cudnn
+        one, one_state, one_ms = dp_engine_run(torch, StreamingEngine, model,
+                                               frames)
+        cuda_kernels.reset_launches()
+        two, two_state, two_ms = dp_engine_run(torch, StreamingEngine, model,
+                                               frames, mesh)
+        n = cuda_kernels.LAUNCHES["temporal_cell_seq"]
+        check(n == CELLS_PER_STEP * mesh.size * DP_FRAMES,
+              f"(d): {n} cell launches, want {CELLS_PER_STEP} a replica "
+              "and step")
+        launches += n
+        same = all(a.keys() == b.keys() and all(
+            np.array_equal(a[k], b[k]) for k in a) for a, b in zip(one, two))
+        agree = [spike_agreement(x == 0, y == 0) for x, y in
+                 zip(one_state[::2], two_state[::2])]
+        n_dets = sum(len(d) for out in two for d in out.values())
+        print(f"  (d) cudnn={cudnn}: mesh of {mesh.size} replicas on cuda:0 "
+              f"vs one engine, {DP_FRAMES} frames, {ENGINE_STREAMS} streams: "
+              f"detections bit-equal {same} ({n_dets} after warm-up); "
+              f"final-state spike agreement min {min(agree):.6f}; engine "
+              f"step {two_ms:.1f} ms mesh, {one_ms:.1f} ms one engine (host "
+              f"clock, median) [{smi}]", flush=True)
+        check(n_dets > 0, "(d): no detections after the warm-up")
+        if not cudnn:
+            check(same, "(d): cuDNN off, the mesh engine's detections "
+                  "differ from the one engine's")
+        else:
+            check(min(agree) >= 0.99, f"(d): spike agreement {min(agree)}")
+            step_ms = two_ms
+    torch.backends.cudnn.enabled = True
+    return launches, step_ms
+
+
+def dp_loader_idle(torch, TinyYolo, Trainer, data_dir, weights, smi):
+    """(e): [11]'s loader-fed train step (``config/synthetic.yaml``'s
+    loader: B=4, T=24, 2 workers) at prefetch depth 0 and 2: the device
+    idle share of DP_FEED_STEPS steps under the profiler."""
+    from snn_for_object_detection_tpu_torch.data import PropheseeDataModule
+    from snn_for_object_detection_tpu_torch.parallel import (
+        make_mesh,
+        prefetch_to_device,
+    )
+
+    model = build_model(TinyYolo, "float32", "float32", "cuda",
+                        time_window=6, weights=weights)
+    trainer = Trainer(seed=0, time_batched=True)
+    trainer.configure(model)
+    mesh = make_mesh(["cuda"])
+    for depth in (0, 2):
+        data = PropheseeDataModule(data_dir=data_dir, batch_size=BATCH,
+                                   num_steps=24, time_shift=0,
+                                   num_load_file=4, num_workers=2)
+        it = prefetch_to_device(data.train_loader(), mesh, depth)
+
+        def steps():
+            for _ in range(DP_FEED_STEPS):
+                X, lab = next(it)
+                trainer.train_step(model, X, lab, DP_FEED_START)
+
+        steps()  # warm: the loader's first batches, the schedule
+        _, busy, wall = profiled(torch, steps)
+        it.close()
+        print(f"  (e) loader-fed, prefetch_batches {depth}: {DP_FEED_STEPS} "
+              f"steps busy {busy:.1f} of {wall:.1f} ms, idle share "
+              f"{1 - busy / wall:.3f} [{smi}]", flush=True)
+
+
+def phase_data_parallel(torch, cuda_kernels, TinyYolo, Trainer, batches,
+                        smi):
+    """[16]: (a) one-rank NCCL group, (b) two ranks on the card, (c) the
+    CLI under torchrun, (d) mesh serving, (e) their numbers. Returns the
+    backward kernel's launches in (a)'s mesh run and the cell kernel's in
+    (d)'s mesh engines."""
+    from snn_for_object_detection_tpu_torch.data.synthetic import (
+        make_synthetic_dataset,
+    )
+    from snn_for_object_detection_tpu_torch.models import compile as C
+    from snn_for_object_detection_tpu_torch.parallel import (
+        distributed,
+        make_mesh,
+    )
+
+    weights = trained_weights()
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    one = {}
+    torch.backends.cudnn.enabled = False  # (b)'s references
+    one[False], _, _, _ = dp_train(torch, TinyYolo, Trainer, batches, {})
+    with ranks_order_moments(torch, C):
+        one["order"], _, _, _ = dp_train(torch, TinyYolo, Trainer, batches,
+                                         {})
+    torch.backends.cudnn.enabled = True
+    one[True], _, _, _ = dp_train(torch, TinyYolo, Trainer, batches, {})
+    mesh = make_mesh()
+    check(distributed.world_size() == 1
+          and torch.distributed.get_backend() == "nccl",
+          "(a): not a one-rank NCCL group")
+    cuda_kernels.reset_launches()
+    run, _, _, _ = dp_train(torch, TinyYolo, Trainer, batches,
+                            {"mesh": mesh})
+    bwd = cuda_kernels.LAUNCHES["temporal_cell_seq_bwd"]
+    torch.backends.cudnn.deterministic = False
+    torch.distributed.destroy_process_group()
+    check(bwd == CELLS_PER_STEP * DP_STEPS,
+          f"(a): {bwd} backward launches, want {CELLS_PER_STEP} a step")
+    same = all(torch.equal(a, b) for a, b in zip(run["losses"],
+                                                  one[True]["losses"]))
+    same_w = all(torch.equal(run["weights"][s][n], w)
+                 for s in range(DP_STEPS) for n, w in
+                 one[True]["weights"][s].items())
+    print(f"  (a) one-rank NCCL group: {DP_STEPS} time-batched fp32 steps "
+          f"(trained net, B={BATCH}, T={STEPS}, start {TRAIN_START}, cuDNN "
+          f"deterministic) against the mesh-less trainer: losses bit-equal "
+          f"{same}, weights bit-equal {same_w}; {bwd} backward launches "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(same and same_w, "(a): the one-rank mesh differs from no mesh")
+
+    t0 = time.perf_counter()
+    dp_two_ranks(torch, one, smi)
+    print(f"  (b) in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_dp_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    data_dir = make_synthetic_dataset(
+        os.path.join(root, "data"), records_per_split=CLI_RECORDINGS,
+        duration_ms=CLI_DURATION_MS, seed=CLI_SEED)
+    t0 = time.perf_counter()
+    dp_cli(torch, data_dir, root)
+    print(f"  (c) in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    launches, _ = dp_serving(torch, cuda_kernels, TinyYolo, weights, smi)
+    print(f"  (d) in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    dp_loader_idle(torch, TinyYolo, Trainer, data_dir, weights, smi)
+    print(f"  (e) loader in {time.perf_counter() - t0:.1f} s", flush=True)
+    return bwd, launches
+
+
 def main(argv) -> int:
     import torch
 
@@ -4301,6 +4773,12 @@ def main(argv) -> int:
             phase_options(torch, cuda_kernels, C, neurons, TinyYolo, Trainer,
                           batches, smi, "cuda")
             print(f"  [15] in {time.perf_counter() - t0:.1f} s", flush=True)
+        if 16 in only:
+            t0 = time.perf_counter()
+            print("[16] data parallel and mesh serving", flush=True)
+            phase_data_parallel(torch, cuda_kernels, TinyYolo, Trainer,
+                                batches, smi)
+            print(f"  [16] in {time.perf_counter() - t0:.1f} s", flush=True)
         print(f"partial run of phases {sorted(only)} done in "
               f"{time.perf_counter() - t_start:.1f} s")
         return 0
@@ -4386,6 +4864,16 @@ def main(argv) -> int:
     phase_options(torch, cuda_kernels, C, neurons, TinyYolo, Trainer,
                   batches, smi, "cuda")
     print(f"  [15] in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    print(f"[16] data parallel and mesh serving: Trainer(mesh=make_mesh()) "
+          f"on a one-rank NCCL group and on {DP_RANKS} gloo ranks on the "
+          f"card, fit --distributed under torchrun, StreamingEngine(mesh=) "
+          f"on the trained net, TinyYolo GEN1 {IN_HW}", flush=True)
+    dp_bwd, dp_cells = phase_data_parallel(torch, cuda_kernels, TinyYolo,
+                                           Trainer, batches, smi)
+    bwd_launches += dp_bwd
+    launches += dp_cells
+    print(f"  [16] in {time.perf_counter() - t0:.1f} s", flush=True)
 
     ref = next(r for r in rows if (r["shape"], r["cell"], r["x"], r["start"])
                == ("stage1", "lif", "float32", 0))
@@ -4462,10 +4950,12 @@ def main(argv) -> int:
           f"models/compile.py:599) VggSNN's stage-1 fp32 case "
           f"{list(PLIF_SHAPES['vgg_stage1'])}, the backward at start "
           f"{TRAIN_START}. "
-          f"Launches: temporal_cell_seq in [4], spiking_conv_seq in [7], "
+          f"Launches: temporal_cell_seq in [4] and [16] (d)'s mesh "
+          f"engines, spiking_conv_seq in [7], "
           f"streaming_megakernel in [8] (both dtype configurations), "
           f"temporal_cell_seq_bwd in [10]'s and [13]'s Trainer.fit runs "
-          f"(the three schedules, both training configurations); "
+          f"(the three schedules, both training configurations) and "
+          f"[16] (a)'s one-rank mesh; "
           f"plif_cell_seq in [14] (b)'s four eval schedules and (c)'s "
           f"fit and test of config/vgg.yaml, plif_cell_seq_bwd in (c)'s "
           f"fit; fused_pointwise_conv_bn_lif has no path")

@@ -16,10 +16,18 @@ Examples
       --ckpt_path=log/synthetic/checkpoints/last
 
 The model runs on ``--device`` (default ``cuda``, which needs a card;
-``cpu`` runs the kernels' plain versions). Not taken yet: logger back
-ends (``config/logger.yaml``), the plotter of ``predict`` and
-``--distributed`` raise ``NotImplementedError`` naming their ROADMAP
-item; ``--compile_cache`` (XLA's compilation cache) has no counterpart.
+``cpu`` runs the kernels' plain versions). ``--distributed`` joins the
+ranks ``torchrun`` started (``parallel.distributed.initialize``: NCCL
+on the card, each rank on ``cuda:{LOCAL_RANK}``; gloo with ``--device
+cpu``) and trains data-parallel, each rank on its shard of the data:
+
+  python -m torch.distributed.run --nproc_per_node 8 \\
+      -m snn_for_object_detection_tpu_torch fit --distributed \\
+      --config config/config.yaml --config config/synthetic.yaml
+
+Not taken yet: logger back ends (``config/logger.yaml``) and the plotter
+of ``predict`` raise ``NotImplementedError`` naming their ROADMAP item;
+``--compile_cache`` (XLA's compilation cache) has no counterpart.
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from snn_for_object_detection_tpu_torch.models.compile import not_ported
+from snn_for_object_detection_tpu_torch.parallel import distributed as dist
 from snn_for_object_detection_tpu_torch.train.checkpoint import (
     CheckpointManager,
 )
@@ -124,12 +132,18 @@ def main(argv=None) -> Run:
         "--device", default="cuda",
         help="where the model runs (default %(default)s; no fallback)",
     )
-    parser.add_argument("--distributed", action="store_true",
-                        help="multi-host runs (not ported yet)")
+    parser.add_argument(
+        "--distributed", action="store_true",
+        help="join the ranks torchrun started and train data-parallel "
+             "(NCCL on the card, gloo with --device cpu)")
     parser.add_argument("--compile_cache", help=argparse.SUPPRESS)
     args, overrides = parser.parse_known_args(argv)
+    device = args.device
     if args.distributed:
-        raise not_ported("--distributed (multi-host runs)", "the rest")
+        # before anything touches the card: each rank takes
+        # cuda:{LOCAL_RANK}
+        device = str(dist.initialize(
+            device="cpu" if torch.device(device).type == "cpu" else "cuda"))
     if args.compile_cache is not None:
         parser.error("--compile_cache is XLA's compilation cache and has no "
                      "counterpart here (CUDA kernels are built once into "
@@ -145,8 +159,10 @@ def main(argv=None) -> Run:
             config_paths.append("config/logger.yaml")
     cfg = load_config(config_paths, overrides)
 
-    model, data, trainer = build(cfg, args.device)
-    save_config_snapshot(cfg, trainer.out_dir)
+    model, data, trainer = build(cfg, device)
+    trainer._sync_data_sharding(data)
+    if dist.is_primary():
+        save_config_snapshot(cfg, trainer.out_dir)
     ckpt_path = cfg.get("ckpt_path")
 
     result = None

@@ -40,7 +40,6 @@ import numpy as np
 
 from snn_for_object_detection_tpu_torch.data.augment import make_augmenter
 from snn_for_object_detection_tpu_torch.data.psee import EventReader
-from snn_for_object_detection_tpu_torch.models.compile import not_ported
 from snn_for_object_detection_tpu_torch.native import rasterize_records
 
 # name -> (height, width, time-field name in the GT npy, class labels)
@@ -301,9 +300,8 @@ class PropheseeDataModule:
     ):
         if dataset not in DATASET_GEOMETRY:
             raise ValueError(f'The dataset parameter cannot be "{dataset}"!')
-        if (host_id, num_hosts) != (0, 1):
-            raise not_ported(f"multi-host sharding (host {host_id} of "
-                             f"{num_hosts})", "the rest")
+        if not 0 <= host_id < num_hosts:
+            raise ValueError(f"host_id {host_id} is not in [0, {num_hosts})")
         self.data_dir = data_dir
         self.dataset = dataset
         self.batch_size = batch_size
@@ -316,8 +314,9 @@ class PropheseeDataModule:
         self.max_labels = max_labels
         self.prefetch = prefetch
         self.seed = seed
-        # multi-host data parallelism (each host reads a disjoint file
-        # shard) is not ported: only (0, 1)
+        # data parallelism across ranks: each rank ("host") reads a
+        # disjoint shard of the files (the Trainer derives these from
+        # the rank and the world size)
         self.host_id = host_id
         self.num_hosts = num_hosts
         # uint8 frames: 4x smaller host buffers (the memset dominates

@@ -58,6 +58,7 @@ from snn_for_object_detection_tpu_torch.ops.cuda_kernels import (
     spiking_conv_seq,
     temporal_cell_seq,
 )
+from snn_for_object_detection_tpu_torch.parallel import distributed as dist
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -502,18 +503,32 @@ class Norm(Layer):
             y = y + self.bias
         return y.to(dtype or x.dtype)
 
-    def _unbiased(self, x, var):
-        n = x.shape[-4] * x.shape[-3] * x.shape[-2]
+    @staticmethod
+    def _moments(x, dims):
+        """Mean and biased variance over ``dims`` of fp32 ``x`` (keepdim)
+        and the count of elements in each: over the global batch inside
+        ``distributed.global_batch`` of several ranks (sync-BN, as GSPMD
+        makes JAX's batch means), else over this batch."""
+        group = dist.batch_group()
+        if group is not None:
+            return dist.global_moments(x, dims, group)
+        var, mean = torch.var_mean(x, dim=dims, correction=0, keepdim=True)
+        n = 1
+        for d in dims:
+            n *= x.shape[d]
+        return mean, var, n
+
+    @staticmethod
+    def _unbiased(n, var):
         return var.detach().flatten() * (n / max(n - 1, 1))
 
     def step(self, x, state, ctx, dtype=None):
         """``dtype``: train mode's output dtype, if not x's."""
         if ctx is not None and ctx.train:
             # batch mean and biased variance over (B, H, W), in fp32
-            var, mean = torch.var_mean(x.float(), dim=(0, 1, 2),
-                                       correction=0, keepdim=True)
+            mean, var, n = self._moments(x.float(), (0, 1, 2))
             return self._normalize(x, mean, var, dtype), self._fold(
-                state, mean.detach().flatten(), self._unbiased(x, var))
+                state, mean.detach().flatten(), self._unbiased(n, var))
         k, b = self.coeffs()
         if x.dtype == torch.float32:
             return neurons.fma(x, k, b), state
@@ -525,12 +540,11 @@ class Norm(Layer):
         # every step's moments in one batched reduction, as JAX's
         # apply_seq: the same values as the step form's, summed in
         # another order
-        var, mean = torch.var_mean(X.float(), dim=(1, 2, 3), correction=0,
-                                   keepdim=True)
+        mean, var, n = self._moments(X.float(), (1, 2, 3))
         for t, keep in enumerate(ctx.step_mask(X.shape[0])):
             if keep:
                 state = self._fold(state, mean[t].detach().flatten(),
-                                   self._unbiased(X, var[t]))
+                                   self._unbiased(n, var[t]))
         return self._normalize(X, mean, var), state
 
     def step_into_cell(self, x):

@@ -56,6 +56,7 @@ from snn_for_object_detection_tpu_torch.ops.cuda_kernels import (
     STATE_DTYPES,
     X_DTYPES,
 )
+from snn_for_object_detection_tpu_torch.parallel import distributed as dist
 
 Preds = Tuple[torch.Tensor, torch.Tensor]
 
@@ -569,6 +570,12 @@ class SODa(nn.Module):
         ``loss_ratio``, plus masked L1 on box offsets averaged over all
         ``B*A*4`` elements.
 
+        Inside ``distributed.global_batch`` of several ranks the counts
+        and the element count are the global batch's (all-reduced, no
+        gradient) and the result is this rank's share of the global
+        batch's loss: the ranks' shares sum to it, as do their
+        gradients.
+
         :param labels: [B, N, 5] (class, x1, y1, x2, y2), -1-padded.
         """
         if labels.shape[-1] != 5:
@@ -585,15 +592,22 @@ class SODa(nn.Module):
         flat_labels = class_labels.reshape(-1)
         ce = -logp.gather(1, flat_labels[:, None])[:, 0]
         pos = flat_labels > 0
-        n_pos = pos.sum().clamp(min=1)
-        n_neg = (~pos).sum().clamp(min=1)
-        gt_loss = torch.where(pos, ce, 0.0).sum() / n_pos
-        background_loss = torch.where(pos, 0.0, ce).sum() / n_neg
         bbox_l1 = (bbox_preds * bbox_mask - bbox_offset * bbox_mask).abs()
+        group = dist.batch_group()
+        if group is None:
+            n_pos, n_neg = pos.sum(), (~pos).sum()
+            bbox_loss = bbox_l1.mean()
+        else:
+            n_pos, n_neg, n_box = dist.global_counts(torch.stack([
+                pos.sum(), (~pos).sum(),
+                torch.tensor(bbox_l1.numel(), device=pos.device)]), group)
+            bbox_loss = bbox_l1.sum() / n_box
+        gt_loss = torch.where(pos, ce, 0.0).sum() / n_pos.clamp(min=1)
+        background_loss = torch.where(pos, 0.0, ce).sum() / n_neg.clamp(min=1)
         return (
             gt_loss * self.loss_ratio
             + background_loss * (1 - self.loss_ratio)
-            + bbox_l1.mean()
+            + bbox_loss
         )
 
     # ----- detection post-processing -----

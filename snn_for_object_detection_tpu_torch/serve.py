@@ -19,23 +19,34 @@ Example::
         # dets: {"cam0": np.ndarray [k, 6] (class, conf, x1..y2), ...}
 
 Detections of a stream are suppressed for its first ``model.time_window``
-frames (state warm-up). Serving over a device mesh is not ported
-(ROADMAP.md); int8 weights (``ops/quantize.py``) serve as any other.
+frames (state warm-up). int8 weights (``ops/quantize.py``) serve as any
+other.
+
+Over a device mesh (``mesh=parallel.make_mesh(devices=[...])``) one
+process holds a replica of the model on each device, and the slot rows
+split into one contiguous block of ``capacity / mesh.size`` rows a
+device (``batch_sharding(mesh, 0)``): every block's step is launched
+first, then the detections are read back. No collectives: the rows are
+independent.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from snn_for_object_detection_tpu_torch.models.compile import not_ported
 from snn_for_object_detection_tpu_torch.models.convert import (
     load_jax_params,
     model_stats,
 )
 from snn_for_object_detection_tpu_torch.ops.nms import filter_detections
+from snn_for_object_detection_tpu_torch.parallel.mesh import (
+    batch_sharding,
+    same_device,
+)
 
 
 def _leaves(tree) -> List[torch.Tensor]:
@@ -67,7 +78,10 @@ class StreamingEngine:
             host drops the empty ones.
         :param threshold: Confidence floor applied on the host (0 keeps
             every foreground row).
-        :param mesh: Serving over a device mesh is not ported.
+        :param mesh: A mesh of this process's devices
+            (``parallel.make_mesh(devices=...)``; one device may appear
+            more than once): a replica of the model on each, a block of
+            the slots each. ``capacity`` must divide by its size.
         :param frame_dtype: Host staging dtype of the slot frames:
             ``uint8`` (the default, 4x less host-to-device traffic,
             exact for event counts below 256) or ``float32``. The step
@@ -79,18 +93,29 @@ class StreamingEngine:
             frames go up from pinned host buffers without blocking, and
             only the previous step's detections are read back.
         """
-        if mesh is not None:
-            raise not_ported("serving over a device mesh (mesh=)",
-                             "mesh serving")
         self.model = model
         self.capacity = int(capacity)
+        if mesh is not None:
+            if mesh.ranks != 1:
+                raise ValueError("a serving mesh is one process's devices")
+            if self.capacity % mesh.size:
+                raise ValueError(
+                    f"capacity {self.capacity} must divide by the mesh "
+                    f"size {mesh.size}")
+            rows = batch_sharding(mesh, 0).blocks(self.capacity)
+            self._replicas = [(self._replica(model, dev, i), rows[i])
+                              for i, dev in enumerate(mesh.devices)]
+        else:
+            self._replicas = [(model, slice(0, self.capacity))]
         self.max_out = int(max_out)
         self.threshold = float(threshold)
         self.pipelined = bool(pipelined)
         self._device = model.device
         self._h, self._w = model.in_hw
         self._c = model.in_channels
-        self._state = model.init_state(self.capacity)
+        # one state a replica, over its block of slots
+        self._states = [m.init_state(r.stop - r.start)
+                        for m, r in self._replicas]
         self._slots: Dict[str, int] = {}
         self._free: List[int] = list(range(self.capacity - 1, -1, -1))
         self._age: Dict[str, int] = {}
@@ -106,6 +131,18 @@ class StreamingEngine:
         # snapshot) of the step in flight
         self._pending: Optional[tuple] = None
 
+    @staticmethod
+    def _replica(model, device: torch.device, index: int):
+        """The model on ``device``: itself for the first block on its own
+        device, else a copy."""
+        if index == 0 and same_device(device, model.device):
+            return model
+        replica = copy.deepcopy(model)
+        if not same_device(device, model.device):
+            replica.to(device)
+            replica.device = device
+        return replica
+
     # ----- stream lifecycle -----
 
     @property
@@ -115,8 +152,9 @@ class StreamingEngine:
     def _reset_row(self, slot: int) -> None:
         """Zero one batch row of every state leaf (the cells' initial
         state: ``v_leak = 0`` and no current)."""
-        for leaf in _leaves(self._state):
-            leaf[slot].zero_()
+        per = self.capacity // len(self._replicas)
+        for leaf in _leaves(self._states[slot // per]):
+            leaf[slot % per].zero_()
 
     def add_stream(self, stream_id: str) -> int:
         """Attach a camera; returns its slot. Raises when full."""
@@ -174,21 +212,30 @@ class StreamingEngine:
         host[:] = 0
         for slot, frame in staged.items():
             host[slot] = frame
-        x = buf.to(self._device, non_blocking=True)
-        dets, self._state = self.model.predict(x, self._state,
+        # every block's step is queued before any detections are read
+        dets = []
+        for i, (model, rows) in enumerate(self._replicas):
+            x = buf[rows].to(model.device, non_blocking=True)
+            d, self._states[i] = model.predict(x, self._states[i],
                                                max_out=self.max_out)
+            dets.append(d)
         for sid in self._slots:
             self._age[sid] += 1
         snapshot = (dict(self._slots), dict(self._age))
         if self._device.type == "cuda":
-            # read back this step's detections only: the copy queues
+            # read back this step's detections only: the copies queue
             # behind this step, not behind the next one
-            out = torch.empty(dets.shape, dtype=dets.dtype, pin_memory=True)
-            out.copy_(dets, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
+            out = torch.empty((self.capacity, *dets[0].shape[1:]),
+                              dtype=dets[0].dtype, pin_memory=True)
+            done = []
+            for (model, rows), d in zip(self._replicas, dets):
+                with torch.cuda.device(model.device):
+                    out[rows].copy_(d, non_blocking=True)
+                    done.append(torch.cuda.Event())
+                    done[-1].record()
         else:
-            out, done = dets, None
+            out = dets[0] if len(dets) == 1 else torch.cat(dets)
+            done = []
         pending, self._pending = self._pending, (out, done, snapshot)
         if not self.pipelined:
             return self.flush()
@@ -234,8 +281,8 @@ class StreamingEngine:
     def _fan_out(self, dets, done, snapshot) -> Dict[str, np.ndarray]:
         """Split one step's detections per stream, with the slot and
         age snapshot taken when it was dispatched."""
-        if done is not None:
-            done.synchronize()
+        for event in done:
+            event.synchronize()
         slots, ages = snapshot
         dets_np = dets.numpy()
         out: Dict[str, np.ndarray] = {}
@@ -255,8 +302,10 @@ class StreamingEngine:
         stream states (a live model refresh); ``stats=None`` keeps the
         BatchNorm statistics. JAX's int8 conv leaves
         (``ops/quantize.py``) turn their convs int8, and ``w`` leaves
-        turn int8 convs back to float (``load_jax_params``)."""
+        turn int8 convs back to float (``load_jax_params``). On a mesh,
+        every replica."""
         if stats is None:
             stats = model_stats(self.model)
-        load_jax_params(self.model, params, stats)
+        for model, _ in self._replicas:
+            load_jax_params(model, params, stats)
 

@@ -8,6 +8,12 @@ nested dict of tensors, numbers and strings) beside a
 ``save_top_k`` best by the monitored metric in ``index.json`` and a
 ``last`` symlink to the newest save, whose data are never pruned while
 it is the newest.
+
+Under several ranks every rank calls :meth:`CheckpointManager.save`
+together; rank 0 alone writes, prunes and moves ``last`` (the ranks hold
+the same weights), every rank keeps the same index in memory, and
+barriers keep a rank from reading a checkpoint that rank 0 is still
+writing.
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ import shutil
 from typing import Any, Dict, Optional
 
 import torch
+
+from snn_for_object_detection_tpu_torch.parallel import distributed as dist
 
 PAYLOAD = "state.pt"
 
@@ -45,6 +53,8 @@ class CheckpointManager:
                 self._index = json.load(f)
 
     def _remove(self, name: str) -> None:
+        if not dist.is_primary():
+            return
         path = os.path.join(self.directory, name)
         if os.path.exists(path):
             shutil.rmtree(path)
@@ -61,30 +71,37 @@ class CheckpointManager:
         monitored metric (``metric=None``: kept as the newest only)."""
         name = f"step_{step:09d}"
         path = os.path.join(self.directory, name)
-        if os.path.exists(path):
+        primary = dist.is_primary()
+        # no rank may still be reading a checkpoint rank 0 replaces
+        dist.barrier("ckpt_pre_save")
+        if primary and os.path.exists(path):
             shutil.rmtree(path)
         # a pruned checkpoint kept only because it was the newest goes
         # once a newer save supersedes it
         if (self._latest_name and self._latest_name != name
                 and self._latest_name not in self._index):
             self._remove(self._latest_name)
-        os.makedirs(path)
-        torch.save(state, os.path.join(path, PAYLOAD))
+        if primary:
+            os.makedirs(path)
+            torch.save(state, os.path.join(path, PAYLOAD))
+            if meta is not None:
+                with open(path + ".meta.json", "w") as f:
+                    json.dump(meta, f, indent=1, default=str)
         self._latest_name = name
-        if meta is not None:
-            with open(path + ".meta.json", "w") as f:
-                json.dump(meta, f, indent=1, default=str)
         if metric is not None:
             self._index[name] = float(metric)
             self._prune()
-        with open(self._index_path, "w") as f:
-            json.dump(self._index, f, indent=1)
-        last = os.path.join(self.directory, "last")
-        if os.path.islink(last):
-            os.unlink(last)
-        elif os.path.exists(last):
-            shutil.rmtree(last)
-        os.symlink(path, last)
+        if primary:
+            with open(self._index_path, "w") as f:
+                json.dump(self._index, f, indent=1)
+            last = os.path.join(self.directory, "last")
+            if os.path.islink(last):
+                os.unlink(last)
+            elif os.path.exists(last):
+                shutil.rmtree(last)
+            os.symlink(path, last)
+        # every rank sees the checkpoint once save returns
+        dist.barrier("ckpt_saved")
         return path
 
     def _prune(self) -> None:

@@ -42,6 +42,18 @@ so a loader's worker threads stop with the loop.
 
 ``predict`` (streaming visualization): sample 0 of each batch frame by
 frame through ``SODa.predict``, each frame handed to a plotter.
+
+Data parallel (``mesh``, or any run under ``torch.distributed`` of
+several ranks): one rank a device, each on its own rows of the global
+batch (``parallel/``). The train step runs inside
+``distributed.global_batch``, so BatchNorm's moments and the loss's
+counts are the global batch's and the loss is this rank's share of it;
+the gradients and the shares are all-reduced (summed) before the
+optimizer chain, which every rank then runs alike. Every rank draws the
+same truncation starts from the same seed. Evaluation scores each
+rank's rows and folds the mAP accumulators across ranks; only rank 0
+logs and writes checkpoints. Batches reach the device through
+``prefetch_to_device`` (``prefetch_batches`` ahead, 2 by default).
 """
 
 from __future__ import annotations
@@ -60,6 +72,14 @@ import numpy as np
 import torch
 
 from snn_for_object_detection_tpu_torch.models.compile import not_ported
+from snn_for_object_detection_tpu_torch.parallel import distributed as dist
+from snn_for_object_detection_tpu_torch.parallel.mesh import (
+    SPATIAL_ITEM,
+    make_mesh,
+    prefetch_to_device,
+    same_device,
+    shard_batch,
+)
 from snn_for_object_detection_tpu_torch.train.checkpoint import (
     CheckpointManager,
 )
@@ -77,6 +97,9 @@ class MetricsLogger:
         self.path = os.path.join(out_dir, "metrics.jsonl")
 
     def log(self, step: int, payload: Dict[str, float]) -> None:
+        if not dist.is_primary():
+            # several ranks: the metrics are already folded; one writer
+            return
         rec = {"step": step, "time": time.time(), **payload}
         with open(self.path, "a") as f:
             f.write(json.dumps(rec, default=float) + "\n")
@@ -327,12 +350,17 @@ class Trainer:
         peak (:func:`make_schedule`).
     :param ema_decay: Keep an average of the weights, blended on every
         real update; validation and checkpoints use it.
-    :param prefetch_batches: Must be 0: background prefetch threads are
-        not ported (the JAX default is 2).
+    :param mesh: A data-parallel mesh (``parallel.make_mesh()``: this
+        rank's device over every rank). Default: the model's device
+        alone, or ``make_mesh()`` when ``torch.distributed`` runs
+        several ranks.
+    :param prefetch_batches: Batches ``fit`` keeps on their way to the
+        device ahead of the train step (``prefetch_to_device``, a
+        thread; 0 places each batch when it is needed).
 
-    ``mesh``, ``spatial_devices`` > 1, ``debug_nans``, ``profile_dir``
-    and ``logger`` back ends raise ``NotImplementedError`` naming their
-    ROADMAP item.
+    ``spatial_devices`` > 1 and ``request_mesh_reshape`` (spatial
+    sharding), ``debug_nans``, ``profile_dir`` and ``logger`` back ends
+    raise ``NotImplementedError`` naming their ROADMAP item.
     """
 
     def __init__(
@@ -356,7 +384,7 @@ class Trainer:
         accumulate_grad_batches: int = 1,
         fast_dev_run: bool = False,
         limit_predict_batches: int = 1,
-        prefetch_batches: int = 0,
+        prefetch_batches: int = 2,
         spatial_devices: int = 1,
         time_batched: Any = False,
         ema_decay: Optional[float] = None,
@@ -369,15 +397,11 @@ class Trainer:
                 f"time_batched must be False, True, 'hybrid' or 'auto', "
                 f"got {time_batched!r}"
             )
-        for what, on in (("a device mesh", mesh is not None),
-                         ("spatial_devices > 1", spatial_devices != 1)):
-            if on:
-                raise not_ported(what, "the rest")
+        if spatial_devices != 1:
+            raise not_ported("spatial_devices > 1", SPATIAL_ITEM)
         for what, on in (("debug_nans", debug_nans),
                          ("the profiler (profile_dir)", profile_dir),
-                         ("logger back ends", logger is not None),
-                         ("prefetch threads (prefetch_batches > 0)",
-                          prefetch_batches)):
+                         ("logger back ends", logger is not None)):
             if on:
                 raise not_ported(what, "training extras")
         if ema_decay is not None and not 0.0 <= float(ema_decay) <= 1.0:
@@ -400,6 +424,8 @@ class Trainer:
         self.log_every_n_steps = log_every_n_steps
         self.out_dir = out_dir
         self.seed = seed
+        self._mesh = mesh
+        self.prefetch_batches = int(prefetch_batches)
         self.gradient_clip_norm = gradient_clip_norm
         self.accumulate_grad_batches = max(accumulate_grad_batches, 1)
         self.time_batched = time_batched
@@ -414,7 +440,49 @@ class Trainer:
         self.ema: Optional[List[torch.Tensor]] = None
 
     def request_mesh_reshape(self, devices=None, num_devices=None):
-        raise not_ported("live mesh reshape", "the rest")
+        raise not_ported("live mesh reshape", SPATIAL_ITEM)
+
+    # ---- the mesh ----
+
+    def mesh_for(self, device):
+        """The data-parallel mesh of a run on ``device``: the one given,
+        else ``make_mesh()`` under several ranks, else ``device`` alone.
+        A rank holds one device, the model's, so the data extent divides
+        the global batch (a rank's batch times the ranks) whatever its
+        size."""
+        if self._mesh is None and dist.is_distributed():
+            self._mesh = make_mesh()
+        if self._mesh is None:
+            return make_mesh(devices=[device])
+        mesh = self._mesh
+        if not same_device(mesh.device, device):
+            raise ValueError(f"the mesh's device {mesh.device} is not the "
+                             f"model's ({device})")
+        return mesh
+
+    @property
+    def _group(self):
+        """The process group of the data axis; ``None`` in one process."""
+        return None if self._mesh is None else self._mesh.group
+
+    @property
+    def _peers(self):
+        """The data axis's group when it spans several ranks, else
+        ``None``."""
+        group = self._group
+        return group if group is not None and \
+            dist.world_size(group) > 1 else None
+
+    @staticmethod
+    def _sync_data_sharding(data) -> None:
+        """Point the data module at this rank's shard of the dataset
+        (``host_id`` / ``num_hosts`` from the rank and the world size,
+        unless they were set)."""
+        if not dist.is_distributed():
+            return
+        if getattr(data, "num_hosts", 1) == 1:
+            data.host_id = dist.rank()
+            data.num_hosts = dist.world_size()
 
     @staticmethod
     def draw_start(model, generator: torch.Generator) -> int:
@@ -466,6 +534,10 @@ class Trainer:
         on_card = device.type == "cuda"
         X0 = torch.zeros_like(X)
         labels0 = torch.full_like(labels, -1.0)
+        # the probe runs outside the global batch (no collectives), so a
+        # rank that fails cannot leave the others waiting in one
+        group = self._peers
+        errors: Dict[Any, str] = {}
         probe = copy.deepcopy(model)
         params = list(probe.parameters())
 
@@ -492,6 +564,14 @@ class Trainer:
                 seconds = time_call(step_fn(schedule), device)
             except torch.OutOfMemoryError as e:
                 oom = f"{type(e).__name__}: {e}"[:200]
+            except Exception as e:
+                if group is None:
+                    raise
+                # raised on every rank once the ranks have compared notes
+                errors[schedule] = f"{type(e).__name__}: {e}"[:200]
+                results[schedule] = {"ms": None, "peak_gb": None,
+                                     "oom": None}
+                continue
             if oom is not None:
                 # the traceback that held the failed attempt's tensors
                 # went with the except clause; free them before the
@@ -511,6 +591,8 @@ class Trainer:
                   f"ms/step" + (f", peak {peak:.2f} GB" if on_card else ""),
                   flush=True)
         del probe, params
+        if group is not None:
+            results = self._merge_timings(results, errors, group)
         self.schedule_timings[mode] = results
         timed = {s: r["ms"] for s, r in results.items() if r["ms"] is not None}
         if not timed:
@@ -524,6 +606,33 @@ class Trainer:
               flush=True)
         return best
 
+    @staticmethod
+    def _merge_timings(results, errors, group):
+        """Every rank's measurement of the schedules, folded alike on
+        every rank (else the ranks would pin different schedules and
+        their collectives hang): a schedule out of memory on any rank is
+        disqualified on all, the others take the sum of the ranks' ms
+        and the largest peak. An error other than out of memory on any
+        rank raises on every rank."""
+        gathered = dist.allgather_pickle((results, errors), group)
+        for r, (_, errs) in enumerate(gathered):
+            for schedule, err in errs.items():
+                raise RuntimeError(f"time_batched='auto': schedule "
+                                   f"{schedule!r} failed on rank {r}: {err}")
+        merged = {}
+        for schedule in results:
+            runs = [res[schedule] for res, _ in gathered]
+            oom = next((run["oom"] for run in runs if run["oom"]), None)
+            if oom is not None:
+                merged[schedule] = {"ms": None, "peak_gb": None, "oom": oom}
+                continue
+            peaks = [run["peak_gb"] for run in runs
+                     if run["peak_gb"] is not None]
+            merged[schedule] = {"ms": sum(run["ms"] for run in runs),
+                                "peak_gb": max(peaks) if peaks else None,
+                                "oom": None}
+        return merged
+
     def configure(self, model) -> None:
         """Fresh optimizer state (and EMA at the current weights) for
         ``model``'s parameters."""
@@ -533,6 +642,9 @@ class Trainer:
             make_schedule(model.learning_rate, self.lr_schedule),
             self.gradient_clip_norm, self.accumulate_grad_batches,
         )
+        if self._peers is not None:
+            # every rank starts from rank 0's weights and statistics
+            dist.broadcast_([*params, *_stats(model).values()], self._group)
         self.ema = None if self.ema_decay is None else \
             [p.detach().clone() for p in params]
 
@@ -540,16 +652,31 @@ class Trainer:
                    start_step: int) -> torch.Tensor:
         """One micro-batch: forward from ``start_step`` in training mode,
         loss, gradients and the optimizer chain. Returns the loss
-        (detached, on the model's device). Needs :meth:`configure`."""
+        (detached, on the model's device). Needs :meth:`configure`.
+
+        On a mesh, ``X`` and ``labels`` are this rank's rows: the loss
+        returned is the global batch's, and the gradients the optimizer
+        sees are the global batch's, the same on every rank."""
         if self.opt is None:
             raise RuntimeError("call configure(model) before train_step")
         schedule = self._schedule_for(model, X, labels, train=True)
-        preds, _ = model.forward_fn(schedule)(X, start_step=start_step,
-                                              train=True)
-        loss = model.loss(preds, labels)
-        grads = torch.autograd.grad(loss, self.opt.params,
-                                    allow_unused=True)
-        if self.opt.step(list(grads)) and self.ema is not None:
+        group = self._group
+        with contextlib.nullcontext() if group is None else \
+                dist.global_batch(group):
+            preds, _ = model.forward_fn(schedule)(X, start_step=start_step,
+                                                  train=True)
+            loss = model.loss(preds, labels)
+            grads = list(torch.autograd.grad(loss, self.opt.params,
+                                             allow_unused=True))
+        if group is not None:
+            # the ranks' shares of the loss and their gradients, summed
+            # (a parameter no path reaches has a zero gradient)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(self.opt.params, grads)]
+            *grads, loss = dist.all_reduce_sum(
+                [*grads, loss.detach().reshape(1)], group)
+            loss = loss[0]
+        if self.opt.step(grads) and self.ema is not None:
             d = self.ema_decay
             with torch.no_grad():
                 self.ema = [d * e + (1.0 - d) * p
@@ -609,7 +736,13 @@ class Trainer:
             ) -> Dict[str, Any]:
         """Train until early stopping or ``max_epochs``; returns the run's
         counters. ``ckpt_path="auto"`` resumes from this run's ``last``
-        checkpoint if there is one."""
+        checkpoint if there is one.
+
+        Under several ranks every rank calls it; each reads its own shard
+        of ``data`` (``host_id`` / ``num_hosts`` from the rank) and the
+        ranks leave together."""
+        self._sync_data_sharding(data)
+        mesh = self.mesh_for(model.device)
         logger = MetricsLogger(self.out_dir)
         ckpt = CheckpointManager(
             os.path.join(self.out_dir, "checkpoints"),
@@ -630,20 +763,18 @@ class Trainer:
             checks_since_best = int(restored.get("checks_since_best", 0))
             print(f"resumed from {ckpt_path} at step {step}", flush=True)
 
-        train_iter = iter(data.train_loader())
+        # rasterization and the host-to-device copy of the next batches
+        # overlap the current train step
+        train_iter = prefetch_to_device(data.train_loader(), mesh,
+                                        self.prefetch_batches)
         try:
             t_epoch = time.time()
             while self.max_epochs < 0 or epoch < self.max_epochs:
                 losses = []
                 for _ in range(self.limit_train_batches):
                     X, labels = next(train_iter)
-                    loss = self.train_step(
-                        model,
-                        torch.as_tensor(np.asarray(X), device=model.device),
-                        torch.as_tensor(np.asarray(labels, np.float32),
-                                        device=model.device),
-                        self.draw_start(model, generator),
-                    )
+                    loss = self.train_step(model, X, labels,
+                                           self.draw_start(model, generator))
                     step += 1
                     losses.append(float(loss))
                     if step % self.log_every_n_steps == 0:
@@ -680,8 +811,10 @@ class Trainer:
                               f"{self.monitor}={best_metric:.4f})", flush=True)
                         break
         finally:
-            # stop the loader's worker threads even when a step raises
+            # stop the prefetch thread, and with it the loader's worker
+            # threads, even when a step raises
             _close(train_iter)
+        dist.barrier("fit_end")
         return {"step": step, "epoch": epoch, "best_metric": best_metric}
 
     # ---- evaluation ----
@@ -689,14 +822,26 @@ class Trainer:
     def eval_step(self, model, X: torch.Tensor, labels: torch.Tensor,
                   start_step: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Forward from ``start_step``, loss and detections: ``(loss,
-        dets [B, 300, 6])``, both on the model's device."""
+        dets [B, 300, 6])``, both on the model's device. On a mesh, ``X``
+        is this rank's rows and the loss is the global batch's."""
         schedule = self._schedule_for(model, X, labels, train=False)
+        group = self._group
         with torch.inference_mode():
             preds = self._eval_preds(model, schedule, X, start_step)
-            return model.loss(preds, labels), model.detect(preds)
+            if group is None:
+                return model.loss(preds, labels), model.detect(preds)
+            with dist.global_batch(group):
+                loss = model.loss(preds, labels)
+            loss = dist.all_reduce_sum([loss.reshape(1)], group)[0][0]
+            return loss, model.detect(preds)
 
     def _run_eval(self, model, batches: Iterable, limit: int,
                   prefix: str) -> Dict[str, float]:
+        """Each rank scores its rows; the ranks' mAP accumulators are
+        folded (``allgather_pickle``), so every rank computes the same
+        metrics (and early stopping decides alike). The losses are the
+        global batches' already."""
+        mesh = self.mesh_for(model.device)
         generator = torch.Generator().manual_seed(self.seed)
         map_metric = MeanAveragePrecision()
         losses = []
@@ -704,12 +849,7 @@ class Trainer:
             for X, labels in itertools.islice(batches, limit):
                 r = self.draw_start(model, generator)
                 loss, dets = self.eval_step(
-                    model,
-                    torch.as_tensor(np.asarray(X), device=model.device),
-                    torch.as_tensor(np.asarray(labels, np.float32),
-                                    device=model.device),
-                    r,
-                )
+                    model, *shard_batch(mesh, X, labels), r)
                 losses.append(float(loss))
                 preds, targets = detections_to_map_inputs(
                     dets.cpu().numpy(), np.asarray(labels)
@@ -718,6 +858,11 @@ class Trainer:
         finally:
             # islice alone would leave a loader's threads running
             _close(batches)
+        if self._peers is not None:
+            gathered = dist.allgather_pickle(map_metric, self._peers)
+            map_metric = gathered[0]
+            for other in gathered[1:]:
+                map_metric.merge(other)
         out = {f"{prefix}_loss": float(np.mean(losses)) if losses else 0.0}
         out.update({k: float(v) for k, v in map_metric.compute().items()})
         return out
@@ -738,6 +883,8 @@ class Trainer:
         name)``). Detections are shown from frame ``time_window`` on; the
         last frame is drawn again with the ground truth. MT labels
         ``(frame_idx, class, x1..y2)`` lose their frame index first.
+        Under several ranks each rank runs its own shard's sample 0 and
+        rank 0 renders every rank's, named ``<batch>_<rank>``.
 
         :param limit: Batches to render; default ``limit_predict_batches``;
             ``limit <= 0`` renders every batch the loader yields.
@@ -745,27 +892,38 @@ class Trainer:
         if limit is None:
             limit = self.limit_predict_batches
         plotter.labels = data.get_labels()
+        self.mesh_for(model.device)
+        group = self._peers
         batches = data.predict_loader()
         try:
             for batch_idx, (X, labels) in enumerate(itertools.islice(
                     batches, limit if limit > 0 else None)):
                 frames = np.asarray(X)[:, 0]  # [T, H, W, 2]
                 state = model.init_state(1)
-                video = []
+                shown = []
                 dets = None
                 for t in range(frames.shape[0]):
                     dets, state = model.predict(
                         torch.as_tensor(frames[t], device=model.device),
                         state)
-                    shown = None if t < model.time_window \
-                        else dets.cpu().numpy()
-                    video.append(plotter.apply(frames[t], shown, None))
+                    shown.append(None if t < model.time_window
+                                 else dets.cpu().numpy())
                 gt = np.asarray(labels[0])
                 if gt.ndim == 2 and gt.shape[1] == 6:
                     gt = gt[:, 1:]
-                video.append(plotter.apply(frames[-1], dets.cpu().numpy(),
-                                           gt))
-                plotter(video, data.time_step, str(batch_idx))
+                rows = [(frames, shown, dets.cpu().numpy(), gt)]
+                if group is not None:
+                    # every rank's sample 0, rendered by rank 0
+                    rows = dist.allgather_pickle(rows[0], group)
+                    if not dist.is_primary():
+                        continue
+                for r, (frames, shown, last, gt) in enumerate(rows):
+                    video = [plotter.apply(f, d, None)
+                             for f, d in zip(frames, shown)]
+                    video.append(plotter.apply(frames[-1], last, gt))
+                    name = str(batch_idx) if group is None \
+                        else f"{batch_idx}_{r}"
+                    plotter(video, data.time_step, name)
         finally:
             _close(batches)
 

@@ -16,6 +16,8 @@ recording per split:
 - ``Trainer.predict`` against JAX's, with a plotter that records what it
   is handed: the same frames and ground truth, detections within the
   prediction tolerance of ``tests/test_torch_detector.py``;
+- ``fit --distributed`` under ``torchrun`` (two gloo ranks on the CPU):
+  rank 0 alone writes the metrics and the checkpoint;
 - configs the port cannot run yet raise with their ROADMAP items.
 """
 
@@ -234,9 +236,9 @@ NARROW = "--model.class_path=test_torch_detector.PNarrow"
     (["fit", "--config", "config/config.yaml", "--config",
       "config/logger.yaml", NARROW], "training extras"),
     (["fit", NARROW], "training extras"),  # main.py's defaults: logger.yaml
-    (["fit", "--distributed"], "the rest"),
     (["predict", "--config", "config/config.yaml", NARROW], "the rest"),
-])
+], ids=["argv0-training extras", "argv1-training extras",
+        "argv3-the rest"])
 def test_configs_not_ported_raise_with_their_item(monkeypatch, tmp_path,
                                                   argv, item):
     monkeypatch.chdir(REPO)
@@ -268,3 +270,36 @@ def test_cli_refuses_what_it_has_no_counterpart_for(monkeypatch, tmp_path):
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(["test", "--config", "config/config.yaml"])
+
+
+def test_distributed_fit_under_torchrun(tmp_path):
+    """``python -m torch.distributed.run --nproc_per_node 2 -m
+    snn_for_object_detection_tpu_torch fit --distributed`` (gloo ranks
+    with ``--device cpu``; a rendezvous on a free localhost port): exits
+    0, each step and the validation logged once, by rank 0, and rank 0's
+    checkpoint written."""
+    import subprocess
+    import sys
+
+    data = make_synthetic_dataset(str(tmp_path / "data"),
+                                  records_per_split=2, duration_ms=1200)
+    run = tmp_path / "run"
+    args = common_args(data, run, [
+        "--model.class_path=torch_rank_worker.MicroSODa",
+        "--trainer.time_batched=true"])
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        [REPO, os.path.join(REPO, "tests"), os.environ.get("PYTHONPATH", "")]))
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", "-m", "snn_for_object_detection_tpu_torch",
+         "fit", "--distributed", *args],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, (out.stdout + out.stderr)[-4000:]
+    with open(run / "metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    steps = [r["step"] for r in records if "train_loss" in r]
+    assert steps == [1, 2]
+    assert sum("val_loss" in r for r in records) == 1
+    assert sum("epoch" in r for r in records) == 1
+    assert (run / "checkpoints" / "last").exists()
+    assert (run / "config.yaml").exists()

@@ -163,8 +163,45 @@ def test_loader_raises_a_worker_error(tmp_path):
 
 
 def test_multi_host_sharding_raises(gen1):
-    with pytest.raises(NotImplementedError, match="ROADMAP.*the rest"):
-        PropheseeDataModule(data_dir=gen1, host_id=1, num_hosts=2)
+    """Host sharding is taken (``test_host_sharded_loader_bit_equal_to_jax``);
+    a host id outside ``[0, num_hosts)`` raises."""
+    for host_id in (-1, 2):
+        with pytest.raises(ValueError, match="host_id"):
+            PropheseeDataModule(data_dir=gen1, host_id=host_id, num_hosts=2)
+    dm = PropheseeDataModule(data_dir=gen1, host_id=1, num_hosts=2)
+    assert (dm.host_id, dm.num_hosts) == (1, 2)
+
+
+@pytest.fixture(scope="module")
+def gen1_two(tmp_path_factory):
+    """Two recordings a split: one for each of two hosts."""
+    root = str(tmp_path_factory.mktemp("gen1_two"))
+    return make_synthetic_dataset(root, records_per_split=2,
+                                  duration_ms=1200)
+
+
+@pytest.mark.parametrize("host_id", [0, 1])
+def test_host_sharded_loader_bit_equal_to_jax(gen1_two, host_id):
+    """``PropheseeDataModule(host_id=h, num_hosts=2)`` (a rank's shard of
+    the files under data parallel) gives JAX's module's batches at the
+    same ``(host_id, num_hosts)``, bit for bit; the two hosts read
+    different files."""
+    kw = dict(data_dir=gen1_two, batch_size=2, num_workers=1,
+              num_load_file=1, num_steps=4, time_shift=2, max_labels=8,
+              seed=3, num_hosts=2)
+    ours = PropheseeDataModule(host_id=host_id, **kw).train_loader()
+    theirs = JDataModule(host_id=host_id, **kw).train_loader()
+    other = PropheseeDataModule(host_id=1 - host_id, **kw).train_loader()
+    try:
+        for _ in range(BATCHES):
+            (x, lab), (jx, jlab) = next(ours), next(theirs)
+            np.testing.assert_array_equal(x, jx)
+            np.testing.assert_array_equal(lab, jlab)
+            assert x.any()
+        assert not np.array_equal(next(other)[0], next(ours)[0])
+    finally:
+        for it in (ours, theirs, other):
+            it.close()
 
 
 def test_event_reader_matches_jax(gen1):

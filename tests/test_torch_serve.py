@@ -17,6 +17,7 @@ from snn_for_object_detection_tpu.serve import StreamingEngine as JEngine
 from snn_for_object_detection_tpu_torch.models import spec as PS
 from snn_for_object_detection_tpu_torch.models.convert import load_jax_params
 from snn_for_object_detection_tpu_torch.models.detector import SODa as PSODa
+from snn_for_object_detection_tpu_torch.parallel import make_mesh
 from snn_for_object_detection_tpu_torch.serve import StreamingEngine
 from test_torch_detector import _jax_weights
 from test_torch_megakernel import micro_soda
@@ -138,9 +139,58 @@ def test_errors(setup):
 
 
 def test_not_ported_options_raise(setup):
+    """Mesh serving is ported (``test_mesh_engine_matches_one_device``);
+    a capacity the mesh does not divide raises, as JAX's engine."""
     jm, params, stats, model = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP.*mesh serving"):
-        StreamingEngine(model, capacity=8, mesh=object())
+    with pytest.raises(ValueError, match="divide"):
+        StreamingEngine(model, capacity=6, mesh=make_mesh(["cpu"] * 4))
+
+
+@pytest.mark.parametrize("pipelined", [False, True])
+def test_mesh_engine_matches_one_device(setup, pipelined):
+    """The counterpart of JAX's ``test_sharded_engine_matches_single_
+    device``: the same streams on an engine over a mesh of four CPU
+    replicas (conftest's virtual devices' analogue) give the mesh-less
+    engine's detections bit for bit, through a stream added to and one
+    removed from another block part way, in sync and pipelined mode."""
+    model = setup[3]
+    mesh = make_mesh(["cpu"] * 4)
+    assert mesh.shape == {"data": 4}
+    one = StreamingEngine(model, capacity=8, pipelined=pipelined)
+    four = StreamingEngine(model, capacity=8, mesh=mesh, pipelined=pipelined)
+    assert [m is model for m, _ in four._replicas] == [True] + [False] * 3
+    for eng in (one, four):
+        for sid in ("a", "b", "c"):
+            eng.add_stream(sid)
+    outs = ([], [])
+    for t in range(model.time_window + 4):
+        if t == 2:
+            for eng in (one, four):
+                eng.remove_stream("b")
+                eng.add_stream("d")
+        fr = {sid: frame(10 * t + i) for i, sid in enumerate(one.streams)}
+        for eng, out in zip((one, four), outs):
+            out.append(eng.step(fr))
+    for eng, out in zip((one, four), outs):
+        out.append(eng.flush())
+    for a, b in zip(*outs):
+        assert a.keys() == b.keys()
+        for sid in a:
+            np.testing.assert_array_equal(a[sid], b[sid])
+    assert sum(len(d) for out in outs[0] for d in out.values()) > 0
+
+
+def test_mesh_engine_updates_every_replica(setup):
+    """``update_weights`` reaches every replica of a mesh engine."""
+    _, params, stats, _ = setup
+    model = _port_model(params, stats)
+    eng = StreamingEngine(model, capacity=4, mesh=make_mesh(["cpu"] * 2))
+    doubled = jax.tree.map(lambda a: a * 2.0, params)
+    eng.update_weights(doubled, stats)
+    want = doubled["head0"]["box"]["b0"]["l0"]["w"].transpose(3, 2, 0, 1)
+    for replica, _ in eng._replicas:
+        np.testing.assert_array_equal(
+            replica.head0.box.b0.l0.w.detach().numpy(), want)
 
 
 def test_update_weights_takes_int8_leaves(setup):

@@ -656,13 +656,35 @@ def test_other_schedules_accepted(schedule):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"mesh": object()}, {"spatial_devices": 2}, {"debug_nans": True},
+    {"spatial_devices": 2}, {"debug_nans": True},
     {"profile_dir": "trace"}, {"logger": {"class_path": "x"}},
-    {"prefetch_batches": 2},
-])
+], ids=["kwargs1", "kwargs2", "kwargs3", "kwargs4"])
 def test_modes_left_out_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(**kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"mesh": "cpu"}, {"prefetch_batches": 2},
+])
+def test_mesh_and_prefetch_are_taken(tmp_path, kwargs):
+    """A one-device mesh and prefetch threads (both raised before data
+    parallel was ported): ``fit`` runs as without them, to the same
+    weights (tests/test_torch_parallel.py holds the mesh of several
+    ranks against JAX, tests/test_torch_prefetch.py the prefetch)."""
+    from snn_for_object_detection_tpu_torch.parallel import make_mesh
+
+    if kwargs.get("mesh") == "cpu":
+        kwargs = {"mesh": make_mesh(devices=["cpu"])}
+    runs = []
+    for kw in ({"prefetch_batches": 0}, kwargs):
+        model = _tiny_model()
+        Trainer(max_epochs=1, limit_train_batches=2, limit_val_batches=1,
+                check_val_every_n_epoch=1, out_dir=str(tmp_path / str(kw)),
+                seed=0, **kw).fit(model, _Data())
+        runs.append([p.detach().clone() for p in model.parameters()])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_optimizer_options_left_out_raise():
