@@ -240,7 +240,10 @@ Phases (any failure raises and the script exits non-zero):
    engine: detections
    bit-equal with cuDNN off, final-state spike agreement >= 0.99 a cell
    with it on, 22 cell launches a replica and step; (e) (b)'s train step
-   ms a rank and its all-reduce's share, (d)'s engine step ms, and [11]'s
+   ms a rank, the same step with no collective, the share of the step's
+   all-reduces (BatchNorm's moments, the loss's counts, the gradients:
+   the difference of the two) and of the gradients' alone, (d)'s engine
+   step ms, and [11]'s
    loader-fed steps' idle share at ``prefetch_batches`` 0 and 2.
 
 Model and data values of [3]-[10], with their source (those phases pass
@@ -4274,7 +4277,7 @@ def dp_sha(params) -> str:
 
 class ranks_order_moments:
     """Within: every train BatchNorm's moments as the ranks of (b) sum
-    them (``distributed.global_moments``), in one process: the batch in
+    them (``compile.global_moments``), in one process: the batch in
     ``blocks`` blocks of rows, each block's fp32 sums added in fp64 (exact
     in any order, so any collective's order gives the same), the mean
     first, then the squared deviations. The trained net at full
@@ -4288,7 +4291,7 @@ class ranks_order_moments:
     def __enter__(self):
         self.saved = self.C.Norm.__dict__["_moments"]
 
-        def moments(x, dims):
+        def moments(x, dims, group):
             n = 1
             for d in dims:
                 n *= x.shape[d]
@@ -4381,12 +4384,37 @@ def dp_rank(rank, world, store, out):
     step_ms = cuda_time_ms(
         lambda: trainer.train_step(model, X, lab, TRAIN_START),
         reps=DP_TIMED, warmup=1)
+
+    def local_step():
+        """The train step on this rank's rows with no collective: the
+        forward and loss without the group, no all-reduce of the
+        gradients."""
+        preds, _ = model.forward_fn(True)(X, start_step=TRAIN_START,
+                                          train=True)
+        grads = torch.autograd.grad(model.loss(preds, lab),
+                                    trainer.opt.params, allow_unused=True)
+        trainer.opt.step(list(grads))
+
+    local_ms = cuda_time_ms(local_step, reps=DP_TIMED, warmup=1)
+    # the collectives of one train step: every all-reduce, those in
+    # torch.distributed.nn's autograd function included
+    all_reduce, calls = torch.distributed.all_reduce, []
+
+    def counted(*args, **kwargs):
+        calls.append(args[0].numel())
+        return all_reduce(*args, **kwargs)
+
+    torch.distributed.all_reduce = counted
+    trainer.train_step(model, X, lab, TRAIN_START)
+    torch.distributed.all_reduce = all_reduce
     grads = [torch.zeros_like(p) for p in model.parameters()]
     grads.append(torch.zeros(1, device="cuda"))
     reduce_ms = cuda_time_ms(
         lambda: distributed.all_reduce_sum(grads, mesh.group),
         reps=DP_TIMED, warmup=1)
-    runs.update(step_ms=step_ms, reduce_ms=reduce_ms, rows=int(X.shape[1]))
+    runs.update(step_ms=step_ms, local_ms=local_ms, reduce_ms=reduce_ms,
+                collectives=len(calls), largest=max(calls),
+                rows=int(X.shape[1]))
     torch.save(runs, os.path.join(out, f"rank{rank}.pt"))
     distributed.barrier("dp_done")
     torch.distributed.destroy_process_group()
@@ -4462,10 +4490,17 @@ def dp_two_ranks(torch, one, smi):
     for ok, msg in gates:
         check(ok, msg)
     for r, run in enumerate(ranks):
+        inside = run["step_ms"] - run["local_ms"]
         print(f"  (e) rank {r}: train step {run['step_ms']:.1f} ms (CUDA "
               f"events, median of {DP_TIMED}, {run['rows']} rows, two "
-              f"ranks sharing the card, cuDNN on), all-reduce of the "
-              f"gradients {run['reduce_ms']:.1f} ms, share "
+              f"ranks sharing the card, cuDNN on); the same step with no "
+              f"collective {run['local_ms']:.1f} ms; the step's "
+              f"{run['collectives']} all-reduces (BatchNorm's moments, 2 "
+              f"forward and 2 backward a train Norm; the loss's counts; "
+              f"the gradients and loss shares in one buffer of "
+              f"{run['largest']} values) {inside:.1f} ms, share "
+              f"{inside / run['step_ms']:.3f}; the gradients' all-reduce "
+              f"alone {run['reduce_ms']:.1f} ms, share "
               f"{run['reduce_ms'] / run['step_ms']:.3f} [{smi}]", flush=True)
 
 

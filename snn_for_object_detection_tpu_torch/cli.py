@@ -170,7 +170,8 @@ def main(argv=None) -> Run:
         result = trainer.fit(model, data, ckpt_path=ckpt_path)
     elif args.subcommand in ("validate", "test"):
         path = load_model_state(model, ckpt_path, trainer.out_dir)
-        print(f"[{args.subcommand}] weights from {path}", flush=True)
+        if dist.is_primary():
+            print(f"[{args.subcommand}] weights from {path}", flush=True)
         if args.subcommand == "validate":
             result = trainer.validate(model, data.val_loader())
         else:

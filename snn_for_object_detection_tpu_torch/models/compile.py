@@ -58,7 +58,6 @@ from snn_for_object_detection_tpu_torch.ops.cuda_kernels import (
     spiking_conv_seq,
     temporal_cell_seq,
 )
-from snn_for_object_detection_tpu_torch.parallel import distributed as dist
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -82,7 +81,12 @@ class Ctx:
     state and the fp32 output; a sequence call: both stacked over T, the
     state held for ``t < start_step``, the output in the input's dtype).
     ``calibrate``: every float Conv puts its input's fp32 absmax in
-    ``absmax``, keyed by the layer (``ops/quantize.calibrate``)."""
+    ``absmax``, keyed by the layer (``ops/quantize.calibrate``).
+
+    ``batch_group``: in training, the process group of several ranks
+    whose rows form the global batch (data parallel): Norm takes the
+    global batch's moments (:func:`global_moments`), as GSPMD makes
+    JAX's batch means. ``None``: this batch is the global batch."""
 
     taps: List[torch.Tensor] = dataclasses.field(default_factory=list)
     start_step: int = 0
@@ -93,6 +97,7 @@ class Ctx:
     records: Dict[str, Any] = dataclasses.field(default_factory=dict)
     calibrate: bool = False
     absmax: Dict[Any, torch.Tensor] = dataclasses.field(default_factory=dict)
+    batch_group: Any = None
 
     def step_mask(self, steps: int) -> List[bool]:
         """Step t of a sequence call is active iff ``t >= start_step``."""
@@ -452,6 +457,37 @@ class Conv(Layer):
         return self._conv(x.float(), self.w.to(x.dtype).float())
 
 
+def global_moments(x: torch.Tensor, dims, group):
+    """Mean and biased variance of fp32 ``x`` over ``dims`` of the
+    global batch of ``group``'s ranks (keepdim), and the element count
+    per moment (every rank holds as many rows as the others, as the
+    Trainer feeds them): the mean from all-reduced sums, the variance
+    from all-reduced squared deviations from it (two passes, as
+    ``jnp.var``). Each rank's fp32 sums are added in fp64, where the sum
+    of a few fp32 values is exact whatever the order, so the moments do
+    not depend on the order in which the collective adds the ranks' sums
+    (NCCL's ring, tree or in-switch reductions each add in their own): a
+    spiking net turns the last bit of a moment into flipped spikes. The
+    sums travel through ``torch.distributed.nn``'s all-reduce, whose
+    backward all-reduces the gradients: each rank's rows get the gradient
+    of every rank's loss share through the moments. Four collectives a
+    call, two forward and two backward."""
+    import torch.distributed as tdist
+    from torch.distributed.nn.functional import all_reduce
+
+    n = tdist.get_world_size(group)
+    for d in dims:
+        n *= x.shape[d]
+
+    def summed(t):
+        return all_reduce(t.sum(dim=tuple(dims), keepdim=True).double(),
+                          group=group).float()
+
+    mean = summed(x) / n
+    var = summed((x - mean) ** 2) / n
+    return mean, var, n
+
+
 class Norm(Layer):
     """BatchNorm.
 
@@ -504,14 +540,12 @@ class Norm(Layer):
         return y.to(dtype or x.dtype)
 
     @staticmethod
-    def _moments(x, dims):
+    def _moments(x, dims, group):
         """Mean and biased variance over ``dims`` of fp32 ``x`` (keepdim)
-        and the count of elements in each: over the global batch inside
-        ``distributed.global_batch`` of several ranks (sync-BN, as GSPMD
-        makes JAX's batch means), else over this batch."""
-        group = dist.batch_group()
+        and the count of elements in each: over the global batch of
+        ``group``'s ranks (``ctx.batch_group``), else over this batch."""
         if group is not None:
-            return dist.global_moments(x, dims, group)
+            return global_moments(x, dims, group)
         var, mean = torch.var_mean(x, dim=dims, correction=0, keepdim=True)
         n = 1
         for d in dims:
@@ -526,7 +560,8 @@ class Norm(Layer):
         """``dtype``: train mode's output dtype, if not x's."""
         if ctx is not None and ctx.train:
             # batch mean and biased variance over (B, H, W), in fp32
-            mean, var, n = self._moments(x.float(), (0, 1, 2))
+            mean, var, n = self._moments(x.float(), (0, 1, 2),
+                                         ctx.batch_group)
             return self._normalize(x, mean, var, dtype), self._fold(
                 state, mean.detach().flatten(), self._unbiased(n, var))
         k, b = self.coeffs()
@@ -540,7 +575,7 @@ class Norm(Layer):
         # every step's moments in one batched reduction, as JAX's
         # apply_seq: the same values as the step form's, summed in
         # another order
-        mean, var, n = self._moments(X.float(), (1, 2, 3))
+        mean, var, n = self._moments(X.float(), (1, 2, 3), ctx.batch_group)
         for t, keep in enumerate(ctx.step_mask(X.shape[0])):
             if keep:
                 state = self._fold(state, mean[t].detach().flatten(),

@@ -56,7 +56,6 @@ from snn_for_object_detection_tpu_torch.ops.cuda_kernels import (
     STATE_DTYPES,
     X_DTYPES,
 )
-from snn_for_object_detection_tpu_torch.parallel import distributed as dist
 
 Preds = Tuple[torch.Tensor, torch.Tensor]
 
@@ -272,10 +271,11 @@ class SODa(nn.Module):
     # ----- per-step pieces -----
 
     def _trunk(self, x: torch.Tensor, state, train: bool = False,
-               ctx: Optional[C.Ctx] = None) -> Tuple[tuple, Dict]:
+               ctx: Optional[C.Ctx] = None,
+               group=None) -> Tuple[tuple, Dict]:
         """Backbone + neck + head stems for one frame; the box/cls tails
         are left to :meth:`_tails`."""
-        ctx = C.Ctx(train=train) if ctx is None else ctx
+        ctx = C.Ctx(train=train, batch_group=group) if ctx is None else ctx
         y, backbone = self.backbone.step(
             x.to(self.compute_dtype), state["backbone"], ctx
         )
@@ -299,25 +299,27 @@ class SODa(nn.Module):
             base_outs.append(base_out)
         return tuple(base_outs), new_state
 
-    def _step_out(self, x: torch.Tensor, state,
-                  train: bool = False) -> Tuple[tuple, Dict]:
+    def _step_out(self, x: torch.Tensor, state, train: bool = False,
+                  group=None) -> Tuple[tuple, Dict]:
         """One frame of the per-step schedule: the stem activations when
         the tails are light (they run after the last step), else the
         predictions, with the tails' state; and the new state."""
-        base_outs, state = self._trunk(x, state, train)
+        base_outs, state = self._trunk(x, state, train, group=group)
         if self.head_tails_light:
             return base_outs, state
-        return self._tails(base_outs, state, C.Ctx(train=train))
+        return self._tails(base_outs, state,
+                           C.Ctx(train=train, batch_group=group))
 
-    def _neck_heads_out(self, y: torch.Tensor, state,
-                        train: bool = False) -> Tuple[tuple, Dict]:
+    def _neck_heads_out(self, y: torch.Tensor, state, train: bool = False,
+                        group=None) -> Tuple[tuple, Dict]:
         """:meth:`_step_out` for the neck and heads of
         :meth:`forward_hybrid` on one backbone output."""
-        ctx = C.Ctx(train=train)
+        ctx = C.Ctx(train=train, batch_group=group)
         base_outs, state = self._neck_heads(y, state, ctx)
         if self.head_tails_light:
             return base_outs, state
-        return self._tails(base_outs, state, C.Ctx(train=train))
+        return self._tails(base_outs, state,
+                           C.Ctx(train=train, batch_group=group))
 
     def _zero_out(self, batch: int, device) -> tuple:
         """What a per-step forward that runs no step reads out: zero stem
@@ -426,13 +428,17 @@ class SODa(nn.Module):
         return state
 
     def forward(self, X: torch.Tensor, start_step: int = 0,
-                state=None, train: bool = False) -> Tuple[Preds, Dict]:
+                state=None, train: bool = False,
+                group=None) -> Tuple[Preds, Dict]:
         """Per-step schedule over ``X [T, B, H, W, C]``: last-step
         predictions and the final state. Steps ``t < start_step`` are
         skipped (state and BatchNorm statistics frozen), as JAX's
         ``lax.cond`` over the scan. ``train=True``: BatchNorm on batch
         statistics, each step checkpointed when ``remat``, and gradients
-        on; without it the call runs under ``no_grad``."""
+        on; without it the call runs under ``no_grad``. ``group``: in
+        training, the process group whose ranks' rows of ``X`` form the
+        global batch (``C.Ctx.batch_group``): BatchNorm on its moments.
+        The same in :meth:`forward_seq` and :meth:`forward_hybrid`."""
         T, B = X.shape[0], X.shape[1]
         if state is None:
             state = self.init_state(B)
@@ -441,18 +447,18 @@ class SODa(nn.Module):
             for t in range(max(int(start_step), 0), T):
                 if train and self.remat:
                     out, state = checkpoint(
-                        self._step_out, X[t], state, True,
+                        self._step_out, X[t], state, True, group,
                         use_reentrant=False)
                 else:
-                    out, state = self._step_out(X[t], state, train)
+                    out, state = self._step_out(X[t], state, train, group)
             preds = self._readout(out, state)
         if train:
             state = self.commit_stats(state)
         return preds, state
 
     def forward_seq(self, X: torch.Tensor, start_step: int = 0,
-                    state=None, fuse=None,
-                    train: bool = False) -> Tuple[Preds, Dict]:
+                    state=None, fuse=None, train: bool = False,
+                    group=None) -> Tuple[Preds, Dict]:
         """Time-batched schedule, same results as :meth:`forward`.
 
         :param fuse: run the fused triples (``spiking_conv_seq``).
@@ -478,7 +484,7 @@ class SODa(nn.Module):
         if state is None:
             state = self.init_state(B)
         ctx = C.Ctx(start_step=start_step, fuse=fuse, train=train,
-                    remat=train and self.remat)
+                    remat=train and self.remat, batch_group=group)
         with contextlib.nullcontext() if train else torch.no_grad():
             new_state = {}
             y, new_state["backbone"] = self.backbone.seq(
@@ -511,7 +517,8 @@ class SODa(nn.Module):
         return preds, new_state
 
     def forward_hybrid(self, X: torch.Tensor, start_step: int = 0,
-                       state=None, train: bool = False) -> Tuple[Preds, Dict]:
+                       state=None, train: bool = False,
+                       group=None) -> Tuple[Preds, Dict]:
         """Mixed schedule, same results as :meth:`forward`: the backbone
         runs time-batched over the whole sequence, as in
         :meth:`forward_seq` but never fused (its cells commit state, and
@@ -527,7 +534,8 @@ class SODa(nn.Module):
         if state is None:
             state = self.init_state(B)
         remat = train and self.remat
-        ctx = C.Ctx(start_step=start_step, train=train, remat=remat)
+        ctx = C.Ctx(start_step=start_step, train=train, remat=remat,
+                    batch_group=group)
         with contextlib.nullcontext() if train else torch.no_grad():
             y_seq, backbone = self.backbone.seq(
                 X.to(self.compute_dtype), state["backbone"], ctx
@@ -537,10 +545,11 @@ class SODa(nn.Module):
             for t in range(max(start_step, 0), T):
                 if remat:
                     out, rest = checkpoint(
-                        self._neck_heads_out, y_seq[t], rest, True,
+                        self._neck_heads_out, y_seq[t], rest, True, group,
                         use_reentrant=False)
                 else:
-                    out, rest = self._neck_heads_out(y_seq[t], rest, train)
+                    out, rest = self._neck_heads_out(y_seq[t], rest, train,
+                                                     group)
             new_state = {"backbone": backbone, **rest}
             preds = self._readout(out, new_state)
         if train:
@@ -565,16 +574,17 @@ class SODa(nn.Module):
 
     # ----- loss -----
 
-    def loss(self, preds: Preds, labels: torch.Tensor) -> torch.Tensor:
+    def loss(self, preds: Preds, labels: torch.Tensor,
+             group=None) -> torch.Tensor:
         """SSD loss: CE split into GT/background means weighted by
         ``loss_ratio``, plus masked L1 on box offsets averaged over all
         ``B*A*4`` elements.
 
-        Inside ``distributed.global_batch`` of several ranks the counts
-        and the element count are the global batch's (all-reduced, no
-        gradient) and the result is this rank's share of the global
-        batch's loss: the ranks' shares sum to it, as do their
-        gradients.
+        ``group``: a process group of several ranks whose rows form the
+        global batch. The counts and the element count are then the
+        global batch's (all-reduced, no gradient) and the result is this
+        rank's share of the global batch's loss: the ranks' shares sum
+        to it, as do their gradients.
 
         :param labels: [B, N, 5] (class, x1, y1, x2, y2), -1-padded.
         """
@@ -593,14 +603,15 @@ class SODa(nn.Module):
         ce = -logp.gather(1, flat_labels[:, None])[:, 0]
         pos = flat_labels > 0
         bbox_l1 = (bbox_preds * bbox_mask - bbox_offset * bbox_mask).abs()
-        group = dist.batch_group()
         if group is None:
             n_pos, n_neg = pos.sum(), (~pos).sum()
             bbox_loss = bbox_l1.mean()
         else:
-            n_pos, n_neg, n_box = dist.global_counts(torch.stack([
+            counts = torch.stack([
                 pos.sum(), (~pos).sum(),
-                torch.tensor(bbox_l1.numel(), device=pos.device)]), group)
+                torch.tensor(bbox_l1.numel(), device=pos.device)])
+            torch.distributed.all_reduce(counts, group=group)
+            n_pos, n_neg, n_box = counts
             bbox_loss = bbox_l1.sum() / n_box
         gt_loss = torch.where(pos, ce, 0.0).sum() / n_pos.clamp(min=1)
         background_loss = torch.where(pos, 0.0, ce).sum() / n_neg.clamp(min=1)

@@ -11,10 +11,11 @@ rows of each global batch:
 - each rank feeds its own slice of the dataset
   (``PropheseeDataModule(host_id=..., num_hosts=...)``; the Trainer
   fills these in from the rank and the world size);
-- reductions over the batch are global: inside :func:`global_batch`,
-  train-mode BatchNorm's moments and the loss's counts are all-reduced,
-  so the ranks' loss contributions sum to the loss of the global batch
-  and the gradients are their all-reduced sum;
+- reductions over the batch are global: the Trainer hands the group to
+  the model (``forward(..., group=)``, ``loss(..., group=)``), whose
+  train-mode BatchNorm moments and loss counts are then all-reduced, so
+  the ranks' loss contributions sum to the loss of the global batch and
+  the gradients are their all-reduced sum (:func:`all_reduce_sum`);
 - host-side metric accumulators are folded with :func:`allgather_pickle`;
 - only rank 0 writes logs and checkpoints.
 
@@ -25,18 +26,13 @@ carries on in one process.
 
 from __future__ import annotations
 
-import contextlib
 import datetime
 import os
-from typing import Any, Iterator, List, Optional, Sequence
+from typing import Any, List, Optional, Sequence
 
 import torch
 import torch.distributed as tdist
 
-# the process group whose ranks' batches form the global batch, while
-# ``global_batch`` is open (process-wide: autograd's device threads run
-# the recomputed forward of a checkpoint and must see it too)
-_BATCH_GROUP: List[Any] = [None]
 # this rank's device, set by ``initialize``
 _DEVICE: List[Optional[torch.device]] = [None]
 
@@ -198,67 +194,3 @@ def all_reduce_sum(tensors: Sequence[torch.Tensor], group=None
             offset += n
     return out
 
-
-# ---- the global batch ----
-
-
-@contextlib.contextmanager
-def global_batch(group) -> Iterator[None]:
-    """Inside, every reduction over the batch spans the ranks of
-    ``group`` (``None``: the default group): train-mode BatchNorm's
-    moments (:func:`global_moments`) and the detector loss's counts, as
-    GSPMD makes them global in the JAX package. The loss then returns
-    this rank's share of the global batch's loss: the shares of the
-    ranks sum to it, and so do their gradients."""
-    saved = _BATCH_GROUP[0]
-    _BATCH_GROUP[0] = tdist.group.WORLD if group is None else group
-    try:
-        yield
-    finally:
-        _BATCH_GROUP[0] = saved
-
-
-def batch_group():
-    """The group of an open :func:`global_batch` of more than one rank,
-    else ``None`` (one rank's batch is the global batch)."""
-    group = _BATCH_GROUP[0]
-    if group is None or world_size(group) == 1:
-        return None
-    return group
-
-
-def global_counts(counts: torch.Tensor, group) -> torch.Tensor:
-    """``counts`` summed over the ranks (no gradient)."""
-    counts = counts.detach().clone()
-    tdist.all_reduce(counts, group=group)
-    return counts
-
-
-def global_moments(x: torch.Tensor, dims: Sequence[int], group):
-    """Mean and biased variance of fp32 ``x`` over ``dims`` of the
-    global batch (keepdim), and the element count per moment (every rank
-    holds as many rows as the others, as the Trainer feeds them): the mean
-    from all-reduced sums, the variance from all-reduced squared
-    deviations from it (two passes, as ``jnp.var``). Each rank's fp32
-    sums are added in fp64, where the sum of a few fp32 values is exact
-    whatever the order, so the moments do not depend on the order in
-    which the collective adds the ranks' sums (NCCL's ring, tree or
-    in-switch reductions each add in their own): a spiking net turns the
-    last bit of a moment into flipped spikes. The sums travel through
-    ``torch.distributed.nn``'s all-reduce, whose backward all-reduces the
-    gradients: each rank's rows get the gradient of every rank's loss
-    share through the moments."""
-    from torch.distributed.nn.functional import all_reduce
-
-    n = 1
-    for d in dims:
-        n *= x.shape[d]
-    n *= world_size(group)
-
-    def summed(t):
-        return all_reduce(t.sum(dim=tuple(dims), keepdim=True).double(),
-                          group=group).float()
-
-    mean = summed(x) / n
-    var = summed((x - mean) ** 2) / n
-    return mean, var, n

@@ -8,9 +8,9 @@ devices and the process group its ranks form along the ``data`` axis:
 - training holds one device a rank (``make_mesh()``: the device
   ``distributed.initialize`` set, over the default group); each rank's
   batch is its block of the global batch, which is the ranks' batches
-  concatenated in rank order; the Trainer all-reduces the gradients and,
-  inside ``distributed.global_batch``, BatchNorm's moments and the
-  loss's counts;
+  concatenated in rank order; the Trainer all-reduces the gradients and
+  hands the group to the model, whose BatchNorm moments and loss counts
+  it makes global;
 - serving holds several devices in one process (``make_mesh(devices=
   ["cuda:0", "cuda:1"])``, or ``["cpu"] * 4`` on the CPU): the engine
   keeps a replica of the model on each, and the slot rows split into
@@ -30,6 +30,7 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 
+from snn_for_object_detection_tpu_torch.models.compile import not_ported
 from snn_for_object_detection_tpu_torch.parallel import distributed as dist
 
 DATA_AXIS = "data"
@@ -82,11 +83,6 @@ def make_mesh(devices: Optional[Sequence] = None, axis: str = DATA_AXIS,
     this process (serving; several ranks take one each). ``spatial > 1``
     is not ported."""
     if spatial > 1:
-        # models.compile imports this package (BatchNorm's global moments)
-        from snn_for_object_detection_tpu_torch.models.compile import (
-            not_ported,
-        )
-
         raise not_ported(f"make_mesh(spatial={spatial})", SPATIAL_ITEM)
     if devices is None:
         dev = dist.initialize()

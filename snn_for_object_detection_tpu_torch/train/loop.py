@@ -45,8 +45,8 @@ frame through ``SODa.predict``, each frame handed to a plotter.
 
 Data parallel (``mesh``, or any run under ``torch.distributed`` of
 several ranks): one rank a device, each on its own rows of the global
-batch (``parallel/``). The train step runs inside
-``distributed.global_batch``, so BatchNorm's moments and the loss's
+batch (``parallel/``). The train step hands the ranks' group to the
+forward and the loss (``group=``), so BatchNorm's moments and the loss's
 counts are the global batch's and the loss is this rank's share of it;
 the gradients and the shares are all-reduced (summed) before the
 optimizer chain, which every rank then runs alike. Every rank draws the
@@ -108,6 +108,13 @@ class MetricsLogger:
             for k, v in payload.items()
         )
         print(f"[step {step}] {printable}", flush=True)
+
+
+def _say(msg: str) -> None:
+    """Print ``msg`` once a run: on the rank that logs (every rank
+    reaches the same line)."""
+    if dist.is_primary():
+        print(msg, flush=True)
 
 
 # ---- optax's optimizers, schedules and wrappers in torch ----
@@ -580,16 +587,14 @@ class Trainer:
                 if on_card:
                     torch.cuda.empty_cache()
                 results[schedule] = {"ms": None, "peak_gb": None, "oom": oom}
-                print(f"[trainer] schedule {schedule!r} disqualified: {oom}",
-                      flush=True)
+                _say(f"[trainer] schedule {schedule!r} disqualified: {oom}")
                 continue
             peak = (torch.cuda.max_memory_allocated(device) / 1e9
                     if on_card else None)
             results[schedule] = {"ms": seconds * 1e3, "peak_gb": peak,
                                  "oom": None}
-            print(f"[trainer] schedule {schedule!r}: {seconds * 1e3:.0f} "
-                  f"ms/step" + (f", peak {peak:.2f} GB" if on_card else ""),
-                  flush=True)
+            _say(f"[trainer] schedule {schedule!r}: {seconds * 1e3:.0f} "
+                 f"ms/step" + (f", peak {peak:.2f} GB" if on_card else ""))
         del probe, params
         if group is not None:
             results = self._merge_timings(results, errors, group)
@@ -602,8 +607,7 @@ class Trainer:
                 f"T={T} B={B} {H}x{W}"
             )
         best = min(timed, key=timed.get)
-        print(f"[trainer] time_batched='auto' -> {best!r} ({mode} step)",
-              flush=True)
+        _say(f"[trainer] time_batched='auto' -> {best!r} ({mode} step)")
         return best
 
     @staticmethod
@@ -660,14 +664,12 @@ class Trainer:
         if self.opt is None:
             raise RuntimeError("call configure(model) before train_step")
         schedule = self._schedule_for(model, X, labels, train=True)
-        group = self._group
-        with contextlib.nullcontext() if group is None else \
-                dist.global_batch(group):
-            preds, _ = model.forward_fn(schedule)(X, start_step=start_step,
-                                                  train=True)
-            loss = model.loss(preds, labels)
-            grads = list(torch.autograd.grad(loss, self.opt.params,
-                                             allow_unused=True))
+        group, peers = self._group, self._peers
+        preds, _ = model.forward_fn(schedule)(X, start_step=start_step,
+                                              train=True, group=peers)
+        loss = model.loss(preds, labels, group=peers)
+        grads = list(torch.autograd.grad(loss, self.opt.params,
+                                         allow_unused=True))
         if group is not None:
             # the ranks' shares of the loss and their gradients, summed
             # (a parameter no path reaches has a zero gradient)
@@ -729,8 +731,8 @@ class Trainer:
         if "opt_state" in restored:
             self.opt.load_state_dict(restored["opt_state"])
         else:
-            print(f"[trainer] no optimizer state in the checkpoint; the "
-                  "optimizer starts fresh", flush=True)
+            _say("[trainer] no optimizer state in the checkpoint; the "
+                 "optimizer starts fresh")
 
     def fit(self, model, data, ckpt_path: Optional[str] = None
             ) -> Dict[str, Any]:
@@ -761,7 +763,7 @@ class Trainer:
             epoch = int(restored.get("epoch", 0))
             best_metric = float(restored.get("best_metric", -np.inf))
             checks_since_best = int(restored.get("checks_since_best", 0))
-            print(f"resumed from {ckpt_path} at step {step}", flush=True)
+            _say(f"resumed from {ckpt_path} at step {step}")
 
         # rasterization and the host-to-device copy of the next batches
         # overlap the current train step
@@ -807,8 +809,8 @@ class Trainer:
                     patience = self.early_stopping_patience
                     if (epoch >= self.min_epochs and patience > 0
                             and checks_since_best >= patience):
-                        print(f"early stopping at epoch {epoch} (best "
-                              f"{self.monitor}={best_metric:.4f})", flush=True)
+                        _say(f"early stopping at epoch {epoch} (best "
+                             f"{self.monitor}={best_metric:.4f})")
                         break
         finally:
             # stop the prefetch thread, and with it the loader's worker
@@ -830,8 +832,7 @@ class Trainer:
             preds = self._eval_preds(model, schedule, X, start_step)
             if group is None:
                 return model.loss(preds, labels), model.detect(preds)
-            with dist.global_batch(group):
-                loss = model.loss(preds, labels)
+            loss = model.loss(preds, labels, group=self._peers)
             loss = dist.all_reduce_sum([loss.reshape(1)], group)[0][0]
             return loss, model.detect(preds)
 

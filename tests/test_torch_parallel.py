@@ -18,7 +18,7 @@ layout), on the ``MicroSODa`` of tests/distributed_worker.py:
   states a spike that JAX's own sharded sums flip is told apart from the
   port's (``against_jax``);
 - sync-BN alone (``test_sharded_bn_sees_global_batch``): a train-mode
-  Norm on each rank's rows inside ``distributed.global_batch`` sees the
+  Norm on each rank's rows with ``Ctx(batch_group=...)`` sees the
   global batch's moments, step and sequence forms;
 - eval: ``Trainer.test`` on two ranks gives the one-rank detections, mAP
   and loss.

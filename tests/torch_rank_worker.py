@@ -174,11 +174,11 @@ def case_norm(x, form, start):
     ch, hw = x.shape[-1], x.shape[-3:-1]
     block = C.compile_block([S.Norm()], ch, hw)
     local = distributed.local_rows(torch.from_numpy(x), axis)
-    ctx = C.Ctx(train=True, start_step=start)
+    ctx = C.Ctx(train=True, start_step=start,
+                batch_group=torch.distributed.group.WORLD)
     state = block.init_state(local.shape[axis], "cpu")
     fn = block.step if form == "step" else block.seq
-    with distributed.global_batch(None):
-        y, new = fn(local, state, ctx)
+    y, new = fn(local, state, ctx)
     mean, var = new["b0"]["l0"]
     return {"y": y.detach().numpy(), "mean": mean.numpy(),
             "var": var.numpy()}
