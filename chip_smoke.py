@@ -12,6 +12,8 @@
     python3 chip_smoke.py --only 14    # [1] and the model zoo
     python3 chip_smoke.py --only 15    # [1] and the last inference options
     python3 chip_smoke.py --only 16    # [1], data parallel, mesh serving
+    python3 chip_smoke.py --only 17    # [1], training extras, plotter,
+                                       # summary
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -245,6 +247,21 @@ Phases (any failure raises and the script exits non-zero):
    the difference of the two) and of the gradients' alone, (d)'s engine
    step ms, and [11]'s
    loader-fed steps' idle share at ``prefetch_batches`` 0 and 2.
+17. training extras, plotter and summary: (a) ``python -m
+   snn_for_object_detection_tpu_torch fit`` with ``config/config.yaml``,
+   ``config/logger.yaml`` and ``config/synthetic.yaml`` (full-width
+   TinyYolo, B=4, T=24, time window 6, time-batched, 6 steps and one
+   validation) with ``debug_nans`` and ``profile_dir``: ``metrics.csv``
+   and the event file (read back by ``train.loggers.read_scalars``) hold
+   ``metrics.jsonl``'s scalars, the Chrome trace holds the cell forward
+   and backward kernels, the weights equal two plain fits' (cuDNN
+   deterministic; gated at the plain fits' own distance); the train
+   step's ms with and without ``debug_nans``; (b) a NaN weight raises
+   ``FloatingPointError`` in a one-step ``Trainer(debug_nans=True).fit``;
+   (c) ``predict --config config/config.yaml`` on (a)'s checkpoint: the
+   video where ``cv2`` imports; ``Plotter.apply`` draws the boxes on
+   their outlines and nowhere else (without ``cv2``: its red and blue
+   pixels are the frame's events); (d) ``utils.summary.summarize`` of GEN1 TinyYolo.
 
 Model and data values of [3]-[10], with their source (those phases pass
 them as arguments; [11] reads the YAML files):
@@ -261,9 +278,11 @@ from __future__ import annotations
 
 import functools
 import glob
+import importlib.util
 import itertools
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -4723,6 +4742,278 @@ def phase_data_parallel(torch, cuda_kernels, TinyYolo, Trainer, batches,
     return bwd, launches
 
 
+# [17]: the CLI's fit on config.yaml + logger.yaml + synthetic.yaml
+EXTRAS_TRAIN_BATCHES = 6
+
+
+def extras_fit(cli, config, data_dir, out_dir, extra=()):
+    """``fit`` through the CLI on synthetic GEN1 (``config/synthetic.yaml``:
+    T=24, time window 6), full-width TinyYolo, B=4, time-batched, one
+    loader worker (its batches in one order every run), one epoch of
+    EXTRAS_TRAIN_BATCHES steps and one validation batch."""
+    return cli.main(["fit", *config("config.yaml"), *extra,
+                     *config("synthetic.yaml"),
+                     f"--data.init_args.data_dir={data_dir}",
+                     "--data.init_args.num_workers=1",
+                     "--trainer.max_epochs=1",
+                     f"--trainer.limit_train_batches={EXTRAS_TRAIN_BATCHES}",
+                     "--trainer.limit_val_batches=1",
+                     "--trainer.check_val_every_n_epoch=1",
+                     "--trainer.log_every_n_steps=1",
+                     "--trainer.time_batched=true",
+                     f"--trainer.out_dir={out_dir}"])
+
+
+def weights_distance(a, b) -> float:
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def trace_kernels(path):
+    """The device kernels' names in a Chrome trace ``torch.profiler``
+    wrote, with their counts."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            names[e["name"]] = names.get(e["name"], 0) + 1
+    return names
+
+
+def plotter_check(P, frame) -> str:
+    """[17] (c)'s gate on ``Plotter.apply`` (``P``: the port's
+    ``utils.plotter``) for one ``[H, W, 2]`` event frame. With ``cv2``: a
+    ground-truth box (2 px) and a prediction (1 px, its confidence above
+    it) change the bare frame on each box's outline (at least its
+    perimeter in pixels), the label, and nowhere else; the box's edge is
+    its class's colour; a prediction under the threshold draws nothing.
+    Without ``cv2``: the frame's red and blue pixels are its events, and
+    boxes draw nothing (the JAX Plotter's fallback)."""
+    h, w = frame.shape[:2]
+    bare = P.Plotter().apply(frame)
+    target = np.array([[1, 0.1, 0.2, 0.45, 0.6], [-1, 0, 0, 0, 0]],
+                      np.float32)
+    preds = np.array([[0, 0.95, 0.55, 0.3, 0.9, 0.85],
+                      [1, 0.5, 0.0, 0.0, 0.5, 0.5]], np.float32)
+    changed = (P.Plotter().apply(frame, preds, target) != bare).any(-1)
+    if not P._HAS_CV2:
+        red = int((bare[..., 2] == 255).sum())
+        blue = int((bare[..., 0] == 255).sum())
+        check(red == int((frame[..., 1] > 0).sum())
+              and blue == int((frame[..., 0] > 0).sum())
+              and not changed.any(),
+              "(c): Plotter.apply without cv2 is not the frame's events")
+        return f"no cv2: {red} red and {blue} blue pixels, its events"
+    yy, xx = np.mgrid[:h, :w]
+
+    def outline(box, r=3):  # pixels within r of the box's outline
+        x1, y1, x2, y2 = (int(box[0] * w), int(box[1] * h),
+                          int(box[2] * w), int(box[3] * h))
+        near = (xx >= x1 - r) & (xx <= x2 + r) & (yy >= y1 - r) & (
+            yy <= y2 + r)
+        inner = (xx > x1 + r) & (xx < x2 - r) & (yy > y1 + r) & (
+            yy < y2 - r)
+        return near & ~inner, 2 * (x2 - x1 + y2 - y1), (x1, y1, x2, y2)
+
+    gt, gt_per, (gx1, gy1, gx2, _) = outline(target[0, 1:])
+    pr, pr_per, (px1, py1, _, _) = outline(preds[0, 2:])
+    label = (xx >= px1 - 2) & (xx <= px1 + 60) & (yy >= py1 - 20) & (
+        yy <= py1) & ~pr
+    drawn = P.Plotter().apply(frame, preds, target)
+    n_gt, n_pr, n_label = (int(changed[gt].sum()), int(changed[pr].sum()),
+                           int(changed[label].sum()))
+    n_else = int(changed[~(gt | pr | label)].sum())
+    edge = tuple(int(c) for c in drawn[gy1, (gx1 + gx2) // 2])
+    check(n_gt >= gt_per and n_pr >= pr_per and n_label > 0 and n_else == 0
+          and edge == P._TABLEAU_BGR[1],
+          f"(c): Plotter.apply's boxes: {n_gt} pixels on the ground "
+          f"truth's outline (perimeter {gt_per}), {n_pr} on the "
+          f"prediction's ({pr_per}), {n_label} in its label, {n_else} "
+          f"elsewhere; edge colour {edge}")
+    return (f"boxes change {n_gt} pixels on the ground truth's outline "
+            f"(perimeter {gt_per}), {n_pr} on the prediction's "
+            f"({pr_per}), {n_label} in its label, 0 elsewhere")
+
+
+def phase_extras(torch, cuda_kernels, TinyYolo, Trainer, batches, smi):
+    """[17] training extras, plotter and summary: (a) ``python -m
+    snn_for_object_detection_tpu_torch fit`` with config/config.yaml,
+    config/logger.yaml and config/synthetic.yaml (``extras_fit``) with
+    ``debug_nans`` and ``profile_dir``: metrics.csv's rows and the event
+    file's (tag, step, value) triples are metrics.jsonl's, the Chrome
+    trace holds the cell kernels (forward and backward), and the weights
+    equal those of the same fit without logger.yaml, debug_nans and the
+    profiler (cuDNN deterministic), gated at the distance between two
+    such plain fits; the train step's ms with and without debug_nans;
+    (b) a one-step ``Trainer(debug_nans=True).fit`` with a NaN weight
+    raises ``FloatingPointError``; (c) ``predict --config
+    config/config.yaml`` on (a)'s checkpoint: the video where ``cv2``
+    imports, and ``plotter_check`` on a frame of its data; (d) ``summarize`` of GEN1 TinyYolo."""
+    from snn_for_object_detection_tpu_torch import cli
+    from snn_for_object_detection_tpu_torch.data.synthetic import (
+        make_synthetic_dataset,
+    )
+    from snn_for_object_detection_tpu_torch.train.loggers import read_scalars
+    from snn_for_object_detection_tpu_torch.utils import plotter as P
+    from snn_for_object_detection_tpu_torch.utils.summary import summarize
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(repo, "build", "chip_smoke_extras")
+    shutil.rmtree(root, ignore_errors=True)
+    data_dir = make_synthetic_dataset(
+        os.path.join(root, "data"), records_per_split=CLI_RECORDINGS,
+        duration_ms=CLI_DURATION_MS, seed=CLI_SEED)
+
+    def config(name):
+        return ["--config", os.path.join(repo, "config", name)]
+
+    # (a) two plain fits (their distance is the gate), then the fit with
+    # the extras
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        plain = []
+        for i in range(2):
+            run = extras_fit(cli, config, data_dir,
+                             os.path.join(root, f"plain{i}"))
+            plain.append([p.detach().clone()
+                          for p in run.model.parameters()])
+            del run
+        noise = weights_distance(*plain)
+        trace_dir = os.path.join(root, "trace")
+        cuda_kernels.reset_launches()
+        run = extras_fit(cli, config, data_dir, os.path.join(root, "extras"),
+                         [*config("logger.yaml"),
+                          "--trainer.debug_nans=true",
+                          f"--trainer.profile_dir={trace_dir}"])
+        torch.cuda.synchronize()
+        n = dict(cuda_kernels.LAUNCHES)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    fit_s = time.perf_counter() - t0
+    check(n["temporal_cell_seq"] > 0
+          and n["temporal_cell_seq_bwd"]
+          == CELLS_PER_STEP * EXTRAS_TRAIN_BATCHES,
+          f"(a): launches {n}")
+    dist_w = weights_distance(
+        [p.detach() for p in run.model.parameters()], plain[0])
+    check(dist_w <= noise, f"(a): the weights with logger, debug_nans and "
+          f"the profiler are {dist_w:.3g} from the plain fit's (two plain "
+          f"fits: {noise:.3g})")
+    out = os.path.join(root, "extras")
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    scalars = [(k, r["step"], v) for r in records for k, v in r.items()
+               if k not in ("step", "time")]
+    with open(os.path.join(out, "metrics.csv")) as f:
+        header, *rows = [line.rstrip("\n").split(",") for line in f]
+    check(len(rows) == len(records) and all(
+        {k: float(v) for k, v in zip(header, row) if v}
+        == {"step": r["step"], **{k: float(v) for k, v in r.items()
+                                  if k not in ("step", "time")}}
+        for row, r in zip(rows, records)), "(a): metrics.csv differs from "
+          "metrics.jsonl")
+    (events,) = glob.glob(os.path.join(out, "tb", "events.out.tfevents.*"))
+    check(read_scalars(events) == [(k, s, float(np.float32(v)))
+                                   for k, s, v in scalars],
+          "(a): the event file differs from metrics.jsonl")
+    (trace,) = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    kernels = trace_kernels(trace)
+    fwd = sum(c for k, c in kernels.items() if "temporal_cell_kernel" in k)
+    bwd = sum(c for k, c in kernels.items() if "temporal_cell_bwd" in k)
+    check(fwd > 0 and bwd > 0, f"(a): the trace holds {fwd} cell forward "
+          f"and {bwd} cell backward kernels")
+    bwd_names = sorted({m for k in kernels
+                        for m in re.findall(r"temporal_cell_bwd\w*", k)})
+    print(f"  (a) fit with config.yaml + logger.yaml + synthetic.yaml, "
+          f"debug_nans, profile_dir: {EXTRAS_TRAIN_BATCHES} steps and a "
+          f"validation; three fits in {fit_s:.1f} s; {len(records)} "
+          f"payloads, metrics.csv and {len(scalars)} event-file scalars "
+          f"equal to metrics.jsonl's; weights {dist_w:.3g} from the plain "
+          f"fit's (two plain fits {noise:.3g}); launches "
+          f"{n['temporal_cell_seq']} cell, {n['temporal_cell_seq_bwd']} "
+          f"backward; trace {os.path.getsize(trace) / 1e6:.1f} MB, "
+          f"{sum(kernels.values())} kernel events, cell {fwd} forward and "
+          f"{bwd} backward ({bwd_names})", flush=True)
+
+    loader = run.data.train_loader()
+    X, lab = (torch.as_tensor(a, device=run.model.device)
+              for a in next(loader))
+    loader.close()
+    r = run.model.time_window // 2
+    trainer = run.trainer
+    ms = {True: [], False: []}
+    for check_nans in (False, True, False, True):
+        trainer._check_nans = check_nans
+        ms[check_nans].append(cuda_time_ms(
+            lambda: trainer.train_step(run.model, X, lab, r), reps=3,
+            warmup=1))
+    trainer._check_nans = False
+    print(f"  (a) train step (time-batched, fp32, B={BATCH}, T=24, r={r}; "
+          f"CUDA events, median of 3, two rounds each): debug_nans off "
+          f"{ms[False]} ms, on {ms[True]} ms [{smi}]", flush=True)
+    ckpt = os.path.join(out, "checkpoints", "last")
+    del run, trainer, X, lab, plain
+    torch.cuda.empty_cache()
+
+    # (b) a NaN weight on the card
+    model = build_model(TinyYolo, "float32", "float32", "cuda")
+    with torch.no_grad():
+        next(p for name, p in model.named_parameters()
+             if name.endswith(".w")).view(-1)[0] = float("nan")
+    trainer = Trainer(max_epochs=1, limit_train_batches=1,
+                      check_val_every_n_epoch=10 ** 6, debug_nans=True,
+                      time_batched=True, prefetch_batches=0,
+                      out_dir=os.path.join(root, "nan"))
+    try:
+        trainer.fit(model, _Batches(batches))
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    check(raised is not None, "(b): a NaN weight did not raise")
+    print(f"  (b) one step with a NaN weight: FloatingPointError: {raised}",
+          flush=True)
+    del model, trainer
+    torch.cuda.empty_cache()
+
+    # (c) predict on config.yaml
+    video_dir = os.path.join(root, "video")
+    t0 = time.perf_counter()
+    run = cli.main(["predict", *config("config.yaml"),
+                    f"--data.init_args.data_dir={data_dir}",
+                    f"--trainer.out_dir={os.path.join(root, 'predict')}",
+                    f"--ckpt_path={ckpt}",
+                    f"--plotter.init_args.file_path={video_dir}"])
+    predict_s = time.perf_counter() - t0
+    videos = glob.glob(os.path.join(video_dir, "*.avi"))
+    if P._HAS_CV2:
+        check(len(videos) == 1 and os.path.getsize(videos[0]) > 0,
+              f"(c): videos {videos}")
+    else:
+        check(not videos, f"(c): videos written without cv2: {videos}")
+    loader = run.data.predict_loader()
+    frame = np.asarray(next(loader)[0])[-1, 0]
+    loader.close()
+    drawn = plotter_check(P, frame)
+    # information only, and not imported: the port writes its own events
+    has_tbx = importlib.util.find_spec("tensorboardX") is not None
+    print(f"  (c) predict --config config/config.yaml on (a)'s checkpoint "
+          f"in {predict_s:.1f} s: cv2 imports: {P._HAS_CV2}; videos "
+          f"{[(os.path.basename(v), os.path.getsize(v)) for v in videos]}; "
+          f"Plotter.apply on a frame: {drawn}; "
+          f"tensorboardX installed: {has_tbx} (not used)", flush=True)
+    del run
+
+    # (d) the summary
+    s = summarize(build_model(TinyYolo, "float32", "float32", "cuda"))
+    check(s["params"] == TRAINED_PARAMS, f"(d): {s['params']} params")
+    print(f"  (d) summarize(TinyYolo GEN1): {s['params']:,} params, "
+          f"{s['conv_flops_per_frame'] / 1e9:.4f} conv GFLOPs a frame "
+          f"({len(s['rows'])} convs)", flush=True)
+    torch.cuda.empty_cache()
+
+
 def main(argv) -> int:
     import torch
 
@@ -4814,6 +5105,12 @@ def main(argv) -> int:
             phase_data_parallel(torch, cuda_kernels, TinyYolo, Trainer,
                                 batches, smi)
             print(f"  [16] in {time.perf_counter() - t0:.1f} s", flush=True)
+        if 17 in only:
+            t0 = time.perf_counter()
+            print("[17] training extras, plotter and summary", flush=True)
+            phase_extras(torch, cuda_kernels, TinyYolo, Trainer, batches,
+                         smi)
+            print(f"  [17] in {time.perf_counter() - t0:.1f} s", flush=True)
         print(f"partial run of phases {sorted(only)} done in "
               f"{time.perf_counter() - t_start:.1f} s")
         return 0
@@ -4909,6 +5206,13 @@ def main(argv) -> int:
     bwd_launches += dp_bwd
     launches += dp_cells
     print(f"  [16] in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    print(f"[17] training extras, plotter and summary: fit through the CLI "
+          f"with config/logger.yaml, debug_nans and the profiler, a NaN on "
+          f"the card, predict with config/config.yaml's plotter, the model "
+          f"summary, TinyYolo GEN1 {IN_HW}", flush=True)
+    phase_extras(torch, cuda_kernels, TinyYolo, Trainer, batches, smi)
+    print(f"  [17] in {time.perf_counter() - t0:.1f} s", flush=True)
 
     ref = next(r for r in rows if (r["shape"], r["cell"], r["x"], r["start"])
                == ("stage1", "lif", "float32", 0))

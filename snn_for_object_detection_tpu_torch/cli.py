@@ -25,8 +25,13 @@ cpu``) and trains data-parallel, each rank on its shard of the data:
       -m snn_for_object_detection_tpu_torch fit --distributed \\
       --config config/config.yaml --config config/synthetic.yaml
 
-Not taken yet: logger back ends (``config/logger.yaml``) and the plotter
-of ``predict`` raise ``NotImplementedError`` naming their ROADMAP item;
+``fit`` with no ``--config`` loads ``config/config.yaml`` and
+``config/logger.yaml``, as ``main.py``: TensorBoard events under
+``<trainer.out_dir>/tb`` (``tensorboard --logdir``, or
+``train.loggers.read_scalars``) and ``metrics.csv`` beside
+``metrics.jsonl``. ``predict`` draws with ``utils.Plotter`` (OpenCV
+where ``cv2`` imports; without it the frames are coloured, no box is
+drawn and no video written, as in the JAX package).
 ``--compile_cache`` (XLA's compilation cache) has no counterpart.
 """
 
@@ -55,7 +60,7 @@ from snn_for_object_detection_tpu_torch.utils.config import (
 )
 
 DEFAULT_PLOTTER = {
-    "class_path": "snn_for_object_detection_tpu.utils.Plotter",
+    "class_path": "snn_for_object_detection_tpu_torch.utils.Plotter",
     "init_args": {"save_video": True, "show_video": False},
 }
 
@@ -176,7 +181,9 @@ def main(argv=None) -> Run:
             result = trainer.validate(model, data.val_loader())
         else:
             result = trainer.test(model, data.test_loader())
-        MetricsLogger(trainer.out_dir).log(0, result)
+        logger = MetricsLogger(trainer.out_dir, trainer.loggers)
+        logger.log(0, result)
+        logger.close()
     else:
         plotter = instantiate(cfg.get("plotter") or DEFAULT_PLOTTER)
         load_model_state(model, ckpt_path, trainer.out_dir)

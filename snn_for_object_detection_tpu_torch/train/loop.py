@@ -18,8 +18,11 @@ Training (``fit`` -> ``train_step``), each step:
 
 ``fit`` runs epochs of ``limit_train_batches`` steps, validates every
 ``check_val_every_n_epoch`` epochs (on the EMA weights when EMA is on),
-stops early on ``monitor``, logs JSONL to ``out_dir`` and checkpoints
-there (``train/checkpoint.py``), and resumes from ``ckpt_path``.
+stops early on ``monitor``, logs JSONL to ``out_dir`` (and to the
+tracker back ends of ``logger``, ``train/loggers.py``) and checkpoints
+there (``train/checkpoint.py``), and resumes from ``ckpt_path``. With
+``debug_nans`` it raises on a NaN in a step's outputs; with
+``profile_dir`` it traces train steps 3-5, as the JAX trainer does.
 
 Evaluation (``validate`` / ``test``), each batch: a start ``r``, the
 forward, ``model.loss``, ``model.detect`` (softmax + NMS) and COCO mAP
@@ -65,6 +68,7 @@ import itertools
 import json
 import math
 import os
+import socket
 import time
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
@@ -80,6 +84,7 @@ from snn_for_object_detection_tpu_torch.parallel.mesh import (
     same_device,
     shard_batch,
 )
+from snn_for_object_detection_tpu_torch.train import optax_rules
 from snn_for_object_detection_tpu_torch.train.checkpoint import (
     CheckpointManager,
 )
@@ -90,11 +95,17 @@ from snn_for_object_detection_tpu_torch.train.metrics import (
 
 
 class MetricsLogger:
-    """JSONL + stdout metrics sink (``out_dir/metrics.jsonl``)."""
+    """JSONL + stdout metrics sink (``out_dir/metrics.jsonl``), fanning
+    every payload out to tracker back ends (``train/loggers.py``)."""
 
-    def __init__(self, out_dir: str):
+    def __init__(self, out_dir: str, backends=()):
         os.makedirs(out_dir, exist_ok=True)
         self.path = os.path.join(out_dir, "metrics.jsonl")
+        self.backends = list(backends)
+        for b in self.backends:
+            set_out_dir = getattr(b, "set_out_dir", None)
+            if set_out_dir is not None:
+                set_out_dir(out_dir)
 
     def log(self, step: int, payload: Dict[str, float]) -> None:
         if not dist.is_primary():
@@ -108,6 +119,32 @@ class MetricsLogger:
             for k, v in payload.items()
         )
         print(f"[step {step}] {printable}", flush=True)
+        for b in self.backends:
+            b.log_metrics(step, payload)
+
+    def close(self) -> None:
+        for b in self.backends:
+            b.close()
+
+
+def nan_outputs(outputs: Dict[str, List[torch.Tensor]],
+                device: torch.device) -> List[str]:
+    """The names of the outputs that hold a NaN: a NaN-propagating norm
+    of each tensor (``torch._foreach_norm``, a few launches a device and
+    dtype), one flag an output on ``device``, read back at once."""
+    flags = []
+    for tensors in outputs.values():
+        groups: Dict[Any, List[torch.Tensor]] = {}
+        for t in tensors:
+            if t.is_floating_point() and t.numel():
+                groups.setdefault((t.device, t.dtype), []).append(t)
+        flag = torch.zeros((), dtype=torch.bool, device=device)
+        for ts in groups.values():
+            norms = torch.stack(torch._foreach_norm(ts))
+            flag = flag | norms.isnan().any().to(device)
+        flags.append(flag)
+    read = torch.stack(flags).tolist() if flags else []
+    return [name for name, bad in zip(outputs, read) if bad]
 
 
 def _say(msg: str) -> None:
@@ -119,15 +156,18 @@ def _say(msg: str) -> None:
 
 # ---- optax's optimizers, schedules and wrappers in torch ----
 
-# optax factory -> torch.optim class, and optax keyword -> torch keyword
+# optax factory -> torch.optim class (optax's update for the options
+# these take; every other factory is written out in optax_rules)
 _OPTIMIZERS = {
     "adamax": torch.optim.Adamax,
-    "adam": torch.optim.Adam,
-    "adamw": torch.optim.AdamW,
     "sgd": torch.optim.SGD,
 }
-_OPTAX_DEFAULTS = {  # optax's defaults where torch's differ
-    "adamw": {"weight_decay": 1e-4},
+_TORCH_OPTIONS = {  # the optax keywords each class takes
+    "adamax": ("b1", "b2", "eps"),
+    "sgd": ("momentum", "nesterov"),
+}
+_TORCH_LEFT_OUT = {  # optax's options that take a dtype
+    "sgd": ("accumulator_dtype",),
 }
 
 
@@ -135,19 +175,17 @@ def make_torch_optimizer(name: str, params, lr: float,
                          kwargs: Dict[str, Any]) -> torch.optim.Optimizer:
     """The ``torch.optim`` optimizer whose update is optax's ``name``
     with ``kwargs`` (optax's names: ``b1``, ``b2``, ``eps``,
-    ``weight_decay``, ``momentum``, ``nesterov``)."""
-    if name not in _OPTIMIZERS:
-        raise not_ported(f"optimizer {name!r}", "training extras")
-    kw = dict(_OPTAX_DEFAULTS.get(name, {}))
+    ``momentum``, ``nesterov``)."""
+    optax_rules.refuse_left_out(name, kwargs, _TORCH_LEFT_OUT)
+    unknown = sorted(set(kwargs) - set(_TORCH_OPTIONS[name]))
+    if unknown:
+        raise TypeError(f"{name}() got unexpected keyword arguments "
+                        f"{unknown}")
+    kw = {}
     kwargs = dict(kwargs)
     if "b1" in kwargs or "b2" in kwargs:
         kw["betas"] = (kwargs.pop("b1", 0.9), kwargs.pop("b2", 0.999))
-    for key in ("eps", "weight_decay", "momentum", "nesterov"):
-        if key in kwargs:
-            kw[key] = kwargs.pop(key)
-    if kwargs:
-        raise not_ported(f"{name} options {sorted(kwargs)}",
-                         "training extras")
+    kw.update(kwargs)
     if kw.get("momentum", 0) is None:  # optax's sgd: no momentum
         del kw["momentum"]
     return _OPTIMIZERS[name](params, lr=lr, **kw)
@@ -218,9 +256,10 @@ def make_schedule(lr: float, cfg: Optional[Dict[str, Any]]
 
 
 def _no_options(kind: str, cfg: Dict[str, Any]) -> None:
+    """optax's schedules take no other keyword."""
     if cfg:
-        raise not_ported(f"{kind} schedule options {sorted(cfg)}",
-                         "training extras")
+        raise TypeError(f"{kind} schedule got unexpected keyword "
+                        f"arguments {sorted(cfg)}")
 
 
 def clip_by_global_norm(grads: List[torch.Tensor],
@@ -255,8 +294,13 @@ class Optimizer:
         self.schedule = schedule
         self.clip_norm = clip_norm
         self.every_k = max(int(every_k), 1)
-        self.torch = make_torch_optimizer(name, self.params, schedule(0),
-                                          kwargs)
+        if name in _OPTIMIZERS:
+            self.torch = make_torch_optimizer(name, self.params,
+                                              schedule(0), kwargs)
+            self.rule = None
+        else:
+            self.torch = None
+            self.rule = optax_rules.Rule(name, self.params, kwargs)
         self.count = 0
         self.mini_step = 0
         self.acc = [torch.zeros_like(p) for p in self.params] \
@@ -277,22 +321,41 @@ class Optimizer:
                                          for a in self.acc]
         if self.clip_norm:
             grads = clip_by_global_norm(grads, self.clip_norm)
-        for group in self.torch.param_groups:
-            group["lr"] = self.schedule(self.count)
-        for p, g in zip(self.params, grads):
-            p.grad = g
-        self.torch.step()
-        for p in self.params:
-            p.grad = None
+        lr = self.schedule(self.count)
+        if self.rule is not None:
+            self.rule.step(self.params, grads, lr)
+        else:
+            for group in self.torch.param_groups:
+                group["lr"] = lr
+            for p, g in zip(self.params, grads):
+                p.grad = g
+            self.torch.step()
+            for p in self.params:
+                p.grad = None
         self.count += 1
         return True
 
+    def state_tensors(self) -> List[torch.Tensor]:
+        """Every tensor of the optimizer's state (the chain's output
+        beside the weights)."""
+        if self.rule is not None:
+            out = self.rule.tensors()
+        else:
+            out = [v for s in self.torch.state.values() for v in s.values()
+                   if torch.is_tensor(v)]
+        return out + list(self.acc or [])
+
     def state_dict(self) -> Dict[str, Any]:
-        return {"torch": self.torch.state_dict(), "count": self.count,
-                "mini_step": self.mini_step, "acc": self.acc}
+        inner = {"rule": self.rule.state_dict()} if self.rule is not None \
+            else {"torch": self.torch.state_dict()}
+        return {**inner, "count": self.count, "mini_step": self.mini_step,
+                "acc": self.acc}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
-        self.torch.load_state_dict(state["torch"])
+        if self.rule is not None:
+            self.rule.load_state_dict(state["rule"])
+        else:
+            self.torch.load_state_dict(state["torch"])
         self.count = int(state["count"])
         self.mini_step = int(state["mini_step"])
         if self.acc is not None and state["acc"] is not None:
@@ -351,7 +414,9 @@ class Trainer:
         every ``validate`` / ``test`` call starts the draw anew from the
         seed, as the JAX trainer restarts its key.
     :param optimizer: An optax factory name (``"adamax"``, ``"adam"``,
-        ``"adamw"``, ``"sgd"``) or ``{"name": ..., **optax_kwargs}``.
+        ``"adamw"``, ``"sgd"``, ``"nadam"``, ``"radam"``,
+        ``"adabelief"``, ``"lion"``, ``"rmsprop"``, ``"adagrad"``) or
+        ``{"name": ..., **optax_kwargs}`` (:class:`Optimizer`).
     :param lr_schedule: ``{"name": "warmup_cosine" | "cosine" |
         "exponential", ...}`` with the model's ``learning_rate`` as the
         peak (:func:`make_schedule`).
@@ -364,10 +429,27 @@ class Trainer:
     :param prefetch_batches: Batches ``fit`` keeps on their way to the
         device ahead of the train step (``prefetch_to_device``, a
         thread; 0 places each batch when it is needed).
+    :param logger: Tracker back ends (``train/loggers.py``): a
+        ``class_path`` / ``init_args`` dict, a list of them, or built
+        objects with ``log_metrics(step, payload)`` and ``close()``.
+        Every payload ``fit`` logs goes to each (rank 0 only); ``fit``
+        closes them when it ends.
+    :param debug_nans: ``jax_debug_nans`` of the JAX trainer: in ``fit``,
+        each train step's outputs (weights, optimizer state, running
+        statistics, EMA, loss) and each eval step's (loss, detections)
+        are checked for a NaN (one reduction on the device, one read on
+        the host), and a NaN raises ``FloatingPointError`` naming the
+        output. An infinity is not a NaN.
+    :param profile_dir: Trace ``fit``'s train steps 3, 4 and 5 (counted
+        from 0 over the run) with ``torch.profiler`` (the CPU, and the
+        card's kernels on the card) into a Chrome trace
+        ``<host>.<pid>.pt.trace.json`` there. A trace on the card with no
+        CUDA kernel in it raises. A run that ends inside the window
+        writes nothing, as the JAX trainer's (whose trace is written
+        when it stops).
 
     ``spatial_devices`` > 1 and ``request_mesh_reshape`` (spatial
-    sharding), ``debug_nans``, ``profile_dir`` and ``logger`` back ends
-    raise ``NotImplementedError`` naming their ROADMAP item.
+    sharding) raise ``NotImplementedError`` naming their ROADMAP item.
     """
 
     def __init__(
@@ -406,11 +488,6 @@ class Trainer:
             )
         if spatial_devices != 1:
             raise not_ported("spatial_devices > 1", SPATIAL_ITEM)
-        for what, on in (("debug_nans", debug_nans),
-                         ("the profiler (profile_dir)", profile_dir),
-                         ("logger back ends", logger is not None)):
-            if on:
-                raise not_ported(what, "training extras")
         if ema_decay is not None and not 0.0 <= float(ema_decay) <= 1.0:
             raise ValueError(f"ema_decay must be in [0, 1], got {ema_decay}")
         if fast_dev_run:
@@ -445,6 +522,23 @@ class Trainer:
         self.lr_schedule = lr_schedule
         self.opt: Optional[Optimizer] = None
         self.ema: Optional[List[torch.Tensor]] = None
+        self.debug_nans = bool(debug_nans)
+        self._check_nans = False  # on while fit runs with debug_nans
+        self.profile_dir = profile_dir
+        self.loggers = self._build_loggers(logger)
+
+    @staticmethod
+    def _build_loggers(logger) -> List[Any]:
+        if logger is None:
+            return []
+        if not isinstance(logger, (list, tuple)):
+            logger = [logger]
+        from snn_for_object_detection_tpu_torch.utils.config import (
+            instantiate,
+        )
+
+        return [instantiate(item) if isinstance(item, dict) else item
+                for item in logger]
 
     def request_mesh_reshape(self, devices=None, num_devices=None):
         raise not_ported("live mesh reshape", SPATIAL_ITEM)
@@ -683,7 +777,23 @@ class Trainer:
             with torch.no_grad():
                 self.ema = [d * e + (1.0 - d) * p
                             for e, p in zip(self.ema, self.opt.params)]
-        return loss.detach()
+        loss = loss.detach()
+        if self._check_nans:
+            self._raise_on_nan("train", model.device, {
+                "params": self.opt.params,
+                "opt_state": self.opt.state_tensors(),
+                "stats": list(_stats(model).values()),
+                "ema": self.ema or [],
+                "loss": [loss]})
+        return loss
+
+    @staticmethod
+    def _raise_on_nan(what: str, device, outputs) -> None:
+        bad = nan_outputs(outputs, device)
+        if bad:
+            raise FloatingPointError(
+                f"debug_nans: NaN in the {what} step's output "
+                f"{', '.join(map(repr, bad))}")
 
     @contextlib.contextmanager
     def _ema_weights(self, model):
@@ -745,7 +855,7 @@ class Trainer:
         ranks leave together."""
         self._sync_data_sharding(data)
         mesh = self.mesh_for(model.device)
-        logger = MetricsLogger(self.out_dir)
+        logger = MetricsLogger(self.out_dir, self.loggers)
         ckpt = CheckpointManager(
             os.path.join(self.out_dir, "checkpoints"),
             save_top_k=self.save_top_k, monitor=self.monitor)
@@ -769,14 +879,26 @@ class Trainer:
         # overlap the current train step
         train_iter = prefetch_to_device(data.train_loader(), mesh,
                                         self.prefetch_batches)
+        # the JAX trainer's profiling hook: train steps 3-5 of the run
+        profile_at = 3 if self.profile_dir else -1
+        profiler = None
+        self._check_nans = self.debug_nans
         try:
             t_epoch = time.time()
             while self.max_epochs < 0 or epoch < self.max_epochs:
                 losses = []
                 for _ in range(self.limit_train_batches):
                     X, labels = next(train_iter)
+                    if step == profile_at and profiler is None:
+                        profiler = start_profiler(model.device)
                     loss = self.train_step(model, X, labels,
                                            self.draw_start(model, generator))
+                    if profiler is not None and step >= profile_at + 2:
+                        write_profile(profiler, self.profile_dir,
+                                      model.device)
+                        profiler = None
+                        print(f"[trainer] profile written to "
+                              f"{self.profile_dir}", flush=True)
                     step += 1
                     losses.append(float(loss))
                     if step % self.log_every_n_steps == 0:
@@ -813,9 +935,18 @@ class Trainer:
                              f"{self.monitor}={best_metric:.4f})")
                         break
         finally:
+            self._check_nans = False
+            if profiler is not None:
+                # the run ended inside the window: like the JAX trace that
+                # is never stopped, nothing is written
+                profiler.stop()
             # stop the prefetch thread, and with it the loader's worker
-            # threads, even when a step raises
-            _close(train_iter)
+            # threads, even when a step raises; close the back ends (their
+            # files flushed) even when that raises
+            try:
+                _close(train_iter)
+            finally:
+                logger.close()
         dist.barrier("fit_end")
         return {"step": step, "epoch": epoch, "best_metric": best_metric}
 
@@ -831,10 +962,15 @@ class Trainer:
         with torch.inference_mode():
             preds = self._eval_preds(model, schedule, X, start_step)
             if group is None:
-                return model.loss(preds, labels), model.detect(preds)
-            loss = model.loss(preds, labels, group=self._peers)
-            loss = dist.all_reduce_sum([loss.reshape(1)], group)[0][0]
-            return loss, model.detect(preds)
+                loss = model.loss(preds, labels)
+            else:
+                loss = model.loss(preds, labels, group=self._peers)
+                loss = dist.all_reduce_sum([loss.reshape(1)], group)[0][0]
+            dets = model.detect(preds)
+            if self._check_nans:
+                self._raise_on_nan("eval", model.device,
+                                   {"loss": [loss], "dets": [dets]})
+            return loss, dets
 
     def _run_eval(self, model, batches: Iterable, limit: int,
                   prefix: str) -> Dict[str, float]:
@@ -927,6 +1063,40 @@ class Trainer:
                     plotter(video, data.time_step, name)
         finally:
             _close(batches)
+
+
+def start_profiler(device: torch.device):
+    """A running ``torch.profiler`` over the CPU, and the card's kernels
+    when ``device`` is a card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    profiler = profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def write_profile(profiler, profile_dir: str, device: torch.device) -> str:
+    """Stop ``profiler`` once the device has finished the traced work
+    and write its Chrome trace under ``profile_dir``; returns the path.
+    On the card a trace without a CUDA kernel raises (the profiler
+    records the CPU alone where CUPTI is missing)."""
+    from torch.autograd import DeviceType
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    profiler.stop()
+    if device.type == "cuda" and not any(
+            e.device_type == DeviceType.CUDA for e in profiler.events()):
+        raise RuntimeError("profile_dir: the profiler recorded no CUDA "
+                           "kernel (is CUPTI available?)")
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"{socket.gethostname()}."
+                        f"{os.getpid()}.pt.trace.json")
+    profiler.export_chrome_trace(path)
+    return path
 
 
 def _close(batches) -> None:

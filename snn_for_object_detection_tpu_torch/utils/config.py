@@ -35,18 +35,8 @@ import os
 import re
 from typing import Any, Dict, List, Sequence, Tuple
 
-from snn_for_object_detection_tpu_torch.models.compile import not_ported
-
 JAX_PACKAGE = "snn_for_object_detection_tpu."
 PORT_PACKAGE = "snn_for_object_detection_tpu_torch."
-
-# class paths of the JAX package the port has no counterpart for yet,
-# with the ROADMAP item that ports them
-NOT_PORTED = {
-    "utils.Plotter": "the rest",
-    "train.TensorBoardLogger": "training extras",
-    "train.CSVLogger": "training extras",
-}
 
 
 class ConfigSyntaxError(ValueError):
@@ -520,15 +510,11 @@ def load_config(
 
 def port_class_path(path: str) -> str:
     """A class path of the JAX package rewritten to the port's module of
-    the same name (as a string: the JAX package is never imported);
-    raises ``NotImplementedError`` naming the ROADMAP item for a class
-    the port lacks. Any other path is returned as written."""
+    the same name (as a string: the JAX package is never imported). Any
+    other path is returned as written."""
     if not path.startswith(JAX_PACKAGE):
         return path
-    rel = path[len(JAX_PACKAGE):]
-    if rel in NOT_PORTED:
-        raise not_ported(f"{path}", NOT_PORTED[rel])
-    return PORT_PACKAGE + rel
+    return PORT_PACKAGE + path[len(JAX_PACKAGE):]
 
 
 def _import_class(path: str):

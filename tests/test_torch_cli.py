@@ -18,7 +18,10 @@ recording per split:
   prediction tolerance of ``tests/test_torch_detector.py``;
 - ``fit --distributed`` under ``torchrun`` (two gloo ranks on the CPU):
   rank 0 alone writes the metrics and the checkpoint;
-- configs the port cannot run yet raise with their ROADMAP items.
+- ``fit`` on ``main.py``'s default configs (``config/config.yaml`` and
+  ``config/logger.yaml``: the event file and ``metrics.csv`` hold what
+  ``metrics.jsonl`` holds) and ``predict`` on ``config/config.yaml``
+  (its ``utils.Plotter`` writes the video).
 """
 
 import json
@@ -232,19 +235,53 @@ def test_predict_closes_its_loader(synth_root):
 NARROW = "--model.class_path=test_torch_detector.PNarrow"
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["fit", "--config", "config/config.yaml", "--config",
-      "config/logger.yaml", NARROW], "training extras"),
-    (["fit", NARROW], "training extras"),  # main.py's defaults: logger.yaml
-    (["predict", "--config", "config/config.yaml", NARROW], "the rest"),
-], ids=["argv0-training extras", "argv1-training extras",
-        "argv3-the rest"])
-def test_configs_not_ported_raise_with_their_item(monkeypatch, tmp_path,
-                                                  argv, item):
+def small_run(synth_root, out_dir):
+    """``common_args`` without its ``--config`` (the callers name their
+    configs) and one train batch."""
+    return [*common_args(synth_root, out_dir)[2:],
+            "--trainer.limit_train_batches=1"]
+
+
+@pytest.mark.parametrize("configs", [
+    ["--config", "config/config.yaml", "--config", "config/logger.yaml"],
+    [],  # main.py's defaults for fit: config.yaml and logger.yaml
+], ids=["explicit", "defaults"])
+def test_fit_on_the_default_configs(monkeypatch, synth_root, tmp_path,
+                                    configs):
+    from snn_for_object_detection_tpu_torch.train.loggers import read_scalars
+
     monkeypatch.chdir(REPO)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        cli.main([*argv, "--device", "cpu",
-                  f"--trainer.out_dir={tmp_path}/run"])
+    run = tmp_path / "run"
+    fit = cli.main(["fit", *configs, *small_run(synth_root, run)])
+    assert [type(b).__name__ for b in fit.trainer.loggers] == [
+        "TensorBoardLogger", "CSVLogger"]
+    with open(run / "metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    scalars = [(k, r["step"], float(np.float32(v))) for r in records
+               for k, v in r.items() if k not in ("step", "time")]
+    (events,) = (run / "tb").iterdir()
+    assert read_scalars(str(events)) == scalars
+    with open(run / "metrics.csv") as f:
+        assert len(f.readlines()) == len(records) + 1
+
+
+def test_predict_on_config_yaml(monkeypatch, synth_root, tmp_path):
+    """``predict --config config/config.yaml``: its plotter
+    (``utils.Plotter``, OpenCV here) writes one video."""
+    monkeypatch.chdir(REPO)
+    pm = PNarrow(num_classes=2, in_hw=GEN1_HW, time_window=2, device="cpu")
+    ckpt = str(tmp_path / "ckpt")
+    save_single(ckpt, {
+        "params": {n: p.detach() for n, p in pm.named_parameters()},
+        "stats": {n: b for n, b in pm.named_buffers()
+                  if n.endswith((".mean", ".var"))}})
+    run = cli.main(["predict", "--config", "config/config.yaml",
+                    *small_run(synth_root, tmp_path / "run"),
+                    f"--ckpt_path={ckpt}",
+                    f"--plotter.init_args.file_path={tmp_path}/video"])
+    assert type(run.trainer).__name__ == "Trainer"
+    video = tmp_path / "video" / "out0.avi"
+    assert video.exists() and video.stat().st_size > 0
 
 
 @pytest.mark.parametrize("overlay,cls", [("vgg.yaml", "VggSNN")])

@@ -232,15 +232,18 @@ def test_class_paths_of_the_jax_package_name_the_port():
     assert made == {"a": [{}], "b": 1}
 
 
-@pytest.mark.parametrize("path,item", [
-    ("utils.Plotter", "the rest"),
-    ("train.TensorBoardLogger", "training extras"),
-    ("train.CSVLogger", "training extras"),
+@pytest.mark.parametrize("path", [
+    "utils.Plotter", "train.TensorBoardLogger", "train.CSVLogger",
 ])
-def test_classes_not_ported_raise_with_their_item(path, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        config.instantiate(
-            {"class_path": f"snn_for_object_detection_tpu.{path}"})
+def test_plotter_and_loggers_instantiate_the_port_s(path):
+    """The class paths of ``config/config.yaml``'s plotter and
+    ``config/logger.yaml``'s back ends name the port's classes."""
+    made = config.instantiate(
+        {"class_path": f"snn_for_object_detection_tpu.{path}"})
+    module, _, name = path.rpartition(".")
+    assert type(made).__name__ == name
+    assert type(made).__module__.startswith(
+        f"snn_for_object_detection_tpu_torch.{module}")
 
 
 @pytest.mark.parametrize("path,init_args,cls", [

@@ -439,10 +439,13 @@ def _port_sources():
 
 def test_port_imports_no_jax(tmp_path):
     """No module of the port, and not chip_smoke.py, imports JAX, the JAX
-    package or PyYAML; importing the port leaves JAX out of sys.modules,
-    and so does a CLI ``test`` run on the CPU, which leaves PyYAML out
-    too (the port reads the configs with its own reader)."""
-    banned = ("jax", "jaxlib", "snn_for_object_detection_tpu", "yaml")
+    package, PyYAML or tensorboardX; importing the port leaves JAX out of
+    sys.modules, and so do a CLI ``test`` run and a CLI ``fit`` with
+    ``config/logger.yaml`` on the CPU, which leave PyYAML and tensorboard
+    out too (the port reads the configs with its own reader and writes
+    the event file itself)."""
+    banned = ("jax", "jaxlib", "snn_for_object_detection_tpu", "yaml",
+              "tensorboardX")
     for path in _port_sources():
         tree = ast.parse(open(path).read(), path)
         for node in ast.walk(tree):
@@ -467,11 +470,14 @@ def test_port_imports_no_jax(tmp_path):
                          cwd=REPO, capture_output=True, text=True)
     assert out.returncode == 0, out.stderr
     assert "test_loss=" in out.stdout, out.stdout
+    assert "epoch_train_loss=" in out.stdout, out.stdout
+    assert os.listdir(tmp_path / "fit" / "tb")
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
 
 
 # a narrow TinyYolo tested from a weights-only checkpoint by the port's
-# CLI on a synthetic test split, then the banned modules that were loaded
+# CLI on a synthetic test split and fitted with config/logger.yaml's
+# back ends, then the banned modules that were loaded
 CLI_RUN = """
 import sys
 from snn_for_object_detection_tpu_torch import cli, data, utils
@@ -487,8 +493,7 @@ class Narrow(TinyYolo):
 
 
 root = sys.argv[1]
-make_synthetic_dataset(root, records_per_split=1, duration_ms=600,
-                       splits=("test",))
+make_synthetic_dataset(root, records_per_split=1, duration_ms=600)
 m = Narrow(num_classes=2, device="cpu")
 save_single(root + "/ckpt", {
     "params": dict(m.named_parameters()),
@@ -504,6 +509,20 @@ cli.main(["test", "--config", "config/config.yaml", "--device", "cpu",
           "--data.init_args.time_shift=2",
           "--trainer.limit_test_batches=1",
           f"--trainer.out_dir={root}/run", f"--ckpt_path={root}/ckpt"])
+cli.main(["fit", "--config", "config/config.yaml", "--config",
+          "config/logger.yaml", "--device", "cpu",
+          "--model.class_path=__main__.Narrow",
+          "--model.init_args.time_window=0",
+          f"--data.init_args.data_dir={root}",
+          "--data.init_args.batch_size=1", "--data.init_args.num_steps=3",
+          "--data.init_args.num_workers=1",
+          "--data.init_args.num_load_file=1",
+          "--data.init_args.time_shift=2", "--trainer.max_epochs=1",
+          "--trainer.limit_train_batches=1",
+          "--trainer.limit_val_batches=1",
+          "--trainer.check_val_every_n_epoch=1",
+          f"--trainer.out_dir={root}/fit"])
 print(sorted(m for m in sys.modules if m.split(".")[0] in
-             ("jax", "jaxlib", "yaml", "snn_for_object_detection_tpu")))
+             ("jax", "jaxlib", "yaml", "snn_for_object_detection_tpu",
+              "tensorboardX", "tensorboard")))
 """

@@ -656,12 +656,27 @@ def test_other_schedules_accepted(schedule):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"spatial_devices": 2}, {"debug_nans": True},
-    {"profile_dir": "trace"}, {"logger": {"class_path": "x"}},
-], ids=["kwargs1", "kwargs2", "kwargs3", "kwargs4"])
+    {"spatial_devices": 2},
+], ids=["kwargs1"])
 def test_modes_left_out_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(**kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"debug_nans": True}, {"profile_dir": "trace"},
+    {"logger": {"class_path":
+                "snn_for_object_detection_tpu.train.CSVLogger"}},
+], ids=["debug_nans", "profile_dir", "logger"])
+def test_training_extras_are_taken(kwargs):
+    """``debug_nans``, the profiler and logger back ends (raised before
+    they were ported; tests/test_torch_extras.py holds them against
+    JAX's)."""
+    trainer = Trainer(**kwargs)
+    assert trainer.debug_nans == kwargs.get("debug_nans", False)
+    assert trainer.profile_dir == kwargs.get("profile_dir")
+    assert [type(b).__name__ for b in trainer.loggers] == (
+        ["CSVLogger"] if "logger" in kwargs else [])
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -690,9 +705,9 @@ def test_mesh_and_prefetch_are_taken(tmp_path, kwargs):
 def test_optimizer_options_left_out_raise():
     params = [torch.nn.Parameter(torch.zeros(2))]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loop.Optimizer(params, "lion", lambda c: 1e-3)
+        loop.Optimizer(params, "fromage", lambda c: 1e-3)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loop.Optimizer(params, {"name": "adam", "eps_root": 1e-8},
+        loop.Optimizer(params, {"name": "adam", "mu_dtype": "bfloat16"},
                        lambda c: 1e-3)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer().request_mesh_reshape(num_devices=1)

@@ -243,6 +243,28 @@ def case_fit(data_dir, out_dir, time_window):
             "weights": _numpy(model.named_parameters())}
 
 
+def case_fit_logged(data_dir, out_dir, logger):
+    """A one-batch ``fit`` with tracker back ends (``logger``), each rank
+    in its own ``out_dir/rank<r>``; returns the files under it."""
+    from snn_for_object_detection_tpu_torch.data import PropheseeDataModule
+    from snn_for_object_detection_tpu_torch.parallel import distributed
+    from snn_for_object_detection_tpu_torch.train.loop import Trainer
+
+    out_dir = os.path.join(out_dir, f"rank{distributed.rank()}")
+    data = PropheseeDataModule(
+        dataset="gen1", data_dir=data_dir, batch_size=1, num_steps=3,
+        time_shift=2, num_workers=1, num_load_file=1)
+    model = micro_soda()(num_classes=2, in_hw=(data.height, data.width),
+                         time_window=0, device="cpu")
+    Trainer(max_epochs=1, min_epochs=0, limit_train_batches=1,
+            limit_val_batches=1, check_val_every_n_epoch=1,
+            out_dir=out_dir, log_every_n_steps=1, logger=logger,
+            prefetch_batches=0).fit(model, data)
+    return {"files": sorted(
+        os.path.relpath(os.path.join(root, f), out_dir)
+        for root, _, files in os.walk(out_dir) for f in files)}
+
+
 def case_auto(in_hw, failing_rank, times):
     """``time_batched="auto"`` with ``loop.time_call`` stubbed: rank
     ``failing_rank`` runs out of memory on the hybrid schedule, and the
