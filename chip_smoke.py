@@ -14,6 +14,7 @@
     python3 chip_smoke.py --only 16    # [1], data parallel, mesh serving
     python3 chip_smoke.py --only 17    # [1], training extras, plotter,
                                        # summary
+    python3 chip_smoke.py --only 18    # [1] and spatial sharding
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -243,8 +244,9 @@ Phases (any failure raises and the script exits non-zero):
    bit-equal with cuDNN off, final-state spike agreement >= 0.99 a cell
    with it on, 22 cell launches a replica and step; (e) (b)'s train step
    ms a rank, the same step with no collective, the share of the step's
-   all-reduces (BatchNorm's moments, the loss's counts, the gradients:
-   the difference of the two) and of the gradients' alone, (d)'s engine
+   collectives (BatchNorm's all-gathered sums and all-reduced gradients,
+   the loss's counts, the gradients: the difference of the two) and of
+   the gradients' alone, (d)'s engine
    step ms, and [11]'s
    loader-fed steps' idle share at ``prefetch_batches`` 0 and 2.
 17. training extras, plotter and summary: (a) ``python -m
@@ -262,6 +264,25 @@ Phases (any failure raises and the script exits non-zero):
    video where ``cv2`` imports; ``Plotter.apply`` draws the boxes on
    their outlines and nowhere else (without ``cv2``: its red and blue
    pixels are the frame's events); (d) ``utils.summary.summarize`` of GEN1 TinyYolo.
+18. spatial sharding: ``Trainer(mesh=make_mesh(spatial=2))`` on two gloo
+   ranks on the card as a (data 1 x space 2) grid (``torch.
+   multiprocessing.spawn``, a FileStore; gloo on CUDA tensors), the
+   trained net at full GEN1 width, B=4, T=42, start 5,
+   each rank on its 120 rows of the input: two time-batched fp32 train
+   steps and one hybrid step, cuDNN off: the ranks' weights bit-equal
+   after each step; a rank's cell backward kernel 22 times a
+   time-batched step, its forward 44 (the recompute's 22 with them); the
+   first step's loss within rtol 1e-6, its gradients within a relative
+   L2 of 1e-5 (each leaf's within 1e-4) and the running statistics
+   within rtol 1e-4 of one rank
+   whose BatchNorm sums its moments and whose convs sum their outputs in
+   the space blocks' order (blocks along H, ``ranks_order_moments(
+   along=1)``, ``blocks_order_convs``: PyTorch's own conv picks its GEMM
+   by the map's shape); printed beside it, the distance from one rank as
+   it is. Prints a rank's step ms
+   and peak memory beside one rank's (cuDNN on), and the halo exchanges
+   of a step (the space group's collectives, wrapped): their count and
+   their synchronised time's share of it.
 
 Model and data values of [3]-[10], with their source (those phases pass
 them as arguments; [11] reads the YAML files):
@@ -4295,27 +4316,30 @@ def dp_sha(params) -> str:
 
 
 class ranks_order_moments:
-    """Within: every train BatchNorm's moments as the ranks of (b) sum
-    them (``compile.global_moments``), in one process: the batch in
-    ``blocks`` blocks of rows, each block's fp32 sums added in fp64 (exact
-    in any order, so any collective's order gives the same), the mean
-    first, then the squared deviations. The trained net at full
-    width turns any other sum order into flipped spikes: in one process,
-    ``var_mean`` and this form move the first step's loss by 5.2e-4 on
-    an H100, more than (b)'s gate (the yardstick line (b) prints)."""
+    """Within: every train BatchNorm's moments as the ranks of [16] (b)
+    or [18] sum them (``compile.global_moments``), in one process: the
+    map in ``blocks`` blocks (``halo.row_blocks``) along ``dims[along]``
+    (0: the batch's rows, [16]; 1: H, [18]'s space blocks), each block's
+    fp32 sums added in fp64 in block order (as the ranks add them after
+    their all-gather), the mean first, then the squared deviations. The
+    trained net at full width turns any other sum order into flipped
+    spikes: in one process, ``var_mean`` and this form move the first
+    step's loss by 5.2e-4 on an H100, more than (b)'s gate (the yardstick
+    line (b) prints)."""
 
-    def __init__(self, torch, C, blocks=DP_RANKS):
+    def __init__(self, torch, C, blocks=DP_RANKS, along=0):
         self.torch, self.C, self.blocks = torch, C, blocks
+        self.along = along
 
     def __enter__(self):
+        from snn_for_object_detection_tpu_torch.parallel import row_blocks
+
         self.saved = self.C.Norm.__dict__["_moments"]
 
-        def moments(x, dims, group):
-            n = 1
-            for d in dims:
-                n *= x.shape[d]
-            blocks = [b.contiguous()
-                      for b in x.chunk(self.blocks, dim=dims[0])]
+        def moments(x, dims, group, n):
+            d = dims[self.along]
+            blocks = [x.narrow(d, lo, hi - lo).contiguous()
+                      for lo, hi in row_blocks(x.shape[d], self.blocks)]
 
             def summed(parts):
                 out = parts[0].double()
@@ -4326,7 +4350,7 @@ class ranks_order_moments:
             mean = summed([b.sum(dim=dims, keepdim=True) for b in blocks]) / n
             var = summed([((b - mean) ** 2).sum(dim=dims, keepdim=True)
                           for b in blocks]) / n
-            return mean, var, n
+            return mean, var
 
         self.C.Norm._moments = staticmethod(moments)
         return self
@@ -4335,15 +4359,27 @@ class ranks_order_moments:
         self.C.Norm._moments = self.saved
 
 
-def dp_train(torch, TinyYolo, Trainer, batches, trainer_kw, local=None):
-    """DP_STEPS time-batched fp32 train steps of the trained net from
-    TRAIN_START (cuDNN deterministic): each step's loss, the weights
-    after it, the first step's gradients as the optimizer saw them and
-    the running statistics after it. ``local`` picks this rank's rows of
-    a batch. Returns the run and the trainer and model, to go on."""
+def on_card(torch, X, lab):
+    """A host batch on the card as it is."""
+    return (torch.as_tensor(np.ascontiguousarray(X), device="cuda"),
+            torch.as_tensor(np.ascontiguousarray(lab), device="cuda"))
+
+
+def dp_train(torch, TinyYolo, Trainer, batches, trainer_kw, place=None,
+             schedule=True, steps=DP_STEPS):
+    """``steps`` fp32 train steps of the trained net on ``schedule``
+    from TRAIN_START: each step's loss, the weights after it and its
+    kernel launches, the first step's gradients as the optimizer saw
+    them and the running statistics after it. ``place(X, lab)`` puts
+    this rank's part of a host batch on the card ([16] (b): its rows of
+    B; [18]: its rows of H, ``shard_batch`` on the grid); by default the
+    whole batch. Returns the run, the trainer and model, to go on, and
+    the last batch as it went in."""
+    from snn_for_object_detection_tpu_torch.ops import cuda_kernels
+
     model = build_model(TinyYolo, "float32", "float32", "cuda",
                         weights=trained_weights())
-    trainer = Trainer(seed=0, time_batched=True, prefetch_batches=0,
+    trainer = Trainer(seed=0, time_batched=schedule, prefetch_batches=0,
                       **trainer_kw)
     trainer.configure(model)
     seen = []
@@ -4356,14 +4392,15 @@ def dp_train(torch, TinyYolo, Trainer, batches, trainer_kw, local=None):
         return step(grads)
 
     trainer.opt.step = record
-    run = {"losses": [], "weights": []}
-    for s in range(DP_STEPS):
-        X, lab = batches[s]
-        if local is not None:
-            X, lab = local(X, 1), local(lab, 0)
-        X = torch.as_tensor(np.ascontiguousarray(X), device="cuda")
-        lab = torch.as_tensor(np.ascontiguousarray(lab), device="cuda")
+    run = {"losses": [], "weights": [], "launches": []}
+    for s in range(steps):
+        if place is None:
+            X, lab = on_card(torch, *batches[s])
+        else:
+            X, lab = place(*batches[s])
+        cuda_kernels.reset_launches()
         loss = trainer.train_step(model, X, lab, TRAIN_START)
+        run["launches"].append(dict(cuda_kernels.LAUNCHES))
         run["losses"].append(loss.cpu())
         params, stats = dp_state(torch, model)
         run["weights"].append(params)
@@ -4394,7 +4431,9 @@ def dp_rank(rank, world, store, out):
         torch.backends.cudnn.enabled = cudnn
         run, trainer, model, (X, lab) = dp_train(
             torch, TinyYolo, Trainer, make_batches(DP_STEPS, seed=0),
-            {"mesh": mesh}, local=distributed.local_rows)
+            {"mesh": mesh}, lambda X, lab: on_card(
+                torch, distributed.local_rows(X, 1),
+                distributed.local_rows(lab, 0)))
         run["sha"] = [dp_sha(w) for w in run["weights"]]
         if rank:  # rank 0's weights stand for both (the shas compare them)
             run["weights"] = run["grads"] = None
@@ -4415,24 +4454,33 @@ def dp_rank(rank, world, store, out):
         trainer.opt.step(list(grads))
 
     local_ms = cuda_time_ms(local_step, reps=DP_TIMED, warmup=1)
-    # the collectives of one train step: every all-reduce, those in
-    # torch.distributed.nn's autograd function included
-    all_reduce, calls = torch.distributed.all_reduce, []
+    # the collectives of one train step: every all-reduce and
+    # all-gather, those in autograd functions included
+    saved = {k: getattr(torch.distributed, k)
+             for k in ("all_reduce", "all_gather")}
+    calls = {k: [] for k in saved}
 
-    def counted(*args, **kwargs):
-        calls.append(args[0].numel())
-        return all_reduce(*args, **kwargs)
+    def counted(kind):
+        def call(*args, **kwargs):
+            x = args[0] if kind == "all_reduce" else args[1]
+            calls[kind].append(x.numel())
+            return saved[kind](*args, **kwargs)
+        return call
 
-    torch.distributed.all_reduce = counted
+    for kind in saved:
+        setattr(torch.distributed, kind, counted(kind))
     trainer.train_step(model, X, lab, TRAIN_START)
-    torch.distributed.all_reduce = all_reduce
+    for kind, fn in saved.items():
+        setattr(torch.distributed, kind, fn)
     grads = [torch.zeros_like(p) for p in model.parameters()]
     grads.append(torch.zeros(1, device="cuda"))
     reduce_ms = cuda_time_ms(
         lambda: distributed.all_reduce_sum(grads, mesh.group),
         reps=DP_TIMED, warmup=1)
     runs.update(step_ms=step_ms, local_ms=local_ms, reduce_ms=reduce_ms,
-                collectives=len(calls), largest=max(calls),
+                reduces=len(calls["all_reduce"]),
+                gathers=len(calls["all_gather"]),
+                largest=max(calls["all_reduce"]),
                 rows=int(X.shape[1]))
     torch.save(runs, os.path.join(out, f"rank{rank}.pt"))
     distributed.barrier("dp_done")
@@ -4514,10 +4562,11 @@ def dp_two_ranks(torch, one, smi):
               f"events, median of {DP_TIMED}, {run['rows']} rows, two "
               f"ranks sharing the card, cuDNN on); the same step with no "
               f"collective {run['local_ms']:.1f} ms; the step's "
-              f"{run['collectives']} all-reduces (BatchNorm's moments, 2 "
-              f"forward and 2 backward a train Norm; the loss's counts; "
-              f"the gradients and loss shares in one buffer of "
-              f"{run['largest']} values) {inside:.1f} ms, share "
+              f"{run['gathers']} all-gathers (BatchNorm's sums, 2 a train "
+              f"Norm's forward, again in the recompute) and "
+              f"{run['reduces']} all-reduces (2 a train Norm's backward; "
+              f"the loss's counts; the gradients and loss shares in one "
+              f"buffer of {run['largest']} values) {inside:.1f} ms, share "
               f"{inside / run['step_ms']:.3f}; the gradients' all-reduce "
               f"alone {run['reduce_ms']:.1f} ms, share "
               f"{run['reduce_ms'] / run['step_ms']:.3f} [{smi}]", flush=True)
@@ -4699,10 +4748,9 @@ def phase_data_parallel(torch, cuda_kernels, TinyYolo, Trainer, batches,
     check(distributed.world_size() == 1
           and torch.distributed.get_backend() == "nccl",
           "(a): not a one-rank NCCL group")
-    cuda_kernels.reset_launches()
     run, _, _, _ = dp_train(torch, TinyYolo, Trainer, batches,
                             {"mesh": mesh})
-    bwd = cuda_kernels.LAUNCHES["temporal_cell_seq_bwd"]
+    bwd = sum(n["temporal_cell_seq_bwd"] for n in run["launches"])
     torch.backends.cudnn.deterministic = False
     torch.distributed.destroy_process_group()
     check(bwd == CELLS_PER_STEP * DP_STEPS,
@@ -5013,6 +5061,308 @@ def phase_extras(torch, cuda_kernels, TinyYolo, Trainer, batches, smi):
           f"({len(s['rows'])} convs)", flush=True)
     torch.cuda.empty_cache()
 
+# [18]: spatial sharding. Two gloo ranks on the one card as a (data 1 x
+# space 2) grid, on the trained net (B=4, T=42, start 5): two
+# time-batched fp32 train steps and one hybrid step against one rank
+# whose BatchNorm sums its moments in the space blocks' order
+SP_RANKS, SP_STEPS, SP_TIMED = 2, 2, 2
+SP_RANK_TIMEOUT_S = 600
+# the reference sums as the ranks do, so a sound grid reads about its
+# bits (loss 0, gradients relative L2 7.9e-8 / 2.0e-7 on an H100): the
+# gates sit just above that, where a halo row's gradient left off its
+# owner shows (PERF.md, PR 17); the running stats keep [16] (b)'s rtol
+SP_LOSS_RTOL, SP_GRAD_L2, SP_LEAF_L2 = 1e-6, 1e-5, 1e-4
+
+
+def leaf_distance(a, b):
+    """The largest relative L2 distance of one gradient leaf between two
+    runs, and its name: a fault in a few rows of one layer shows here
+    where the whole gradient's distance dilutes it."""
+    worst = (0.0, "")
+    for n, g in a.items():
+        ref = b[n].norm()
+        if ref > 0:
+            worst = max(worst, (float((g - b[n]).norm() / ref), n))
+    return worst
+
+
+class blocks_order_convs:
+    """Within: every Conv (but the s2d plan) computes its output map in
+    the ``blocks`` row blocks of ``halo.row_blocks`` and concatenates
+    them, each block from the rows of the zero-padded input it reads,
+    as the ranks of [18] compute theirs: the same conv shapes, so the
+    same sums (PyTorch's own conv picks its GEMM by shape: over the
+    whole map its sums are another order, and the trained net turns
+    that into flipped spikes as it does BatchNorm's)."""
+
+    def __init__(self, torch, C, blocks):
+        self.torch, self.C, self.blocks = torch, C, blocks
+
+    def __enter__(self):
+        from snn_for_object_detection_tpu_torch.parallel import row_blocks
+
+        torch, C = self.torch, self.C
+        self.saved = C.Conv._conv
+
+        def conv(layer, x, w, space=None):
+            if space is not None or layer.s2d:
+                return self.saved(layer, x, w, space)
+            s, p, k = layer.stride, layer.padding, layer.k
+            rows = layer.out_hw[0]
+            below = max((rows - 1) * s - p + k - x.shape[1], 0)
+            padded = torch.nn.functional.pad(x, (0, 0, 0, 0, p, below))
+            parts = [C._conv_nhwc(
+                padded[:, o0 * s:(o1 - 1) * s + k].contiguous(), w, s,
+                (0, p)) for o0, o1 in row_blocks(rows, self.blocks)]
+            return torch.cat(parts, dim=1)
+
+        C.Conv._conv = conv
+        return self
+
+    def __exit__(self, *exc):
+        self.C.Conv._conv = self.saved
+
+
+def sp_step_numbers(torch, mesh, trainer, model, X, lab):
+    """A train step's ms (CUDA events, median of SP_TIMED after one),
+    its peak memory, and the halo exchanges of one step: the space
+    group's collectives (``halo.fetch_rows``' ``all_to_all_single``,
+    ``gather_rows``' ``all_gather``), counted and each synchronised and
+    timed by wrapping ``torch.distributed``'s functions for that step:
+    their count by kind, their host ms and the step's (cuDNN on). A
+    fetch made while autograd runs the backward pass is the recompute's
+    or a fetch's backward."""
+    dist = torch.distributed
+
+    def step():
+        trainer.train_step(model, X, lab, TRAIN_START)
+
+    ms = cuda_time_ms(step, reps=SP_TIMED, warmup=1)
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    counts = {"fetch": 0, "fetch_in_backward": 0, "gather": 0}
+    halo_ms = [0.0]
+    saved = {k: getattr(dist, k) for k in ("all_to_all_single", "all_gather")}
+
+    def timed(kind):
+        def call(*args, **kwargs):
+            if kind == "all_gather":
+                if kwargs.get("group") is not mesh.space_group:
+                    return saved[kind](*args, **kwargs)  # BatchNorm's sums
+                counts["gather"] += 1
+            elif torch._C._current_graph_task_id() == -1:
+                counts["fetch"] += 1
+            else:
+                counts["fetch_in_backward"] += 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = saved[kind](*args, **kwargs)
+            torch.cuda.synchronize()
+            halo_ms[0] += (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+
+    for kind in saved:
+        setattr(dist, kind, timed(kind))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for kind, fn in saved.items():
+            setattr(dist, kind, fn)
+    return {"ms": ms, "peak_gb": peak, "exchanges": counts,
+            "halo_ms": halo_ms[0], "timed_wall_ms": wall}
+
+
+def sp_rank(rank, world, store, out):
+    """One rank of the (data 1 x space 2) grid on the one card, gloo on
+    CUDA tensors."""
+    import torch
+
+    from snn_for_object_detection_tpu_torch.models.tiny_yolo import TinyYolo
+    from snn_for_object_detection_tpu_torch.parallel import (
+        distributed,
+        make_mesh,
+        shard_batch,
+    )
+    from snn_for_object_detection_tpu_torch.train.loop import Trainer
+
+    distributed.initialize(f"file://{store}", num_processes=world,
+                           process_id=rank, backend="gloo", device="cuda:0",
+                           timeout_s=SP_RANK_TIMEOUT_S)
+    mesh = make_mesh(spatial=world)
+    batches = make_batches(SP_STEPS, seed=0)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.enabled = False
+    runs = {"shape": mesh.shape}
+    for schedule, steps in ((True, SP_STEPS), ("hybrid", 1)):
+        run, trainer, model, (X, lab) = dp_train(
+            torch, TinyYolo, Trainer, batches, {"mesh": mesh},
+            lambda X, lab: shard_batch(mesh, X, lab), schedule, steps)
+        run["sha"] = [dp_sha(w) for w in run["weights"]]
+        run["weights"] = None  # the shas compare them
+        if rank:
+            run["grads"] = None
+        runs[schedule] = run
+        if schedule is True:
+            keep = trainer, model, X, lab
+            runs["rows"] = int(X.shape[2])
+        del trainer, model
+    torch.backends.cudnn.enabled = True
+    torch.backends.cudnn.deterministic = False
+    runs["numbers"] = sp_step_numbers(torch, mesh, *keep)
+    torch.save(runs, os.path.join(out, f"rank{rank}.pt"))
+    distributed.barrier("sp_done")
+    torch.distributed.destroy_process_group()
+
+
+def phase_spatial(torch, C, TinyYolo, Trainer, smi):
+    """[18]: ``Trainer(mesh=make_mesh(spatial=2))`` on two gloo ranks on
+    the one card (``torch.multiprocessing.spawn``, a FileStore), each on
+    its rows of H of the same batches (120/120 rows of the input, 8/7 of
+    the 15-row map), cuDNN off and deterministic: SP_STEPS time-batched
+    fp32 train steps and one hybrid step of the trained net; the ranks'
+    weights bit-equal after every step; each rank's cell backward kernel
+    CELLS_PER_STEP times a time-batched step and its forward twice that
+    (the step's and the recompute's); the first
+    step's loss, gradients (whole and each leaf) and running statistics
+    within SP_LOSS_RTOL, SP_GRAD_L2, SP_LEAF_L2 and [16] (b)'s
+    DP_STATS_RTOL of one rank whose BatchNorm sums its moments and whose convs
+    sum their outputs in the space blocks' order
+    (``ranks_order_moments(along=1)``, ``blocks_order_convs``); printed
+    beside it, the distance from one rank as it is. Then, cuDNN on, a
+    rank's step ms and peak memory beside the one rank's, and the halo
+    exchanges of a step: their count and their share of it. Returns the
+    ranks' forward and backward cell launches in the time-batched and
+    hybrid steps."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    batches = make_batches(SP_STEPS, seed=0)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.enabled = False
+    one, plain = {}, {}
+    with ranks_order_moments(torch, C, SP_RANKS, along=1), \
+            blocks_order_convs(torch, C, SP_RANKS):
+        for schedule, steps in ((True, SP_STEPS), ("hybrid", 1)):
+            one[schedule], _, _, _ = dp_train(torch, TinyYolo, Trainer,
+                                              batches, {}, None, schedule,
+                                              steps)
+    plain[True], _, _, _ = dp_train(torch, TinyYolo, Trainer, batches, {},
+                                    steps=1)
+    torch.backends.cudnn.enabled = True
+    torch.backends.cudnn.deterministic = False
+    _, trainer, model, (X, lab) = dp_train(torch, TinyYolo, Trainer,
+                                           batches, {}, steps=1)
+    one_ms = cuda_time_ms(
+        lambda: trainer.train_step(model, X, lab, TRAIN_START),
+        reps=SP_TIMED, warmup=1)
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_step(model, X, lab, TRAIN_START)
+    one_gb = torch.cuda.max_memory_allocated() / 1e9
+    del trainer, model, X, lab
+    torch.cuda.empty_cache()
+    print(f"  [18] one rank (references and timing) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke_sp")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    mp.spawn(sp_rank, args=(SP_RANKS, os.path.join(out, "store"), out),
+             nprocs=SP_RANKS, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+             for r in range(SP_RANKS)]
+    check(ranks[0]["shape"] == {"data": 1, "space": SP_RANKS},
+          f"[18]: grid {ranks[0]['shape']}")
+    fwd = bwd = 0
+    gates = []
+    for schedule, steps in ((True, SP_STEPS), ("hybrid", 1)):
+        name = SCHEDULE_NAMES[schedule]
+        for s in range(steps):
+            gates.append((len({r[schedule]["sha"][s] for r in ranks}) == 1,
+                          f"[18] {name}: the ranks' weights differ after "
+                          f"step {s + 1}"))
+        for r, got in enumerate(ranks):
+            for s, n in enumerate(got[schedule]["launches"]):
+                f, b = n["temporal_cell_seq"], n["temporal_cell_seq_bwd"]
+                fwd, bwd = fwd + f, bwd + b
+                if schedule is True:
+                    # the forward runs again in the backward (remat)
+                    gates.append((
+                        f == 2 * CELLS_PER_STEP and b == CELLS_PER_STEP,
+                        f"[18] rank {r} step {s + 1}: {f} forward and {b} "
+                        f"backward cell launches, want 2 x {CELLS_PER_STEP} "
+                        f"and {CELLS_PER_STEP}"))
+                else:
+                    gates.append((f > 0 and b > 0
+                                  and not n["spiking_conv_seq"],
+                                  f"[18] rank {r} hybrid: launches {n}"))
+        if schedule is True:
+            yard = dp_distances(torch, ranks[0][True], plain[True])
+            print(f"  [18] time-batched, yardstick: {SP_RANKS} ranks vs one "
+                  f"rank as it is (var_mean, convs over the whole map), "
+                  f"cuDNN off: first-step loss rel {yard[0]:.3g}, gradients "
+                  f"relative L2 {yard[1]:.3g}, BN running stats beyond rtol "
+                  f"{max(yard[2], 0.0):.3g}", flush=True)
+        loss_err, grad_l2, stats_over = dp_distances(
+            torch, ranks[0][schedule], one[schedule])
+        leaf_l2, leaf = leaf_distance(ranks[0][schedule]["grads"],
+                                      one[schedule]["grads"])
+        launches = [(n["temporal_cell_seq"], n["temporal_cell_seq_bwd"])
+                    for n in ranks[0][schedule]["launches"]]
+        print(f"  [18] {name}: {SP_RANKS} ranks ({ranks[0]['rows']} and "
+              f"{ranks[1]['rows']} input rows) vs one rank summing BN and "
+              f"the convs in the space blocks' order, cuDNN off: first-step "
+              f"loss rel "
+              f"{loss_err:.3g} (gate {SP_LOSS_RTOL}), gradients relative L2 "
+              f"{grad_l2:.3g} (gate {SP_GRAD_L2}), worst leaf {leaf_l2:.3g} "
+              f"({leaf}; gate {SP_LEAF_L2}), BN running stats beyond "
+              f"rtol {DP_STATS_RTOL}: {max(stats_over, 0.0):.3g} (gate "
+              f"1e-6); losses "
+              f"{[float(v) for v in ranks[0][schedule]['losses']]} vs "
+              f"{[float(v) for v in one[schedule]['losses']]}; weights "
+              f"bit-equal across the ranks after each of {steps} steps; "
+              f"(forward, backward) cell launches a step of rank 0 "
+              f"{launches}", flush=True)
+        gates += [(loss_err <= SP_LOSS_RTOL,
+                   f"[18] {name}: loss {loss_err:.3g} from one rank"),
+                  (grad_l2 <= SP_GRAD_L2,
+                   f"[18] {name}: gradients {grad_l2:.3g} from one rank"),
+                  (leaf_l2 <= SP_LEAF_L2,
+                   f"[18] {name}: gradient of {leaf} {leaf_l2:.3g} from "
+                   "one rank"),
+                  (stats_over <= 1e-6,
+                   f"[18] {name}: running stats {stats_over:.3g} beyond "
+                   "rtol")]
+    print(f"  [18] ranks spawned and done in {spawn_s:.1f} s", flush=True)
+    for r, got in enumerate(ranks):
+        nb = got["numbers"]
+        ex = nb["exchanges"]
+        print(f"  [18] rank {r}: time-batched fp32 train step {nb['ms']:.1f} "
+              f"ms (CUDA events, median of {SP_TIMED}, two ranks sharing the "
+              f"card, cuDNN on) vs one rank {one_ms:.1f} ms; peak "
+              f"{nb['peak_gb']:.2f} GB vs one rank {one_gb:.2f} GB; halo "
+              f"exchanges a step: {ex['fetch']} fetches in the forward "
+              f"pass, {ex['fetch_in_backward']} in the backward pass (the "
+              f"recompute's and the fetches' backward), {ex['gather']} "
+              f"gathers, "
+              f"{nb['halo_ms']:.1f} ms of a {nb['timed_wall_ms']:.1f} ms "
+              f"step (each exchange synchronised, host clock), share "
+              f"{nb['halo_ms'] / nb['timed_wall_ms']:.3f} [{smi}]",
+              flush=True)
+    for ok, msg in gates:
+        check(ok, msg)
+    return fwd, bwd
+
 
 def main(argv) -> int:
     import torch
@@ -5111,6 +5461,11 @@ def main(argv) -> int:
             phase_extras(torch, cuda_kernels, TinyYolo, Trainer, batches,
                          smi)
             print(f"  [17] in {time.perf_counter() - t0:.1f} s", flush=True)
+        if 18 in only:
+            t0 = time.perf_counter()
+            print("[18] spatial sharding", flush=True)
+            phase_spatial(torch, C, TinyYolo, Trainer, smi)
+            print(f"  [18] in {time.perf_counter() - t0:.1f} s", flush=True)
         print(f"partial run of phases {sorted(only)} done in "
               f"{time.perf_counter() - t_start:.1f} s")
         return 0
@@ -5213,6 +5568,14 @@ def main(argv) -> int:
           f"summary, TinyYolo GEN1 {IN_HW}", flush=True)
     phase_extras(torch, cuda_kernels, TinyYolo, Trainer, batches, smi)
     print(f"  [17] in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    print(f"[18] spatial sharding: Trainer(mesh=make_mesh(spatial="
+          f"{SP_RANKS})) on {SP_RANKS} gloo ranks on the card, the trained "
+          f"net, TinyYolo GEN1 {IN_HW}, B={BATCH}, T={STEPS}", flush=True)
+    sp_fwd, sp_bwd = phase_spatial(torch, C, TinyYolo, Trainer, smi)
+    launches += sp_fwd
+    bwd_launches += sp_bwd
+    print(f"  [18] in {time.perf_counter() - t0:.1f} s", flush=True)
 
     ref = next(r for r in rows if (r["shape"], r["cell"], r["x"], r["start"])
                == ("stage1", "lif", "float32", 0))
@@ -5289,12 +5652,12 @@ def main(argv) -> int:
           f"models/compile.py:599) VggSNN's stage-1 fp32 case "
           f"{list(PLIF_SHAPES['vgg_stage1'])}, the backward at start "
           f"{TRAIN_START}. "
-          f"Launches: temporal_cell_seq in [4] and [16] (d)'s mesh "
-          f"engines, spiking_conv_seq in [7], "
+          f"Launches: temporal_cell_seq in [4], [16] (d)'s mesh "
+          f"engines and [18]'s ranks, spiking_conv_seq in [7], "
           f"streaming_megakernel in [8] (both dtype configurations), "
           f"temporal_cell_seq_bwd in [10]'s and [13]'s Trainer.fit runs "
-          f"(the three schedules, both training configurations) and "
-          f"[16] (a)'s one-rank mesh; "
+          f"(the three schedules, both training configurations), "
+          f"[16] (a)'s one-rank mesh and [18]'s ranks; "
           f"plif_cell_seq in [14] (b)'s four eval schedules and (c)'s "
           f"fit and test of config/vgg.yaml, plif_cell_seq_bwd in (c)'s "
           f"fit; fused_pointwise_conv_bn_lif has no path")

@@ -30,6 +30,16 @@ Activations are NHWC at every boundary (the JAX layout). Submodules are
 named after the JAX pytree keys (``b0.l3.w`` for ``["b0"]["l3"]["w"]``),
 so ``models/convert.py`` maps weights one to one.
 
+Under a ``space`` axis (``ctx.space``, a ``parallel.halo.Space``) every
+map is split along H over the ranks of the space group, each holding
+the balanced block of ``halo.row_blocks``, and so is every state: a Conv
+computes its own output rows from the input rows they read
+(``halo.fetch_rows``: the halo from the neighbouring blocks, zeros
+beyond the map's edge) with padding along W only; Pool and Up read the
+rows of their outputs' blocks the same way; a train Norm takes its
+moments over the whole grid. ``StridedPool``, ``Resize``, ``ConvLSTM``
+and the int8 conv raise there.
+
 Beside the plain forms: ``Conv(s2d=True)`` runs the space-to-depth plan
 (the same function, another layout of the sums); a Conv in its int8 form
 (``ops/quantize.py``) runs int8 x int8 -> int32 sums between a per-tensor
@@ -58,12 +68,9 @@ from snn_for_object_detection_tpu_torch.ops.cuda_kernels import (
     spiking_conv_seq,
     temporal_cell_seq,
 )
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, Queue 1: {item})"
-    )
+from snn_for_object_detection_tpu_torch.parallel import distributed as dist
+from snn_for_object_detection_tpu_torch.parallel.halo import fetch_rows
+from snn_for_object_detection_tpu_torch.roadmap import SPATIAL_ITEM, not_ported
 
 
 @dataclasses.dataclass
@@ -86,7 +93,11 @@ class Ctx:
     ``batch_group``: in training, the process group of several ranks
     whose rows form the global batch (data parallel): Norm takes the
     global batch's moments (:func:`global_moments`), as GSPMD makes
-    JAX's batch means. ``None``: this batch is the global batch."""
+    JAX's batch means. ``None``: this batch is the global batch.
+
+    ``space``: a ``parallel.halo.Space`` when the maps are split along
+    H over the ranks of a space group (each layer computes its block of
+    rows); ``batch_group`` then spans every rank of the grid."""
 
     taps: List[torch.Tensor] = dataclasses.field(default_factory=list)
     start_step: int = 0
@@ -98,6 +109,7 @@ class Ctx:
     calibrate: bool = False
     absmax: Dict[Any, torch.Tensor] = dataclasses.field(default_factory=dict)
     batch_group: Any = None
+    space: Any = None
 
     def step_mask(self, steps: int) -> List[bool]:
         """Step t of a sequence call is active iff ``t >= start_step``."""
@@ -112,14 +124,24 @@ class Layer(nn.Module):
 
     has_tap = False
     closes_segment = False
+    name = ""
 
     def __init__(self, out_channels: int, out_hw: Tuple[int, int]):
         super().__init__()
         self.out_channels = out_channels
         self.out_hw = tuple(out_hw)
 
-    def init_state(self, batch: int, device) -> Any:
+    def init_state(self, batch: int, device, space=None) -> Any:
         return ()
+
+    def local_shape(self, batch: int, channels: int, space=None):
+        """``[batch, H, W, channels]`` of this layer's output map, H this
+        rank's block of rows under a space axis."""
+        h, w = self.out_hw
+        if space is not None:
+            h = space.rows(h, f"{self.name}: its output map "
+                              f"{self.out_hw}")
+        return (batch, h, w, channels)
 
     def step(self, x, state, ctx: Ctx):
         raise NotImplementedError
@@ -164,6 +186,15 @@ class Pool(Layer):
     def step(self, x, state, ctx):
         (oh, ow), k = self.out_hw, self.k
         b, c = x.shape[0], x.shape[-1]
+        space = None if ctx is None else ctx.space
+        if space is not None:
+            # the input rows of this rank's output rows (the cropped tail
+            # of the global map is no block's)
+            out = space.blocks(oh, f"{self.name}: its output map")
+            x = fetch_rows(x, self.in_hw[0],
+                           lambda j: (out[j][0] * k, out[j][1] * k), space,
+                           f"{self.name}: its input map")
+            oh = x.shape[1] // k
         y = x[:, :oh * k, :ow * k].reshape(b, oh, k, ow, k, c)
         if self.kind == "M":
             return y.amax(dim=(2, 4)), state
@@ -180,8 +211,20 @@ class Up(Layer):
         self.scale = scale
 
     def step(self, x, state, ctx):
-        y = x.repeat_interleave(self.scale, dim=1)
-        return y.repeat_interleave(self.scale, dim=2), state
+        s = self.scale
+        space = None if ctx is None else ctx.space
+        if space is not None:
+            # output rows [o0, o1) repeat input rows o0 // s .. (o1-1) // s
+            out = space.blocks(self.out_hw[0], f"{self.name}: its output map")
+            o0, o1 = out[space.index]
+            x = fetch_rows(x, self.out_hw[0] // s,
+                           lambda j: (out[j][0] // s, (out[j][1] - 1) // s + 1),
+                           space, f"{self.name}: its input map")
+            y = x.repeat_interleave(s, dim=1)
+            y = y[:, o0 - (o0 // s) * s:o1 - (o0 // s) * s]
+        else:
+            y = x.repeat_interleave(s, dim=1)
+        return y.repeat_interleave(s, dim=2), state
 
 
 class StridedPool(Layer):
@@ -196,6 +239,7 @@ class StridedPool(Layer):
         self.k, self.s, self.kind = k, s, kind
 
     def step(self, x, state, ctx):
+        _no_space(self, ctx, "Pool(stride != kernel_size)")
         (oh, ow), k, s = self.out_hw, self.k, self.s
         if self.kind == "M":
             y = None
@@ -211,6 +255,12 @@ class StridedPool(Layer):
             y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=s, groups=c)
         y = y.permute(0, 2, 3, 1).contiguous()
         return (y / (k * k) if self.kind == "A" else y), state
+
+
+def _no_space(layer, ctx, what: str) -> None:
+    if ctx is not None and ctx.space is not None:
+        raise not_ported(f"{what} ({layer.name}) under a space axis",
+                         SPATIAL_ITEM)
 
 
 def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
@@ -267,6 +317,7 @@ class Resize(Layer):
             in_hw[1], in_hw[1] * scale, kernel), persistent=False)
 
     def step(self, x, state, ctx):
+        _no_space(self, ctx, f"Up(mode={self.mode!r})")
         y = torch.einsum("bhwc,hH->bHwc", x, self.wh.to(x.dtype))
         return torch.einsum("bHwc,wW->bHWc", y, self.ww.to(x.dtype)), state
 
@@ -388,6 +439,7 @@ class Conv(Layer):
         self.k, self.s2d = k, s2d
         self.stride, self.padding = s, pad
         self.in_hw = tuple(in_hw)
+        self.name = name
         self.w = nn.Parameter(torch.empty(out_ch, in_ch, k, k))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -420,21 +472,49 @@ class Conv(Layer):
         return self.w
 
     def step(self, x, state, ctx):
+        space = None if ctx is None else ctx.space
         if self.quantized:
             if ctx is not None and ctx.train:
                 raise TypeError(
                     "int8 conv weights (w_q) cannot be trained: grad "
                     "requires real- or complex-valued inputs, but got int8")
+            _no_space(self, ctx, "an int8 Conv")
             return self._int8_conv(x), state
         if ctx is not None and ctx.calibrate:
             ctx.absmax[self] = x.float().abs().amax()
-        return self._conv(x, self.w.to(x.dtype)), state
+        return self._conv(x, self.w.to(x.dtype), space), state
 
-    def _conv(self, x, w):
+    def _conv(self, x, w, space=None):
+        if space is not None:
+            return self._conv_rows(x, w, space)
         if self.s2d:
             return _conv_nhwc(F.pad(s2d_pack_x(x), (0, 0, 1, 0, 1, 0)),
                               s2d_pack_w(w), 1, 0)
         return _conv_nhwc(x, w, self.stride, self.padding)
+
+    def _conv_rows(self, x, w, space):
+        """This rank's block of output rows: the input rows they read
+        fetched from their owners (zeros above and below the map), then
+        the conv with padding along W only. The s2d plan fetches the raw
+        rows ``[2 o0 - 1, 2 o1)`` and puts the zero row of the packed
+        grid's top padding above them (it meets the packed kernel's
+        zero tap only), so that each packed row holds a row pair."""
+        what = f"{self.name}: its input map {self.in_hw}"
+        out = space.blocks(self.out_hw[0],
+                           f"{self.name}: its output map {self.out_hw}")
+        if self.s2d:
+            rows = fetch_rows(x, self.in_hw[0],
+                              lambda j: (2 * out[j][0] - 1, 2 * out[j][1]),
+                              space, what)
+            rows = F.pad(rows, (0, 0, 0, 0, 1, 0))
+            return _conv_nhwc(F.pad(s2d_pack_x(rows), (0, 0, 1, 0)),
+                              s2d_pack_w(w), 1, 0)
+        s, p, k = self.stride, self.padding, self.k
+        rows = fetch_rows(
+            x, self.in_hw[0],
+            lambda j: (out[j][0] * s - p, (out[j][1] - 1) * s - p + k),
+            space, what)
+        return _conv_nhwc(rows, w, s, (0, p))
 
     def _int8_conv(self, x):
         inv = (1.0 / self.x_scale).to(x.dtype)
@@ -447,45 +527,39 @@ class Conv(Layer):
             y = quantize.int8_conv(q, self.w_q, self.stride, (p, p, p, p))
         return y.to(x.dtype) * (self.x_scale * self.w_scale).to(x.dtype)
 
-    def step_unrounded(self, x):
+    def step_unrounded(self, x, space=None):
         """The conv of x's values and the weight rounded to x's dtype,
         summed and kept in fp32: what jitted JAX's per-step train
         forward hands a Norm that follows in bf16 (XLA keeps the sums in
         fp32 in front of the Norm's fp32 cast; with
         ``--xla_allow_excess_precision=false`` it rounds them, as eager
-        JAX does)."""
-        return self._conv(x.float(), self.w.to(x.dtype).float())
+        JAX does). ``space``: this rank's rows, as :meth:`step`."""
+        return self._conv(x.float(), self.w.to(x.dtype).float(), space)
 
 
-def global_moments(x: torch.Tensor, dims, group):
+def global_moments(x: torch.Tensor, dims, group, n: int):
     """Mean and biased variance of fp32 ``x`` over ``dims`` of the
-    global batch of ``group``'s ranks (keepdim), and the element count
-    per moment (every rank holds as many rows as the others, as the
-    Trainer feeds them): the mean from all-reduced sums, the variance
-    from all-reduced squared deviations from it (two passes, as
-    ``jnp.var``). Each rank's fp32 sums are added in fp64, where the sum
-    of a few fp32 values is exact whatever the order, so the moments do
-    not depend on the order in which the collective adds the ranks' sums
-    (NCCL's ring, tree or in-switch reductions each add in their own): a
-    spiking net turns the last bit of a moment into flipped spikes. The
-    sums travel through ``torch.distributed.nn``'s all-reduce, whose
-    backward all-reduces the gradients: each rank's rows get the gradient
-    of every rank's loss share through the moments. Four collectives a
-    call, two forward and two backward."""
-    import torch.distributed as tdist
-    from torch.distributed.nn.functional import all_reduce
-
-    n = tdist.get_world_size(group)
-    for d in dims:
-        n *= x.shape[d]
+    global batch of ``group``'s ranks (keepdim), where ``n`` is the
+    element count of each moment over every rank (the caller takes it
+    from the global shape: blocks of rows need not be equal): the mean
+    from the ranks' sums, the variance from their sums of squared
+    deviations from it (two passes, as ``jnp.var``). Each rank's fp32
+    sums are added in fp64, in rank order after an all-gather
+    (``distributed.sum_in_rank_order``), so the moments are the same
+    bits on every rank and do not depend on the order a collective adds
+    in: a sum of fp32 values in fp64 is exact only while their exponents
+    lie close, and a spiking net turns the last bit of a moment into
+    flipped spikes. The backward all-reduces the gradients: each rank's
+    rows get the gradient of every rank's loss share through the
+    moments. Four collectives a call, two forward and two backward."""
 
     def summed(t):
-        return all_reduce(t.sum(dim=tuple(dims), keepdim=True).double(),
-                          group=group).float()
+        return dist.sum_in_rank_order(
+            t.sum(dim=tuple(dims), keepdim=True).double(), group).float()
 
     mean = summed(x) / n
     var = summed((x - mean) ** 2) / n
-    return mean, var, n
+    return mean, var
 
 
 class Norm(Layer):
@@ -540,17 +614,32 @@ class Norm(Layer):
         return y.to(dtype or x.dtype)
 
     @staticmethod
-    def _moments(x, dims, group):
-        """Mean and biased variance over ``dims`` of fp32 ``x`` (keepdim)
-        and the count of elements in each: over the global batch of
-        ``group``'s ranks (``ctx.batch_group``), else over this batch."""
+    def _moments(x, dims, group, n):
+        """Mean and biased variance over ``dims`` of fp32 ``x`` (keepdim),
+        ``n`` elements each: over the global batch of ``group``'s ranks
+        (``ctx.batch_group``), else over this batch."""
         if group is not None:
-            return global_moments(x, dims, group)
+            return global_moments(x, dims, group, n)
         var, mean = torch.var_mean(x, dim=dims, correction=0, keepdim=True)
+        return mean, var
+
+    def _count(self, x, dims, ctx):
+        """The group over which a train forward takes its moments, and
+        the element count of each moment over it: the rows of this
+        layer's global map under a space axis (its blocks can differ by
+        a row), times the data blocks of the group."""
+        group, space = ctx.batch_group, ctx.space
+        if group is None and space is not None:
+            group = space.group
         n = 1
         for d in dims:
             n *= x.shape[d]
-        return mean, var, n
+        if space is not None:
+            n = n // x.shape[dims[1]] * self.out_hw[0]
+        if group is not None:
+            n *= dist.world_size(group) // (1 if space is None
+                                            else space.size)
+        return group, n
 
     @staticmethod
     def _unbiased(n, var):
@@ -560,8 +649,8 @@ class Norm(Layer):
         """``dtype``: train mode's output dtype, if not x's."""
         if ctx is not None and ctx.train:
             # batch mean and biased variance over (B, H, W), in fp32
-            mean, var, n = self._moments(x.float(), (0, 1, 2),
-                                         ctx.batch_group)
+            group, n = self._count(x, (0, 1, 2), ctx)
+            mean, var = self._moments(x.float(), (0, 1, 2), group, n)
             return self._normalize(x, mean, var, dtype), self._fold(
                 state, mean.detach().flatten(), self._unbiased(n, var))
         k, b = self.coeffs()
@@ -575,7 +664,8 @@ class Norm(Layer):
         # every step's moments in one batched reduction, as JAX's
         # apply_seq: the same values as the step form's, summed in
         # another order
-        mean, var, n = self._moments(X.float(), (1, 2, 3), ctx.batch_group)
+        group, n = self._count(X, (1, 2, 3), ctx)
+        mean, var = self._moments(X.float(), (1, 2, 3), group, n)
         for t, keep in enumerate(ctx.step_mask(X.shape[0])):
             if keep:
                 state = self._fold(state, mean[t].detach().flatten(),
@@ -658,9 +748,9 @@ class Cell(Layer):
         self.state_dtype = state_dtype
         self.record, self.name = record, name
 
-    def init_state(self, batch, device):
+    def init_state(self, batch, device, space=None):
         init = neurons.lif_init if self.kind == "lif" else neurons.li_init
-        return init((batch, *self.out_hw, self.out_channels),
+        return init(self.local_shape(batch, self.out_channels, space),
                     dtype=self.state_dtype, device=device)
 
     def _step(self, x, state):
@@ -708,9 +798,10 @@ class PLIF(Layer):
             self.raw_tau_syn.copy_(init.raw_tau_syn)
             self.raw_tau_mem.copy_(init.raw_tau_mem)
 
-    def init_state(self, batch, device):
-        return neurons.lif_init((batch, *self.out_hw, self.out_channels),
-                                dtype=self.state_dtype, device=device)
+    def init_state(self, batch, device, space=None):
+        return neurons.lif_init(
+            self.local_shape(batch, self.out_channels, space),
+            dtype=self.state_dtype, device=device)
 
     def factors(self) -> Tuple[torch.Tensor, torch.Tensor]:
         return neurons.plif_factors(
@@ -752,8 +843,8 @@ class PlainCell(Layer):
         self._init, self._step_fn = init, step_fn
         self.record, self.name = record, name
 
-    def init_state(self, batch, device):
-        return self._init((batch, *self.out_hw, self.out_channels),
+    def init_state(self, batch, device, space=None):
+        return self._init(self.local_shape(batch, self.out_channels, space),
                           dtype=self.state_dtype, device=device)
 
     def _step(self, x, state):
@@ -806,12 +897,13 @@ class ConvLSTM(Layer):
     def reset_parameters(self, generator: torch.Generator) -> None:
         _kaiming_(self.w, generator)
 
-    def init_state(self, batch, device):
-        shape = (batch, *self.out_hw, self.hidden)
+    def init_state(self, batch, device, space=None):
+        shape = self.local_shape(batch, self.hidden, space)
         return (torch.zeros(shape, dtype=self.state_dtype, device=device),
                 torch.zeros(shape, dtype=self.state_dtype, device=device))
 
     def step(self, x, state, ctx):
+        _no_space(self, ctx, "LSTM")
         h_prev, c_prev = state
         combined = torch.cat([x, neurons.from_state(h_prev).to(x.dtype)],
                              dim=-1)
@@ -948,6 +1040,8 @@ class Block(Layer):
                                   lname)
                 else:
                     raise TypeError(f"Bad config element: {element!r}")
+                if not layer.name:
+                    layer.name = lname
                 layers.append(layer)
                 ch, hw = layer.out_channels, layer.out_hw
             if mode == "residual" and out_channels and out_channels != ch:
@@ -974,10 +1068,10 @@ class Block(Layer):
     def _branches(self):
         return [getattr(self, f"b{bi}") for bi in range(self.num_branches)]
 
-    def init_state(self, batch, device):
+    def init_state(self, batch, device, space=None):
         return {
             f"b{bi}": {
-                name: layer.init_state(batch, device)
+                name: layer.init_state(batch, device, space)
                 for name, layer in branch.items()
             }
             for bi, branch in enumerate(self._branches())
@@ -985,6 +1079,10 @@ class Block(Layer):
 
     def _run(self, x, state, ctx, seq: bool):
         fuse = seq and ctx.fuse and ctx.start_step == 0 and not ctx.train
+        if fuse and ctx.space is not None:
+            # spiking_conv_seq pads H itself: halo rows would be padded
+            # twice
+            raise not_ported("fused eval under a space axis", SPATIAL_ITEM)
         outs, new_state = [], {}
         for bi, branch in enumerate(self._branches()):
             y, st_b, new_b = x, state[f"b{bi}"], {}
@@ -1014,8 +1112,8 @@ class Block(Layer):
                     # as in jitted JAX (Conv.step_unrounded)
                     new_b[f"l{li}"] = st_b[f"l{li}"]
                     y, new_b[f"l{li + 1}"] = layers[li + 1].step(
-                        layers[li].step_unrounded(y), st_b[f"l{li + 1}"],
-                        ctx, y.dtype)
+                        layers[li].step_unrounded(y, ctx.space),
+                        st_b[f"l{li + 1}"], ctx, y.dtype)
                     li += 2
                     continue
                 if (not seq and not ctx.train and isinstance(layers[li], Norm)

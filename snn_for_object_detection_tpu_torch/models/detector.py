@@ -30,6 +30,16 @@ Light head box/cls tails (no state and no BatchNorm, TinyYolo's bare
 ``_head_tails_light``); tails with a cell or a Norm run at every step
 of every schedule, their state and statistics carried like the rest.
 
+Spatial sharding: each forward takes ``space=`` (a
+``parallel.halo.Space``, the Trainer's ``make_mesh(spatial=k)``), and
+then ``X`` holds this rank's block of rows of H: every layer computes its
+block (``models/compile.py``), the states are the blocks' rows, and the
+head outputs are gathered over the space group into the whole maps
+before the predictions are flattened, so that every rank of a data
+block holds the same predictions (:func:`parallel.halo.gather_rows`,
+whose backward keeps a rank's own rows: :meth:`loss` on them counts the
+gradient once). The fused schedule under a space axis raises.
+
 :meth:`forward_with_records` runs the per-step schedule and returns, for
 every cell built with ``state_storage=True``, its state and output at
 every step (``utils/analysis.py`` reads them). ``s2d_stem=True`` runs the
@@ -56,6 +66,8 @@ from snn_for_object_detection_tpu_torch.ops.cuda_kernels import (
     STATE_DTYPES,
     X_DTYPES,
 )
+from snn_for_object_detection_tpu_torch.parallel.halo import gather_rows
+from snn_for_object_detection_tpu_torch.roadmap import SPATIAL_ITEM, not_ported
 
 Preds = Tuple[torch.Tensor, torch.Tensor]
 
@@ -254,16 +266,17 @@ class SODa(nn.Module):
                     m.mean.zero_()
                     m.var.fill_(1.0)
 
-    def init_state(self, batch_size: int) -> Dict[str, Any]:
-        """Zero recurrent state for a batch, on the model's device."""
+    def init_state(self, batch_size: int, space=None) -> Dict[str, Any]:
+        """Zero recurrent state for a batch, on the model's device (under
+        a ``space`` axis, this rank's rows of each map)."""
         dev = self.device
         state = {
-            "backbone": self.backbone.init_state(batch_size, dev),
-            "neck": self.neck.init_state(batch_size, dev),
+            "backbone": self.backbone.init_state(batch_size, dev, space),
+            "neck": self.neck.init_state(batch_size, dev, space),
         }
         for idx, head in enumerate(self.heads()):
             state[f"head{idx}"] = {
-                part: head[part].init_state(batch_size, dev)
+                part: head[part].init_state(batch_size, dev, space)
                 for part in ("base", "box", "cls")
             }
         return state
@@ -271,11 +284,12 @@ class SODa(nn.Module):
     # ----- per-step pieces -----
 
     def _trunk(self, x: torch.Tensor, state, train: bool = False,
-               ctx: Optional[C.Ctx] = None,
-               group=None) -> Tuple[tuple, Dict]:
+               ctx: Optional[C.Ctx] = None, group=None,
+               space=None) -> Tuple[tuple, Dict]:
         """Backbone + neck + head stems for one frame; the box/cls tails
         are left to :meth:`_tails`."""
-        ctx = C.Ctx(train=train, batch_group=group) if ctx is None else ctx
+        if ctx is None:
+            ctx = C.Ctx(train=train, batch_group=group, space=space)
         y, backbone = self.backbone.step(
             x.to(self.compute_dtype), state["backbone"], ctx
         )
@@ -300,28 +314,29 @@ class SODa(nn.Module):
         return tuple(base_outs), new_state
 
     def _step_out(self, x: torch.Tensor, state, train: bool = False,
-                  group=None) -> Tuple[tuple, Dict]:
+                  group=None, space=None) -> Tuple[tuple, Dict]:
         """One frame of the per-step schedule: the stem activations when
         the tails are light (they run after the last step), else the
         predictions, with the tails' state; and the new state."""
-        base_outs, state = self._trunk(x, state, train, group=group)
+        base_outs, state = self._trunk(x, state, train, group=group,
+                                       space=space)
         if self.head_tails_light:
             return base_outs, state
         return self._tails(base_outs, state,
-                           C.Ctx(train=train, batch_group=group))
+                           C.Ctx(train=train, batch_group=group, space=space))
 
     def _neck_heads_out(self, y: torch.Tensor, state, train: bool = False,
-                        group=None) -> Tuple[tuple, Dict]:
+                        group=None, space=None) -> Tuple[tuple, Dict]:
         """:meth:`_step_out` for the neck and heads of
         :meth:`forward_hybrid` on one backbone output."""
-        ctx = C.Ctx(train=train, batch_group=group)
+        ctx = C.Ctx(train=train, batch_group=group, space=space)
         base_outs, state = self._neck_heads(y, state, ctx)
         if self.head_tails_light:
             return base_outs, state
         return self._tails(base_outs, state,
-                           C.Ctx(train=train, batch_group=group))
+                           C.Ctx(train=train, batch_group=group, space=space))
 
-    def _zero_out(self, batch: int, device) -> tuple:
+    def _zero_out(self, batch: int, device, space=None) -> tuple:
         """What a per-step forward that runs no step reads out: zero stem
         activations for light tails, else zero predictions."""
         if not self.head_tails_light:
@@ -329,21 +344,28 @@ class SODa(nn.Module):
                                  self.num_classes + 1), device=device),
                     torch.zeros((batch, self.num_anchors, 4), device=device))
         return tuple(
-            torch.zeros((batch, *h["base"].out_hw, h["base"].out_channels),
+            torch.zeros(h["base"].local_shape(batch, h["base"].out_channels,
+                                              space),
                         dtype=self.compute_dtype, device=device)
             for h in self.heads()
         )
 
-    def _readout(self, out, state) -> Preds:
+    def _readout(self, out, state, space=None) -> Preds:
         """The predictions of what a per-step forward carried out of its
         last step (:meth:`_step_out`)."""
         if self.head_tails_light:
-            return self._tails(out, state, C.Ctx())[0]
+            return self._tails(out, state, C.Ctx(space=space))[0]
         return out
 
-    def _flatten_preds(self, box_outs, cls_outs) -> Preds:
+    def _flatten_preds(self, box_outs, cls_outs, space=None) -> Preds:
         """Tail outputs flattened in (h, w, anchor) order and
-        concatenated across scales, fp32."""
+        concatenated across scales, fp32. Under a ``space`` axis each
+        rank's rows are gathered into the whole maps first."""
+        if space is not None:
+            box_outs = [gather_rows(o, h["box"].out_hw[0], space)
+                        for o, h in zip(box_outs, self.heads())]
+            cls_outs = [gather_rows(o, h["cls"].out_hw[0], space)
+                        for o, h in zip(cls_outs, self.heads())]
         b = box_outs[0].shape[0]
         return (torch.cat([c.reshape(b, -1, self.num_classes + 1).float()
                            for c in cls_outs], dim=1),
@@ -363,7 +385,7 @@ class SODa(nn.Module):
             state[f"head{idx}"] = hst
             box_outs.append(box_out)
             cls_outs.append(cls_out)
-        return self._flatten_preds(box_outs, cls_outs), state
+        return self._flatten_preds(box_outs, cls_outs, ctx.space), state
 
     # ----- forwards -----
 
@@ -429,7 +451,7 @@ class SODa(nn.Module):
 
     def forward(self, X: torch.Tensor, start_step: int = 0,
                 state=None, train: bool = False,
-                group=None) -> Tuple[Preds, Dict]:
+                group=None, space=None) -> Tuple[Preds, Dict]:
         """Per-step schedule over ``X [T, B, H, W, C]``: last-step
         predictions and the final state. Steps ``t < start_step`` are
         skipped (state and BatchNorm statistics frozen), as JAX's
@@ -438,27 +460,30 @@ class SODa(nn.Module):
         on; without it the call runs under ``no_grad``. ``group``: in
         training, the process group whose ranks' rows of ``X`` form the
         global batch (``C.Ctx.batch_group``): BatchNorm on its moments.
-        The same in :meth:`forward_seq` and :meth:`forward_hybrid`."""
+        ``space``: ``X`` holds this rank's rows of H along a space axis
+        (``C.Ctx.space``; the predictions are the whole maps'). The same
+        in :meth:`forward_seq` and :meth:`forward_hybrid`."""
         T, B = X.shape[0], X.shape[1]
         if state is None:
-            state = self.init_state(B)
+            state = self.init_state(B, space)
         with contextlib.nullcontext() if train else torch.no_grad():
-            out = self._zero_out(B, X.device)
+            out = self._zero_out(B, X.device, space)
             for t in range(max(int(start_step), 0), T):
                 if train and self.remat:
                     out, state = checkpoint(
-                        self._step_out, X[t], state, True, group,
+                        self._step_out, X[t], state, True, group, space,
                         use_reentrant=False)
                 else:
-                    out, state = self._step_out(X[t], state, train, group)
-            preds = self._readout(out, state)
+                    out, state = self._step_out(X[t], state, train, group,
+                                                space)
+            preds = self._readout(out, state, space)
         if train:
             state = self.commit_stats(state)
         return preds, state
 
     def forward_seq(self, X: torch.Tensor, start_step: int = 0,
                     state=None, fuse=None, train: bool = False,
-                    group=None) -> Tuple[Preds, Dict]:
+                    group=None, space=None) -> Tuple[Preds, Dict]:
         """Time-batched schedule, same results as :meth:`forward`.
 
         :param fuse: run the fused triples (``spiking_conv_seq``).
@@ -466,7 +491,10 @@ class SODa(nn.Module):
             training, as the JAX package fuses only for the Python int
             start 0 in eval. The fused kernel has no truncation gate and
             no backward, so ``fuse=True`` with another start or with
-            ``train`` raises.
+            ``train`` raises; so does the fused schedule under a
+            ``space`` axis (the kernel pads H itself, so halo rows would
+            be padded twice, and in bf16 the unfused schedule is another
+            function: no silent switch).
         :param train: BatchNorm on per-step batch statistics, the
             running statistics folded once per step ``t >= start_step``;
             conv -> norm -> cell segments checkpointed when ``remat``;
@@ -480,11 +508,14 @@ class SODa(nn.Module):
                              "and no backward: fuse=True needs start_step "
                              f"0 and eval, not start {start_step}, "
                              f"train={train}")
+        if fuse and space is not None:
+            raise not_ported("fused eval under a space axis", SPATIAL_ITEM)
         B = X.shape[1]
         if state is None:
-            state = self.init_state(B)
+            state = self.init_state(B, space)
         ctx = C.Ctx(start_step=start_step, fuse=fuse, train=train,
-                    remat=train and self.remat, batch_group=group)
+                    remat=train and self.remat, batch_group=group,
+                    space=space)
         with contextlib.nullcontext() if train else torch.no_grad():
             new_state = {}
             y, new_state["backbone"] = self.backbone.seq(
@@ -509,16 +540,16 @@ class SODa(nn.Module):
                     cls_outs.append(cls_seq[-1])
                 new_state[f"head{idx}"] = hst
             if self.head_tails_light:
-                preds = self._readout(tuple(base_outs), new_state)
+                preds = self._readout(tuple(base_outs), new_state, space)
             else:
-                preds = self._flatten_preds(box_outs, cls_outs)
+                preds = self._flatten_preds(box_outs, cls_outs, space)
         if train:
             new_state = self.commit_stats(new_state)
         return preds, new_state
 
     def forward_hybrid(self, X: torch.Tensor, start_step: int = 0,
                        state=None, train: bool = False,
-                       group=None) -> Tuple[Preds, Dict]:
+                       group=None, space=None) -> Tuple[Preds, Dict]:
         """Mixed schedule, same results as :meth:`forward`: the backbone
         runs time-batched over the whole sequence, as in
         :meth:`forward_seq` but never fused (its cells commit state, and
@@ -532,26 +563,26 @@ class SODa(nn.Module):
         start_step = int(start_step)
         T, B = X.shape[0], X.shape[1]
         if state is None:
-            state = self.init_state(B)
+            state = self.init_state(B, space)
         remat = train and self.remat
         ctx = C.Ctx(start_step=start_step, train=train, remat=remat,
-                    batch_group=group)
+                    batch_group=group, space=space)
         with contextlib.nullcontext() if train else torch.no_grad():
             y_seq, backbone = self.backbone.seq(
                 X.to(self.compute_dtype), state["backbone"], ctx
             )
             rest = {k: v for k, v in state.items() if k != "backbone"}
-            out = self._zero_out(B, X.device)
+            out = self._zero_out(B, X.device, space)
             for t in range(max(start_step, 0), T):
                 if remat:
                     out, rest = checkpoint(
                         self._neck_heads_out, y_seq[t], rest, True, group,
-                        use_reentrant=False)
+                        space, use_reentrant=False)
                 else:
                     out, rest = self._neck_heads_out(y_seq[t], rest, train,
-                                                     group)
+                                                     group, space)
             new_state = {"backbone": backbone, **rest}
-            preds = self._readout(out, new_state)
+            preds = self._readout(out, new_state, space)
         if train:
             new_state = self.commit_stats(new_state)
         return preds, new_state
@@ -584,7 +615,9 @@ class SODa(nn.Module):
         global batch. The counts and the element count are then the
         global batch's (all-reduced, no gradient) and the result is this
         rank's share of the global batch's loss: the ranks' shares sum
-        to it, as do their gradients.
+        to it, as do their gradients. On a ``(data, space)`` grid it is
+        the ``data`` group: the ranks of a data block hold the same
+        gathered predictions and labels, and count them once.
 
         :param labels: [B, N, 5] (class, x1, y1, x2, y2), -1-padded.
         """

@@ -1,6 +1,13 @@
-"""Mesh construction, sharding helpers and multi-process wiring."""
+"""Mesh construction, sharding helpers, halo exchanges and multi-process
+wiring."""
 
-from snn_for_object_detection_tpu_torch.parallel import distributed
+from snn_for_object_detection_tpu_torch.parallel import distributed, halo
+from snn_for_object_detection_tpu_torch.parallel.halo import (
+    Space,
+    fetch_rows,
+    gather_rows,
+    row_blocks,
+)
 from snn_for_object_detection_tpu_torch.parallel.mesh import (
     Mesh,
     batch_sharding,
@@ -14,12 +21,17 @@ from snn_for_object_detection_tpu_torch.parallel.mesh import (
 
 __all__ = [
     "Mesh",
+    "Space",
     "batch_sharding",
     "data_extent",
     "distributed",
     "feature_sharding",
+    "fetch_rows",
+    "gather_rows",
+    "halo",
     "make_mesh",
     "prefetch_to_device",
     "replicated",
+    "row_blocks",
     "shard_batch",
 ]

@@ -170,6 +170,35 @@ def broadcast_(tensors: Sequence[torch.Tensor], group=None) -> None:
             tdist.broadcast(t, src=src, group=group)
 
 
+class _SumInRankOrder(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        send = t.detach().contiguous()
+        parts = [torch.empty_like(send) for _ in range(world_size(group))]
+        tdist.all_gather(parts, send, group=group)
+        out = parts[0].clone()
+        for p in parts[1:]:
+            out += p
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        # every rank's sum reads every rank's t once
+        g = grad.contiguous().clone()
+        tdist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def sum_in_rank_order(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum over ``group``'s ranks of ``t``, added in rank order in
+    ``t``'s dtype after an all-gather, so that every rank gets the same
+    bits whatever order a collective would add in (NCCL's ring, tree
+    or in-switch reductions each add in their own). Differentiable: the
+    backward all-reduces the gradient."""
+    return _SumInRankOrder.apply(t, group)
+
+
 def all_reduce_sum(tensors: Sequence[torch.Tensor], group=None
                    ) -> List[torch.Tensor]:
     """The sum over ranks of each tensor, one collective per dtype (the

@@ -1,9 +1,10 @@
-"""Device mesh for data-parallel training and mesh serving.
+"""Device mesh for data-parallel and spatially sharded training, and
+mesh serving.
 
 Counterpart of ``snn_for_object_detection_tpu/parallel/mesh.py``. The
 JAX package's mesh is every device of every host under one program, and
 GSPMD inserts the collectives. Here a :class:`Mesh` is this process's
-devices and the process group its ranks form along the ``data`` axis:
+devices and the process groups its ranks form:
 
 - training holds one device a rank (``make_mesh()``: the device
   ``distributed.initialize`` set, over the default group); each rank's
@@ -11,12 +12,19 @@ devices and the process group its ranks form along the ``data`` axis:
   concatenated in rank order; the Trainer all-reduces the gradients and
   hands the group to the model, whose BatchNorm moments and loss counts
   it makes global;
+- ``make_mesh(spatial=k)`` lays the ranks out as a ``(data, space)``
+  grid: rank ``r`` at data index ``r // k`` and space index ``r % k``
+  (JAX's ``devs.reshape(-1, spatial)``, the ``space`` ranks adjacent).
+  The ``k`` ranks of a data block load the same batch and each holds a
+  block of the rows of every map (``parallel/halo.py``: the split, the
+  halo rows a 3x3 conv reads, the heads gathered before the loss);
+  BatchNorm's moments span the whole grid and the gradients are summed
+  over it;
 - serving holds several devices in one process (``make_mesh(devices=
   ["cuda:0", "cuda:1"])``, or ``["cpu"] * 4`` on the CPU): the engine
   keeps a replica of the model on each, and the slot rows split into
-  contiguous blocks (:func:`batch_sharding`); no collectives.
-
-Spatial sharding (the ``space`` axis, halo exchanges) is not ported.
+  contiguous blocks (:func:`batch_sharding`); no collectives and no
+  ``space`` axis.
 """
 
 from __future__ import annotations
@@ -30,22 +38,36 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 
-from snn_for_object_detection_tpu_torch.models.compile import not_ported
 from snn_for_object_detection_tpu_torch.parallel import distributed as dist
+from snn_for_object_detection_tpu_torch.parallel.halo import Space
+from snn_for_object_detection_tpu_torch.roadmap import SPATIAL_ITEM, not_ported
 
 DATA_AXIS = "data"
-SPATIAL_ITEM = "spatial sharding"
+SPACE_AXIS = "space"
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This process's ``devices`` along the ``data`` axis, and the
-    process ``group`` whose ranks hold the rest of it (``None``: this
-    process alone)."""
+    """This process's ``devices`` and the process ``group`` whose ranks
+    hold the rest of the mesh (``None``: this process alone).
+
+    On a ``(data, space)`` grid (``space > 1``, one device a rank):
+    ``space_group`` holds the ``space`` ranks of this rank's data block,
+    ``space_rank`` is this rank's index among them, and ``data_group``
+    holds the ranks of its space index across the data blocks. Without
+    a space axis ``data_group`` is ``group``."""
 
     devices: Tuple[torch.device, ...]
     group: Any = None
     axis: str = DATA_AXIS
+    space: int = 1
+    space_group: Any = None
+    data_group: Any = None
+    space_rank: int = 0
+
+    def __post_init__(self):
+        if self.space == 1 and self.data_group is None:
+            object.__setattr__(self, "data_group", self.group)
 
     @property
     def ranks(self) -> int:
@@ -61,7 +83,21 @@ class Mesh:
 
     @property
     def shape(self):
-        return {self.axis: self.size}
+        if self.space == 1:
+            return {self.axis: self.size}
+        return {self.axis: self.size // self.space, SPACE_AXIS: self.space}
+
+    @property
+    def data_index(self) -> int:
+        """This rank's block of the global batch."""
+        return self.rank // self.space
+
+    @property
+    def space_ctx(self) -> Optional[Space]:
+        """The ``space`` axis as the model takes it (``None``: no axis)."""
+        if self.space == 1:
+            return None
+        return Space(self.space_group, self.space, self.space_rank)
 
     @property
     def device(self) -> torch.device:
@@ -73,19 +109,42 @@ class Mesh:
         return self.devices[0]
 
 
+def _grid(dev: torch.device, axis: str, spatial: int) -> Mesh:
+    """The ``(data, space)`` grid over every rank. Every rank creates
+    every group, in the same order (``new_group`` is collective)."""
+    world, rank = dist.world_size(), dist.rank()
+    if world % spatial:
+        raise ValueError(
+            f"{world} ranks not divisible by spatial={spatial}")
+    blocks = world // spatial
+    space_groups = [tdist.new_group(list(range(d * spatial,
+                                               (d + 1) * spatial)))
+                    for d in range(blocks)]
+    data_groups = [tdist.new_group(list(range(j, world, spatial)))
+                   for j in range(spatial)]
+    return Mesh((dev,), tdist.group.WORLD, axis, spatial,
+                space_groups[rank // spatial], data_groups[rank % spatial],
+                rank % spatial)
+
+
 def make_mesh(devices: Optional[Sequence] = None, axis: str = DATA_AXIS,
               spatial: int = 1) -> Mesh:
-    """The data-parallel mesh.
+    """The training or serving mesh.
 
     ``devices=None``: this rank's device over every rank
     (``distributed.initialize()`` first, which joins a group of one
-    process when nothing says otherwise). A list of devices: those, in
-    this process (serving; several ranks take one each). ``spatial > 1``
-    is not ported."""
-    if spatial > 1:
-        raise not_ported(f"make_mesh(spatial={spatial})", SPATIAL_ITEM)
+    process when nothing says otherwise). ``spatial=k``: those ranks as
+    a ``(data, space)`` grid with ``k`` ranks along ``space`` (the world
+    size must divide by ``k``). A list of devices: those, in this
+    process (serving; several ranks take one each, and then ``spatial``
+    builds the grid as above). A serving mesh of several devices has no
+    ``space`` axis: ``spatial > 1`` raises there."""
+    if spatial < 1:
+        raise ValueError(f"spatial must be at least 1, got {spatial}")
     if devices is None:
         dev = dist.initialize()
+        if spatial > 1:
+            return _grid(dev, axis, spatial)
         return Mesh((dev,), tdist.group.WORLD, axis)
     devs = tuple(torch.device(d) for d in devices)
     if not devs:
@@ -95,7 +154,13 @@ def make_mesh(devices: Optional[Sequence] = None, axis: str = DATA_AXIS,
             raise ValueError(
                 f"under {dist.world_size()} ranks a mesh holds one device "
                 f"a rank, got {len(devs)}")
+        if spatial > 1:
+            return _grid(devs[0], axis, spatial)
         return Mesh(devs, tdist.group.WORLD, axis)
+    if spatial > 1:
+        raise not_ported(f"make_mesh({len(devs)} devices in one process, "
+                         f"spatial={spatial}): a serving mesh",
+                         SPATIAL_ITEM)
     return Mesh(devs, None, axis)
 
 
@@ -112,7 +177,7 @@ def same_device(a, b) -> bool:
 
 def data_extent(mesh: Mesh) -> int:
     """Devices along the batch (``data``) axis of ``mesh``."""
-    return mesh.size
+    return mesh.size // mesh.space
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,6 +194,9 @@ class Sharding:
         device."""
         if self.dim is None:
             return [slice(0, size)] * len(self.mesh.devices)
+        if self.mesh.space > 1:
+            raise ValueError("a grid's batch blocks are its data blocks: "
+                             "each rank's batch is its data block's")
         n = self.mesh.size
         if size % n:
             raise ValueError(f"{size} rows must divide by the mesh size {n}")
@@ -150,8 +218,9 @@ def batch_sharding(mesh: Mesh, batch_axis_index: int) -> Sharding:
 
 def feature_sharding(mesh: Mesh, batch_axis_index: int = 1,
                      height_axis_index: int = 2) -> Sharding:
-    """Feature maps ``[T, B, H, W, C]``: B along ``data``. (H along a
-    ``space`` axis is the spatial sharding, not ported.)"""
+    """Feature maps ``[T, B, H, W, C]``: B along ``data``. On a
+    ``(data, space)`` grid H is also split along ``space``: a rank keeps
+    its block ``mesh.space_ctx.block(H)`` (:func:`shard_batch`)."""
     del height_axis_index
     return Sharding(mesh, batch_axis_index)
 
@@ -168,12 +237,19 @@ def _to_device(x, dev: torch.device, dtype=None) -> torch.Tensor:
 def shard_batch(mesh: Mesh, features: Any, labels: Any):
     """This rank's batch on its device: ``features`` [T, B_local, H, W,
     C] as they come (uint8 frames stay uint8), ``labels`` [B_local, N,
-    5] as fp32. A rank's batch is its block of the global batch, the
-    ranks' batches concatenated in rank order (DDP's semantics, as
-    ``jax.make_array_from_process_local_data`` in the JAX package). On
-    the card the copies go up from pinned memory without blocking the
-    host; they are ordered on the current stream."""
+    5] as fp32. A rank's batch is its data block of the global batch,
+    the blocks concatenated in data-index order (DDP's semantics, as
+    ``jax.make_array_from_process_local_data`` in the JAX package); on a
+    ``(data, space)`` grid the ranks of a block load the same batch and
+    each keeps its block of the rows of H, the labels whole.
+    On the card the copies go up from pinned memory without blocking
+    the host; they are ordered on the current stream."""
     dev = mesh.device
+    space = mesh.space_ctx
+    if space is not None:
+        features = np.asarray(features)
+        lo, hi = space.block(features.shape[2], "the input frames")
+        features = np.ascontiguousarray(features[:, :, lo:hi])
     return (_to_device(features, dev),
             _to_device(labels, dev, torch.float32))
 

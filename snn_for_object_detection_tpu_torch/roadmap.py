@@ -1,0 +1,17 @@
+"""What the port does not run yet, by the ROADMAP.md item it waits on.
+
+A leaf, mode or option that is not ported raises :func:`not_ported`
+naming its item of ROADMAP.md's Queue 1. The items' labels live here,
+in a module that imports nothing of the package, so that the models,
+``parallel/`` and ``train/`` name one label each without importing one
+another.
+"""
+
+SPATIAL_ITEM = "spatial sharding"
+OTHER_FACTORIES = "other optax factories"
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md, Queue 1: {item})"
+    )

@@ -57,6 +57,16 @@ same truncation starts from the same seed. Evaluation scores each
 rank's rows and folds the mAP accumulators across ranks; only rank 0
 logs and writes checkpoints. Batches reach the device through
 ``prefetch_to_device`` (``prefetch_batches`` ahead, 2 by default).
+
+Spatial sharding (``mesh=make_mesh(spatial=k)``): the ranks form a
+``(data, space)`` grid; the ``k`` ranks of a data block load the same
+batch (the data module's shard is the data index's) and each keeps its
+rows of H. The forward takes the grid's ``space`` axis (``space=``) and
+the whole grid as BatchNorm's group; the loss counts over the ``data``
+group, since the ranks of a block hold the same gathered predictions;
+the gradients are summed over the grid and the loss over the data
+blocks, once each. Evaluation folds the mAP accumulators over the
+``data`` group, so each image counts once.
 """
 
 from __future__ import annotations
@@ -75,15 +85,15 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from snn_for_object_detection_tpu_torch.models.compile import not_ported
 from snn_for_object_detection_tpu_torch.parallel import distributed as dist
 from snn_for_object_detection_tpu_torch.parallel.mesh import (
-    SPATIAL_ITEM,
+    data_extent,
     make_mesh,
     prefetch_to_device,
     same_device,
     shard_batch,
 )
+from snn_for_object_detection_tpu_torch.roadmap import SPATIAL_ITEM, not_ported
 from snn_for_object_detection_tpu_torch.train import optax_rules
 from snn_for_object_detection_tpu_torch.train.checkpoint import (
     CheckpointManager,
@@ -423,9 +433,10 @@ class Trainer:
     :param ema_decay: Keep an average of the weights, blended on every
         real update; validation and checkpoints use it.
     :param mesh: A data-parallel mesh (``parallel.make_mesh()``: this
-        rank's device over every rank). Default: the model's device
-        alone, or ``make_mesh()`` when ``torch.distributed`` runs
-        several ranks.
+        rank's device over every rank) or a ``(data, space)`` grid
+        (``make_mesh(spatial=k)``). Default: the model's device alone,
+        or ``make_mesh()`` when ``torch.distributed`` runs several
+        ranks.
     :param prefetch_batches: Batches ``fit`` keeps on their way to the
         device ahead of the train step (``prefetch_to_device``, a
         thread; 0 places each batch when it is needed).
@@ -448,8 +459,9 @@ class Trainer:
         writes nothing, as the JAX trainer's (whose trace is written
         when it stops).
 
-    ``spatial_devices`` > 1 and ``request_mesh_reshape`` (spatial
-    sharding) raise ``NotImplementedError`` naming their ROADMAP item.
+    ``spatial_devices`` > 1 (the trainer sizing a grid from the batch),
+    ``request_mesh_reshape`` and ``time_batched="auto"`` on a grid raise
+    ``NotImplementedError`` naming their ROADMAP item.
     """
 
     def __init__(
@@ -568,22 +580,38 @@ class Trainer:
 
     @property
     def _peers(self):
-        """The data axis's group when it spans several ranks, else
-        ``None``."""
+        """The mesh's group (every rank of a grid) when it spans several
+        ranks, else ``None``."""
         group = self._group
         return group if group is not None and \
             dist.world_size(group) > 1 else None
 
-    @staticmethod
-    def _sync_data_sharding(data) -> None:
+    @property
+    def _space(self):
+        """The grid's ``space`` axis (``halo.Space``), or ``None``."""
+        return None if self._mesh is None else self._mesh.space_ctx
+
+    @property
+    def _data_peers(self):
+        """The ``data`` group when it spans several ranks, else
+        ``None``: the ranks whose predictions are distinct rows of the
+        global batch (on a grid, one rank of each data block)."""
+        group = None if self._mesh is None else self._mesh.data_group
+        return group if group is not None and \
+            dist.world_size(group) > 1 else None
+
+    def _sync_data_sharding(self, data) -> None:
         """Point the data module at this rank's shard of the dataset
-        (``host_id`` / ``num_hosts`` from the rank and the world size,
-        unless they were set)."""
+        (``host_id`` / ``num_hosts`` from the data index and extent: on
+        a grid the space ranks of a block load the same batch; else the
+        rank and the world size), unless they were set."""
         if not dist.is_distributed():
             return
         if getattr(data, "num_hosts", 1) == 1:
-            data.host_id = dist.rank()
-            data.num_hosts = dist.world_size()
+            mesh = self._mesh
+            data.host_id = dist.rank() if mesh is None else mesh.data_index
+            data.num_hosts = (dist.world_size() if mesh is None
+                              else data_extent(mesh))
 
     @staticmethod
     def draw_start(model, generator: torch.Generator) -> int:
@@ -606,6 +634,11 @@ class Trainer:
         (the winner can differ), and kept for the life of the trainer."""
         if self.time_batched != "auto":
             return self.time_batched
+        if self._space is not None:
+            # the probe runs each schedule outside the collectives, which
+            # a rank's rows cannot: they read their neighbours' halos
+            raise not_ported("time_batched='auto' on a (data, space) grid",
+                             SPATIAL_ITEM)
         mode = "train" if train else "eval"
         if mode not in self._auto_schedule:
             self._auto_schedule[mode] = self._measure_schedules(
@@ -613,11 +646,13 @@ class Trainer:
         return self._auto_schedule[mode]
 
     @staticmethod
-    def _eval_preds(model, schedule, X: torch.Tensor, start_step: int):
+    def _eval_preds(model, schedule, X: torch.Tensor, start_step: int,
+                    space=None):
         fwd = model.forward_fn(schedule)
         if fwd == model.forward_seq and model.time_window:
-            return fwd(X, start_step=start_step, fuse=False)[0]
-        return fwd(X, start_step=start_step)[0]
+            return fwd(X, start_step=start_step, fuse=False,
+                       space=space)[0]
+        return fwd(X, start_step=start_step, space=space)[0]
 
     def _measure_schedules(self, model, X: torch.Tensor,
                            labels: torch.Tensor, train: bool):
@@ -752,25 +787,31 @@ class Trainer:
         loss, gradients and the optimizer chain. Returns the loss
         (detached, on the model's device). Needs :meth:`configure`.
 
-        On a mesh, ``X`` and ``labels`` are this rank's rows: the loss
-        returned is the global batch's, and the gradients the optimizer
-        sees are the global batch's, the same on every rank."""
+        On a mesh, ``X`` and ``labels`` are this rank's rows (on a grid,
+        its data block's labels and its rows of H): the loss returned is
+        the global batch's, and the gradients the optimizer sees are the
+        global batch's, the same on every rank."""
         if self.opt is None:
             raise RuntimeError("call configure(model) before train_step")
         schedule = self._schedule_for(model, X, labels, train=True)
-        group, peers = self._group, self._peers
+        group, peers, space = self._group, self._peers, self._space
         preds, _ = model.forward_fn(schedule)(X, start_step=start_step,
-                                              train=True, group=peers)
-        loss = model.loss(preds, labels, group=peers)
+                                              train=True, group=peers,
+                                              space=space)
+        loss = model.loss(preds, labels, group=self._data_peers)
         grads = list(torch.autograd.grad(loss, self.opt.params,
                                          allow_unused=True))
         if group is not None:
             # the ranks' shares of the loss and their gradients, summed
-            # (a parameter no path reaches has a zero gradient)
+            # (a parameter no path reaches has a zero gradient); the
+            # space ranks of a data block hold the same share, which
+            # counts once
             grads = [torch.zeros_like(p) if g is None else g
                      for p, g in zip(self.opt.params, grads)]
-            *grads, loss = dist.all_reduce_sum(
-                [*grads, loss.detach().reshape(1)], group)
+            share = loss.detach().reshape(1)
+            if space is not None and space.index:
+                share = torch.zeros_like(share)
+            *grads, loss = dist.all_reduce_sum([*grads, share], group)
             loss = loss[0]
         if self.opt.step(grads) and self.ema is not None:
             d = self.ema_decay
@@ -850,11 +891,11 @@ class Trainer:
         counters. ``ckpt_path="auto"`` resumes from this run's ``last``
         checkpoint if there is one.
 
-        Under several ranks every rank calls it; each reads its own shard
-        of ``data`` (``host_id`` / ``num_hosts`` from the rank) and the
-        ranks leave together."""
-        self._sync_data_sharding(data)
+        Under several ranks every rank calls it; each reads its data
+        block's shard of ``data`` (``host_id`` / ``num_hosts`` from the
+        data index and extent) and the ranks leave together."""
         mesh = self.mesh_for(model.device)
+        self._sync_data_sharding(data)
         logger = MetricsLogger(self.out_dir, self.loggers)
         ckpt = CheckpointManager(
             os.path.join(self.out_dir, "checkpoints"),
@@ -956,15 +997,18 @@ class Trainer:
                   start_step: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Forward from ``start_step``, loss and detections: ``(loss,
         dets [B, 300, 6])``, both on the model's device. On a mesh, ``X``
-        is this rank's rows and the loss is the global batch's."""
+        is this rank's rows and the loss is the global batch's; on a
+        grid the detections are the data block's, the same on each of
+        its space ranks."""
         schedule = self._schedule_for(model, X, labels, train=False)
-        group = self._group
+        group = None if self._mesh is None else self._mesh.data_group
         with torch.inference_mode():
-            preds = self._eval_preds(model, schedule, X, start_step)
+            preds = self._eval_preds(model, schedule, X, start_step,
+                                     self._space)
             if group is None:
                 loss = model.loss(preds, labels)
             else:
-                loss = model.loss(preds, labels, group=self._peers)
+                loss = model.loss(preds, labels, group=self._data_peers)
                 loss = dist.all_reduce_sum([loss.reshape(1)], group)[0][0]
             dets = model.detect(preds)
             if self._check_nans:
@@ -975,9 +1019,10 @@ class Trainer:
     def _run_eval(self, model, batches: Iterable, limit: int,
                   prefix: str) -> Dict[str, float]:
         """Each rank scores its rows; the ranks' mAP accumulators are
-        folded (``allgather_pickle``), so every rank computes the same
-        metrics (and early stopping decides alike). The losses are the
-        global batches' already."""
+        folded over the ``data`` group (``allgather_pickle``), so every
+        rank computes the same metrics (and early stopping decides
+        alike) and each image counts once. The losses are the global
+        batches' already."""
         mesh = self.mesh_for(model.device)
         generator = torch.Generator().manual_seed(self.seed)
         map_metric = MeanAveragePrecision()
@@ -995,8 +1040,8 @@ class Trainer:
         finally:
             # islice alone would leave a loader's threads running
             _close(batches)
-        if self._peers is not None:
-            gathered = dist.allgather_pickle(map_metric, self._peers)
+        if self._data_peers is not None:
+            gathered = dist.allgather_pickle(map_metric, self._data_peers)
             map_metric = gathered[0]
             for other in gathered[1:]:
                 map_metric.merge(other)
@@ -1021,7 +1066,7 @@ class Trainer:
         last frame is drawn again with the ground truth. MT labels
         ``(frame_idx, class, x1..y2)`` lose their frame index first.
         Under several ranks each rank runs its own shard's sample 0 and
-        rank 0 renders every rank's, named ``<batch>_<rank>``.
+        rank 0 renders every data block's, named ``<batch>_<block>``.
 
         :param limit: Batches to render; default ``limit_predict_batches``;
             ``limit <= 0`` renders every batch the loader yields.
@@ -1030,7 +1075,7 @@ class Trainer:
             limit = self.limit_predict_batches
         plotter.labels = data.get_labels()
         self.mesh_for(model.device)
-        group = self._peers
+        group = self._data_peers
         batches = data.predict_loader()
         try:
             for batch_idx, (X, labels) in enumerate(itertools.islice(

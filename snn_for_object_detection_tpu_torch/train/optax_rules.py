@@ -35,9 +35,10 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from snn_for_object_detection_tpu_torch.models.compile import not_ported
-
-OTHER_FACTORIES = "other optax factories"
+from snn_for_object_detection_tpu_torch.roadmap import (
+    OTHER_FACTORIES,
+    not_ported,
+)
 
 _ADAM = {"b1": 0.9, "b2": 0.999, "eps": 1e-8, "eps_root": 0.0,
          "nesterov": False}

@@ -16,6 +16,7 @@ import os
 import pickle
 import subprocess
 import sys
+import types
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT_S = 600
@@ -95,7 +96,8 @@ def micro_soda():
     return MicroSODa
 
 
-def port_model(params, stats, in_hw, time_window, state_dtype="float32"):
+def port_model(params, stats, in_hw, time_window, state_dtype="float32",
+               s2d_stem=False):
     import torch
 
     from snn_for_object_detection_tpu_torch.models.convert import (
@@ -104,7 +106,7 @@ def port_model(params, stats, in_hw, time_window, state_dtype="float32"):
 
     model = micro_soda()(num_classes=2, in_hw=in_hw, time_window=time_window,
                          state_dtype=getattr(torch, state_dtype),
-                         device="cpu")
+                         s2d_stem=s2d_stem, device="cpu")
     load_jax_params(model, params, stats)
     return model
 
@@ -209,6 +211,256 @@ def case_eval(params, stats, in_hw, time_window, batches, schedule):
     trainer.eval_step = record
     metrics = trainer.test(model, iter(local))
     return {"metrics": metrics, "dets": dets}
+
+
+def _grid_rows(mesh, X, labels):
+    """This rank's block of a global batch on a ``(data, space)`` grid:
+    its data block's rows of B (frames and labels) and its space
+    block's rows of H (frames)."""
+    import torch
+
+    from snn_for_object_detection_tpu_torch.parallel import data_extent
+
+    n, d = data_extent(mesh), mesh.data_index
+    per = X.shape[1] // n
+    X = torch.from_numpy(X[:, d * per:(d + 1) * per])
+    lo, hi = mesh.space_ctx.block(X.shape[2])
+    return (X[:, :, lo:hi].contiguous(),
+            torch.from_numpy(labels[d * per:(d + 1) * per]))
+
+
+def case_spatial_train(params, stats, in_hw, spatial, schedules, X, labels,
+                       s2d_stem=False):
+    """One train step of ``Trainer(mesh=make_mesh(spatial=spatial))`` a
+    schedule, from start 0 on this rank's block of the global batch:
+    the loss, the gradients as the optimizer saw them, the running
+    statistics and the weights after the Adamax step; and the grid's
+    shape."""
+    import numpy as np
+
+    from snn_for_object_detection_tpu_torch.parallel import (
+        data_extent,
+        make_mesh,
+    )
+    from snn_for_object_detection_tpu_torch.train.loop import Trainer, _stats
+
+    mesh = make_mesh(spatial=spatial)
+    data = types.SimpleNamespace(host_id=0, num_hosts=1)
+    Trainer(mesh=mesh)._sync_data_sharding(data)
+    out = {"shape": mesh.shape, "data_extent": data_extent(mesh),
+           "data_index": mesh.data_index, "space_rank": mesh.space_rank,
+           "shard": (data.host_id, data.num_hosts)}
+    x, y = _grid_rows(mesh, X, labels)
+    for schedule in schedules:
+        model = port_model(params, stats, in_hw, 0, s2d_stem=s2d_stem)
+        trainer = Trainer(mesh=mesh, seed=0, time_batched=schedule,
+                          prefetch_batches=0)
+        trainer.configure(model)
+        seen = []
+        step = trainer.opt.step
+
+        def record(grads, step=step):
+            seen.append([g.clone() for g in grads])
+            return step(grads)
+
+        trainer.opt.step = record
+        loss = float(trainer.train_step(model, x, y, 0))
+        names = [n for n, _ in model.named_parameters()]
+        out[schedule] = {
+            "losses": np.asarray([loss]),
+            "grads": {n: g.numpy() for n, g in zip(names, seen[0])},
+            "stats": _numpy(_stats(model).items()),
+            "weights": [_numpy(model.named_parameters())],
+        }
+    return out
+
+
+def case_halo(H, cases, seed):
+    """``halo.fetch_rows`` on this rank's block of a seeded global map
+    ``[2, H, 3, 2]`` (float64) over the space group of a ``make_mesh(
+    spatial=4)`` grid, for each ``(kind, k, s)`` of ``cases``: the rows
+    of a k x k conv at stride s (``"conv"``), of a 2x Up (``"up"``) or a
+    2x2 Pool (``"pool"``) over the balanced output blocks; then the
+    backward of ``(out * w).sum()`` with a seeded ``w`` a rank. Returns
+    per case the rows fetched, their range and the input's gradient."""
+    import torch
+
+    from snn_for_object_detection_tpu_torch.parallel import (
+        fetch_rows,
+        make_mesh,
+        row_blocks,
+    )
+
+    mesh = make_mesh(spatial=4)
+    space = mesh.space_ctx
+    full = torch.randn((2, H, 3, 2), dtype=torch.float64,
+                       generator=torch.Generator().manual_seed(seed))
+    lo, hi = space.block(H)
+    out = {}
+    for kind, k, s in cases:
+        if kind == "conv":
+            rows_out = (H + 2 * (k // 2) - k) // s + 1
+            blocks = row_blocks(rows_out, 4)
+
+            def want(j, blocks=blocks, k=k, s=s):
+                return (blocks[j][0] * s - k // 2,
+                        (blocks[j][1] - 1) * s - k // 2 + k)
+        elif kind == "up":
+            blocks = row_blocks(H * 2, 4)
+
+            def want(j, blocks=blocks):
+                return (blocks[j][0] // 2, (blocks[j][1] - 1) // 2 + 1)
+        else:
+            blocks = row_blocks(H // s, 4)
+
+            def want(j, blocks=blocks, s=s):
+                return (blocks[j][0] * s, blocks[j][1] * s)
+        x = full[:, lo:hi].clone().requires_grad_(True)
+        y = fetch_rows(x, H, want, space)
+        w = torch.randn(y.shape, dtype=torch.float64,
+                        generator=torch.Generator().manual_seed(
+                            seed + 1 + space.index))
+        (y * w).sum().backward()
+        out[kind, k, s] = {"rows": y.detach().numpy(),
+                           "want": want(space.index), "block": (lo, hi),
+                           "grad": x.grad.numpy()}
+    return out
+
+
+def space_layers_block():
+    """Conv 3x3 s1, average Pool 2, Conv 3x3 s2, nearest Up 2, Conv 1x1,
+    max Pool 2 over a [*, 30, 8, 3] map (30, 15, 8, 16, 16, 8 rows),
+    float64, weights from a seeded generator."""
+    import torch
+
+    from snn_for_object_detection_tpu_torch.models import compile as C
+    from snn_for_object_detection_tpu_torch.models import spec as S
+
+    block = C.compile_block(
+        [S.Conv(6, 3, 1), S.Pool("A", 2), S.Conv(6, 3, 2), S.Up(2),
+         S.Conv(5, 1, 1), S.Pool("M", 2)], 3, (30, 8)).double()
+    generator = torch.Generator().manual_seed(3)
+    for m in block.modules():
+        if isinstance(m, C.Conv):
+            m.reset_parameters(generator)
+    return block
+
+
+def case_space_layers(x, w):
+    """``space_layers_block`` on this rank's block of ``x [2, 30, 8, 3]``
+    (B along ``data``, H along ``space`` of a ``make_mesh(spatial=4)``
+    grid): its output rows, and after the backward of ``(out * w).sum()``
+    (this rank's rows of ``w``) the input's gradient and the convs'
+    weight gradients (this rank's share)."""
+    import torch
+
+    from snn_for_object_detection_tpu_torch.models import compile as C
+    from snn_for_object_detection_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(spatial=4)
+    space = mesh.space_ctx
+    d = mesh.data_index
+    lo, hi = space.block(x.shape[1])
+    local = torch.from_numpy(x[d:d + 1, lo:hi].copy()).requires_grad_(True)
+    block = space_layers_block()
+    y, _ = block.step(local, block.init_state(1, "cpu", space),
+                      C.Ctx(space=space))
+    a, b = space.block(w.shape[1])
+    (y * torch.from_numpy(w[d:d + 1, a:b].copy())).sum().backward()
+    return {"y": y.detach().numpy(), "rows": (a, b), "data": d,
+            "grad": local.grad.numpy(), "in_rows": (lo, hi),
+            "w_grads": {n: p.grad.numpy()
+                        for n, p in block.named_parameters()}}
+
+
+def case_moments(sums, perms):
+    """``compile.global_moments`` over every rank of ``x [1, 1, 2, C]``:
+    channel c of rank r holds ``sums[perms[c][r]]`` and a zero, so the
+    ranks' fp32 sums are those values in the order ``perms[c]``. Returns
+    the mean and the variance."""
+    import numpy as np
+    import torch
+
+    from snn_for_object_detection_tpu_torch.models import compile as C
+    from snn_for_object_detection_tpu_torch.parallel import distributed
+
+    r, world = distributed.rank(), distributed.world_size()
+    x = torch.zeros((1, 1, 2, len(perms)), dtype=torch.float32)
+    for c, perm in enumerate(perms):
+        x[0, 0, 0, c] = float(np.float32(sums[perm[r]]))
+    mean, var = C.global_moments(x, (0, 1, 2), torch.distributed.group.WORLD,
+                                 2 * world)
+    return {"mean": mean.flatten().numpy(), "var": var.flatten().numpy()}
+
+
+def case_space_norm(x, form):
+    """A train-mode Norm on this rank's block of ``x`` (B along
+    ``data``, H along ``space`` in uneven blocks) of a ``make_mesh(
+    spatial=4)`` grid, with the grid as its group: the output block and
+    the new running statistics."""
+    import torch
+
+    from snn_for_object_detection_tpu_torch.models import compile as C
+    from snn_for_object_detection_tpu_torch.models import spec as S
+    from snn_for_object_detection_tpu_torch.parallel import (
+        data_extent,
+        make_mesh,
+    )
+
+    mesh = make_mesh(spatial=4)
+    space = mesh.space_ctx
+    bdim = 0 if form == "step" else 1
+    per = x.shape[bdim] // data_extent(mesh)
+    d = mesh.data_index
+    lo, hi = space.block(x.shape[bdim + 1])
+    local = torch.from_numpy(x).narrow(bdim, d * per, per).narrow(
+        bdim + 1, lo, hi - lo).contiguous()
+    block = C.compile_block([S.Norm()], x.shape[-1], x.shape[-3:-1])
+    ctx = C.Ctx(train=True, batch_group=mesh.group, space=space)
+    fn = block.step if form == "step" else block.seq
+    y, new = fn(local, block.init_state(per, "cpu", space), ctx)
+    mean, var = new["b0"]["l0"]
+    return {"y": y.detach().numpy(), "mean": mean.numpy(),
+            "var": var.numpy(), "data": d, "rows": (lo, hi)}
+
+
+def case_spatial_eval(params, stats, in_hw, time_window, batches, schedule):
+    """``Trainer(mesh=make_mesh(spatial=world)).test`` with the whole
+    batch on every rank (one data block) and each rank's rows of H:
+    the metrics and the detections of each eval step."""
+    from snn_for_object_detection_tpu_torch.parallel import (
+        distributed,
+        make_mesh,
+    )
+    from snn_for_object_detection_tpu_torch.train.loop import Trainer
+
+    import numpy as np
+
+    from snn_for_object_detection_tpu_torch.parallel import (
+        prefetch_to_device,
+        shard_batch,
+    )
+
+    model = port_model(params, stats, in_hw, time_window)
+    mesh = make_mesh(spatial=distributed.world_size())
+    prefetched = list(prefetch_to_device(iter(batches), mesh, size=2))
+    placed = [shard_batch(mesh, X, lab) for X, lab in batches]
+    same = all(np.array_equal(a.numpy(), b.numpy())
+               for p, q in zip(prefetched, placed) for a, b in zip(p, q))
+    trainer = Trainer(mesh=mesh, seed=0, time_batched=schedule,
+                      limit_test_batches=len(batches))
+    dets = []
+    step = trainer.eval_step
+
+    def record(*args):
+        loss, d = step(*args)
+        dets.append(d.numpy().copy())
+        return loss, d
+
+    trainer.eval_step = record
+    metrics = trainer.test(model, iter(batches))
+    return {"metrics": metrics, "dets": dets, "prefetch_same": same,
+            "rows": int(prefetched[0][0].shape[2])}
 
 
 def case_fit(data_dir, out_dir, time_window):
