@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only 3,7   # [1] and the phases named, no more
-                                       # (3: spiking_conv_seq and
+                                       # (3: spiking_conv_seq, its
+                                       # fetched-rows form and
                                        # fused_pointwise_conv_bn_lif)
     python3 chip_smoke.py --only 10    # [1] and the training phase
     python3 chip_smoke.py --only 11    # [1] and the CLI on recordings
@@ -39,6 +40,13 @@ Phases (any failure raises and the script exits non-zero):
      every plan of the layer (``spiking_conv_plans``) bit-equal to the
      plan's and timed, the plan's time beside the fastest; also times the same triple on the unfused path (cuDNN conv, BN
      affine, cell kernel) and cuDNN's conv alone over the T x N frames;
+   - ``spiking_conv_seq``'s fetched-rows form (``pad_h=0``, a rank's
+     block of a map split along H) on every one of the 22 fused triples
+     of GEN1 TinyYolo at full width, B=4, T=42, fp32 and bf16/e5m2: each
+     row block of 2 and of 4 ranks, launched on its rows sliced from the
+     zero-padded map, bit-equal to the whole map's launch and to its
+     plain version (integer weights: exact sums); each map's launch
+     timed beside its largest block's;
    - ``fused_pointwise_conv_bn_lif`` (``csrc/pointwise.cu``) on five
      shapes (``POINTWISE_CASES``: GEN1 4*120*152 rows 64->64 and
      4*30*38 rows 256->256, and the three of
@@ -268,8 +276,8 @@ Phases (any failure raises and the script exits non-zero):
    ranks on the card as a (data 1 x space 2) grid (``torch.
    multiprocessing.spawn``, a FileStore; gloo on CUDA tensors), the
    trained net at full GEN1 width, B=4, T=42, start 5,
-   each rank on its 120 rows of the input: two time-batched fp32 train
-   steps and one hybrid step, cuDNN off: the ranks' weights bit-equal
+   each rank on its 120 rows of the input: a time-batched fp32 train
+   step and a hybrid step, cuDNN off: the ranks' weights bit-equal
    after each step; a rank's cell backward kernel 22 times a
    time-batched step, its forward 44 (the recompute's 22 with them); the
    first step's loss within rtol 1e-6, its gradients within a relative
@@ -282,7 +290,17 @@ Phases (any failure raises and the script exits non-zero):
    it is. Prints a rank's step ms
    and peak memory beside one rank's (cuDNN on), and the halo exchanges
    of a step (the space group's collectives, wrapped): their count and
-   their synchronised time's share of it.
+   their synchronised time's share of it. Then, cuDNN off, on the same
+   ranks: ``Trainer.test`` of the trained net with ``fuse_seq=True`` at
+   time window 0 (every triple on the fetched-rows form, 22 launches a
+   rank and eval step), whose detections and first forward's
+   predictions must be bit-equal to one rank's fused eval (its unfused
+   tail convs summed in the blocks' order); and one time-batched train
+   step of [14] (d)'s zoo net (a strided max Pool, a k=3 ConvLSTM and a
+   bilinear Up, the layers that split last), the ranks' weights
+   bit-equal after it, its loss within rtol 1e-2 and its gradients
+   within a relative L2 of 0.1 of one rank's (whose LSTM conv and resize
+   sum whole maps).
 
 Model and data values of [3]-[10], with their source (those phases pass
 them as arguments; [11] reads the YAML files):
@@ -813,6 +831,115 @@ def phase_spiking_conv(torch, cuda_kernels, C, neurons, dev):
     return rows, worst
 
 
+# [3] (b): spiking_conv_seq's fetched-rows form on the row blocks of
+# this many ranks (halo.row_blocks), every fused triple of GEN1 TinyYolo
+ROW_BLOCK_RANKS = (2, 4)
+
+
+def phase_spiking_conv_rows(torch, cuda_kernels, C, TinyYolo, dev):
+    """[3] (b): ``spiking_conv_seq(pad_h=0)``, the form a rank of a
+    ``(data, space)`` grid runs in fused eval ([18]), on each of the
+    CELLS_PER_STEP fused triples of GEN1 TinyYolo at full width (T, B =
+    STEPS, BATCH; fp32 and bf16/e5m2): the whole map's launch, then each
+    block of every ROW_BLOCK_RANKS split of the output rows launched on
+    its input rows sliced from the zero-padded map (what ``Conv.
+    rows_read`` fetches: the halo and the zero rows in place). Weights on
+    a 1/8 grid of small integers (``int_weights``) make every conv sum
+    exact, so the kernel meets its plain version with exact sums
+    (``exact_sums=True``: cuDNN may take Winograd's inexact transforms
+    for a 3x3 map of some shapes) bit for bit. Gates each block's z, v
+    and i bit-equal to the whole map's rows and to the plain version's
+    ``pad_h=0`` form on the same rows, and the whole map to its plain
+    version. Times (CUDA events, median of 5) each map's
+    launch beside its largest block's at each split; returns the rows."""
+    import torch.nn.functional as F
+
+    from snn_for_object_detection_tpu_torch.parallel import row_blocks
+
+    t0 = time.perf_counter()
+    model = build_model(TinyYolo, "float32", "float32", dev)
+    triples = [t for block in (model.backbone, model.neck,
+                               *(h["base"] for h in model.heads()))
+               for t in fused_triples(C.Block, block)]
+    check(len(triples) == CELLS_PER_STEP,
+          f"[3] (b): {len(triples)} fused triples, want {CELLS_PER_STEP}")
+    del model
+    rows_out = []
+    spiking = cuda_kernels.spiking_conv_seq
+    plain = functools.partial(cuda_kernels.spiking_conv_seq_reference,
+                              exact_sums=True)
+    for n, (conv, _, cell) in enumerate(triples):
+        k, s = conv.k, conv.stride
+        cout, cin = conv.w.shape[:2]
+        (h, wd), ho = conv.in_hw, conv.out_hw[0]
+        p = k // 2
+        gen = torch.Generator(device=dev).manual_seed(100 + n)
+        density = EVENT_DENSITY if cin == 2 else 0.2
+        x32 = (torch.rand((STEPS, BATCH, h, wd, cin), generator=gen,
+                          device=dev) < density).float()
+        w = int_weights(torch, (k, k, cin, cout), dev, 100 + n) * 0.125
+        a = torch.rand(cout, generator=gen, device=dev) + 0.5
+        b = 0.1 * torch.randn(cout, generator=gen, device=dev)
+        state = (BATCH, ho, conv.out_hw[1], cout)
+        v32 = 0.3 * torch.randn(state, generator=gen, device=dev)
+        i32 = 0.3 * torch.randn(state, generator=gen, device=dev)
+        for xd, sd in (("float32", "float32"), ("bfloat16", "float8_e5m2")):
+            xd, sd = getattr(torch, xd), getattr(torch, sd)
+            x, v0, i0 = x32.to(xd), v32.to(sd), i32.to(sd)
+            tag = (f"[3] (b) {conv.name} {k}x{k} s{s} {cell.kind} "
+                   f"{cin}->{cout} {h}x{wd} {str(xd)[6:]}/{str(sd)[6:]}")
+            whole = spiking(x, w, a, b, v0, i0, cell.kind, s)
+            check(all(bits_equal(g, r) for g, r in zip(
+                whole, plain(x, w, a, b, v0, i0, cell.kind, s))),
+                f"{tag}: the whole map differs from its plain version")
+            whole_ms = cuda_time_ms(
+                lambda: spiking(x, w, a, b, v0, i0, cell.kind, s), reps=5)
+            padded = F.pad(x, (0, 0, 0, 0, p, p + s))
+            row = dict(name=conv.name, k=k, stride=s, cell=cell.kind,
+                       cin=cin, cout=cout, in_hw=(h, wd), x=str(xd),
+                       state=str(sd), whole_ms=whole_ms)
+            for ranks in ROW_BLOCK_RANKS:
+                for j, (o0, o1) in enumerate(row_blocks(ho, ranks)):
+                    args = (padded[:, :, o0 * s:(o1 - 1) * s + k]
+                            .contiguous(), w, a, b,
+                            v0[:, o0:o1].contiguous(),
+                            i0[:, o0:o1].contiguous(), cell.kind, s)
+                    got = spiking(*args, pad_h=0)
+                    want = (whole[0][:, :, o0:o1], whole[1][:, o0:o1],
+                            whole[2][:, o0:o1])
+                    check(all(bits_equal(g, r) for g, r in zip(got, want)),
+                          f"{tag}: block {j} of {ranks} (rows {o0}-{o1}) "
+                          f"differs from the whole map's rows")
+                    check(all(bits_equal(g, r) for g, r in zip(
+                        got, plain(*args, pad_h=0))),
+                        f"{tag}: block {j} of {ranks} differs from its "
+                        f"plain version")
+                    if j == 0:  # the largest block: the slowest rank
+                        row[f"block_ms_{ranks}"] = cuda_time_ms(
+                            lambda args=args: spiking(*args, pad_h=0),
+                            reps=5)
+                    del got, args
+            rows_out.append(row)
+            print(f"  {tag}: whole map {whole_ms:.4f} ms; largest block of "
+                  + ", of ".join(f"{r} ranks {row[f'block_ms_{r}']:.4f} ms"
+                                 for r in ROW_BLOCK_RANKS)
+                  + "; every block bit-equal to the whole map's rows and "
+                  "to its plain version", flush=True)
+            del x, v0, i0, whole, padded
+        del x32, v32, i32
+        torch.cuda.empty_cache()
+    for xd in ("torch.float32", "torch.bfloat16"):
+        sel = [r for r in rows_out if r["x"] == xd]
+        print(f"  [3] (b) {xd[6:]}: the {len(sel)} triples' whole maps "
+              f"{sum(r['whole_ms'] for r in sel):.3f} ms; their largest "
+              f"blocks " + ", ".join(
+                  f"of {n} ranks "
+                  f"{sum(r[f'block_ms_{n}'] for r in sel):.3f} ms"
+                  for n in ROW_BLOCK_RANKS), flush=True)
+    print(f"  [3] (b) in {time.perf_counter() - t0:.1f} s", flush=True)
+    return rows_out
+
+
 def pointwise_plan_text(plan) -> str:
     """One launch plan of ``fused_pointwise_conv_bn_lif``."""
     return (f"{plan.rows} rows x {plan.cout_tile} channels a tile "
@@ -1106,16 +1233,23 @@ def kernel_kind(name: str) -> str:
     return "other"
 
 
+def fused_triples(Block, block):
+    """``(conv, norm, cell)`` of every fused triple under ``block``, in
+    the order ``forward_seq`` runs them (branch by branch, nested blocks
+    where they stand)."""
+    for bi, starts in enumerate(block.fused_plan):
+        layers = list(getattr(block, f"b{bi}").values())
+        for li, layer in enumerate(layers):
+            if li in starts:
+                yield tuple(layers[li:li + 3])
+            elif isinstance(layer, Block):
+                yield from fused_triples(Block, layer)
+
+
 def fused_convs(Block, block):
     """The Conv of every fused triple under ``block``, in the order
-    ``forward_seq`` runs them (branch by branch, nested blocks where
-    they stand)."""
-    for bi, starts in enumerate(block.fused_plan):
-        for li, layer in enumerate(getattr(block, f"b{bi}").values()):
-            if li in starts:
-                yield layer
-            elif isinstance(layer, Block):
-                yield from fused_convs(Block, layer)
+    ``forward_seq`` runs them."""
+    return [conv for conv, _, _ in fused_triples(Block, block)]
 
 
 def profiled(torch, fn):
@@ -4366,19 +4500,21 @@ def on_card(torch, X, lab):
 
 
 def dp_train(torch, TinyYolo, Trainer, batches, trainer_kw, place=None,
-             schedule=True, steps=DP_STEPS):
+             schedule=True, steps=DP_STEPS, model=None):
     """``steps`` fp32 train steps of the trained net on ``schedule``
     from TRAIN_START: each step's loss, the weights after it and its
     kernel launches, the first step's gradients as the optimizer saw
     them and the running statistics after it. ``place(X, lab)`` puts
     this rank's part of a host batch on the card ([16] (b): its rows of
     B; [18]: its rows of H, ``shard_batch`` on the grid); by default the
-    whole batch. Returns the run, the trainer and model, to go on, and
-    the last batch as it went in."""
+    whole batch. ``model``: another net to train ([18]'s zoo net).
+    Returns the run, the trainer and model, to go on, and the last batch
+    as it went in."""
     from snn_for_object_detection_tpu_torch.ops import cuda_kernels
 
-    model = build_model(TinyYolo, "float32", "float32", "cuda",
-                        weights=trained_weights())
+    if model is None:
+        model = build_model(TinyYolo, "float32", "float32", "cuda",
+                            weights=trained_weights())
     trainer = Trainer(seed=0, time_batched=schedule, prefetch_batches=0,
                       **trainer_kw)
     trainer.configure(model)
@@ -5062,16 +5198,22 @@ def phase_extras(torch, cuda_kernels, TinyYolo, Trainer, batches, smi):
     torch.cuda.empty_cache()
 
 # [18]: spatial sharding. Two gloo ranks on the one card as a (data 1 x
-# space 2) grid, on the trained net (B=4, T=42, start 5): two
-# time-batched fp32 train steps and one hybrid step against one rank
-# whose BatchNorm sums its moments in the space blocks' order
-SP_RANKS, SP_STEPS, SP_TIMED = 2, 2, 2
+# space 2) grid, on the trained net (B=4, T=42, start 5): a time-batched
+# fp32 train step and a hybrid step against one rank whose BatchNorm
+# sums its moments in the space blocks' order; the fused test over
+# SP_TEST_BATCHES batches; a train step of [14] (d)'s zoo net
+SP_RANKS, SP_STEPS, SP_TIMED, SP_TEST_BATCHES = 2, 1, 2, 1
 SP_RANK_TIMEOUT_S = 600
 # the reference sums as the ranks do, so a sound grid reads about its
 # bits (loss 0, gradients relative L2 7.9e-8 / 2.0e-7 on an H100): the
 # gates sit just above that, where a halo row's gradient left off its
 # owner shows (PERF.md, PR 17); the running stats keep [16] (b)'s rtol
 SP_LOSS_RTOL, SP_GRAD_L2, SP_LEAF_L2 = 1e-6, 1e-5, 1e-4
+# the zoo net's step against one rank whose LSTM conv and resize sum the
+# whole map (the ranks: their blocks): ten times the distance of one rank
+# summing every conv over the whole map in PR 17 ([18]'s yardstick, loss
+# 8.3e-4, gradients 0.0147 on the trained TinyYolo)
+SP_ZOO_LOSS_RTOL, SP_ZOO_GRAD_L2 = 1e-2, 0.1
 
 
 def leaf_distance(a, b):
@@ -5178,11 +5320,66 @@ def sp_step_numbers(torch, mesh, trainer, model, X, lab):
             "halo_ms": halo_ms[0], "timed_wall_ms": wall}
 
 
+def sp_fused_test(torch, TinyYolo, Trainer, batches, mesh=None):
+    """[18]: ``Trainer.test`` of the trained net with ``fuse_seq=True`` at
+    time window 0 over SP_TEST_BATCHES batches, on the grid ``mesh`` (each
+    rank on its rows) or on one rank: the detections of each eval step,
+    the predictions of ``forward_seq`` on the first batch, the metrics
+    and the kernel launches of the test."""
+    from snn_for_object_detection_tpu_torch.ops import cuda_kernels
+    from snn_for_object_detection_tpu_torch.parallel import shard_batch
+
+    model = build_model(TinyYolo, "float32", "float32", "cuda",
+                        time_window=0, fuse_seq=True,
+                        weights=trained_weights())
+    trainer = Trainer(seed=0, time_batched=True,
+                      limit_test_batches=SP_TEST_BATCHES,
+                      **({} if mesh is None else {"mesh": mesh}))
+    dets = []
+    step = trainer.eval_step
+
+    def record(*args):
+        loss, d = step(*args)
+        dets.append(d.cpu())
+        return loss, d
+
+    trainer.eval_step = record
+    cuda_kernels.reset_launches()
+    metrics = trainer.test(model, iter(batches[:SP_TEST_BATCHES]))
+    torch.cuda.synchronize()
+    launches = dict(cuda_kernels.LAUNCHES)
+    X, lab = batches[0]
+    X = on_card(torch, X, lab)[0] if mesh is None \
+        else shard_batch(mesh, X, lab)[0]
+    with torch.inference_mode():
+        (cls, box), _ = model.forward_seq(
+            X, space=None if mesh is None else mesh.space_ctx)
+    return {"dets": dets, "preds": (cls.cpu(), box.cpu()),
+            "metrics": metrics, "launches": launches}
+
+
+def sp_zoo_net(torch, C):
+    """[14] (d)'s zoo net (``zoo_net``: a strided max Pool, a k=3
+    ConvLSTM, a bilinear Up) at GEN1 with its BatchNorm gains at
+    BN_GAIN, on the card."""
+    from snn_for_object_detection_tpu_torch.models import spec as S
+    from snn_for_object_detection_tpu_torch.models.detector import SODa
+
+    model = zoo_net(C, SODa, S)(num_classes=NUM_CLASSES, in_hw=IN_HW,
+                                device="cuda", seed=0)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".scale"):
+                p.fill_(BN_GAIN)
+    return model
+
+
 def sp_rank(rank, world, store, out):
     """One rank of the (data 1 x space 2) grid on the one card, gloo on
     CUDA tensors."""
     import torch
 
+    from snn_for_object_detection_tpu_torch.models import compile as C
     from snn_for_object_detection_tpu_torch.models.tiny_yolo import TinyYolo
     from snn_for_object_detection_tpu_torch.parallel import (
         distributed,
@@ -5216,6 +5413,19 @@ def sp_rank(rank, world, store, out):
     torch.backends.cudnn.enabled = True
     torch.backends.cudnn.deterministic = False
     runs["numbers"] = sp_step_numbers(torch, mesh, *keep)
+    del keep
+    torch.backends.cudnn.enabled = False
+    torch.backends.cudnn.deterministic = True
+    runs["fused"] = sp_fused_test(torch, TinyYolo, Trainer, batches, mesh)
+    zoo, _, _, _ = dp_train(
+        torch, TinyYolo, Trainer, batches, {"mesh": mesh},
+        lambda X, lab: shard_batch(mesh, X, lab), True, 1,
+        model=sp_zoo_net(torch, C))
+    zoo["sha"] = [dp_sha(w) for w in zoo["weights"]]
+    zoo["weights"] = None
+    if rank:
+        zoo["grads"] = None
+    runs["zoo"] = zoo
     torch.save(runs, os.path.join(out, f"rank{rank}.pt"))
     distributed.barrier("sp_done")
     torch.distributed.destroy_process_group()
@@ -5237,9 +5447,17 @@ def phase_spatial(torch, C, TinyYolo, Trainer, smi):
     (``ranks_order_moments(along=1)``, ``blocks_order_convs``); printed
     beside it, the distance from one rank as it is. Then, cuDNN on, a
     rank's step ms and peak memory beside the one rank's, and the halo
-    exchanges of a step: their count and their share of it. Returns the
-    ranks' forward and backward cell launches in the time-batched and
-    hybrid steps."""
+    exchanges of a step: their count and their share of it. Then, cuDNN
+    off: the fused ``Trainer.test`` on the ranks (``sp_fused_test``), its
+    detections and first predictions bit-equal to one rank's (whose
+    unfused tail convs sum in the blocks' order), 22 ``spiking_conv_seq``
+    launches a rank and eval step and no cell kernel; and a time-batched
+    train step of the zoo net (``sp_zoo_net``): the ranks' weights
+    bit-equal after it, the cell kernels launched, its loss and gradients
+    within SP_ZOO_LOSS_RTOL and SP_ZOO_GRAD_L2 of one rank's (BatchNorm
+    and the convs in the blocks' order; the LSTM conv and the resize over
+    the whole map). Returns the ranks' forward and backward cell launches
+    in their train steps and their fused kernel launches."""
     import torch.multiprocessing as mp
 
     t0 = time.perf_counter()
@@ -5254,6 +5472,9 @@ def phase_spatial(torch, C, TinyYolo, Trainer, smi):
             one[schedule], _, _, _ = dp_train(torch, TinyYolo, Trainer,
                                               batches, {}, None, schedule,
                                               steps)
+        zoo_one, _, _, _ = dp_train(torch, TinyYolo, Trainer, batches, {},
+                                    None, True, 1, model=sp_zoo_net(torch, C))
+        fused_one = sp_fused_test(torch, TinyYolo, Trainer, batches)
     plain[True], _, _, _ = dp_train(torch, TinyYolo, Trainer, batches, {},
                                     steps=1)
     torch.backends.cudnn.enabled = True
@@ -5343,6 +5564,67 @@ def phase_spatial(torch, C, TinyYolo, Trainer, smi):
                   (stats_over <= 1e-6,
                    f"[18] {name}: running stats {stats_over:.3g} beyond "
                    "rtol")]
+    # the fused test on the grid against one rank's
+    fwd_conv = 0
+    for r, got in enumerate(ranks):
+        f = got["fused"]
+        n = f["launches"]
+        fwd_conv += n["spiking_conv_seq"]
+        pred_err = max(float((a - b).abs().max())
+                       for a, b in zip(f["preds"], fused_one["preds"]))
+        gates += [
+            (n["spiking_conv_seq"] == CELLS_PER_STEP * SP_TEST_BATCHES
+             and not n["temporal_cell_seq"],
+             f"[18] rank {r} fused test: launches {n}"),
+            (len(f["dets"]) == len(fused_one["dets"]) == SP_TEST_BATCHES
+             and all(torch.equal(a, b) for a, b in
+                     zip(f["dets"], fused_one["dets"])),
+             f"[18] rank {r} fused test: detections differ from one "
+             f"rank's"),
+            (all(torch.equal(a, b) for a, b in
+                 zip(f["preds"], fused_one["preds"])),
+             f"[18] rank {r} fused forward_seq: predictions differ from "
+             f"one rank's (max abs {pred_err:.3g})"),
+            (all(np.isfinite(v) for v in f["metrics"].values()),
+             f"[18] rank {r} fused test: metrics {f['metrics']}")]
+    n_spikes = int((fused_one["preds"][0].abs() > 0).sum())
+    print(f"  [18] fused Trainer.test at window 0, {SP_TEST_BATCHES} "
+          f"batch(es), cuDNN off: {SP_RANKS} ranks on their rows "
+          f"(spiking_conv_seq pad_h=0) vs one rank (the whole map's "
+          f"launches, its tail convs in the blocks' order): detections "
+          f"and first predictions bit-equal on every rank "
+          f"({n_spikes} nonzero class scores); spiking_conv_seq launches "
+          f"a rank "
+          f"{[got['fused']['launches']['spiking_conv_seq'] for got in ranks]}"
+          f"; metrics {ranks[0]['fused']['metrics']} vs "
+          f"{fused_one['metrics']}", flush=True)
+    # the zoo net's train step on the grid against one rank's
+    zoo = [r["zoo"] for r in ranks]
+    z_loss, z_grad, _ = dp_distances(torch, zoo[0], zoo_one)
+    z_launch = zoo[0]["launches"][0]
+    fwd += sum(z["launches"][0]["temporal_cell_seq"] for z in zoo)
+    bwd += sum(z["launches"][0]["temporal_cell_seq_bwd"] for z in zoo)
+    gates += [
+        (len({z["sha"][0] for z in zoo}) == 1,
+         "[18] zoo net: the ranks' weights differ after the step"),
+        (all(np.isfinite(float(z["losses"][0])) for z in zoo),
+         f"[18] zoo net: losses {[float(z['losses'][0]) for z in zoo]}"),
+        (all(z["launches"][0]["temporal_cell_seq"] > 0
+             and z["launches"][0]["temporal_cell_seq_bwd"] > 0 for z in zoo),
+         f"[18] zoo net: launches {z_launch}"),
+        (z_loss <= SP_ZOO_LOSS_RTOL,
+         f"[18] zoo net: loss {z_loss:.3g} from one rank"),
+        (z_grad <= SP_ZOO_GRAD_L2,
+         f"[18] zoo net: gradients {z_grad:.3g} from one rank")]
+    print(f"  [18] zoo net (Synapse, Pool(M, 3, 2), ConvLSTM k=3, bilinear "
+          f"Up) time-batched train step, {SP_RANKS} ranks vs one rank "
+          f"(BN and the convs in the blocks' order, the LSTM conv and the "
+          f"resize over the whole map), cuDNN off: loss "
+          f"{float(zoo[0]['losses'][0]):.6f} vs "
+          f"{float(zoo_one['losses'][0]):.6f}, rel {z_loss:.3g} (gate "
+          f"{SP_ZOO_LOSS_RTOL}), gradients relative L2 {z_grad:.3g} (gate "
+          f"{SP_ZOO_GRAD_L2}); weights bit-equal across the ranks; rank 0 "
+          f"launches {z_launch}", flush=True)
     print(f"  [18] ranks spawned and done in {spawn_s:.1f} s", flush=True)
     for r, got in enumerate(ranks):
         nb = got["numbers"]
@@ -5361,7 +5643,7 @@ def phase_spatial(torch, C, TinyYolo, Trainer, smi):
               flush=True)
     for ok, msg in gates:
         check(ok, msg)
-    return fwd, bwd
+    return fwd, bwd, fwd_conv
 
 
 def main(argv) -> int:
@@ -5408,6 +5690,8 @@ def main(argv) -> int:
             print("[3] spiking_conv_seq and fused_pointwise_conv_bn_lif",
                   flush=True)
             phase_spiking_conv(torch, cuda_kernels, C, neurons, "cuda")
+            phase_spiking_conv_rows(torch, cuda_kernels, C, TinyYolo,
+                                    "cuda")
             phase_pointwise(torch, cuda_kernels, "cuda")
         if 7 in only:
             print("[7] fused path", flush=True)
@@ -5483,6 +5767,7 @@ def main(argv) -> int:
     rows, worst = phase_kernels(torch, cuda_kernels, "cuda")
     conv_rows, conv_worst = phase_spiking_conv(torch, cuda_kernels, C,
                                                neurons, "cuda")
+    phase_spiking_conv_rows(torch, cuda_kernels, C, TinyYolo, "cuda")
     pw_rows, pw_worst = phase_pointwise(torch, cuda_kernels, "cuda")
 
     print(f"[4] main path: TinyYolo GEN1 {IN_HW}, B={BATCH}, T={STEPS}, "
@@ -5572,9 +5857,10 @@ def main(argv) -> int:
     print(f"[18] spatial sharding: Trainer(mesh=make_mesh(spatial="
           f"{SP_RANKS})) on {SP_RANKS} gloo ranks on the card, the trained "
           f"net, TinyYolo GEN1 {IN_HW}, B={BATCH}, T={STEPS}", flush=True)
-    sp_fwd, sp_bwd = phase_spatial(torch, C, TinyYolo, Trainer, smi)
+    sp_fwd, sp_bwd, sp_conv = phase_spatial(torch, C, TinyYolo, Trainer, smi)
     launches += sp_fwd
     bwd_launches += sp_bwd
+    conv_launches += sp_conv
     print(f"  [18] in {time.perf_counter() - t0:.1f} s", flush=True)
 
     ref = next(r for r in rows if (r["shape"], r["cell"], r["x"], r["start"])
@@ -5653,7 +5939,8 @@ def main(argv) -> int:
           f"{list(PLIF_SHAPES['vgg_stage1'])}, the backward at start "
           f"{TRAIN_START}. "
           f"Launches: temporal_cell_seq in [4], [16] (d)'s mesh "
-          f"engines and [18]'s ranks, spiking_conv_seq in [7], "
+          f"engines and [18]'s ranks, spiking_conv_seq in [7] and "
+          f"[18]'s fused test on the grid (the fetched-rows form), "
           f"streaming_megakernel in [8] (both dtype configurations), "
           f"temporal_cell_seq_bwd in [10]'s and [13]'s Trainer.fit runs "
           f"(the three schedules, both training configurations), "

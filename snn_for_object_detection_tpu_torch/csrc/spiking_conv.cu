@@ -6,9 +6,11 @@
 // (`_spiking_conv_kernel` under `_spiking_conv_seq_impl`'s pallas_call):
 //   in:  x[T, N, H, W, Cin] (fp32 or bf16); w as the wrapper hands it:
 //        fp32 [Cin][k][k][Cout], rounded to x's type first (k in {1, 3},
-//        stride in {1, 2}, zero padding k / 2); a, b[Cout] fp32 (the
-//        folded eval BatchNorm); v0, i0[N, Ho, Wo, Cout] (fp32, bf16,
-//        fp8 e5m2 or e4m3)
+//        stride in {1, 2}, zero padding k / 2 along W and pad_h along H:
+//        k / 2, or 0 for rows a caller fetched with the zeros outside the
+//        map already in them, a rank's block of a map split along H);
+//        a, b[Cout] fp32 (the folded eval BatchNorm); v0, i0[N, Ho, Wo,
+//        Cout] (fp32, bf16, fp8 e5m2 or e4m3)
 //   out: z[T, N, Ho, Wo, Cout] in x's type, vT, iT in the state type
 // Per step: the conv summed in fp32, rounded to x's type; y * a + b in
 // fp32 (one fused multiply-add, as XLA contracts it), rounded to x's
@@ -55,6 +57,12 @@
 // in the grid, so they read the same input lines from L2. The entry
 // point refuses a plan whose grid or shared memory is not its geometry's.
 //
+// The fetched-rows form (pad_h = 0) is the same kernel on a block of a
+// map split along H: given the rows its output rows read, the halo and
+// the zero rows beyond the map's edge in place, a CTA stages the values
+// the whole-map launch stages for those outputs, at the same places of
+// its planes, so each output's sums are the whole map's bit for bit.
+//
 // Known limits (PERF.md): the FFMA loop reaches 8-49% of the fp32 bound,
 // and neither fewer shared loads a FMA nor a register double buffer of
 // the next tap's loads moved it; the deep maps (15 x 19, 8 x 10) give
@@ -89,6 +97,7 @@ struct Args {
   void* vT;
   void* iT;
   int T, N, H, W, Cin, Ho, Wo, Cout, stride;
+  int pad_h;  // zero rows above the map (k / 2, or 0 for fetched rows)
   float c_mem, c_syn;
   bool vec;  // Cout % 8 == 0 and z, v0, i0, vT, iT 16-byte aligned
   int xvb;   // staging: bytes a copy of x (16, 8, 4; 0: a value)
@@ -381,7 +390,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
         const int cc = STRIDE == 2
                            ? (pos < g.hw2 ? 2 * pos : 2 * (pos - g.hw2) + 1)
                            : pos;
-        iy = c.oy0 * STRIDE - 1 + hr;
+        iy = c.oy0 * STRIDE - p.pad_h + hr;
         ix = c.ox0 * STRIDE - 1 + cc;
         ok = iy >= 0 && iy < p.H && ix >= 0 && ix < p.W;
       } else {
@@ -573,25 +582,30 @@ bool fits_int(long long v) { return v >= 0 && v <= 0x7fffffff; }
 }  // namespace
 
 // C entry point (loaded with ctypes). Type codes: 0 fp32, 1 bf16, 2 fp8
-// e5m2, 3 fp8 e4m3 (state only); cell 0 = LIF, 1 = LI; the plan's fields as
-// ops/cuda_kernels.py's ConvPlan. Returns 0 on success, -1 for an
-// unsupported argument or a plan that is not its geometry's, else the
+// e5m2, 3 fp8 e4m3 (state only); cell 0 = LIF, 1 = LI; pad_h the zero
+// rows above and below the map (k / 2, or 0 for rows fetched with their
+// zeros); the plan's fields as ops/cuda_kernels.py's ConvPlan. Returns 0
+// on success, -1 for an unsupported argument, an output size that is not
+// the rows' and columns' or a plan that is not its geometry's, else the
 // cudaError_t of the launch. Shapes are checked by the Python wrapper.
 extern "C" int spiking_conv_seq_launch(
     const void* x, const void* w, const float* a, const float* b,
     const void* v0, const void* i0, void* z, void* vT, void* iT, int T,
     int N, int H, int W, int Cin, int Ho, int Wo, int Cout, int k,
-    int stride, int resident, int co, int th, int tw, int threads, int kc,
-    int smem, long long grid, int cell, int x_dtype, int state_dtype,
-    float c_mem, float c_syn, void* stream) {
+    int stride, int pad_h, int resident, int co, int th, int tw,
+    int threads, int kc, int smem, long long grid, int cell, int x_dtype,
+    int state_dtype, float c_mem, float c_syn, void* stream) {
   if (T < 0 || N < 0 || Cin <= 0 || Cout <= 0 ||
       (stride != 1 && stride != 2) || (k != 1 && k != 3) ||
+      (pad_h != 0 && pad_h != k / 2) || H + 2 * pad_h < k ||
+      Ho != (H + 2 * pad_h - k) / stride + 1 ||
+      Wo != (W + 2 * (k / 2) - k) / stride + 1 ||
       !fits_int(static_cast<long long>(H) * W * Cin) ||
       !fits_int(static_cast<long long>(Cin) * k * k * Cout)) {
     return -1;
   }
   Args p{x, w, a, b, v0, i0, z, vT, iT, T, N, H, W, Cin, Ho, Wo, Cout,
-         stride, c_mem, c_syn, false, 0, false};
+         stride, pad_h, c_mem, c_syn, false, 0, false};
   p.vec = Cout % 8 == 0 && aligned16(z) && aligned16(v0) && aligned16(i0) &&
           aligned16(vT) && aligned16(iT);
   const Plan q{resident, co, th, tw, threads, kc, smem, grid};

@@ -33,12 +33,13 @@ so ``models/convert.py`` maps weights one to one.
 Under a ``space`` axis (``ctx.space``, a ``parallel.halo.Space``) every
 map is split along H over the ranks of the space group, each holding
 the balanced block of ``halo.row_blocks``, and so is every state: a Conv
-computes its own output rows from the input rows they read
-(``halo.fetch_rows``: the halo from the neighbouring blocks, zeros
-beyond the map's edge) with padding along W only; Pool and Up read the
-rows of their outputs' blocks the same way; a train Norm takes its
-moments over the whole grid. ``StridedPool``, ``Resize``, ``ConvLSTM``
-and the int8 conv raise there.
+(float or int8) computes its own output rows from the input rows they
+read (``halo.fetch_rows``: the halo from the neighbouring blocks, zeros
+beyond the map's edge) with padding along W only; Pool (any stride), Up
+(any mode) and the conv LSTM (every step, the halo of ``[x, h]``) read
+the rows of their outputs' blocks the same way; a train Norm takes its
+moments over the whole grid; a fused triple fetches its sequence's rows
+once and runs ``spiking_conv_seq``'s fetched-rows form (``pad_h=0``).
 
 Beside the plain forms: ``Conv(s2d=True)`` runs the space-to-depth plan
 (the same function, another layout of the sums); a Conv in its int8 form
@@ -70,7 +71,6 @@ from snn_for_object_detection_tpu_torch.ops.cuda_kernels import (
 )
 from snn_for_object_detection_tpu_torch.parallel import distributed as dist
 from snn_for_object_detection_tpu_torch.parallel.halo import fetch_rows
-from snn_for_object_detection_tpu_torch.roadmap import SPATIAL_ITEM, not_ported
 
 
 @dataclasses.dataclass
@@ -237,10 +237,19 @@ class StridedPool(Layer):
         super().__init__(ch, ((in_hw[0] - k) // s + 1,
                               (in_hw[1] - k) // s + 1))
         self.k, self.s, self.kind = k, s, kind
+        self.in_hw = tuple(in_hw)
 
     def step(self, x, state, ctx):
-        _no_space(self, ctx, "Pool(stride != kernel_size)")
         (oh, ow), k, s = self.out_hw, self.k, self.s
+        space = None if ctx is None else ctx.space
+        if space is not None:
+            # output rows [o0, o1) read input rows [o0 s, (o1 - 1) s + k)
+            # of the uncropped map
+            out = space.blocks(oh, f"{self.name}: its output map")
+            x = fetch_rows(x, self.in_hw[0],
+                           lambda j: (out[j][0] * s, (out[j][1] - 1) * s + k),
+                           space, f"{self.name}: its input map")
+            oh = out[space.index][1] - out[space.index][0]
         if self.kind == "M":
             y = None
             for di in range(k):
@@ -255,12 +264,6 @@ class StridedPool(Layer):
             y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=s, groups=c)
         y = y.permute(0, 2, 3, 1).contiguous()
         return (y / (k * k) if self.kind == "A" else y), state
-
-
-def _no_space(layer, ctx, what: str) -> None:
-    if ctx is not None and ctx.space is not None:
-        raise not_ported(f"{what} ({layer.name}) under a space axis",
-                         SPATIAL_ITEM)
 
 
 def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
@@ -305,20 +308,40 @@ class Resize(Layer):
     (compile.py:539-545) by an integer scale, the triangle or Keys
     cubic kernel (a = -0.5; torch's ``bicubic`` takes a = -0.75) as the
     two weight matrices of :func:`resize_weights`, applied to H and
-    then W in the activation dtype, the weights rounded to it."""
+    then W in the activation dtype, the weights rounded to it. Under a
+    space axis a block of output rows reads the input rows where its
+    columns of ``wh`` are nonzero (2 a row for the triangle kernel, 4
+    for Keys cubic) and applies those weights."""
 
     def __init__(self, ch, in_hw, scale: int, mode: str):
         super().__init__(ch, (in_hw[0] * scale, in_hw[1] * scale))
         kernel = _keys_cubic if mode == "bicubic" else _triangle
         self.mode = mode
-        self.register_buffer("wh", resize_weights(
-            in_hw[0], in_hw[0] * scale, kernel), persistent=False)
+        wh = resize_weights(in_hw[0], in_hw[0] * scale, kernel)
+        self.register_buffer("wh", wh, persistent=False)
         self.register_buffer("ww", resize_weights(
             in_hw[1], in_hw[1] * scale, kernel), persistent=False)
+        # the input rows (first, last + 1) each output row reads
+        self._reads = tuple(
+            (int(col.nonzero().min()), int(col.nonzero().max()) + 1)
+            for col in (wh != 0).t())
+
+    def _rows_read(self, o0: int, o1: int) -> Tuple[int, int]:
+        spans = self._reads[o0:o1]
+        return min(a for a, _ in spans), max(b for _, b in spans)
 
     def step(self, x, state, ctx):
-        _no_space(self, ctx, f"Up(mode={self.mode!r})")
-        y = torch.einsum("bhwc,hH->bHwc", x, self.wh.to(x.dtype))
+        wh = self.wh
+        space = None if ctx is None else ctx.space
+        if space is not None:
+            out = space.blocks(self.out_hw[0], f"{self.name}: its output map")
+            o0, o1 = out[space.index]
+            lo, hi = self._rows_read(o0, o1)
+            x = fetch_rows(x, wh.shape[0],
+                           lambda j: self._rows_read(*out[j]), space,
+                           f"{self.name}: its input map")
+            wh = wh[lo:hi, o0:o1]
+        y = torch.einsum("bhwc,hH->bHwc", x, wh.to(x.dtype))
         return torch.einsum("bHwc,wW->bHWc", y, self.ww.to(x.dtype)), state
 
 
@@ -420,7 +443,9 @@ class Conv(Layer):
     (1 / x_scale)), -127, 127)`` as int8, the int32 sums of
     ``quantize.int8_conv`` (packed when ``s2d``), then ``y * (x_scale *
     w_scale)``. It has no gradient: a train forward raises, as JAX's
-    ``grad`` does on int8 leaves."""
+    ``grad`` does on int8 leaves. Under a space axis both forms
+    compute their block of output rows from the input rows those read
+    (:meth:`rows_read`)."""
 
     def __init__(self, in_ch, out_ch, k, s, in_hw, s2d: bool = False,
                  name: str = ""):
@@ -478,8 +503,7 @@ class Conv(Layer):
                 raise TypeError(
                     "int8 conv weights (w_q) cannot be trained: grad "
                     "requires real- or complex-valued inputs, but got int8")
-            _no_space(self, ctx, "an int8 Conv")
-            return self._int8_conv(x), state
+            return self._int8_conv(x, space), state
         if ctx is not None and ctx.calibrate:
             ctx.absmax[self] = x.float().abs().amax()
         return self._conv(x, self.w.to(x.dtype), space), state
@@ -492,39 +516,53 @@ class Conv(Layer):
                               s2d_pack_w(w), 1, 0)
         return _conv_nhwc(x, w, self.stride, self.padding)
 
-    def _conv_rows(self, x, w, space):
-        """This rank's block of output rows: the input rows they read
-        fetched from their owners (zeros above and below the map), then
-        the conv with padding along W only. The s2d plan fetches the raw
-        rows ``[2 o0 - 1, 2 o1)`` and puts the zero row of the packed
-        grid's top padding above them (it meets the packed kernel's
-        zero tap only), so that each packed row holds a row pair."""
+    def rows_read(self, x, space, s2d=None):
+        """The input rows this rank's block of output rows reads, fetched
+        from their owners (``halo.fetch_rows``; zeros above and below
+        the map): ``[o0 s - p, (o1 - 1) s - p + k)``, which the conv
+        takes with padding along W only. ``s2d`` (default: the layer's
+        plan; the fused plan reads the unpacked conv's rows): the raw rows
+        ``[2 o0 - 1, 2 o1)`` with the zero row of the packed grid's top
+        padding above them (it meets the packed kernel's zero tap only),
+        so that each packed row holds a row pair. ``x [N, rows, W, C]``."""
         what = f"{self.name}: its input map {self.in_hw}"
         out = space.blocks(self.out_hw[0],
                            f"{self.name}: its output map {self.out_hw}")
-        if self.s2d:
+        if self.s2d if s2d is None else s2d:
             rows = fetch_rows(x, self.in_hw[0],
                               lambda j: (2 * out[j][0] - 1, 2 * out[j][1]),
                               space, what)
-            rows = F.pad(rows, (0, 0, 0, 0, 1, 0))
-            return _conv_nhwc(F.pad(s2d_pack_x(rows), (0, 0, 1, 0)),
-                              s2d_pack_w(w), 1, 0)
+            return F.pad(rows, (0, 0, 0, 0, 1, 0))
         s, p, k = self.stride, self.padding, self.k
-        rows = fetch_rows(
+        return fetch_rows(
             x, self.in_hw[0],
             lambda j: (out[j][0] * s - p, (out[j][1] - 1) * s - p + k),
             space, what)
-        return _conv_nhwc(rows, w, s, (0, p))
 
-    def _int8_conv(self, x):
+    def _conv_rows(self, x, w, space):
+        """This rank's block of output rows, from :meth:`rows_read`."""
+        rows = self.rows_read(x, space)
+        if self.s2d:
+            return _conv_nhwc(F.pad(s2d_pack_x(rows), (0, 0, 1, 0)),
+                              s2d_pack_w(w), 1, 0)
+        return _conv_nhwc(rows, w, self.stride, (0, self.padding))
+
+    def _int8_conv(self, x, space=None):
+        """JAX's int8 chain; under a space axis on the rows of
+        :meth:`rows_read`, quantized with the same fixed ``x_scale`` (the
+        fetched zeros stay zeros), padded along W only."""
         inv = (1.0 / self.x_scale).to(x.dtype)
+        if space is not None:
+            x = self.rows_read(x, space)
         q = torch.clamp(torch.round(x * inv), -127, 127).to(torch.int8)
+        top = 0 if space is not None else 1
         if self.s2d:
             y = quantize.int8_conv(s2d_pack_x(q), s2d_pack_w(self.w_q), 1,
-                                   (1, 0, 1, 0))
+                                   (top, 0, 1, 0))
         else:
             p = self.padding
-            y = quantize.int8_conv(q, self.w_q, self.stride, (p, p, p, p))
+            ph = 0 if space is not None else p
+            y = quantize.int8_conv(q, self.w_q, self.stride, (ph, ph, p, p))
         return y.to(x.dtype) * (self.x_scale * self.w_scale).to(x.dtype)
 
     def step_unrounded(self, x, space=None):
@@ -884,7 +922,9 @@ class ConvLSTM(Layer):
     the state in its dtype. The conv runs in the activation dtype (full
     fp32 at fp32); the weight ``w`` is OIHW ``[4 hidden, in + hidden, k,
     k]``. The sequence form loops over T (the conv reads the carried h),
-    the state frozen for ``t < ctx.start_step``."""
+    the state frozen for ``t < ctx.start_step``. Under a space axis each
+    step fetches the halo rows of ``[x, h]`` (h is a block of rows, as
+    every state) and convolves with padding along W only."""
 
     closes_segment = True
 
@@ -903,12 +943,21 @@ class ConvLSTM(Layer):
                 torch.zeros(shape, dtype=self.state_dtype, device=device))
 
     def step(self, x, state, ctx):
-        _no_space(self, ctx, "LSTM")
         h_prev, c_prev = state
         combined = torch.cat([x, neurons.from_state(h_prev).to(x.dtype)],
                              dim=-1)
-        gates = _conv_nhwc(combined, self.w.to(x.dtype), 1,
-                           self.padding).float()
+        space, p = None if ctx is None else ctx.space, self.padding
+        if space is None:
+            gates = _conv_nhwc(combined, self.w.to(x.dtype), 1, p)
+        else:
+            rows = space.blocks(self.out_hw[0],
+                                f"{self.name}: its output map")
+            combined = fetch_rows(
+                combined, self.out_hw[0],
+                lambda j: (rows[j][0] - p, rows[j][1] + p), space,
+                f"{self.name}: its input map")
+            gates = _conv_nhwc(combined, self.w.to(x.dtype), 1, (0, p))
+        gates = gates.float()
         i_g, f_g, o_g, g_g = gates.split(self.hidden, dim=-1)
         c_new = neurons.fma(torch.sigmoid(f_g), neurons.from_state(c_prev),
                             torch.sigmoid(i_g) * torch.tanh(g_g))
@@ -1079,10 +1128,6 @@ class Block(Layer):
 
     def _run(self, x, state, ctx, seq: bool):
         fuse = seq and ctx.fuse and ctx.start_step == 0 and not ctx.train
-        if fuse and ctx.space is not None:
-            # spiking_conv_seq pads H itself: halo rows would be padded
-            # twice
-            raise not_ported("fused eval under a space axis", SPATIAL_ITEM)
         outs, new_state = [], {}
         for bi, branch in enumerate(self._branches()):
             y, st_b, new_b = x, state[f"b{bi}"], {}
@@ -1099,7 +1144,8 @@ class Block(Layer):
                 # fused plan, as in JAX's _make_apply
                 if li in fused and not layers[li].quantized and not (
                         ctx.record and layers[li + 2].record):
-                    y = self._run_fused(layers[li:li + 3], li, y, st_b, new_b)
+                    y = self._run_fused(layers[li:li + 3], li, y, st_b,
+                                        new_b, ctx.space)
                     li += 3
                     continue
                 if (not seq and ctx.train and y.dtype != torch.float32
@@ -1172,17 +1218,27 @@ class Block(Layer):
         return y
 
     @staticmethod
-    def _run_fused(triple, li, X, st_b, new_b):
+    def _run_fused(triple, li, X, st_b, new_b, space=None):
         """One fused ``[Conv -> Norm -> cell]`` over the sequence ``X``
         (JAX ``_run_fused``): the Conv and Norm states pass through and
-        the cell state comes from the kernel."""
+        the cell state comes from the kernel. Under a space axis the
+        rows of this rank's output block are fetched once for the whole
+        ``[T N]`` sequence (``Conv.rows_read``) and the kernel runs its
+        fetched-rows form, ``pad_h=0``."""
         conv, norm, cell = triple
         a, b = norm.coeffs()
         st = st_b[f"l{li + 2}"]
+        rows = {}
+        if space is not None:
+            T, N = X.shape[:2]
+            X = conv.rows_read(X.reshape((T * N,) + X.shape[2:]), space,
+                               s2d=False)
+            X = X.reshape((T, N) + X.shape[1:]).contiguous()
+            rows = {"pad_h": 0}
         # the unpacked weight and stride, an s2d conv's too (JAX's meta)
         z, v, i = spiking_conv_seq(
             X, conv.w.permute(2, 3, 1, 0), a, b, st.v, st.i,
-            cell.kind, conv.stride,
+            cell.kind, conv.stride, **rows,
         )
         new_b[f"l{li}"] = st_b[f"l{li}"]
         new_b[f"l{li + 1}"] = st_b[f"l{li + 1}"]

@@ -38,7 +38,9 @@ head outputs are gathered over the space group into the whole maps
 before the predictions are flattened, so that every rank of a data
 block holds the same predictions (:func:`parallel.halo.gather_rows`,
 whose backward keeps a rank's own rows: :meth:`loss` on them counts the
-gradient once). The fused schedule under a space axis raises.
+gradient once). The fused schedule runs there too: each triple fetches
+its sequence's rows once and launches ``spiking_conv_seq``'s
+fetched-rows form, whose rows are the whole map's bit for bit.
 
 :meth:`forward_with_records` runs the per-step schedule and returns, for
 every cell built with ``state_storage=True``, its state and output at
@@ -67,7 +69,6 @@ from snn_for_object_detection_tpu_torch.ops.cuda_kernels import (
     X_DTYPES,
 )
 from snn_for_object_detection_tpu_torch.parallel.halo import gather_rows
-from snn_for_object_detection_tpu_torch.roadmap import SPATIAL_ITEM, not_ported
 
 Preds = Tuple[torch.Tensor, torch.Tensor]
 
@@ -491,10 +492,9 @@ class SODa(nn.Module):
             training, as the JAX package fuses only for the Python int
             start 0 in eval. The fused kernel has no truncation gate and
             no backward, so ``fuse=True`` with another start or with
-            ``train`` raises; so does the fused schedule under a
-            ``space`` axis (the kernel pads H itself, so halo rows would
-            be padded twice, and in bf16 the unfused schedule is another
-            function: no silent switch).
+            ``train`` raises. Under a ``space`` axis the fused triples
+            run on this rank's rows (``spiking_conv_seq(pad_h=0)`` on
+            the fetched rows).
         :param train: BatchNorm on per-step batch statistics, the
             running statistics folded once per step ``t >= start_step``;
             conv -> norm -> cell segments checkpointed when ``remat``;
@@ -508,8 +508,6 @@ class SODa(nn.Module):
                              "and no backward: fuse=True needs start_step "
                              f"0 and eval, not start {start_step}, "
                              f"train={train}")
-        if fuse and space is not None:
-            raise not_ported("fused eval under a space axis", SPATIAL_ITEM)
         B = X.shape[1]
         if state is None:
             state = self.init_state(B, space)

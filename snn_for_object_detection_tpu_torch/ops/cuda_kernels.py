@@ -86,10 +86,10 @@ def _temporal_lib(name: str = "temporal_cell_seq_launch"):
 def _spiking_conv_lib():
     fn = cuda_build.load("spiking_conv.cu").spiking_conv_seq_launch
     if fn.argtypes is None:
-        # 9 pointers; T, N, H, W, Cin, Ho, Wo, Cout, k, stride; the plan's
-        # resident, co, th, tw, threads, kc, smem; grid; cell, x and state
-        # type codes; c_mem, c_syn; stream
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 17
+        # 9 pointers; T, N, H, W, Cin, Ho, Wo, Cout, k, stride, pad_h; the
+        # plan's resident, co, th, tw, threads, kc, smem; grid; cell, x and
+        # state type codes; c_mem, c_syn; stream
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 18
                        + [ctypes.c_longlong] + [ctypes.c_int] * 3
                        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -716,8 +716,10 @@ def full_fp32_conv():
         torch.backends.cudnn.allow_tf32 = saved
 
 
-def _check_conv_args(x, w, a, b, v0, i0, cell, stride):
-    """Shared checks of the spiking conv; returns ``(k, Ho, Wo)``."""
+def _check_conv_args(x, w, a, b, v0, i0, cell, stride, pad_h=None):
+    """Shared checks of the spiking conv; returns ``(k, Ho, Wo, pad_h)``:
+    Ho from the rows given and ``pad_h`` (``None``: ``k // 2``), which
+    the state's rows must match."""
     if cell not in _CELLS:
         raise ValueError(f"unsupported cell {cell!r}")
     if stride not in (1, 2):
@@ -735,7 +737,11 @@ def _check_conv_args(x, w, a, b, v0, i0, cell, stride):
     if k not in (1, 3) or tuple(w.shape[1:3]) != (k, cin):
         raise ValueError(f"w {tuple(w.shape)}: want [k, k, {cin}, Cout], "
                          "k in (1, 3)")
-    ho = (h + 2 * (k // 2) - k) // stride + 1
+    pad_h = k // 2 if pad_h is None else pad_h
+    if pad_h not in (0, k // 2) or h + 2 * pad_h < k:
+        raise ValueError(f"pad_h {pad_h} with k={k} and {h} rows: want "
+                         f"{k // 2}, or 0 for fetched rows (at least {k})")
+    ho = (h + 2 * pad_h - k) // stride + 1
     wo = (wd + 2 * (k // 2) - k) // stride + 1
     if tuple(v0.shape) != (n, ho, wo, cout) or v0.shape != i0.shape \
             or tuple(a.shape) != (cout,) or tuple(b.shape) != (cout,):
@@ -746,7 +752,7 @@ def _check_conv_args(x, w, a, b, v0, i0, cell, stride):
         )
     if len({t.device for t in (x, w, a, b, v0, i0)}) != 1:
         raise ValueError("all inputs must be on one device")
-    return k, ho, wo
+    return k, ho, wo, pad_h
 
 
 # ---- the launch plan of csrc/spiking_conv.cu ----
@@ -880,12 +886,16 @@ def _plan_cost(plan: ConvPlan, k: int, stride: int, cin: int,
 @functools.lru_cache(maxsize=256)
 def spiking_conv_plan(k: int, stride: int, n: int, ho: int, wo: int,
                       cin: int, cout: int, x_dtype: torch.dtype,
-                      sms: int) -> ConvPlan:
+                      sms: int, pad_h: Optional[int] = None) -> ConvPlan:
     """The launch plan of one ``spiking_conv_seq`` layer on a card of
     ``sms`` SMs: of :func:`spiking_conv_plans`, the one of least
     :func:`_plan_cost` (the first of equals). The plan never changes
     results (``chip_smoke.py`` [3] holds every plan bit-equal and times
-    it). Cached: a layer's plan is computed once."""
+    it). ``pad_h`` (``k // 2``, or 0 for fetched rows) moves where a
+    CTA's halo tile starts, not its size: a block of rows takes the plan
+    of its own output size. Cached: a layer's plan is computed once."""
+    if pad_h not in (None, 0, k // 2):
+        raise ValueError(f"spiking_conv_seq: pad_h {pad_h} with k={k}")
     plans = spiking_conv_plans(k, stride, n, ho, wo, cin, cout, x_dtype)
     if not plans:
         raise ValueError(f"spiking_conv_seq: no launch plan for k={k}, "
@@ -902,9 +912,10 @@ def sm_count(index: int) -> int:
 def spiking_conv_seq_reference(
     x_seq: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     v0: torch.Tensor, i0: torch.Tensor, cell: str = "lif", stride: int = 1,
-    exact_sums: bool = False,
+    exact_sums: bool = False, pad_h: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of :func:`spiking_conv_seq`, a loop over T:
+    """Plain PyTorch version of :func:`spiking_conv_seq` (``pad_h`` as
+    there), a loop over T:
     the conv on fp32-upcast x and w (bf16 products are exact in fp32, so
     this is the fp32-accumulated conv), rounded to x's dtype; ``y * a +
     b`` in fp32 rounded once (``neurons.fma``: XLA contracts it inside
@@ -915,7 +926,8 @@ def spiking_conv_seq_reference(
     everything after it rounds as before, so the run differs from the
     default only in the conv sums (the reference of the witness,
     ``megakernel.run_distance``)."""
-    k, _, _ = _check_conv_args(x_seq, w, a, b, v0, i0, cell, stride)
+    k, _, _, pad_h = _check_conv_args(x_seq, w, a, b, v0, i0, cell, stride,
+                                      pad_h)
     xd, sd = x_seq.dtype, v0.dtype
     cdt = torch.float64 if exact_sums else torch.float32
     w_oihw = w.to(xd).to(cdt).permute(3, 2, 0, 1)
@@ -927,7 +939,7 @@ def spiking_conv_seq_reference(
     with full_fp32_conv():
         for t in range(x_seq.shape[0]):
             y = F.conv2d(x_seq[t].to(cdt).permute(0, 3, 1, 2), w_oihw,
-                         stride=stride, padding=k // 2
+                         stride=stride, padding=(pad_h, k // 2)
                          ).permute(0, 2, 3, 1).float()
             y = neurons.fma(y.to(xd).float(), a32, b32).to(xd).float()
             out, (v, i) = step(y, (v, i))
@@ -970,10 +982,20 @@ def spiking_conv_weights(w: torch.Tensor,
 def spiking_conv_seq(
     x_seq: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     v0: torch.Tensor, i0: torch.Tensor, cell: str = "lif", stride: int = 1,
+    pad_h: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused [k x k conv (stride 1 or 2, zero padding k // 2) -> eval
     BatchNorm affine -> LIF / LI] over a whole sequence: ``(z_seq, v_T,
     i_T)``. Inference only: no truncation.
+
+    ``pad_h``: the zero rows above and below the map, ``k // 2`` (the
+    default) or 0: the fetched-rows form, for a block of a map split
+    along H (``parallel/halo.py``), whose rows ``x_seq`` holds with the
+    halo and the zero rows beyond the map's edge already in place (W
+    keeps its padding). The output rows are ``(H + 2 pad_h - k) //
+    stride + 1``; ``v0`` must have as many. Each output sums as in the
+    whole map's launch, so a block's rows are the whole map's bit for
+    bit.
 
     :param x_seq: ``[T, N, H, W, Cin]``, fp32 or bf16.
     :param w: ``[k, k, Cin, Cout]`` (the JAX layout), k in (1, 3); cast
@@ -991,32 +1013,36 @@ def spiking_conv_seq(
     CUDA tensor it launches ``csrc/spiking_conv.cu`` on the current
     stream or raises; ``x_seq``, ``v0`` and ``i0`` must be contiguous.
     """
-    _, ho, wo = _check_conv_args(x_seq, w, a, b, v0, i0, cell, stride)
+    _, ho, wo, pad = _check_conv_args(x_seq, w, a, b, v0, i0, cell, stride,
+                                      pad_h)
     if x_seq.device.type == "cpu":
-        return spiking_conv_seq_reference(x_seq, w, a, b, v0, i0, cell,
-                                          stride)
+        return spiking_conv_seq_reference(
+            x_seq, w, a, b, v0, i0, cell, stride,
+            **({} if pad_h is None else {"pad_h": pad_h}))
     if x_seq.device.type != "cuda":
         raise ValueError(f"unsupported device {x_seq.device}")
     _require_contiguous(x_seq=x_seq, v0=v0, i0=i0)
     plan = spiking_conv_plan(w.shape[0], stride, x_seq.shape[1], ho, wo,
                              x_seq.shape[4], w.shape[3], x_seq.dtype,
-                             sm_count(x_seq.device.index))
+                             sm_count(x_seq.device.index), pad)
     return spiking_conv_seq_launch(x_seq, w, a, b, v0, i0, cell, stride,
-                                   plan)
+                                   plan, pad)
 
 
 def spiking_conv_seq_launch(
     x_seq: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     v0: torch.Tensor, i0: torch.Tensor, cell: str, stride: int,
-    plan: ConvPlan,
+    plan: ConvPlan, pad_h: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One launch of ``csrc/spiking_conv.cu`` under ``plan``, for
     arguments :func:`spiking_conv_seq` has checked (``chip_smoke.py``
     runs every other plan of the layer through it); the entry point
-    refuses a plan that is not its geometry's. The weights go as
-    :func:`spiking_conv_weights` keeps them."""
+    refuses a plan that is not its geometry's, and output rows that are
+    not those of the rows given and ``pad_h`` (``None``: ``k // 2``).
+    The weights go as :func:`spiking_conv_weights` keeps them."""
     T, n, h, wd, cin = x_seq.shape
     k, cout = w.shape[0], w.shape[3]
+    pad_h = k // 2 if pad_h is None else pad_h
     ho, wo = v0.shape[1:3]
     w = spiking_conv_weights(w, x_seq.dtype)
     a, b = a.float().contiguous(), b.float().contiguous()
@@ -1031,7 +1057,8 @@ def spiking_conv_seq_launch(
             x_seq.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
             v0.data_ptr(), i0.data_ptr(), z.data_ptr(), v_t.data_ptr(),
             i_t.data_ptr(), T, n, h, wd, cin, ho, wo, cout, k, stride,
-            int(plan.resident), plan.co, plan.th, plan.tw, plan.threads, plan.kc, plan.smem, plan.grid,
+            pad_h, int(plan.resident), plan.co, plan.th, plan.tw,
+            plan.threads, plan.kc, plan.smem, plan.grid,
             _CELLS[cell], _CODES[x_seq.dtype], _CODES[v0.dtype], c_mem,
             c_syn, stream,
         )

@@ -10,6 +10,7 @@ from snn_for_object_detection_tpu_torch.parallel.halo import (
 )
 from snn_for_object_detection_tpu_torch.parallel.mesh import (
     Mesh,
+    MeshShape,
     batch_sharding,
     data_extent,
     feature_sharding,
@@ -21,6 +22,7 @@ from snn_for_object_detection_tpu_torch.parallel.mesh import (
 
 __all__ = [
     "Mesh",
+    "MeshShape",
     "Space",
     "batch_sharding",
     "data_extent",

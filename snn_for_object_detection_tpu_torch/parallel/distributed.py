@@ -116,6 +116,13 @@ def rank(group=None) -> int:
     return tdist.get_rank(group) if tdist.is_initialized() else 0
 
 
+def local_world_size() -> int:
+    """The ranks on this host: torchrun's ``LOCAL_WORLD_SIZE``; without
+    it every rank is taken to share one host (a launcher that starts
+    the ranks itself and says nothing)."""
+    return _env_int("LOCAL_WORLD_SIZE") or world_size()
+
+
 def is_distributed() -> bool:
     return world_size() > 1
 

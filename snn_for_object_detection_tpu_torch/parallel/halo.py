@@ -239,5 +239,8 @@ def gather_rows(x: torch.Tensor, rows: int, space: Space) -> torch.Tensor:
     each rank's block ``x [N, rows_local, ...]``. Its backward gives a
     rank its own rows of the gradient it holds: the ranks of a group
     compute the same loss on the gathered map, once each, so their
-    gradients are copies of one."""
+    gradients are copies of one. A group of one rank holds the whole
+    map already."""
+    if space.size == 1:
+        return x
     return _Gather.apply(x, rows, space)

@@ -23,8 +23,15 @@ devices and the process groups its ranks form:
 - serving holds several devices in one process (``make_mesh(devices=
   ["cuda:0", "cuda:1"])``, or ``["cpu"] * 4`` on the CPU): the engine
   keeps a replica of the model on each, and the slot rows split into
-  contiguous blocks (:func:`batch_sharding`); no collectives and no
-  ``space`` axis.
+  contiguous blocks (:func:`batch_sharding`); no collectives. With
+  ``spatial=k`` the devices form ``len(devices) / k`` data rows of ``k``
+  (JAX's engine shards its slots over ``data`` and replicates them over
+  ``space``): a replica a data row, on the row's first device
+  (:attr:`Mesh.data_devices`), a block of slots each.
+
+:class:`MeshShape` is a mesh's extents without its groups: what a
+Trainer queues for a live reshape (``new_group`` is collective, so no
+one rank's thread may build a mesh).
 """
 
 from __future__ import annotations
@@ -40,7 +47,6 @@ import torch.distributed as tdist
 
 from snn_for_object_detection_tpu_torch.parallel import distributed as dist
 from snn_for_object_detection_tpu_torch.parallel.halo import Space
-from snn_for_object_detection_tpu_torch.roadmap import SPATIAL_ITEM, not_ported
 
 DATA_AXIS = "data"
 SPACE_AXIS = "space"
@@ -100,6 +106,14 @@ class Mesh:
         return Space(self.space_group, self.space, self.space_rank)
 
     @property
+    def data_devices(self) -> Tuple[torch.device, ...]:
+        """This process's first device of each of its data rows: every
+        device without a ``space`` axis; on a one-process serving mesh
+        with one, a data row's ``space`` devices hold the same slots."""
+        return self.devices[::self.space] if self.group is None \
+            else self.devices
+
+    @property
     def device(self) -> torch.device:
         """The device of a training mesh (one a rank)."""
         if len(self.devices) != 1:
@@ -107,6 +121,26 @@ class Mesh:
                 f"a training mesh holds one device a rank, this one "
                 f"{len(self.devices)}: {self.devices}")
         return self.devices[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """The extents of a mesh, ``data`` x ``space``, and nothing of its
+    groups (JAX's ``mesh.shape``)."""
+
+    data: int
+    space: int = 1
+    axis: str = DATA_AXIS
+
+    @property
+    def size(self) -> int:
+        return self.data * self.space
+
+    @property
+    def shape(self):
+        if self.space == 1:
+            return {self.axis: self.data}
+        return {self.axis: self.data, SPACE_AXIS: self.space}
 
 
 def _grid(dev: torch.device, axis: str, spatial: int) -> Mesh:
@@ -137,8 +171,9 @@ def make_mesh(devices: Optional[Sequence] = None, axis: str = DATA_AXIS,
     a ``(data, space)`` grid with ``k`` ranks along ``space`` (the world
     size must divide by ``k``). A list of devices: those, in this
     process (serving; several ranks take one each, and then ``spatial``
-    builds the grid as above). A serving mesh of several devices has no
-    ``space`` axis: ``spatial > 1`` raises there."""
+    builds the grid as above). In one process ``spatial=k`` lays the
+    devices out as ``len(devices) / k`` data rows of ``k`` (a serving
+    mesh: :attr:`Mesh.data_devices`)."""
     if spatial < 1:
         raise ValueError(f"spatial must be at least 1, got {spatial}")
     if devices is None:
@@ -157,11 +192,10 @@ def make_mesh(devices: Optional[Sequence] = None, axis: str = DATA_AXIS,
         if spatial > 1:
             return _grid(devs[0], axis, spatial)
         return Mesh(devs, tdist.group.WORLD, axis)
-    if spatial > 1:
-        raise not_ported(f"make_mesh({len(devs)} devices in one process, "
-                         f"spatial={spatial}): a serving mesh",
-                         SPATIAL_ITEM)
-    return Mesh(devs, None, axis)
+    if len(devs) % spatial:
+        raise ValueError(
+            f"{len(devs)} devices not divisible by spatial={spatial}")
+    return Mesh(devs, None, axis, spatial)
 
 
 def same_device(a, b) -> bool:
@@ -191,19 +225,23 @@ class Sharding:
 
     def blocks(self, size: int) -> List[slice]:
         """This process's blocks of a dimension of ``size``, one a
-        device."""
+        device, or with ``dim=None`` the whole dimension a device. On a
+        one-process mesh with a ``space`` axis, one a data row (of
+        :attr:`Mesh.data_devices`): its ``space`` devices share it."""
+        mesh = self.mesh
         if self.dim is None:
-            return [slice(0, size)] * len(self.mesh.devices)
-        if self.mesh.space > 1:
+            return [slice(0, size)] * len(mesh.devices)
+        if mesh.space > 1 and mesh.group is not None:
             raise ValueError("a grid's batch blocks are its data blocks: "
                              "each rank's batch is its data block's")
-        n = self.mesh.size
+        n, here = data_extent(mesh), len(mesh.data_devices)
         if size % n:
-            raise ValueError(f"{size} rows must divide by the mesh size {n}")
+            raise ValueError(
+                f"{size} rows must divide by the {n} data rows of the mesh")
         per = size // n
-        first = self.mesh.rank * len(self.mesh.devices)
+        first = mesh.rank * here
         return [slice((first + i) * per, (first + i + 1) * per)
-                for i in range(len(self.mesh.devices))]
+                for i in range(here)]
 
 
 def replicated(mesh: Mesh) -> Sharding:

@@ -2,12 +2,10 @@
 
 A leaf, mode or option that is not ported raises :func:`not_ported`
 naming its item of ROADMAP.md's Queue 1. The items' labels live here,
-in a module that imports nothing of the package, so that the models,
-``parallel/`` and ``train/`` name one label each without importing one
-another.
+in a module that imports nothing of the package, so that any module can
+name one without importing another.
 """
 
-SPATIAL_ITEM = "spatial sharding"
 OTHER_FACTORIES = "other optax factories"
 
 

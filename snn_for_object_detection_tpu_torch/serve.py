@@ -27,7 +27,11 @@ process holds a replica of the model on each device, and the slot rows
 split into one contiguous block of ``capacity / mesh.size`` rows a
 device (``batch_sharding(mesh, 0)``): every block's step is launched
 first, then the detections are read back. No collectives: the rows are
-independent.
+independent. A mesh with a ``space`` axis (``make_mesh(devices=[...],
+spatial=k)``) is JAX's ``(data, space)`` serving mesh, whose engine
+shards the slots over ``data`` and replicates them over ``space``: here a
+replica a data row, on that row's first device, so its results are those
+of the same engine on the data rows' devices alone.
 """
 
 from __future__ import annotations
@@ -79,9 +83,11 @@ class StreamingEngine:
         :param threshold: Confidence floor applied on the host (0 keeps
             every foreground row).
         :param mesh: A mesh of this process's devices
-            (``parallel.make_mesh(devices=...)``; one device may appear
-            more than once): a replica of the model on each, a block of
-            the slots each. ``capacity`` must divide by its size.
+            (``parallel.make_mesh(devices=..., spatial=...)``; one device
+            may appear more than once): a replica of the model on each
+            device (each data row's first device with ``spatial > 1``),
+            a block of the slots each. ``capacity`` must divide by the
+            mesh's size, as JAX's.
         :param frame_dtype: Host staging dtype of the slot frames:
             ``uint8`` (the default, 4x less host-to-device traffic,
             exact for event counts below 256) or ``float32``. The step
@@ -104,7 +110,7 @@ class StreamingEngine:
                     f"size {mesh.size}")
             rows = batch_sharding(mesh, 0).blocks(self.capacity)
             self._replicas = [(self._replica(model, dev, i), rows[i])
-                              for i, dev in enumerate(mesh.devices)]
+                              for i, dev in enumerate(mesh.data_devices)]
         else:
             self._replicas = [(model, slice(0, self.capacity))]
         self.max_out = int(max_out)

@@ -58,15 +58,23 @@ rank's rows and folds the mAP accumulators across ranks; only rank 0
 logs and writes checkpoints. Batches reach the device through
 ``prefetch_to_device`` (``prefetch_batches`` ahead, 2 by default).
 
-Spatial sharding (``mesh=make_mesh(spatial=k)``): the ranks form a
-``(data, space)`` grid; the ``k`` ranks of a data block load the same
-batch (the data module's shard is the data index's) and each keeps its
-rows of H. The forward takes the grid's ``space`` axis (``space=``) and
-the whole grid as BatchNorm's group; the loss counts over the ``data``
-group, since the ranks of a block hold the same gathered predictions;
-the gradients are summed over the grid and the loss over the data
-blocks, once each. Evaluation folds the mAP accumulators over the
-``data`` group, so each image counts once.
+Spatial sharding (``spatial_devices=k``, or ``mesh=make_mesh(
+spatial=k)``): the ranks form a ``(data, space)`` grid; the ``k`` ranks
+of a data block load the same batch (the data module's shard is the
+data index's) and each keeps its rows of H. The forward takes the grid's
+``space`` axis (``space=``) and the whole grid as BatchNorm's group; the
+loss counts over the ``data`` group, since the ranks of a block hold the
+same gathered predictions; the gradients are summed over the grid and
+the loss over the data blocks, once each. Evaluation folds the mAP
+accumulators over the ``data`` group, so each image counts once.
+
+Live mesh reshape (``request_mesh_reshape``, or the file
+``out_dir/reshape_request`` holding a device count), polled before each
+epoch of ``fit``: under several ranks the request is dropped with JAX's
+multi-host message ("use checkpoint + relaunch") and the file is left
+for the supervisor that relaunches; in one process the file is claimed,
+read and removed as JAX's single-process path does, and a rank holds
+one device, so the only shape a request can name is the current one.
 """
 
 from __future__ import annotations
@@ -87,13 +95,13 @@ import torch
 
 from snn_for_object_detection_tpu_torch.parallel import distributed as dist
 from snn_for_object_detection_tpu_torch.parallel.mesh import (
+    MeshShape,
     data_extent,
     make_mesh,
     prefetch_to_device,
     same_device,
     shard_batch,
 )
-from snn_for_object_detection_tpu_torch.roadmap import SPATIAL_ITEM, not_ported
 from snn_for_object_detection_tpu_torch.train import optax_rules
 from snn_for_object_detection_tpu_torch.train.checkpoint import (
     CheckpointManager,
@@ -434,9 +442,15 @@ class Trainer:
         real update; validation and checkpoints use it.
     :param mesh: A data-parallel mesh (``parallel.make_mesh()``: this
         rank's device over every rank) or a ``(data, space)`` grid
-        (``make_mesh(spatial=k)``). Default: the model's device alone,
-        or ``make_mesh()`` when ``torch.distributed`` runs several
+        (``make_mesh(spatial=k)``), taken as it is. Default: the model's
+        device alone, or the grid :meth:`mesh_for` sizes from
+        ``spatial_devices`` when ``torch.distributed`` runs several
         ranks.
+    :param spatial_devices: Ranks along the ``space`` axis of the grid
+        :meth:`mesh_for` builds (JAX's ``mesh_for_batch``): ``k > 1``
+        splits H over ``k`` ranks of one host; refused across hosts, for
+        a world that ``k`` does not divide, and in one process of one
+        device.
     :param prefetch_batches: Batches ``fit`` keeps on their way to the
         device ahead of the train step (``prefetch_to_device``, a
         thread; 0 places each batch when it is needed).
@@ -458,10 +472,6 @@ class Trainer:
         CUDA kernel in it raises. A run that ends inside the window
         writes nothing, as the JAX trainer's (whose trace is written
         when it stops).
-
-    ``spatial_devices`` > 1 (the trainer sizing a grid from the batch),
-    ``request_mesh_reshape`` and ``time_batched="auto"`` on a grid raise
-    ``NotImplementedError`` naming their ROADMAP item.
     """
 
     def __init__(
@@ -498,8 +508,9 @@ class Trainer:
                 f"time_batched must be False, True, 'hybrid' or 'auto', "
                 f"got {time_batched!r}"
             )
-        if spatial_devices != 1:
-            raise not_ported("spatial_devices > 1", SPATIAL_ITEM)
+        if int(spatial_devices) < 1:
+            raise ValueError(
+                f"spatial_devices must be at least 1, got {spatial_devices}")
         if ema_decay is not None and not 0.0 <= float(ema_decay) <= 1.0:
             raise ValueError(f"ema_decay must be in [0, 1], got {ema_decay}")
         if fast_dev_run:
@@ -521,6 +532,9 @@ class Trainer:
         self.out_dir = out_dir
         self.seed = seed
         self._mesh = mesh
+        self.spatial_devices = int(spatial_devices)
+        # a MeshShape queued by request_mesh_reshape
+        self._pending_mesh: Optional[MeshShape] = None
         self.prefetch_batches = int(prefetch_batches)
         self.gradient_clip_norm = gradient_clip_norm
         self.accumulate_grad_batches = max(accumulate_grad_batches, 1)
@@ -552,26 +566,115 @@ class Trainer:
         return [instantiate(item) if isinstance(item, dict) else item
                 for item in logger]
 
-    def request_mesh_reshape(self, devices=None, num_devices=None):
-        raise not_ported("live mesh reshape", SPATIAL_ITEM)
-
     # ---- the mesh ----
 
     def mesh_for(self, device):
-        """The data-parallel mesh of a run on ``device``: the one given,
-        else ``make_mesh()`` under several ranks, else ``device`` alone.
-        A rank holds one device, the model's, so the data extent divides
-        the global batch (a rank's batch times the ranks) whatever its
-        size."""
+        """The mesh of a run on ``device`` (JAX's ``mesh_for_batch``):
+        the one given, as it is; else under several ranks ``make_mesh(
+        spatial=spatial_devices)`` over every rank, a ``(data, space)``
+        grid when ``spatial_devices > 1``; else ``device`` alone. A rank
+        holds one device, the model's, and its batch is its data block's
+        (DDP's semantics), so the data extent divides the global batch
+        whatever its size: JAX's shrinking of the mesh to a divisor of
+        the batch has no counterpart. As JAX refuses, a ``space`` axis
+        that crosses hosts (ranks on several hosts: ``LOCAL_WORLD_SIZE``
+        is not ``WORLD_SIZE``), a world that ``spatial_devices`` does not
+        divide, and ``spatial_devices > 1`` in one process (one device)
+        raise ``ValueError``."""
+        s = self.spatial_devices
         if self._mesh is None and dist.is_distributed():
-            self._mesh = make_mesh()
+            world = dist.world_size()
+            if s > 1 and dist.local_world_size() != world:
+                # a space axis across hosts would put every halo exchange
+                # on the network between them
+                raise ValueError(
+                    "spatial_devices > 1 is single-host only; pass an "
+                    "explicit mesh to shard spatially across hosts")
+            if world % s:
+                raise ValueError(
+                    f"{world} devices not divisible by spatial_devices={s}")
+            self._mesh = make_mesh(spatial=s)
         if self._mesh is None:
+            if s > 1:
+                raise ValueError(
+                    f"1 devices not divisible by spatial_devices={s}")
             return make_mesh(devices=[device])
         mesh = self._mesh
         if not same_device(mesh.device, device):
             raise ValueError(f"the mesh's device {mesh.device} is not the "
                              f"model's ({device})")
         return mesh
+
+    # ---- live mesh reshape ----
+
+    def request_mesh_reshape(self, devices=None, num_devices=None) -> None:
+        """Queue a mesh of ``num_devices`` devices (or of ``devices``, a
+        sequence of them) with this trainer's ``spatial_devices`` along
+        ``space``, for the next epoch boundary of a running ``fit``
+        (JAX's). Callable from another thread or before ``fit``: it
+        queues a :class:`MeshShape` and builds no process group. A rank
+        holds one device, so a count lies in ``[1, ranks]``; it must
+        divide by ``spatial_devices``. The alternative trigger: the
+        count written to ``out_dir/reshape_request``
+        (:meth:`_poll_mesh_reshape`)."""
+        avail = dist.world_size()
+        if devices is None:
+            if num_devices is None:
+                raise ValueError("pass devices or num_devices")
+            n = int(num_devices)
+        else:
+            n = len(devices)
+        if not 1 <= n <= avail:
+            raise ValueError(f"num_devices must be in [1, {avail}], got {n}")
+        s = self.spatial_devices
+        if n % s:
+            raise ValueError(
+                f"{n} devices not divisible by spatial_devices={s}")
+        self._pending_mesh = MeshShape(n // s, s)
+
+    def _poll_mesh_reshape(self) -> None:
+        """Take a queued reshape (JAX's ``_poll_mesh_reshape``, before
+        each epoch of ``fit``).
+
+        Under several ranks: a queued shape is dropped and rank 0 says
+        to checkpoint and relaunch (each rank's file and queue could not
+        stay coherent, and diverged meshes hang collectives); the
+        ``reshape_request`` file is left unread, for the supervisor that
+        relaunches. In one process: the file is claimed by an atomic
+        rename (a supervisor that writes it again meanwhile lands as a
+        fresh file, read at the next epoch), its count queued as
+        :meth:`request_mesh_reshape` would, a bad count ignored with a
+        message, and the claimed file removed. One process holds one
+        rank of one device: the only shape it can queue is its own, so
+        the mesh stays (JAX's batch check, against a data extent of 1,
+        always passes)."""
+        if dist.is_distributed():
+            if self._pending_mesh is not None:
+                _say("[trainer] live reshape ignored under multi-host; use "
+                     "checkpoint + relaunch")
+                self._pending_mesh = None
+            return
+        req = os.path.join(self.out_dir, "reshape_request")
+        if self._pending_mesh is None and os.path.exists(req):
+            claimed = req + ".claimed"
+            try:
+                os.rename(req, claimed)
+            except OSError:
+                claimed = None  # the supervisor removed it meanwhile
+            if claimed is not None:
+                try:
+                    with open(claimed) as f:
+                        n = int(f.read().strip())
+                    self.request_mesh_reshape(num_devices=n)
+                except (ValueError, IndexError, OSError) as e:
+                    print(f"[trainer] bad reshape_request ignored: {e}",
+                          flush=True)
+                finally:
+                    try:
+                        os.remove(claimed)
+                    except OSError:
+                        pass
+        self._pending_mesh = None
 
     @property
     def _group(self):
@@ -634,11 +737,6 @@ class Trainer:
         (the winner can differ), and kept for the life of the trainer."""
         if self.time_batched != "auto":
             return self.time_batched
-        if self._space is not None:
-            # the probe runs each schedule outside the collectives, which
-            # a rank's rows cannot: they read their neighbours' halos
-            raise not_ported("time_batched='auto' on a (data, space) grid",
-                             SPATIAL_ITEM)
         mode = "train" if train else "eval"
         if mode not in self._auto_schedule:
             self._auto_schedule[mode] = self._measure_schedules(
@@ -661,53 +759,82 @@ class Trainer:
         gradients (no optimizer update, which every schedule shares),
         the eval step the forward and the loss; both from start 0 on
         zero frames of ``X``'s shape and dtype and labels of -1 of
-        ``labels``' shape, on a deep copy of ``model``, so that neither
-        its weights nor its BatchNorm statistics move. A schedule that
-        runs out of device memory is disqualified; any other error
-        propagates."""
+        ``labels``' shape, on a deep copy of ``model`` made for each
+        schedule, so that neither its weights nor its BatchNorm
+        statistics move. A schedule that runs out of device memory is
+        disqualified; any other error propagates.
+
+        Data parallel, the probe runs outside the global batch (no
+        collectives), so a rank that fails cannot leave the others
+        waiting in one. On a ``(data, space)`` grid a rank's rows cannot
+        run alone (they read their neighbours' halos): the probe runs on
+        the grid with its collectives (the halo rows, BatchNorm over the
+        grid, the loss's counts over ``data``). Before each schedule the
+        ranks agree over the grid that every rank placed its copy; a
+        schedule out of memory on any rank is disqualified on all
+        (:meth:`_merge_timings`). An out-of-memory error that strikes one
+        rank alone inside the step leaves the others waiting in its next
+        collective: as JAX's probe, this one assumes that a failure
+        surfaces on every rank alike (ROADMAP, Queue 3)."""
         mode = "train" if train else "eval"
         device = X.device
         on_card = device.type == "cuda"
         X0 = torch.zeros_like(X)
         labels0 = torch.full_like(labels, -1.0)
-        # the probe runs outside the global batch (no collectives), so a
-        # rank that fails cannot leave the others waiting in one
-        group = self._peers
+        group, space = self._peers, self._space
+        grid = space is not None
+        # on the grid the probe is the grid's step; else this rank's rows
+        # alone
+        batch_group = group if grid else None
+        loss_group = self._data_peers if grid else None
         errors: Dict[Any, str] = {}
-        probe = copy.deepcopy(model)
-        params = list(probe.parameters())
 
-        def step_fn(schedule):
+        def step_fn(probe, schedule):
+            params = list(probe.parameters())
             if train:
                 def step():
                     preds, _ = probe.forward_fn(schedule)(
-                        X0, start_step=0, train=True)
-                    loss = probe.loss(preds, labels0)
+                        X0, start_step=0, train=True, group=batch_group,
+                        space=space)
+                    loss = probe.loss(preds, labels0, group=loss_group)
                     torch.autograd.grad(loss, params, allow_unused=True)
             else:
                 def step():
                     with torch.inference_mode():
-                        probe.loss(self._eval_preds(probe, schedule, X0, 0),
-                                   labels0)
+                        probe.loss(self._eval_preds(probe, schedule, X0, 0,
+                                                    space),
+                                   labels0, group=loss_group)
             return step
 
         results: Dict[Any, Dict[str, Any]] = {}
         for schedule in SCHEDULES:
-            if on_card:
-                torch.cuda.reset_peak_memory_stats(device)
-            oom = None
+            probe, oom = None, None
             try:
-                seconds = time_call(step_fn(schedule), device)
+                probe = copy.deepcopy(model)
             except torch.OutOfMemoryError as e:
                 oom = f"{type(e).__name__}: {e}"[:200]
-            except Exception as e:
-                if group is None:
-                    raise
-                # raised on every rank once the ranks have compared notes
-                errors[schedule] = f"{type(e).__name__}: {e}"[:200]
-                results[schedule] = {"ms": None, "peak_gb": None,
-                                     "oom": None}
-                continue
+            if grid and not all(dist.allgather_pickle(probe is not None,
+                                                      group)):
+                probe = None
+                oom = oom or "another rank could not place its copy"
+            if probe is not None:
+                if on_card:
+                    torch.cuda.reset_peak_memory_stats(device)
+                try:
+                    seconds = time_call(step_fn(probe, schedule), device)
+                except torch.OutOfMemoryError as e:
+                    oom = f"{type(e).__name__}: {e}"[:200]
+                except Exception as e:
+                    if group is None:
+                        raise
+                    # raised on every rank once the ranks have compared
+                    # notes
+                    errors[schedule] = f"{type(e).__name__}: {e}"[:200]
+                    results[schedule] = {"ms": None, "peak_gb": None,
+                                         "oom": None}
+                    continue
+                finally:
+                    probe = None
             if oom is not None:
                 # the traceback that held the failed attempt's tensors
                 # went with the except clause; free them before the
@@ -724,7 +851,6 @@ class Trainer:
                                  "oom": None}
             _say(f"[trainer] schedule {schedule!r}: {seconds * 1e3:.0f} "
                  f"ms/step" + (f", peak {peak:.2f} GB" if on_card else ""))
-        del probe, params
         if group is not None:
             results = self._merge_timings(results, errors, group)
         self.schedule_timings[mode] = results
@@ -927,6 +1053,9 @@ class Trainer:
         try:
             t_epoch = time.time()
             while self.max_epochs < 0 or epoch < self.max_epochs:
+                # before the epoch, as JAX's: a request queued during the
+                # last epoch starts nothing
+                self._poll_mesh_reshape()
                 losses = []
                 for _ in range(self.limit_train_batches):
                     X, labels = next(train_iter)

@@ -230,6 +230,47 @@ def test_spiking_conv_plan_variants(card, case, x_dtype, state_dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype,state_dtype", DTYPE_PAIRS)
+@pytest.mark.parametrize("k,stride,cell", CONV_CASES)
+def test_spiking_conv_fetched_rows_are_the_whole_maps(card, k, stride, cell,
+                                                      x_dtype, state_dtype):
+    """The fetched-rows form (``pad_h=0``): each row block of 2, 3 and 4
+    ranks, launched on its rows sliced from the zero-padded map, gives
+    the whole map's launch's rows of z, v and i bit for bit; the entry
+    point refuses output rows that are not the rows given's."""
+    import torch.nn.functional as F
+
+    from snn_for_object_detection_tpu_torch.parallel import row_blocks
+
+    for shape, cout in (((5, 2, 13, 19, 6), 40), ((4, 1, 16, 9, 32), 24)):
+        x, w, a, b, v0, i0 = _conv_inputs(k, stride, x_dtype, state_dtype,
+                                          shape, cout)
+        whole = cuda_kernels.spiking_conv_seq(x, w, a, b, v0, i0, cell,
+                                              stride)
+        p, ho = k // 2, v0.shape[1]
+        padded = F.pad(x, (0, 0, 0, 0, p, p + stride))
+        for ranks in (2, 3, 4):
+            for o0, o1 in row_blocks(ho, ranks):
+                rows = padded[:, :, o0 * stride:(o1 - 1) * stride + k]
+                got = cuda_kernels.spiking_conv_seq(
+                    rows.contiguous(), w, a, b, v0[:, o0:o1].contiguous(),
+                    i0[:, o0:o1].contiguous(), cell, stride, pad_h=0)
+                for g, full in zip(got, (whole[0][:, :, o0:o1],
+                                         whole[1][:, o0:o1],
+                                         whole[2][:, o0:o1])):
+                    torch.testing.assert_close(g.float(), full.float(),
+                                               rtol=0, atol=0,
+                                               equal_nan=True)
+    if k == 3:  # the whole map's rows unpadded give fewer output rows
+        plan = cuda_kernels.spiking_conv_plan(
+            k, stride, shape[1], ho, v0.shape[2], shape[4], cout, x_dtype,
+            cuda_kernels.sm_count(0))
+        with pytest.raises(RuntimeError, match="code -1"):
+            cuda_kernels.spiking_conv_seq_launch(x, w, a, b, v0, i0, cell,
+                                                 stride, plan, pad_h=0)
+
+
+@pytest.mark.cuda
 def test_spiking_conv_rejects_a_wrong_grid(card):
     """The entry point checks the plan's grid and shared memory against
     its geometry."""

@@ -114,7 +114,8 @@ def test_prefetch_yields_jax_batches(mesh):
 def test_shard_batch_and_mesh_shape(mesh):
     """A rank's batch on its device; a one-process mesh of one device is
     the data axis of size 1, of four CPU devices size 4 (serving), and a
-    training mesh holds one device."""
+    training mesh holds one device; four devices with ``spatial=2`` are
+    two data rows of two (serving)."""
     X, lab = next(_batches(1))
     x, y = shard_batch(mesh, X, lab)
     assert torch.equal(x, torch.from_numpy(X))
@@ -124,5 +125,11 @@ def test_shard_batch_and_mesh_shape(mesh):
     assert four.size == 4
     with pytest.raises(ValueError, match="one device"):
         shard_batch(four, X, lab)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*spatial"):
-        make_mesh(["cpu"] * 4, spatial=2)
+    # JAX's (data, space) serving mesh: a data row's first device holds
+    # its slots
+    grid = make_mesh(["cpu"] * 4, spatial=2)
+    assert grid.shape == {"data": 2, "space": 2} and grid.size == 4
+    assert len(grid.data_devices) == 2
+    with pytest.raises(ValueError, match="3 devices not divisible by "
+                                         "spatial=2"):
+        make_mesh(["cpu"] * 3, spatial=2)

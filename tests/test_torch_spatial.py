@@ -38,8 +38,10 @@ the ``MicroSODa`` of tests/test_detector.py:
 - Conv, Pool and Up over uneven blocks against one process (float64);
 - ``Trainer.test`` on a ``dp1_sp2`` grid: the one-rank detections, mAP
   and loss; ``prefetch_to_device`` on the grid;
-- the layers that do not split (``StridedPool``, ``Resize``,
-  ``ConvLSTM``, the fused schedule) raise naming their ROADMAP item.
+- ``StridedPool``, ``Resize``, ``ConvLSTM`` and the fused schedule, which
+  raised under a space axis before they split, under a space axis of one
+  rank against the one-process forms (tests/test_torch_spatial_layers.py
+  splits them over gloo ranks against JAX).
 """
 
 import jax
@@ -520,30 +522,74 @@ def test_eval_on_dp1_sp2_matches_one_rank(grid, schedule):
     assert want["metrics"]["test_loss"] > 0
 
 
-# ---- what does not split ----
+# ---- the layers that split since they were ported ----
 
 
 def _space_ctx():
-    return C.Ctx(space=Space(None, 2, 0))
+    return C.Ctx(space=Space(None, 1, 0))
 
 
 @pytest.mark.parametrize("spec", [S.Pool("M", 3, 2), S.Up(2, "bilinear"),
                                   S.LSTM()],
                          ids=["strided_pool", "resize", "lstm"])
 def test_layers_that_do_not_split_raise(spec):
-    block = C.compile_block([spec], 4, (8, 8))
-    x = torch.zeros((1, 4, 8, 4))
-    with pytest.raises(NotImplementedError,
-                       match="under a space axis.*ROADMAP.*spatial sharding"):
-        block.step(x, block.init_state(1, "cpu"), _space_ctx())
+    """These layers raised under a space axis until they split (the
+    test keeps its name). Under a space axis of one rank each runs its
+    rows form (the rows it reads fetched, in one process with no
+    collective: the uncropped tail of the strided Pool's map, the rows
+    of the resize weights' support, the LSTM's halo of ``[x, h]``), and
+    gives the one-process form's output and state, float64 within 1e-12
+    (tests/test_torch_spatial_layers.py splits them over gloo ranks)."""
+    block = C.compile_block([spec], 4, (9, 8)).double()
+    for m in block.modules():
+        if isinstance(m, C.ConvLSTM):
+            m.reset_parameters(torch.Generator().manual_seed(1))
+    x = torch.randn((2, 3, 9, 8, 4), dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(0))
+    state = block.init_state(3, "cpu")
+    (y, new), (y1, new1) = [block.seq(x, state, C.Ctx(space=space))
+                            for space in (None, Space(None, 1, 0))]
+    torch.testing.assert_close(y1, y, rtol=1e-12, atol=1e-12)
+    for a, b in zip(jax.tree.leaves(new1), jax.tree.leaves(new)):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
+    assert float(y.detach().abs().max()) > 0
 
 
 def test_fused_eval_under_a_space_axis_raises():
-    model = micro_soda(S, __import__(
-        "snn_for_object_detection_tpu_torch.models.detector",
-        fromlist=["SODa"]).SODa)(num_classes=2, in_hw=(32, 40),
-                                 time_window=0, fuse_seq=True, device="cpu")
-    X = torch.zeros((2, 1, 16, 40, 2))
-    with pytest.raises(NotImplementedError,
-                       match="fused eval under a space axis.*spatial"):
-        model.forward_seq(X, space=Space(None, 2, 0))
+    """The fused schedule raised under a space axis until the kernel
+    took fetched rows (the test keeps its name). Under a space axis of
+    one rank every triple runs ``spiking_conv_seq(pad_h=0)`` on rows
+    fetched with their zero rows, and the predictions and states are
+    the whole map's fused run's bit for bit."""
+    from snn_for_object_detection_tpu_torch.models.convert import (
+        load_jax_params,
+    )
+    from snn_for_object_detection_tpu_torch.models.detector import SODa
+    from snn_for_object_detection_tpu_torch.ops import cuda_kernels
+
+    model = micro_soda(S, SODa)(num_classes=2, in_hw=(32, 40),
+                                time_window=0, fuse_seq=True, device="cpu")
+    load_jax_params(model, *weights((32, 40)))
+    X = (torch.rand((3, 2, 32, 40, 2),
+                    generator=torch.Generator().manual_seed(4)) < 0.4).float()
+    pads = []
+    plain = cuda_kernels.spiking_conv_seq_reference
+
+    def spy(*args, pad_h=None, **kwargs):
+        pads.append(pad_h)
+        return plain(*args, pad_h=pad_h, **kwargs)
+
+    C_ref = C.spiking_conv_seq
+    (cls, box), state = model.forward_seq(X)
+    cuda_kernels.spiking_conv_seq_reference = spy
+    try:
+        (cls1, box1), state1 = model.forward_seq(X, space=Space(None, 1, 0))
+    finally:
+        cuda_kernels.spiking_conv_seq_reference = plain
+    assert C.spiking_conv_seq is C_ref
+    assert pads == [0] * 5  # the micro net's 5 triples
+    assert float(cls.abs().max()) > 0.05
+    torch.testing.assert_close(cls1, cls, rtol=0, atol=0)
+    torch.testing.assert_close(box1, box, rtol=0, atol=0)
+    for a, b in zip(jax.tree.leaves(state1), jax.tree.leaves(state)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)

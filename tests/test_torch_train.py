@@ -659,8 +659,15 @@ def test_other_schedules_accepted(schedule):
     {"spatial_devices": 2},
 ], ids=["kwargs1"])
 def test_modes_left_out_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(**kwargs)
+    """``spatial_devices=2`` builds a trainer (it raised before spatial
+    sharding was ported); in one process of one device its mesh raises
+    JAX's ``ValueError`` (tests/test_torch_spatial_layers.py holds the
+    grids of several ranks)."""
+    trainer = Trainer(**kwargs)
+    assert trainer.spatial_devices == 2
+    with pytest.raises(ValueError, match="1 devices not divisible by "
+                                         "spatial_devices=2"):
+        trainer.mesh_for(torch.device("cpu"))
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -709,8 +716,10 @@ def test_optimizer_options_left_out_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         loop.Optimizer(params, {"name": "adam", "mu_dtype": "bfloat16"},
                        lambda c: 1e-3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer().request_mesh_reshape(num_devices=1)
+    # a live reshape in one process of one device: one device or none
+    # (tests/test_torch_spatial_layers.py holds the rest)
+    with pytest.raises(ValueError, match=r"in \[1, 1\], got 2"):
+        Trainer().request_mesh_reshape(num_devices=2)
     with pytest.raises(ValueError, match="fused"):
         _tiny_model(fuse_seq=True).forward_seq(
             torch.zeros(2, 1, 32, 40, 2), fuse=True, train=True)

@@ -552,6 +552,286 @@ def case_auto(in_hw, failing_rank, times):
             "timings": trainer.schedule_timings["train"]}
 
 
+# ---- the layers that split, fused eval, the Trainer's grid ----
+
+
+def grid_leaves(S):
+    """The leaves of tests/test_torch_spatial_layers.py, each put after
+    the stride-2 spiking stem of :func:`leaf_net`: the layers that raised
+    under a space axis before they split."""
+    return {
+        "pool_max_k3s2": [S.Pool("M", 3, 2)],
+        "pool_avg_k3s2": [S.Pool("A", 3, 2)],
+        "pool_sum_k3s2": [S.Pool("S", 3, 2)],
+        "up_bilinear": [S.Up(2, "bilinear"), S.Pool("A")],
+        "up_bicubic": [S.Up(2, "bicubic"), S.Pool("A")],
+        "lstm_k3": [S.LSTM(hidden_size=6, kernel_size=3)],
+    }
+
+
+def leaf_net(S, base, leaf):
+    """tests/test_torch_zoo.py's two-scale net with ``leaf`` (a list of
+    specs) after the stride-2 spiking stem."""
+
+    class LeafNet(base):
+        def backbone_cfgs(self):
+            return [S.Conv(8, 3, 2), S.Norm(), S.LIF(), *leaf]
+
+        def neck_cfgs(self):
+            return [S.Conv(8, 3, 2), S.Norm(), S.LIF(), S.Return(),
+                    S.Conv(8, 3, 2), S.Norm(), S.LIF(), S.Return()]
+
+        def head_cfgs(self, box_out, cls_out):
+            return [[S.Conv(kernel_size=1), S.Norm(), S.LI(), S.Tanh()],
+                    [S.Conv(box_out, 1)], [S.Conv(cls_out, 1)]]
+
+    return LeafNet
+
+
+def state_leaves(state):
+    """State leaves in JAX's pytree order (sorted dict keys)."""
+    if isinstance(state, dict):
+        return [x for k in sorted(state) for x in state_leaves(state[k])]
+    return list(state)
+
+
+def _eval_on_grid(model, x, space, **kw):
+    """``forward_seq`` in eval from start 0 on this rank's rows: the
+    predictions and this rank's rows of each final state leaf."""
+    import torch
+
+    with torch.no_grad():
+        (cls, box), state = model.forward_seq(x, space=space, **kw)
+    return {"preds": (cls.numpy(), box.numpy()),
+            "state": [t.float().numpy() for t in state_leaves(state)]}
+
+
+def case_grid_leaf(leaf, params, stats, in_hw, X, labels):
+    """The net of ``leaf`` (:func:`leaf_net`, :func:`grid_leaves`) with
+    the given weights on a ``make_mesh(spatial=world)`` grid, on this
+    rank's rows of H of the batch: one time-batched train step from
+    start 0 (the loss, the gradients as the optimizer saw them, the
+    running statistics), then the eval forward (:func:`_eval_on_grid`)
+    on the weights as given."""
+    import torch
+
+    from snn_for_object_detection_tpu_torch.models import spec as S
+    from snn_for_object_detection_tpu_torch.models.convert import (
+        load_jax_params,
+    )
+    from snn_for_object_detection_tpu_torch.models.detector import SODa
+    from snn_for_object_detection_tpu_torch.parallel import (
+        distributed,
+        make_mesh,
+    )
+    from snn_for_object_detection_tpu_torch.train.loop import Trainer, _stats
+
+    mesh = make_mesh(spatial=distributed.world_size())
+    x, y = _grid_rows(mesh, X, labels)
+
+    def build():
+        model = leaf_net(S, SODa, grid_leaves(S)[leaf])(
+            num_classes=2, in_hw=in_hw, time_window=0, device="cpu")
+        load_jax_params(model, params, stats)
+        return model
+
+    out = _eval_on_grid(build(), x, mesh.space_ctx)
+    model = build()
+    trainer = Trainer(mesh=mesh, seed=0, time_batched=True,
+                      prefetch_batches=0)
+    trainer.configure(model)
+    seen = []
+    step = trainer.opt.step
+
+    def record(grads):
+        seen.append([g.clone() for g in grads])
+        return step(grads)
+
+    trainer.opt.step = record
+    out["loss"] = float(trainer.train_step(model, x, y, 0))
+    out["grads"] = {n: g.numpy() for (n, _), g in
+                    zip(model.named_parameters(), seen[0])}
+    out["stats"] = _numpy(_stats(model).items())
+    out["rows"] = mesh.space_ctx.block(X.shape[2])
+    return out
+
+
+def case_grid_eval(params, stats, in_hw, X, s2d_stem=False, fuse=False):
+    """``MicroSODa`` (``fuse_seq=fuse``, window 0) with the given weights
+    (int8 leaves make its int8 convs) on a ``make_mesh(spatial=world)``
+    grid: :func:`_eval_on_grid` on this rank's rows of ``X``; with
+    ``fuse`` also the unfused schedule on the grid, and the ``pad_h`` of
+    every ``spiking_conv_seq`` call of the fused one."""
+    import torch
+
+    from snn_for_object_detection_tpu_torch.models.convert import (
+        load_jax_params,
+    )
+    from snn_for_object_detection_tpu_torch.ops import cuda_kernels
+    from snn_for_object_detection_tpu_torch.ops import quantize
+    from snn_for_object_detection_tpu_torch.parallel import (
+        distributed,
+        make_mesh,
+    )
+
+    mesh = make_mesh(spatial=distributed.world_size())
+    lo, hi = mesh.space_ctx.block(X.shape[2])
+    x = torch.from_numpy(X[:, :, lo:hi].copy())
+    model = micro_soda()(num_classes=2, in_hw=in_hw, time_window=0,
+                         s2d_stem=s2d_stem, fuse_seq=fuse, device="cpu")
+    load_jax_params(model, params, stats)
+    plain = cuda_kernels.spiking_conv_seq_reference
+    pads = []
+
+    def spy(*args, pad_h=None, **kwargs):
+        pads.append(pad_h)
+        return plain(*args, pad_h=pad_h, **kwargs)
+
+    cuda_kernels.spiking_conv_seq_reference = spy
+    quantize.CALLS.update(int_mm=0, plain=0)
+    try:
+        out = _eval_on_grid(model, x, mesh.space_ctx)
+    finally:
+        cuda_kernels.spiking_conv_seq_reference = plain
+    out.update(pads=pads, int8_calls=dict(quantize.CALLS), rows=(lo, hi))
+    if fuse:
+        out["unfused"] = _eval_on_grid(model, x, mesh.space_ctx, fuse=False)
+    return out
+
+
+class GridData:
+    """A data module of one global batch ``(X, labels)``: a rank's train
+    loader yields its data block's rows of B (whole H: the trainer's
+    placement keeps the rank's rows) ``batches`` times."""
+
+    def __init__(self, X, labels, batches=1):
+        self.X, self.labels, self.batches = X, labels, batches
+        self.host_id, self.num_hosts = 0, 1
+        self.batch_size = X.shape[1]
+
+    def train_loader(self):
+        per = self.X.shape[1] // self.num_hosts
+        rows = slice(self.host_id * per, (self.host_id + 1) * per)
+        return iter([(self.X[:, rows], self.labels[rows])] * self.batches)
+
+    def val_loader(self):
+        return iter([])
+
+
+def case_trainer_grid(params, stats, in_hw, X, labels, out_dir):
+    """``Trainer(spatial_devices=k)`` over the world's ranks: the grid
+    ``mesh_for`` builds for each ``k`` (or its ``ValueError``), with
+    ``LOCAL_WORLD_SIZE`` saying the ranks span two hosts, and what
+    ``request_mesh_reshape`` queues; then one epoch of ``fit`` with
+    ``spatial_devices=2`` from the given weights, a reshape queued and a
+    ``reshape_request`` file written (by rank 0) first: what this rank
+    printed, whether the file is left and the weights after the step."""
+    import contextlib
+    import io
+
+    import torch
+
+    from snn_for_object_detection_tpu_torch.parallel import distributed
+    from snn_for_object_detection_tpu_torch.train.loop import Trainer
+
+    world = distributed.world_size()
+    out = {"shapes": {}, "errors": {}, "reshape": {}}
+    for k in range(1, world + 1):
+        try:
+            mesh = Trainer(spatial_devices=k).mesh_for(torch.device("cpu"))
+            out["shapes"][k] = (mesh.shape, mesh.data_index,
+                                mesh.space_rank)
+        except ValueError as e:
+            out["errors"][k] = str(e)
+    os.environ["LOCAL_WORLD_SIZE"] = str(world // 2)
+    try:
+        Trainer(spatial_devices=2).mesh_for(torch.device("cpu"))
+    except ValueError as e:
+        out["errors"]["hosts"] = str(e)
+    out["one_host_data_parallel"] = Trainer().mesh_for(
+        torch.device("cpu")).shape
+    del os.environ["LOCAL_WORLD_SIZE"]
+    trainer = Trainer(spatial_devices=2)
+    for n in (2, world, 3, world + 1):
+        try:
+            trainer.request_mesh_reshape(num_devices=n)
+            out["reshape"][n] = trainer._pending_mesh.shape
+        except ValueError as e:
+            out["reshape"][n] = str(e)
+
+    model = port_model(params, stats, in_hw, 0)
+    trainer = Trainer(spatial_devices=2, max_epochs=1,
+                      limit_train_batches=1, check_val_every_n_epoch=5,
+                      out_dir=out_dir, seed=0, time_batched=True)
+    request = os.path.join(out_dir, "reshape_request")
+    if distributed.is_primary():
+        os.makedirs(out_dir, exist_ok=True)
+        with open(request, "w") as f:
+            f.write("2")
+    distributed.barrier("request written")
+    trainer.request_mesh_reshape(num_devices=2)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        result = trainer.fit(model, GridData(X, labels))
+    out.update(printed=printed.getvalue(), left=os.path.exists(request),
+               pending=trainer._pending_mesh, step=result["step"],
+               fit_shape=trainer._mesh.shape,
+               weights=_numpy(model.named_parameters()))
+    return out
+
+
+def case_grid_auto(params, stats, in_hw, X, labels, fail=None):
+    """``time_batched="auto"`` on a ``make_mesh(spatial=world)`` grid: the
+    schedule each mode pins and the merged timings, from one train and
+    one eval step on this rank's rows. ``fail``: rank 1 runs out of
+    memory on the hybrid schedule of both modes, placing its copy of the
+    model (``"placing"``: the ranks agree before the step that no rank
+    runs it) or once the timed step, collectives and all, is done
+    (``"timing"``: the ranks' notes disqualify it after)."""
+    import copy
+
+    import torch
+
+    from snn_for_object_detection_tpu_torch.parallel import (
+        distributed,
+        make_mesh,
+    )
+    from snn_for_object_detection_tpu_torch.train import loop
+
+    mesh = make_mesh(spatial=distributed.world_size())
+    x, y = _grid_rows(mesh, X, labels)
+    order = iter(loop.SCHEDULES * 2)  # the train step's, then the eval's
+    saved = loop.copy, loop.time_call
+    failing = fail is not None and distributed.rank() == 1
+
+    def placing(obj):  # the trainer's copy.deepcopy
+        if next(order) == "hybrid":
+            raise torch.OutOfMemoryError("forced on this rank")
+        return copy.deepcopy(obj)
+
+    def timing(fn, device, reps=2):
+        seconds = saved[1](fn, device, reps)
+        if next(order) == "hybrid":
+            raise torch.OutOfMemoryError("forced on this rank")
+        return seconds
+
+    model = port_model(params, stats, in_hw, 0)
+    trainer = loop.Trainer(mesh=mesh, time_batched="auto",
+                           prefetch_batches=0)
+    trainer.configure(model)
+    if failing and fail == "placing":
+        loop.copy = types.SimpleNamespace(deepcopy=placing)
+    if failing and fail == "timing":
+        loop.time_call = timing
+    try:
+        trainer.train_step(model, x, y, 0)
+        trainer.eval_step(model, x, y, 0)
+    finally:
+        loop.copy, loop.time_call = saved
+    return {"schedules": dict(trainer._auto_schedule),
+            "timings": trainer.schedule_timings}
+
+
 def main(job_dir, rank, world):
     import torch
 
