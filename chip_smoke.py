@@ -16,6 +16,7 @@
     python3 chip_smoke.py --only 17    # [1], training extras, plotter,
                                        # summary
     python3 chip_smoke.py --only 18    # [1] and spatial sharding
+    python3 chip_smoke.py --only 19    # [1] and export
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -167,7 +168,7 @@ Phases (any failure raises and the script exits non-zero):
    LI, fp32 and bf16 states, start 0 and 5, with [3]'s and [10]'s rules
    (forward bit-equal; backward bit-equal or within rtol 1e-5 of the
    largest cotangent); ``Trainer(time_batched="hybrid").fit`` at GEN1
-   full width in both training configurations (7 backward launches over
+   full width at fp32 (7 backward launches over
    the sequence and 15 x (T - r) at T = 1 a step, no ``spiking_conv_seq``),
    its first-step gradients at fp32 with cuDNN off against the plain
    cell's (rtol 2e-3), its step's ms, peak memory and idle share beside
@@ -301,6 +302,19 @@ Phases (any failure raises and the script exits non-zero):
    bit-equal after it, its loss within rtol 1e-2 and its gradients
    within a relative L2 of 0.1 of one rank's (whose LSTM conv and resize
    sum whole maps).
+19. export: ``export.export_predict(..., platforms=("cuda",))`` with a
+   symbolic batch of the trained net at fp32 (16 frames), of the trained
+   net with ``config/infer_fp8.yaml``'s bf16 activations and e5m2 states
+   and of ``config/vgg.yaml``'s VggSNN (PLIF; 4 frames each); the three
+   files loaded by ``export.load_predict`` in one fresh process that
+   imports nothing of ``models/``, ``train/``, ``serve``, ``data/`` or
+   the CLI: at B=2 [4]'s frames give detections bit-equal to
+   ``SODa.predict`` on the card, frame by frame, with one launch of the
+   cell kernel (through the registered operators) a cell and frame,
+   counted in that process (22 for TinyYolo); after ``reset()`` B=3 from
+   the same file, bit-equal too; a batch change refused. Prints the
+   export and load seconds, the file's MB and the loaded runner's ms a
+   frame beside ``predict``'s.
 
 Model and data values of [3]-[10], with their source (those phases pass
 them as arguments; [11] reads the YAML files):
@@ -1252,13 +1266,39 @@ def fused_convs(Block, block):
     return [conv for conv, _, _ in fused_triples(Block, block)]
 
 
+def device_events(torch, prof):
+    """The device's events (kernels, copies, fills) of a finished
+    ``torch.profiler`` run, each with its demangled ``name`` and its
+    ``time_range`` in us, as ``prof.events()`` gives them, but read from
+    the raw Kineto results: ``prof.events()`` builds every host op's
+    event and their tree first, tens of seconds for a per-step train
+    step's ~1e5 ops, none of which is read here."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import Interval
+
+    results = prof.profiler.kineto_results
+    base = results.trace_start_ns()  # ns since the epoch overflow a
+    out = []                         # double's us: subtract in integers
+    for e in results.events():
+        if e.device_type() != DeviceType.CUDA \
+                or getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        name = e.name()
+        out.append(SimpleNamespace(
+            name=torch._C._demangle(name) if len(name) > 1 else name,
+            time_range=Interval((e.start_ns() - base) / 1e3,
+                                (e.end_ns() - base) / 1e3)))
+    return out
+
+
 def profiled(torch, fn):
     """One call of ``fn`` under ``torch.profiler`` between two CUDA
     events: its device kernels, the device's busy ms (union of the
     kernels' intervals) and the ms between the events, both of this one
     call (the profiler's host overhead included). Fails if the profiler
     saw no kernel: every step profiled here runs on the card."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     start = torch.cuda.Event(enable_timing=True)
@@ -1269,7 +1309,7 @@ def profiled(torch, fn):
         fn()
         end.record()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = device_events(torch, prof)
     check(bool(kernels), "the profiler saw no device kernel in a step")
     busy_us, span_end = 0.0, float("-inf")
     for s, e in sorted((e.time_range.start, e.time_range.end)
@@ -2099,7 +2139,9 @@ def fit_schedule(torch, cuda_kernels, TinyYolo, Trainer, batches, dev, xd,
         trainer.train_step(model, X, lab, TRAIN_START)
 
     torch.cuda.reset_peak_memory_stats()
-    step_ms = cuda_time_ms(step, reps=3, warmup=1)
+    # no warm-up call: the fit's steps just ran this step's kernels and
+    # allocations (its last one from r = TRAIN_START)
+    step_ms = cuda_time_ms(step, reps=3, warmup=0)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     kernels, busy, wall = profiled(torch, step)
     by_kind = kind_ms(kernels)
@@ -2610,12 +2652,13 @@ def phase_trained_net(torch, cuda_kernels, C, TinyYolo, Trainer, batches,
 
 # [13]: the 1Mpx geometry (config/1mpx.yaml: 720x1280, 7 classes, B=2,
 # time_batched: auto). The cell kernels at its stage-1 shape; the synthetic
-# 1Mpx set of the CLI runs (recordings per split, ms each); the CLI runs'
-# T (config/config.yaml's 42) and cut (train, validation, test batches)
+# 1Mpx set of the CLI runs (recordings per split, ms each); the loader's T
+# (config/config.yaml's 42), the CLI runs' T (cut to half: "auto" times
+# every schedule at it) and cut (train, validation, test batches)
 MPX_HW, MPX_CLASSES, MPX_BATCH = (720, 1280), 7, 2
 MPX_STAGE1 = (STEPS, MPX_BATCH, MPX_HW[0] // 2, MPX_HW[1] // 2, 64)
 MPX_RECORDINGS, MPX_DURATION_MS = 2, 3000
-MPX_STEPS = 42
+MPX_STEPS, MPX_CLI_STEPS = 42, 21
 MPX_TRAIN_BATCHES, MPX_VAL_BATCHES, MPX_TEST_BATCHES = 2, 1, 1
 MPX_LOADER_WORKERS = (1, 4)
 MPX_H_CHUNKS = 4  # slices of H that autograd's plain backward runs apart
@@ -2731,17 +2774,18 @@ def phase_hybrid_auto_1mpx(torch, cuda_kernels, TinyYolo, Trainer, batches,
     ``fit_schedule`` on the hybrid schedule in both training
     configurations at GEN1 full width (7 backward launches over the
     sequence and 15 a step, each forward launch over T or at T = 1, no
-    fused launch) and its first-step gradients against the plain cell's
-    (``plain_cell_grads``), its step beside [10]'s two schedules. Then
-    "auto" at ``config/config.yaml`` + ``config/1mpx.yaml`` (full-width
-    TinyYolo, 720x1280, 7 classes, T=42, B=2, fp32): every schedule's ms
-    and peak memory or its OOM, for the train and the eval step (no gate
-    on the winner). Then the CLI's ``fit`` and ``test`` with that
-    ``time_batched: auto`` and ``config/fast.yaml``'s bf16 states on a
-    synthetic 1Mpx set written by ``make_synthetic_dataset``: "auto"
-    resolves, finite losses and mAP, the cell kernel and its backward
-    launched. Prints the loader's ms per 1Mpx batch. Returns the hybrid
-    fits' backward launches."""
+    fused launch) and its fp32 first-step gradients against the plain
+    cell's (``plain_cell_grads``), its step beside [10]'s two schedules.
+    Then "auto" at ``config/config.yaml`` + ``config/1mpx.yaml``
+    (full-width TinyYolo, 720x1280, 7 classes, T=42, B=2, fp32): every
+    schedule's ms and peak memory or its OOM, for the train and the eval
+    step (no gate on the winner). Then the CLI's ``fit`` and ``test``
+    with that ``time_batched: auto`` and ``config/fast.yaml``'s bf16
+    states on a synthetic 1Mpx set written by ``make_synthetic_dataset``,
+    at T = MPX_CLI_STEPS: "auto" resolves, finite losses and mAP, the
+    cell kernel and its backward launched. Prints the loader's ms per
+    1Mpx batch (T = MPX_STEPS). Returns the hybrid fits' backward
+    launches."""
     from snn_for_object_detection_tpu_torch import cli
     from snn_for_object_detection_tpu_torch.data import PropheseeDataModule
     from snn_for_object_detection_tpu_torch.data.synthetic import (
@@ -2819,7 +2863,7 @@ def phase_hybrid_auto_1mpx(torch, cuda_kernels, TinyYolo, Trainer, batches,
     base = ["--config", config("config.yaml"), "--config",
             config("1mpx.yaml"), "--config", config("fast.yaml"),
             f"--data.init_args.data_dir={data_dir}",
-            f"--data.init_args.num_steps={MPX_STEPS}",
+            f"--data.init_args.num_steps={MPX_CLI_STEPS}",
             "--trainer.max_epochs=1",
             f"--trainer.limit_train_batches={MPX_TRAIN_BATCHES}",
             f"--trainer.limit_val_batches={MPX_VAL_BATCHES}",
@@ -2858,7 +2902,8 @@ def phase_hybrid_auto_1mpx(torch, cuda_kernels, TinyYolo, Trainer, batches,
         else:
             check_finite(run.result, "test")
             result = ", ".join(f"{k} {v:.4f}" for k, v in run.result.items())
-        print(f"  {sub} 1Mpx ({run.model.state_dtype} states, T={MPX_STEPS},"
+        print(f"  {sub} 1Mpx ({run.model.state_dtype} states, "
+              f"T={MPX_CLI_STEPS},"
               f" B={MPX_BATCH}) with time_batched auto in {sub_s:.1f} s: "
               f"{result}; {schedule_table(run.trainer)}; launches "
               f"{n['temporal_cell_seq']} cell, {n['temporal_cell_seq_bwd']} "
@@ -5646,6 +5691,358 @@ def phase_spatial(torch, C, TinyYolo, Trainer, smi):
     return fwd, bwd, fwd_conv
 
 
+# [19]: export. The trained net at fp32 (EXPORT_FRAMES[0] frames) and with
+# config/infer_fp8.yaml's bf16 activations and e5m2 states, and
+# config/vgg.yaml's VggSNN (PLIF, [14]'s random weights), the last two
+# over EXPORT_FRAMES[1] frames; [4]'s event frames at B=2, then B=3 from
+# the same file after reset(); each runner and predict timed over
+# EXPORT_TIMED frames
+EXPORT_FRAMES = (16, 4)
+EXPORT_B, EXPORT_B3 = 2, 3
+EXPORT_TIMED = 5
+EXPORT_CASES = ("trained fp32", "trained bf16/e5m2", "vgg plif")
+
+# what each export process runs: one case's model built as the parent
+# builds it, exported for the card with a symbolic batch
+EXPORT_ONE = r"""
+import json, sys, time
+import torch
+import chip_smoke
+from snn_for_object_detection_tpu_torch import export
+
+model = chip_smoke.export_case_model(torch, int(sys.argv[1]))
+t0 = time.perf_counter()
+export.export_predict(model, sys.argv[2], platforms=("cuda",))
+print(json.dumps({"export_s": time.perf_counter() - t0}))
+"""
+
+# what each fresh serving process runs: load one file with no model code,
+# serve its frames at B=2 (the cell launches counted), reset and serve
+# B=3, check that a batch change is refused, save the detections and the
+# carried state's leaves after each run; then,
+# when the parent says so (the other processes are done), time
+# EXPORT_TIMED more frames alone on the card
+EXPORT_SERVE = r"""
+import json, os, statistics, sys, time
+import numpy as np
+import torch
+from snn_for_object_detection_tpu_torch.export import load_predict
+from snn_for_object_detection_tpu_torch.ops import cuda_kernels
+
+job = json.loads(sys.argv[1])
+t0 = time.perf_counter()
+runner = load_predict(job["path"])
+load_s = time.perf_counter() - t0
+frames, frames3 = np.load(job["frames"]), np.load(job["frames3"])
+cuda_kernels.reset_launches()
+dets = [runner(x) for x in frames]
+torch.cuda.synchronize()
+launches = dict(cuda_kernels.LAUNCHES)
+state = [t.cpu() for t in runner.state]
+runner.reset()
+dets3 = [runner(x) for x in frames3]
+state3 = [t.cpu() for t in runner.state]
+try:
+    runner(frames[0])
+    refused = ""
+except ValueError as e:
+    refused = str(e)
+torch.save({"dets": torch.stack(dets).cpu(), "state": state,
+            "dets3": torch.stack(dets3).cpu(), "state3": state3},
+           job["out"])
+open(job["out"] + ".ready", "w").close()
+while not os.path.exists(job["out"] + ".go"):
+    time.sleep(0.05)
+runner.reset()
+ms = []
+for x in frames[:job["timed"]]:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner(x)
+    torch.cuda.synchronize()
+    ms.append((time.perf_counter() - t0) * 1e3)
+print(json.dumps({"load_s": load_s, "launches": launches,
+                  "ms": statistics.median(ms), "refused": refused,
+                  "modules": sorted(
+    m for m in sys.modules if m.split(".")[0] in ("jax", "yaml")
+    or m.startswith(tuple("snn_for_object_detection_tpu_torch." + p for p in
+                          ("models", "train", "serve", "data", "cli"))))}))
+"""
+
+
+def export_case_model(torch, case: int):
+    """[19]'s models, built alike in the parent and in each export
+    process: the trained net at fp32, the trained net with bf16
+    activations and e5m2 states, [14]'s VggSNN PLIF."""
+    if case == 2:
+        from snn_for_object_detection_tpu_torch.models import VggSNN
+
+        return build_vgg(torch, VggSNN, "plif", "cuda")
+    from snn_for_object_detection_tpu_torch.models.tiny_yolo import TinyYolo
+
+    xd, sd = ((torch.float32, torch.float32),
+              (torch.bfloat16, torch.float8_e5m2))[case]
+    return build_model(TinyYolo, xd, sd, "cuda", weights=trained_weights())
+
+
+def _start(script, args, log, repo):
+    """A ``python -c script args`` process from the repo's root, its
+    output to ``log`` + ".out" / ".err"."""
+    return subprocess.Popen(
+        [sys.executable, "-c", script, *args], cwd=repo,
+        env=dict(os.environ, PYTHONPATH=repo),
+        stdout=open(log + ".out", "w"), stderr=open(log + ".err", "w"))
+
+
+def _wait_all(procs, logs, what, timeout=900):
+    """The last stdout line of each process as JSON, or a failed check
+    naming ``what``; a process past ``timeout`` is killed, all of them
+    then."""
+    outs = []
+    for k, (proc, log) in enumerate(zip(procs, logs)):
+        try:
+            proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+            raise
+        with open(log + ".err") as f:
+            err = f.read()
+        check(proc.returncode == 0, f"[19] {what} {k} failed: "
+              f"{err[-3000:]}")
+        with open(log + ".out") as f:
+            outs.append(json.loads(f.read().strip().splitlines()[-1]))
+    return outs
+
+
+DISPATCH_SHAPE = (1, 1, 15, 19, 256)  # [19]: a T = 1 cell, GEN1's deepest
+DISPATCH_CALLS, DISPATCH_REPS = 200, 5
+
+
+def cell_call_host_us(torch, cuda_kernels, smi):
+    """[19]'s host cost of one cell kernel call at T = 1 on a map so small
+    that the host's work bounds the calls (DISPATCH_SHAPE), in four
+    forms: the raw ctypes launch (``_launch_forward``); the wrapper
+    ``temporal_cell_seq`` under ``no_grad`` (predict, the engine, eval:
+    its checks and the launch); the registered operator
+    ``soda_torch::temporal_cell_seq`` under ``no_grad`` (a loaded
+    program's node); the wrapper with an input that needs a gradient
+    (the per-step and hybrid train steps' forward: the operator and an
+    autograd node). Each the median over DISPATCH_REPS of DISPATCH_CALLS
+    calls back to back between two synchronisations (host clock). Not
+    launches of the main path; no gate."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(DISPATCH_SHAPE, generator=gen, device="cuda")
+    v0 = torch.zeros(DISPATCH_SHAPE[1:], device="cuda")
+    i0 = torch.zeros_like(v0)
+    xg = x.clone().requires_grad_()
+
+    def raw():
+        cuda_kernels._launch_forward(x, v0, i0, "lif", 0)
+
+    def wrapper():
+        with torch.no_grad():
+            cuda_kernels.temporal_cell_seq(x, v0, i0, "lif", 0)
+
+    def operator():
+        with torch.no_grad():
+            torch.ops.soda_torch.temporal_cell_seq(x, v0, i0, "lif", 0)
+
+    def wrapper_grad():
+        cuda_kernels.temporal_cell_seq(xg, v0, i0, "lif", 0)
+
+    out = {}
+    for name, fn in (("raw launch", raw), ("wrapper, no grad", wrapper),
+                     ("operator, no grad", operator),
+                     ("wrapper, input needs grad", wrapper_grad)):
+        for _ in range(20):
+            fn()
+        reps = []
+        for _ in range(DISPATCH_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DISPATCH_CALLS):
+                fn()
+            torch.cuda.synchronize()
+            reps.append((time.perf_counter() - t0) / DISPATCH_CALLS * 1e6)
+        out[name] = statistics.median(reps)
+    print(f"  host us a cell call at T=1 {list(DISPATCH_SHAPE)} (median of "
+          f"{DISPATCH_REPS} x {DISPATCH_CALLS} calls, host clock): " +
+          ", ".join(f"{k} {v:.1f}" for k, v in out.items()) + f" [{smi}]",
+          flush=True)
+    return out
+
+
+def phase_export(torch, cuda_kernels, C, batches, smi):
+    """[19] export on the card: ``export.export_predict(...,
+    platforms=("cuda",))`` with a symbolic batch of EXPORT_CASES: (a) the
+    trained net at fp32, (b) the trained net with bf16 activations and
+    e5m2 states (``config/infer_fp8.yaml``: fp8 state leaves in the
+    file), (c) ``config/vgg.yaml``'s VggSNN (PLIF), each traced in a
+    process of its own, the three at once (a trace is host-bound Python).
+    Each file is then loaded by ``load_predict`` in a fresh process
+    (``EXPORT_SERVE``, the three at once), where no module of
+    ``models/``, ``train/``, ``serve``, ``data/`` or the CLI may be
+    imported, and serves [4]'s frames at B=2: its detections bit-equal
+    to ``SODa.predict`` on the same card, frame by frame (the same
+    kernels, and the same cuDNN convs under the same settings), and its
+    carried state after the last frame bit-equal to predict's, leaf by
+    leaf; a launch of the cell kernel a cell and frame (TinyYolo: 22
+    ``temporal_cell_seq``; VggSNN: PLIF_LAYERS ``plif_cell_seq`` and
+    LI_HEADS ``temporal_cell_seq``), counted in that process; then,
+    after ``reset()``, B=3 from the same file, detections and state
+    bit-equal to ``predict`` at B=3, and a batch change refused with
+    ``ValueError``. Prints each file's export and load seconds, its MB,
+    and the loaded runner's ms a frame (timed one process at a time)
+    beside ``predict``'s (CUDA-synchronised, median of EXPORT_TIMED).
+    First, while the host is quiet, ``cell_call_host_us``. Returns the
+    cell launches the loaded programs made (by kernel)."""
+    from torch.utils import _pytree
+
+    cell_call_host_us(torch, cuda_kernels, smi)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(repo, "build", "chip_smoke_export")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    X = batches[0][0]
+    jobs = []
+    for k, tag in enumerate(EXPORT_CASES):
+        n = EXPORT_FRAMES[0] if k == 0 else EXPORT_FRAMES[1]
+        job = {"path": os.path.join(root, f"predict{k}.pt2"),
+               "frames": os.path.join(root, f"frames{k}.npy"),
+               "frames3": os.path.join(root, f"frames3_{k}.npy"),
+               "out": os.path.join(root, f"dets{k}.pt"),
+               "timed": EXPORT_TIMED}
+        np.save(job["frames"], np.ascontiguousarray(X[:n, :EXPORT_B]))
+        np.save(job["frames3"], np.ascontiguousarray(
+            X[:EXPORT_FRAMES[1], :EXPORT_B3]))
+        jobs.append(job)
+    t0 = time.perf_counter()
+    export_logs = [os.path.join(root, f"export{k}") for k in range(len(jobs))]
+    exporters = [_start(EXPORT_ONE, [str(k), job["path"]], log, repo)
+                 for k, (job, log) in enumerate(zip(jobs, export_logs))]
+    # meanwhile: predict's detections and state leaves, the parent's
+    # yardstick
+    wants = []
+    for k in range(len(EXPORT_CASES)):
+        model = export_case_model(torch, k)
+        dets, leaves = {}, {}
+        for b, name in ((EXPORT_B, "frames"), (EXPORT_B3, "frames3")):
+            state, out = None, []
+            for x in np.load(jobs[k][name]):
+                d, state = model.predict(torch.from_numpy(x).to("cuda"),
+                                         state)
+                out.append(d.cpu())
+            dets[b] = torch.stack(out)
+            leaves[b] = [t.cpu() for t in _pytree.tree_leaves(state)]
+        cells = sum(isinstance(m, C.Cell) for m in model.modules())
+        plifs = sum(isinstance(m, C.PLIF) for m in model.modules())
+        wants.append((dets, leaves, cells, plifs))
+        del model
+    exported = _wait_all(exporters, export_logs, "export process")
+    export_wall = time.perf_counter() - t0
+    for k, (tag, res) in enumerate(zip(EXPORT_CASES, exported)):
+        print(f"  ({'abc'[k]}) {tag}: export_predict(platforms=('cuda',), "
+              f"batch 'b') {res['export_s']:.1f} s, "
+              f"{os.path.getsize(jobs[k]['path']) / 1e6:.1f} MB", flush=True)
+    print(f"  the three exports at once in {export_wall:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    serve_logs = [os.path.join(root, f"serve{k}") for k in range(len(jobs))]
+    servers = [_start(EXPORT_SERVE, [json.dumps(job)], log, repo)
+               for job, log in zip(jobs, serve_logs)]
+    deadline = time.perf_counter() + 600
+    while not all(os.path.exists(j["out"] + ".ready") for j in jobs):
+        failed = [k for k, p in enumerate(servers) if p.poll() is not None]
+        if failed or time.perf_counter() > deadline:
+            for p in servers:
+                p.kill()
+            _wait_all([servers[k] for k in failed],
+                      [serve_logs[k] for k in failed], "serving process")
+            check(False, f"[19] the serving processes are not ready after "
+                  f"{time.perf_counter() - t0:.0f} s")
+        time.sleep(0.1)
+    ready_s = time.perf_counter() - t0
+    served = []
+    for job, proc, log in zip(jobs, servers, serve_logs):
+        open(job["out"] + ".go", "w").close()
+        served += _wait_all([proc], [log], "serving process")
+    print(f"  three fresh processes loaded and served the files in "
+          f"{ready_s:.1f} s (at once), then timed them one at a time; "
+          f"their model-code and JAX modules: "
+          f"{[r['modules'] for r in served]}", flush=True)
+    launched = {"temporal_cell_seq": 0, "plif_cell_seq": 0}
+    for k, (tag, job, res, (want, want_leaves, cells, plifs)) in enumerate(
+            zip(EXPORT_CASES, jobs, served, wants)):
+        check(res["modules"] == [], f"[19] {tag}: the serving process "
+              f"imported {res['modules']}")
+        n = len(want[EXPORT_B])
+        n_fwd = res["launches"]
+        check(n_fwd["temporal_cell_seq"] == cells * n
+              and n_fwd["plif_cell_seq"] == plifs * n
+              and all(v == 0 for name, v in n_fwd.items()
+                      if name not in ("temporal_cell_seq", "plif_cell_seq")),
+              f"[19] {tag}: launches {n_fwd}, want {cells} cell and "
+              f"{plifs} PLIF launches a frame over {n} frames")
+        for name in launched:
+            launched[name] += n_fwd[name]
+        check("batch changed" in res["refused"],
+              f"[19] {tag}: a batch change was not refused")
+        got = torch.load(job["out"])
+        for b, key in ((EXPORT_B, "dets"), (EXPORT_B3, "dets3")):
+            differ = [t for t in range(len(want[b]))
+                      if not torch.equal(got[key][t], want[b][t])]
+            check(not differ, f"[19] {tag}: the loaded program's detections "
+                  f"at B={b} differ from predict's at frames {differ}")
+        # the carried state, leaf by leaf and bit for bit (fp8 leaves
+        # included): with no detection above the threshold, the
+        # detections alone would compare padding
+        for b, key in ((EXPORT_B, "state"), (EXPORT_B3, "state3")):
+            mine, theirs = got[key], want_leaves[b]
+            check(len(mine) == len(theirs), f"[19] {tag}: {len(mine)} state "
+                  f"leaves at B={b}, predict carries {len(theirs)}")
+            differ = [j for j, (g, w) in enumerate(zip(mine, theirs))
+                      if (g.dtype, g.shape) != (w.dtype, w.shape)
+                      or not torch.equal(g.contiguous().view(torch.uint8),
+                                         w.contiguous().view(torch.uint8))]
+            check(not differ, f"[19] {tag}: state leaves {differ} at B={b} "
+                  f"differ from predict's after {len(want[b])} frames")
+        model = export_case_model(torch, k)
+        state, ms = None, []
+        for x in np.load(job["frames"])[:EXPORT_TIMED]:
+            xt = torch.from_numpy(x).to("cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, state = model.predict(xt, state)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        del model
+        found = int((got["dets"][..., 0] >= 0).sum())
+        print(f"  ({'abc'[k]}) {tag}: {n} frames at B={EXPORT_B} bit-equal "
+              f"to predict ({found} detections; the "
+              f"{len(want_leaves[EXPORT_B])} state leaves bit-equal after "
+              f"the last), then {len(want[EXPORT_B3])} at B={EXPORT_B3} "
+              f"bit-equal, state included, after reset(), a batch change "
+              f"refused; launches in the fresh "
+              f"process {cells} cell + {plifs} PLIF a frame "
+              f"({n_fwd['temporal_cell_seq']} temporal_cell_seq, "
+              f"{n_fwd['plif_cell_seq']} plif_cell_seq); export "
+              f"{exported[k]['export_s']:.1f} s, load {res['load_s']:.1f} s, "
+              f"{os.path.getsize(job['path']) / 1e6:.1f} MB; a frame: "
+              f"loaded runner {res['ms']:.2f} ms, predict "
+              f"{statistics.median(ms):.2f} ms (host clock, "
+              f"CUDA-synchronised, median of {EXPORT_TIMED}) [{smi}]",
+              flush=True)
+    torch.cuda.empty_cache()
+    return launched
+
+
+def phase_seconds(k: int, t0: float) -> float:
+    """Prints phase [k]'s seconds since ``t0``; returns the time now."""
+    now = time.perf_counter()
+    print(f"  [{k}] in {now - t0:.1f} s", flush=True)
+    return now
+
+
 def main(argv) -> int:
     import torch
 
@@ -5750,6 +6147,11 @@ def main(argv) -> int:
             print("[18] spatial sharding", flush=True)
             phase_spatial(torch, C, TinyYolo, Trainer, smi)
             print(f"  [18] in {time.perf_counter() - t0:.1f} s", flush=True)
+        if 19 in only:
+            t0 = time.perf_counter()
+            print("[19] export", flush=True)
+            phase_export(torch, cuda_kernels, C, batches, smi)
+            print(f"  [19] in {time.perf_counter() - t0:.1f} s", flush=True)
         print(f"partial run of phases {sorted(only)} done in "
               f"{time.perf_counter() - t_start:.1f} s")
         return 0
@@ -5762,6 +6164,7 @@ def main(argv) -> int:
           f"(nvcc per source: { {k: round(v, 1) for k, v in per_source.items()} })",
           flush=True)
 
+    t0 = time.perf_counter()
     print("[3] kernels against their plain versions", flush=True)
     check_fma(torch, neurons, "cuda")
     rows, worst = phase_kernels(torch, cuda_kernels, "cuda")
@@ -5769,6 +6172,7 @@ def main(argv) -> int:
                                                neurons, "cuda")
     phase_spiking_conv_rows(torch, cuda_kernels, C, TinyYolo, "cuda")
     pw_rows, pw_worst = phase_pointwise(torch, cuda_kernels, "cuda")
+    t0 = phase_seconds(3, t0)
 
     print(f"[4] main path: TinyYolo GEN1 {IN_HW}, B={BATCH}, T={STEPS}, "
           f"Trainer(time_batched=True).test over {EVAL_BATCHES} batches",
@@ -5776,24 +6180,30 @@ def main(argv) -> int:
     batches = make_batches(EVAL_BATCHES, seed=0)
     launches = phase_main_path(torch, cuda_kernels, TinyYolo, Trainer,
                                batches, "cuda")
+    t0 = phase_seconds(4, t0)
 
     print("[5] schedules agree", flush=True)
     phase_schedules(torch, cuda_kernels, TinyYolo, batches[0], "cuda")
+    t0 = phase_seconds(5, t0)
     print("[6] streaming", flush=True)
     phase_streaming(torch, cuda_kernels, TinyYolo, batches[0], "cuda")
+    t0 = phase_seconds(6, t0)
     print(f"[7] fused path: TinyYolo(fuse_seq=True, time_window=0) "
           f"through Trainer(time_batched=True).test, B={BATCH}, T={STEPS}",
           flush=True)
     conv_launches = phase_fused_path(torch, cuda_kernels, C, TinyYolo,
                                      Trainer, batches, "cuda")
+    t0 = phase_seconds(7, t0)
     print(f"[8] megakernel: TinyYolo GEN1 {IN_HW} at B=1, {MK_FRAMES} frames "
           f"through StreamingMegakernel.step", flush=True)
     mk_launches, mk_row = phase_megakernel(torch, cuda_kernels, TinyYolo,
                                            batches[0], "cuda")
+    t0 = phase_seconds(8, t0)
     print(f"[9] engine: StreamingEngine on TinyYolo GEN1, capacity "
           f"{ENGINE_CAPACITY}, {ENGINE_STREAMS} streams, {ENGINE_STEPS} steps",
           flush=True)
     phase_engine(torch, cuda_kernels, TinyYolo, "cuda")
+    t0 = phase_seconds(9, t0)
     print(f"[10] train: the cell backward kernel against autograd through "
           f"its plain version, then Trainer.fit on TinyYolo GEN1 {IN_HW}, "
           f"B={BATCH}, T={STEPS}, {TRAIN_STEPS} steps a schedule and "
@@ -5801,11 +6211,13 @@ def main(argv) -> int:
     bwd_rows, bwd_worst = phase_cell_backward(torch, cuda_kernels, "cuda")
     bwd_launches = phase_train(torch, cuda_kernels, TinyYolo, Trainer,
                                batches, "cuda")
+    t0 = phase_seconds(10, t0)
     print(f"[11] the CLI on recordings: python -m "
           f"snn_for_object_detection_tpu_torch fit / test / validate with "
           f"config/config.yaml + config/synthetic.yaml on synthetic GEN1 "
           f"recordings, TinyYolo {IN_HW}, B={BATCH}", flush=True)
     phase_cli(torch, cuda_kernels, smi)
+    phase_seconds(11, t0)
     t0 = time.perf_counter()
     print(f"[12] the trained net: {TRAINED_NET}/model/state.pt in TinyYolo "
           f"GEN1 {IN_HW}: [7]'s and [8]'s gates, the schedules' gradients, "
@@ -5862,6 +6274,15 @@ def main(argv) -> int:
     bwd_launches += sp_bwd
     conv_launches += sp_conv
     print(f"  [18] in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    print(f"[19] export: export_predict(platforms=('cuda',)) of the trained "
+          f"net (fp32; bf16 activations, e5m2 states) and of VggSNN PLIF, "
+          f"TinyYolo GEN1 {IN_HW}, each loaded and served in a fresh "
+          f"process against SODa.predict", flush=True)
+    ex = phase_export(torch, cuda_kernels, C, batches, smi)
+    launches += ex["temporal_cell_seq"]
+    plif_launches["plif_cell_seq"] += ex["plif_cell_seq"]
+    print(f"  [19] in {time.perf_counter() - t0:.1f} s", flush=True)
 
     ref = next(r for r in rows if (r["shape"], r["cell"], r["x"], r["start"])
                == ("stage1", "lif", "float32", 0))
@@ -5939,14 +6360,16 @@ def main(argv) -> int:
           f"{list(PLIF_SHAPES['vgg_stage1'])}, the backward at start "
           f"{TRAIN_START}. "
           f"Launches: temporal_cell_seq in [4], [16] (d)'s mesh "
-          f"engines and [18]'s ranks, spiking_conv_seq in [7] and "
+          f"engines, [18]'s ranks and [19]'s loaded programs (counted in "
+          f"their process), spiking_conv_seq in [7] and "
           f"[18]'s fused test on the grid (the fetched-rows form), "
           f"streaming_megakernel in [8] (both dtype configurations), "
           f"temporal_cell_seq_bwd in [10]'s and [13]'s Trainer.fit runs "
           f"(the three schedules, both training configurations), "
           f"[16] (a)'s one-rank mesh and [18]'s ranks; "
           f"plif_cell_seq in [14] (b)'s four eval schedules and (c)'s "
-          f"fit and test of config/vgg.yaml, plif_cell_seq_bwd in (c)'s "
+          f"fit and test of config/vgg.yaml and [19] (c)'s loaded "
+          f"VggSNN, plif_cell_seq_bwd in (c)'s "
           f"fit; fused_pointwise_conv_bn_lif has no path")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -100,7 +100,14 @@ def load_model_state(model, ckpt_path: Optional[str], out_dir: str) -> str:
     ``"auto"``: the run's ``checkpoints/last``. Returns the path read."""
     ckpt = CheckpointManager(os.path.join(out_dir, "checkpoints"))
     path = None if ckpt_path in (None, "auto") else ckpt_path
-    restored = ckpt.restore(path)
+    set_model_state(model, ckpt.restore(path), path or "last")
+    return path or os.path.join(ckpt.directory, "last")
+
+
+def set_model_state(model, restored: Dict[str, Any], where: str) -> None:
+    """Copy a checkpoint payload's weights (its ``ema_params`` when it has
+    them, else its ``params``) and BatchNorm statistics into ``model``;
+    raises when the names differ from the model's."""
     params = restored.get("ema_params") or restored["params"]
     targets = dict(model.named_parameters())
     targets.update((n, b) for n, b in model.named_buffers()
@@ -108,13 +115,12 @@ def load_model_state(model, ckpt_path: Optional[str], out_dir: str) -> str:
     values = {**params, **restored.get("stats", {})}
     if values.keys() != targets.keys():
         raise ValueError(
-            f"checkpoint {path or 'last'} does not fit the model: missing "
+            f"checkpoint {where} does not fit the model: missing "
             f"{sorted(targets.keys() - values.keys())}, unused "
             f"{sorted(values.keys() - targets.keys())}")
     with torch.no_grad():
         for name, target in targets.items():
             target.copy_(values[name])
-    return path or os.path.join(ckpt.directory, "last")
 
 
 def main(argv=None) -> Run:

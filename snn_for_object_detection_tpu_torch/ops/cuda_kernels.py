@@ -5,6 +5,11 @@ Each wrapper runs its kernel on a CUDA tensor and the plain PyTorch
 version, kept in this module, on a CPU tensor; there is no fallback
 from one to the other. Each wrapper counts its launches in
 ``LAUNCHES`` so that a run can show its path went through the kernel.
+The cell kernels' CUDA forms are also registered ``torch.library``
+operators (``soda_torch::temporal_cell_seq``,
+``soda_torch::plif_cell_seq``), which ``torch.export`` traces
+(``export.py``) and autograd records; the other kernels are called
+through ctypes only.
 """
 
 from __future__ import annotations
@@ -437,23 +442,64 @@ def temporal_cell_seq_bwd(
     return gx, gv0, gi0
 
 
-class _TemporalCellSeq(torch.autograd.Function):
-    """The forward kernel, and the backward kernel for its VJP. Saves
-    only ``(x_seq, v0, i0)`` and the start, as the JAX custom VJP does:
-    the backward recomputes the states."""
+# ---- the cell kernels as registered operators ----
+#
+# ``torch.export`` cannot trace a ctypes call on ``data_ptr()``: the
+# CUDA forms of the cell kernels are ``torch.library`` operators, so a
+# traced program holds ``soda_torch::temporal_cell_seq`` and
+# ``soda_torch::plif_cell_seq`` as nodes (shapes from their fake forms)
+# and runs the kernels when it runs on the card. Each takes CUDA tensors
+# only: there is no CPU implementation to fall back to.
 
-    @staticmethod
-    def forward(ctx, x_seq, v0, i0, cell, start):
-        ctx.cell, ctx.start = cell, start
-        ctx.save_for_backward(x_seq, v0, i0)
-        return _launch_forward(x_seq, v0, i0, cell, start)
 
-    @staticmethod
-    def backward(ctx, gz, gv, gi):
-        x_seq, v0, i0 = ctx.saved_tensors
-        gx, gv0, gi0 = temporal_cell_seq_bwd(
-            x_seq, v0, i0, gz, gv, gi, ctx.cell, ctx.start)
-        return gx, gv0, gi0, None, None
+def _through_operator(*tensors: torch.Tensor) -> bool:
+    """Whether a CUDA cell call goes through its registered operator:
+    while traced (``torch.export``, ``torch.compile``) and where autograd
+    records it (training). An eager call with no gradient to record
+    (predict, the engine, eval) launches its kernel itself: the
+    operator's Python dispatch more than doubles the host's cost of a
+    call, and those paths are bound by the host (``chip_smoke.py`` [19]
+    prints both)."""
+    return (torch.compiler.is_exporting() or torch.compiler.is_compiling()
+            or (torch.is_grad_enabled()
+                and any(t.requires_grad for t in tensors)))
+
+
+@torch.library.custom_op("soda_torch::temporal_cell_seq", mutates_args=(),
+                         device_types="cuda")
+def _temporal_cell_seq_op(x_seq: torch.Tensor, v0: torch.Tensor,
+                          i0: torch.Tensor, cell: str, start: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """``csrc/temporal_cell.cu``'s forward: one launch, or raises."""
+    _check_cell_args(x_seq, v0, i0, cell)
+    return _launch_forward(x_seq, v0, i0, cell, start)
+
+
+@_temporal_cell_seq_op.register_fake
+def _(x_seq, v0, i0, cell, start):
+    _check_cell_args(x_seq, v0, i0, cell)
+    return torch.empty_like(x_seq), torch.empty_like(v0), \
+        torch.empty_like(i0)
+
+
+def _temporal_setup(ctx, inputs, output):
+    # only (x_seq, v0, i0) and the start, as the JAX custom VJP: the
+    # backward recomputes the states
+    x_seq, v0, i0, cell, start = inputs
+    ctx.cell, ctx.start = cell, start
+    ctx.save_for_backward(x_seq, v0, i0)
+
+
+def _temporal_backward(ctx, gz, gv, gi):
+    x_seq, v0, i0 = ctx.saved_tensors
+    gx, gv0, gi0 = temporal_cell_seq_bwd(
+        x_seq, v0, i0, gz, gv, gi, ctx.cell, ctx.start)
+    return gx, gv0, gi0, None, None
+
+
+_temporal_cell_seq_op.register_autograd(_temporal_backward,
+                                        setup_context=_temporal_setup)
 
 
 def temporal_cell_seq(
@@ -475,9 +521,11 @@ def temporal_cell_seq(
 
     On a CPU tensor this is :func:`temporal_cell_seq_reference`, and
     autograd runs through it. On a CUDA tensor it launches
-    ``csrc/temporal_cell.cu`` on the current stream or raises, and its
-    gradient is one launch of the backward kernel
-    (:func:`temporal_cell_seq_bwd`); inputs must be contiguous (a
+    ``csrc/temporal_cell.cu`` on the current stream or raises: through
+    the registered operator ``soda_torch::temporal_cell_seq`` while
+    traced or where autograd records the call, its gradient one launch
+    of the backward kernel (:func:`temporal_cell_seq_bwd`), else
+    directly (:func:`_through_operator`). Inputs must be contiguous (a
     sequence is never copied here).
     """
     _check_cell_args(x_seq, v0, i0, cell)
@@ -485,7 +533,10 @@ def temporal_cell_seq(
         return temporal_cell_seq_reference(x_seq, v0, i0, cell, start)
     if x_seq.device.type != "cuda":
         raise ValueError(f"unsupported device {x_seq.device}")
-    return _TemporalCellSeq.apply(x_seq, v0, i0, cell, int(start))
+    if _through_operator(x_seq, v0, i0):
+        return torch.ops.soda_torch.temporal_cell_seq(x_seq, v0, i0, cell,
+                                                      int(start))
+    return _launch_forward(x_seq, v0, i0, cell, int(start))
 
 
 # ---- PLIF: the LIF kernels with per-channel factors ----
@@ -595,7 +646,7 @@ def plif_cell_seq_bwd(
     """The VJP of :func:`plif_cell_seq` on the card: ``(gx, gv0, gi0,
     gcm, gcs)``, the last two each element's fp32 sum over t of the
     cotangents of its channel's ``c_mem`` and of ``-c_syn`` (``[*state]``;
-    :class:`_PLIFCellSeq` sums them to ``[C]``). One launch of
+    :func:`plif_factor_grads` sums them to ``[C]``). One launch of
     ``csrc/plif_cell.cu``'s backward: the chunked kernel at T >= 2
     under ``plan`` (default :func:`plif_bwd_plan`), the single pass at
     T <= 1."""
@@ -659,23 +710,40 @@ def plif_factor_grads(gcm: torch.Tensor, gcs: torch.Tensor
     return gcm.reshape(-1, ch).sum(0), -gcs.reshape(-1, ch).sum(0)
 
 
-class _PLIFCellSeq(torch.autograd.Function):
-    """PLIF's forward kernel, and the backward kernel for its VJP. Saves
-    ``(x_seq, v0, i0, c_mem, c_syn)`` and the start: the backward
-    recomputes the states."""
+@torch.library.custom_op("soda_torch::plif_cell_seq", mutates_args=(),
+                         device_types="cuda")
+def _plif_cell_seq_op(x_seq: torch.Tensor, v0: torch.Tensor,
+                      i0: torch.Tensor, c_mem: torch.Tensor,
+                      c_syn: torch.Tensor, start: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``csrc/plif_cell.cu``'s forward: one launch, or raises."""
+    _check_plif_args(x_seq, v0, i0, c_mem, c_syn)
+    return _launch_plif_forward(x_seq, v0, i0, c_mem, c_syn, start)
 
-    @staticmethod
-    def forward(ctx, x_seq, v0, i0, c_mem, c_syn, start):
-        ctx.start = start
-        ctx.save_for_backward(x_seq, v0, i0, c_mem, c_syn)
-        return _launch_plif_forward(x_seq, v0, i0, c_mem, c_syn, start)
 
-    @staticmethod
-    def backward(ctx, gz, gv, gi):
-        x_seq, v0, i0, c_mem, c_syn = ctx.saved_tensors
-        gx, gv0, gi0, gcm, gcs = plif_cell_seq_bwd(
-            x_seq, v0, i0, c_mem, c_syn, gz, gv, gi, ctx.start)
-        return (gx, gv0, gi0, *plif_factor_grads(gcm, gcs), None)
+@_plif_cell_seq_op.register_fake
+def _(x_seq, v0, i0, c_mem, c_syn, start):
+    _check_plif_args(x_seq, v0, i0, c_mem, c_syn)
+    return torch.empty_like(x_seq), torch.empty_like(v0), \
+        torch.empty_like(i0)
+
+
+def _plif_setup(ctx, inputs, output):
+    # the backward recomputes the states
+    *tensors, start = inputs
+    ctx.start = start
+    ctx.save_for_backward(*tensors)
+
+
+def _plif_backward(ctx, gz, gv, gi):
+    x_seq, v0, i0, c_mem, c_syn = ctx.saved_tensors
+    gx, gv0, gi0, gcm, gcs = plif_cell_seq_bwd(
+        x_seq, v0, i0, c_mem, c_syn, gz, gv, gi, ctx.start)
+    return (gx, gv0, gi0, *plif_factor_grads(gcm, gcs), None)
+
+
+_plif_cell_seq_op.register_autograd(_plif_backward,
+                                    setup_context=_plif_setup)
 
 
 def plif_cell_seq(
@@ -690,18 +758,23 @@ def plif_cell_seq(
     Arguments and outputs as :func:`temporal_cell_seq`. On a CPU tensor
     this is :func:`plif_cell_seq_reference`, and autograd runs through
     it. On a CUDA tensor it launches ``csrc/plif_cell.cu`` (the PLIF
-    form of the cell kernels) on the current stream or raises, and its
-    gradient, the
-    factors' included, is one launch of the backward kernel
-    (:func:`plif_cell_seq_bwd`) and a sum over rows.
+    form of the cell kernels) on the current stream or raises: through
+    the registered operator ``soda_torch::plif_cell_seq`` while traced
+    or where autograd records the call, its gradient, the factors'
+    included, one launch of the backward kernel
+    (:func:`plif_cell_seq_bwd`) and a sum over rows, else directly
+    (:func:`_through_operator`).
     """
     _check_plif_args(x_seq, v0, i0, c_mem, c_syn)
     if x_seq.device.type == "cpu":
         return plif_cell_seq_reference(x_seq, v0, i0, c_mem, c_syn, start)
     if x_seq.device.type != "cuda":
         raise ValueError(f"unsupported device {x_seq.device}")
-    return _PLIFCellSeq.apply(x_seq, v0, i0, c_mem.contiguous(),
-                              c_syn.contiguous(), int(start))
+    c_mem, c_syn = c_mem.contiguous(), c_syn.contiguous()
+    if _through_operator(x_seq, v0, i0, c_mem, c_syn):
+        return torch.ops.soda_torch.plif_cell_seq(x_seq, v0, i0, c_mem,
+                                                  c_syn, int(start))
+    return _launch_plif_forward(x_seq, v0, i0, c_mem, c_syn, int(start))
 
 
 @contextlib.contextmanager

@@ -10,7 +10,7 @@ inverted confidence.
    ``lax.top_k`` breaks them;
 2. one ``[K, K]`` IoU matrix, then greedy suppression in sorted order
    restricted to equal class ids, a loop of K masked steps over the
-   whole batch.
+   whole batch (under ``torch.export``, one ``scan`` of the same steps).
 
 Anchors outside the top-K are non-keep (class -1).
 """
@@ -32,13 +32,56 @@ def _greedy_nms_keep(sorted_boxes: torch.Tensor, sorted_cid: torch.Tensor,
     later = torch.ones(k, k, dtype=torch.bool,
                        device=sorted_boxes.device).triu(1)  # j > i
     same_class = sorted_cid[:, :, None] == sorted_cid[:, None, :]
-    suppress_pair = later & same_class & (iou > iou_threshold)
     valid = sorted_cid >= 0
+    # row i: the boxes that box i suppresses if it is kept (a background
+    # box suppresses none)
+    suppress = later & same_class & (iou > iou_threshold) & valid[:, :, None]
     keep = torch.ones_like(valid)
-    for i in range(k):
-        active = keep[:, i] & valid[:, i]
-        keep &= ~(active[:, None] & suppress_pair[:, i])
+    if torch.compiler.is_exporting():
+        return _scan_keep(keep, suppress) & valid
+    # keep & ~(keep_i & row_i)
+    for i, row in enumerate(suppress.transpose(0, 1).unbind(0)):
+        keep = keep > (keep[:, i:i + 1] & row)
     return keep & valid
+
+
+# greedy steps one scan iteration runs, unrolled, in a traced program
+SCAN_BLOCK = 20
+
+
+def _scan_keep(keep: torch.Tensor, suppress: torch.Tensor) -> torch.Tensor:
+    """The greedy loop of :func:`_greedy_nms_keep` as a ``scan`` over
+    blocks of SCAN_BLOCK steps, the form ``torch.export`` traces
+    (``export.py``): the program keeps the loop rolled, as JAX's lowered
+    ``fori_loop`` does (unrolled, its K steps were most of a traced
+    program's nodes and of its trace and load time), and a block's steps
+    unrolled in the body (each iteration of a scan costs a call on the
+    host). The body reads columns 0 .. SCAN_BLOCK - 1 of ``keep`` rotated
+    left by the block's start, and each row of ``suppress`` comes rotated
+    alike; K is padded to whole blocks with rows that suppress nothing.
+    The same booleans as the loop, step for step."""
+    from torch._higher_order_ops.scan import scan
+
+    b, k = keep.shape
+    blk = min(SCAN_BLOCK, k)
+    n = -(-k // blk)
+    kp = n * blk
+    if kp != k:
+        keep = torch.cat([keep, keep.new_ones(b, kp - k)], dim=1)
+        suppress = torch.nn.functional.pad(suppress, (0, kp - k, 0, kp - k))
+    pos = torch.arange(kp, device=keep.device)
+    # rows[i][:, c] = suppress[:, i, (c + start of i's block) % kp]
+    cols = (pos[None, :] + (pos // blk * blk)[:, None]) % kp
+    rows = suppress.transpose(0, 1).gather(
+        2, cols[:, None, :].expand(kp, b, kp)).reshape(n, blk, b, kp)
+
+    def step(keep, block):
+        for j in range(blk):
+            keep = keep > (keep[:, j:j + 1] & block[j])
+        return keep.roll(-blk, dims=1), keep.new_zeros(())
+
+    # n rotations by a block: a whole turn, keep is in place again
+    return scan(step, keep, rows)[0][:, :k]
 
 
 def multibox_detection(

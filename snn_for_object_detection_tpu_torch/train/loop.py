@@ -88,7 +88,8 @@ import math
 import os
 import socket
 import time
-from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
+from typing import (Any, Callable, Dict, Iterable, List, Optional, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -174,27 +175,16 @@ def _say(msg: str) -> None:
 
 # ---- optax's optimizers, schedules and wrappers in torch ----
 
-# optax factory -> torch.optim class (optax's update for the options
-# these take; every other factory is written out in optax_rules)
-_OPTIMIZERS = {
-    "adamax": torch.optim.Adamax,
-    "sgd": torch.optim.SGD,
-}
-_TORCH_OPTIONS = {  # the optax keywords each class takes
-    "adamax": ("b1", "b2", "eps"),
-    "sgd": ("momentum", "nesterov"),
-}
-_TORCH_LEFT_OUT = {  # optax's options that take a dtype
-    "sgd": ("accumulator_dtype",),
-}
+# optax factory -> torch.optim class (optax's update for every option
+# it takes; every other factory is written out in optax_rules)
+_OPTIMIZERS = {"adamax": torch.optim.Adamax}
+_TORCH_OPTIONS = {"adamax": ("b1", "b2", "eps")}  # the optax keywords
 
 
 def make_torch_optimizer(name: str, params, lr: float,
                          kwargs: Dict[str, Any]) -> torch.optim.Optimizer:
     """The ``torch.optim`` optimizer whose update is optax's ``name``
-    with ``kwargs`` (optax's names: ``b1``, ``b2``, ``eps``,
-    ``momentum``, ``nesterov``)."""
-    optax_rules.refuse_left_out(name, kwargs, _TORCH_LEFT_OUT)
+    with ``kwargs`` (optax's names: ``b1``, ``b2``, ``eps``)."""
     unknown = sorted(set(kwargs) - set(_TORCH_OPTIONS[name]))
     if unknown:
         raise TypeError(f"{name}() got unexpected keyword arguments "
@@ -204,20 +194,18 @@ def make_torch_optimizer(name: str, params, lr: float,
     if "b1" in kwargs or "b2" in kwargs:
         kw["betas"] = (kwargs.pop("b1", 0.9), kwargs.pop("b2", 0.999))
     kw.update(kwargs)
-    if kw.get("momentum", 0) is None:  # optax's sgd: no momentum
-        del kw["momentum"]
     return _OPTIMIZERS[name](params, lr=lr, **kw)
 
 
 def make_schedule(lr: float, cfg: Optional[Dict[str, Any]]
-                  ) -> Callable[[int], float]:
+                  ) -> Union[float, Callable[[int], float]]:
     """Learning rate by optimizer update count (0 for the first update),
     by optax's formulas, peaking at ``lr``: ``warmup_cosine``
     (``warmup_cosine_decay_schedule``), ``cosine``
     (``cosine_decay_schedule``), ``exponential`` (``exponential_decay``);
-    constant without ``cfg``."""
+    without ``cfg``, the float ``lr`` itself (optax's constant rate)."""
     if not cfg:
-        return lambda count: lr
+        return lr
     cfg = dict(cfg)
     kind = cfg.pop("name", "warmup_cosine")
 
@@ -297,12 +285,15 @@ class Optimizer:
     :meth:`step` takes one micro-batch's gradients and returns whether it
     updated the parameters (every ``k``-th call, with the mean of the k
     gradients, as ``MultiSteps``). The schedule's step is the count of
-    real updates.
+    real updates. ``schedule``: a float (a constant rate) or a function
+    of that count, as optax's ``learning_rate``. ``names``: the
+    parameters' names, which the factories' mask options read.
     """
 
     def __init__(self, params: List[torch.nn.Parameter], optimizer: Any,
-                 schedule: Callable[[int], float],
-                 clip_norm: Optional[float] = None, every_k: int = 1):
+                 schedule: Union[float, Callable[[int], float]],
+                 clip_norm: Optional[float] = None, every_k: int = 1,
+                 names: Optional[List[str]] = None):
         if isinstance(optimizer, str):
             name, kwargs = optimizer, {}
         else:
@@ -314,18 +305,28 @@ class Optimizer:
         self.every_k = max(int(every_k), 1)
         if name in _OPTIMIZERS:
             self.torch = make_torch_optimizer(name, self.params,
-                                              schedule(0), kwargs)
+                                              self.lr_at(0), kwargs)
             self.rule = None
         else:
             self.torch = None
-            self.rule = optax_rules.Rule(name, self.params, kwargs)
+            self.rule = optax_rules.Rule(name, self.params, kwargs,
+                                         schedule, names)
         self.count = 0
         self.mini_step = 0
         self.acc = [torch.zeros_like(p) for p in self.params] \
             if self.every_k > 1 else None
 
+    def lr_at(self, count: int) -> float:
+        """The learning rate of update ``count`` (0 for the first)."""
+        return self.schedule(count) if callable(self.schedule) \
+            else self.schedule
+
     @torch.no_grad()
     def step(self, grads: List[Optional[torch.Tensor]]) -> bool:
+        if self.rule is not None:
+            # MultiSteps traces the inner update at every micro-batch:
+            # an update optax cannot run fails at the first
+            self.rule.check()
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(self.params, grads)]
         if self.acc is not None:
@@ -339,7 +340,7 @@ class Optimizer:
                                          for a in self.acc]
         if self.clip_norm:
             grads = clip_by_global_norm(grads, self.clip_norm)
-        lr = self.schedule(self.count)
+        lr = self.lr_at(self.count)
         if self.rule is not None:
             self.rule.step(self.params, grads, lr)
         else:
@@ -431,9 +432,8 @@ class Trainer:
         truncation start. ``fit`` draws from one generator over the run;
         every ``validate`` / ``test`` call starts the draw anew from the
         seed, as the JAX trainer restarts its key.
-    :param optimizer: An optax factory name (``"adamax"``, ``"adam"``,
-        ``"adamw"``, ``"sgd"``, ``"nadam"``, ``"radam"``,
-        ``"adabelief"``, ``"lion"``, ``"rmsprop"``, ``"adagrad"``) or
+    :param optimizer: An optax 0.2.6 factory name (``"adamax"``,
+        ``"adam"``, ``"sgd"``, any of ``optax_rules.FACTORIES``) or
         ``{"name": ..., **optax_kwargs}`` (:class:`Optimizer`).
     :param lr_schedule: ``{"name": "warmup_cosine" | "cosine" |
         "exponential", ...}`` with the model's ``learning_rate`` as the
@@ -895,11 +895,13 @@ class Trainer:
     def configure(self, model) -> None:
         """Fresh optimizer state (and EMA at the current weights) for
         ``model``'s parameters."""
-        params = list(model.parameters())
+        named = list(model.named_parameters())
+        params = [p for _, p in named]
         self.opt = Optimizer(
             params, self.optimizer,
             make_schedule(model.learning_rate, self.lr_schedule),
             self.gradient_clip_norm, self.accumulate_grad_batches,
+            names=[n for n, _ in named],
         )
         if self._peers is not None:
             # every rank starts from rank 0's weights and statistics

@@ -849,3 +849,122 @@ def test_conv_layer_is_full_fp32_whatever_the_tf32_flag(card):
     for a, b in zip(off, on):
         assert torch.equal(a, b)
     assert not torch.equal(off[2], plain_on[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype,state_dtype", DTYPE_PAIRS)
+def test_registered_operators_match_plain_versions(card, x_dtype,
+                                                   state_dtype):
+    """``soda_torch::temporal_cell_seq`` and ``soda_torch::plif_cell_seq``
+    called as operators: one forward launch each, bit-equal to the plain
+    versions; their autograd is one launch of the backward kernel, whose
+    gradients equal the backward's own called directly."""
+    ops = torch.ops.soda_torch
+    x, v0, i0 = _inputs((6, 2, 3, 5, 8), x_dtype, state_dtype)
+    cm, cs = _plif_factors(8)
+    for name, op, plain, bwd in (
+        ("temporal_cell_seq",
+         lambda x, v, i: ops.temporal_cell_seq(x, v, i, "lif", 2),
+         lambda x, v, i: cuda_kernels.temporal_cell_seq_reference(
+             x, v, i, "lif", 2),
+         lambda x, v, i, g: cuda_kernels.temporal_cell_seq_bwd(
+             x, v, i, *g, "lif", 2)),
+        ("plif_cell_seq",
+         lambda x, v, i: ops.plif_cell_seq(x, v, i, cm, cs, 2),
+         lambda x, v, i: cuda_kernels.plif_cell_seq_reference(
+             x, v, i, cm, cs, 2),
+         lambda x, v, i, g: cuda_kernels.plif_cell_seq_bwd(
+             x, v, i, cm, cs, *g, 2)[:3]),
+    ):
+        cuda_kernels.reset_launches()
+        got = op(x, v0, i0)
+        torch.cuda.synchronize()
+        assert cuda_kernels.LAUNCHES[name] == 1
+        for g, w in zip(got, plain(x, v0, i0)):
+            assert g.dtype == w.dtype
+            torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=0,
+                                       equal_nan=True)
+        leaves = [x.clone().requires_grad_(True), v0, i0]
+        cots = [torch.ones_like(t) for t in got]
+        z, v, i = op(*leaves)
+        (gx,) = torch.autograd.grad((z, v, i), leaves[:1], cots)
+        torch.cuda.synchronize()
+        assert cuda_kernels.LAUNCHES[name + "_bwd"] == 1
+        torch.testing.assert_close(gx, bwd(x, v0, i0, cots)[0], rtol=0,
+                                   atol=0, equal_nan=True)
+
+
+def _export_micro(dev, hw=(32, 40), **kw):
+    """tests/test_detector.py's ``MicroSODa`` on ``dev`` (JAX-free, from
+    tests/torch_rank_worker.py), BatchNorm gains at 4 so that it spikes."""
+    from torch_rank_worker import micro_soda
+
+    model = micro_soda()(num_classes=2, in_hw=hw, time_window=0, device=dev,
+                         seed=2, **kw)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".scale"):
+                p.fill_(4.0)
+    return model
+
+
+def _frames(n, b, hw=(32, 40), seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.random((n, b, *hw, 2)) < 0.25).astype(np.uint8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype,state_dtype", DTYPE_PAIRS)
+def test_exported_cuda_program_is_predict(card, tmp_path, x_dtype,
+                                          state_dtype):
+    """A CUDA program exported and loaded on the narrow net: detections
+    bit-equal to ``predict`` on the card over 4 frames at B=2, every cell
+    a launch of its kernel a frame, and B=3 from the same file."""
+    from snn_for_object_detection_tpu_torch import export
+    from snn_for_object_detection_tpu_torch.models import compile as C
+
+    model = _export_micro("cuda", compute_dtype=x_dtype,
+                          state_dtype=state_dtype)
+    cells = sum(isinstance(m, C.Cell) for m in model.modules())
+    path = str(tmp_path / "predict.pt2")
+    export.export_predict(model, path, platforms=("cuda",))
+    runner = export.load_predict(path)
+    for b in (2, 3):
+        runner.reset()
+        state = None
+        cuda_kernels.reset_launches()
+        for x in _frames(4, b):
+            got = runner(x)
+            assert got.is_cuda
+            want, state = model.predict(torch.from_numpy(x).cuda(), state)
+            assert torch.equal(got, want)
+        # the runner's and predict's: a launch a cell and frame each
+        assert cuda_kernels.LAUNCHES["temporal_cell_seq"] == 2 * 4 * cells
+    with pytest.raises(ValueError, match="batch changed"):
+        runner(_frames(1, 2)[0])
+
+
+@pytest.mark.cuda
+def test_one_file_holds_both_platforms(card, tmp_path):
+    """``platforms=("cpu", "cuda")``: one file, each program traced on its
+    own device; the CPU program is the CPU model's predict (the plain
+    versions) and the CUDA one the card's (the kernels), bit for bit."""
+    from snn_for_object_detection_tpu_torch import export
+    from snn_for_object_detection_tpu_torch.models import compile as C
+
+    model = _export_micro("cuda")
+    cells = sum(isinstance(m, C.Cell) for m in model.modules())
+    path = str(tmp_path / "predict.pt2")
+    export.export_predict(model, path)
+    cpu_model = _export_micro("cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    for dev, m in (("cpu", cpu_model), ("cuda", model)):
+        runner = export.load_predict(path, device=dev)
+        state = None
+        cuda_kernels.reset_launches()
+        for x in _frames(3, 2, seed=1):
+            want, state = m.predict(torch.from_numpy(x).to(dev), state)
+            got = runner(x)
+            assert got.device.type == dev and torch.equal(got, want)
+        assert cuda_kernels.LAUNCHES["temporal_cell_seq"] == \
+            (2 * 3 * cells if dev == "cuda" else 0)

@@ -429,21 +429,31 @@ def test_load_jax_params_takes_int8_weights(narrow):
     assert float(conv.x_scale) == 0.5
 
 
+# the one port script that reads JAX's checkpoint to write the port's
+# (the place where the two packages meet)
+_BRIDGE = "export_synth_net_torch.py"
+
+
 def _port_sources():
     for root, _, files in os.walk(PORT):
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    for f in sorted(os.listdir(os.path.join(REPO, "scripts"))):
+        if f.endswith("_torch.py") and f != _BRIDGE:
+            yield os.path.join(REPO, "scripts", f)
 
 
 def test_port_imports_no_jax(tmp_path):
-    """No module of the port, and not chip_smoke.py, imports JAX, the JAX
-    package, PyYAML or tensorboardX; importing the port leaves JAX out of
-    sys.modules, and so do a CLI ``test`` run and a CLI ``fit`` with
-    ``config/logger.yaml`` on the CPU, which leave PyYAML and tensorboard
-    out too (the port reads the configs with its own reader and writes
-    the event file itself)."""
+    """No module of the port, not chip_smoke.py and no port script
+    (``scripts/*_torch.py`` but the bridge that reads JAX's checkpoint)
+    imports JAX, the JAX package, PyYAML or tensorboardX; importing the
+    port leaves JAX out of sys.modules, and so do a CLI ``test`` run and
+    a CLI ``fit`` with ``config/logger.yaml`` on the CPU, which leave
+    PyYAML and tensorboard out too (the port reads the configs with its
+    own reader and writes the event file itself), and so does serving a
+    frame from an exported file, which leaves the port's models out too."""
     banned = ("jax", "jaxlib", "snn_for_object_detection_tpu", "yaml",
               "tensorboardX")
     for path in _port_sources():
@@ -473,6 +483,32 @@ def test_port_imports_no_jax(tmp_path):
     assert "epoch_train_loss=" in out.stdout, out.stdout
     assert os.listdir(tmp_path / "fit" / "tb")
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+    from snn_for_object_detection_tpu_torch import export
+    from test_torch_megakernel import micro_soda
+
+    path = str(tmp_path / "predict.pt2")
+    export.export_predict(
+        micro_soda(PS, PSODa)(num_classes=2, in_hw=(8, 8), device="cpu"),
+        path, platforms=("cpu",))
+    out = subprocess.run([sys.executable, "-c", SERVE_RUN, path], cwd=REPO,
+                         capture_output=True, text=True)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
+# one frame served from an exported file, then the banned modules and
+# the port's models that were loaded
+SERVE_RUN = """
+import sys
+import numpy as np
+from snn_for_object_detection_tpu_torch.export import load_predict
+dets = load_predict(sys.argv[1], device="cpu")(np.ones((1, 8, 8, 2), np.uint8))
+assert dets.shape[-1] == 6
+print(sorted(m for m in sys.modules if m.split(".")[0] in
+             ("jax", "jaxlib", "yaml", "snn_for_object_detection_tpu")
+             or m.startswith("snn_for_object_detection_tpu_torch.models")))
+"""
 
 
 # a narrow TinyYolo tested from a weights-only checkpoint by the port's

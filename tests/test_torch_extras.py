@@ -53,7 +53,11 @@ from snn_for_object_detection_tpu_torch.data.synthetic import (
 from snn_for_object_detection_tpu_torch.models import spec as PS
 from snn_for_object_detection_tpu_torch.models.convert import load_jax_params
 from snn_for_object_detection_tpu_torch.models.detector import SODa as PSODa
-from snn_for_object_detection_tpu_torch.train import loggers, loop
+from snn_for_object_detection_tpu_torch.train import (
+    loggers,
+    loop,
+    optax_rules,
+)
 from snn_for_object_detection_tpu_torch.train.loop import Trainer
 from snn_for_object_detection_tpu_torch.utils.config import load_yaml
 from test_torch_detector import _jax_weights
@@ -360,9 +364,86 @@ FACTORIES = [
     ({"name": "adamw", "nesterov": True, "eps_root": 1e-6,
       "weight_decay": 0.1},
      optax.adamw(1e-2, nesterov=True, eps_root=1e-6, weight_decay=0.1)),
+    # the rest of optax 0.2.6's alias module, each written out
+    ("adadelta", optax.adadelta(1e-2)),
+    ({"name": "adadelta", "weight_decay": 0.1, "rho": 0.8},
+     optax.adadelta(1e-2, weight_decay=0.1, rho=0.8)),
+    ("adafactor", optax.adafactor(1e-2)),
+    ({"name": "adafactor", "momentum": 0.9, "weight_decay_rate": 0.1,
+      "clipping_threshold": None, "multiply_by_parameter_scale": False},
+     optax.adafactor(1e-2, momentum=0.9, weight_decay_rate=0.1,
+                     clipping_threshold=None,
+                     multiply_by_parameter_scale=False)),
+    ("adamaxw", optax.adamaxw(1e-2)),
+    ("adan", optax.adan(1e-2)),
+    ({"name": "adan", "weight_decay": 0.1, "b3": 0.9},
+     optax.adan(1e-2, weight_decay=0.1, b3=0.9)),
+    ("amsgrad", optax.amsgrad(1e-2)),
+    ("fromage", optax.fromage(1e-2)),
+    ("lamb", optax.lamb(1e-2)),
+    ({"name": "lamb", "weight_decay": 0.1}, optax.lamb(1e-2,
+                                                        weight_decay=0.1)),
+    ("lars", optax.lars(1e-2)),
+    ({"name": "lars", "weight_decay": 0.1, "nesterov": True,
+      "trust_coefficient": 0.01},
+     optax.lars(1e-2, weight_decay=0.1, nesterov=True,
+                trust_coefficient=0.01)),
+    ("nadamw", optax.nadamw(1e-2)),
+    ({"name": "noisy_sgd", "eta": 0.0, "key": 0},
+     optax.noisy_sgd(1e-2, eta=0.0, key=0)),
+    ("novograd", optax.novograd(1e-2)),
+    ({"name": "novograd", "weight_decay": 0.1},
+     optax.novograd(1e-2, weight_decay=0.1)),
+    ("optimistic_adam", optax.optimistic_adam(1e-2)),
+    ({"name": "optimistic_adam", "optimism": 0.5},
+     optax.optimistic_adam(1e-2, optimism=0.5)),
+    ("optimistic_adam_v2", optax.optimistic_adam_v2(1e-2)),
+    ({"name": "optimistic_adam_v2", "alpha": 0.5, "beta": 2.0},
+     optax.optimistic_adam_v2(1e-2, alpha=0.5, beta=2.0)),
+    ("optimistic_gradient_descent", optax.optimistic_gradient_descent(1e-2)),
+    ("rprop", optax.rprop(1e-2)),
+    ({"name": "rprop", "eta_minus": 0.4, "max_step_size": 0.02},
+     optax.rprop(1e-2, eta_minus=0.4, max_step_size=0.02)),
+    ("sign_sgd", optax.sign_sgd(1e-2)),
+    ("sm3", optax.sm3(1e-2)),
+    ({"name": "sm3", "momentum": 0.5}, optax.sm3(1e-2, momentum=0.5)),
+    ("yogi", optax.yogi(1e-2)),
+    ({"name": "yogi", "eps": 1e-4}, optax.yogi(1e-2, eps=1e-4)),
+    ("sgd", optax.sgd(1e-2)),
+    # the dtype options: the moment stored in bf16 between steps
+    ({"name": "adam", "mu_dtype": "bfloat16"},
+     optax.adam(1e-2, mu_dtype=jnp.bfloat16)),
+    ({"name": "nadamw", "mu_dtype": torch.bfloat16},
+     optax.nadamw(1e-2, mu_dtype=jnp.bfloat16)),
+    ({"name": "amsgrad", "mu_dtype": "bfloat16"},
+     optax.amsgrad(1e-2, mu_dtype=jnp.bfloat16)),
+    ({"name": "lion", "mu_dtype": "bfloat16"},
+     optax.lion(1e-2, mu_dtype=jnp.bfloat16)),
+    ({"name": "sgd", "momentum": 0.9, "accumulator_dtype": "bfloat16"},
+     optax.sgd(1e-2, momentum=0.9, accumulator_dtype=jnp.bfloat16)),
+    ({"name": "adafactor", "momentum": 0.9, "dtype_momentum": "bfloat16"},
+     optax.adafactor(1e-2, momentum=0.9, dtype_momentum=jnp.bfloat16)),
+    # the masks: a dict of bools by name (the Optimizer's default names
+    # are the positions), a callable over {name: tensor}, a bool
+    ({"name": "adamw", "weight_decay": 0.1,
+      "mask": {"0": True, "1": False, "2": True}},
+     optax.adamw(1e-2, weight_decay=0.1, mask=[True, False, True])),
+    ({"name": "lion", "mask": lambda ps: {n: p.dim() > 1
+                                          for n, p in ps.items()}},
+     optax.lion(1e-2, mask=lambda ps: [p.ndim > 1 for p in ps])),
+    ({"name": "lars", "weight_decay": 0.1,
+      "weight_decay_mask": {"0": False, "1": True, "2": True},
+      "trust_ratio_mask": lambda ps: {n: p.dim() == 1
+                                      for n, p in ps.items()}},
+     optax.lars(1e-2, weight_decay=0.1,
+                weight_decay_mask=[False, True, True],
+                trust_ratio_mask=lambda ps: [p.ndim == 1 for p in ps])),
+    ({"name": "adadelta", "weight_decay": 0.1, "weight_decay_mask": False},
+     optax.adadelta(1e-2, weight_decay=0.1, weight_decay_mask=False)),
 ]
 FACTORY_IDS = [f if isinstance(f, str) else "-".join(
-    f"{k}={v}" for k, v in f.items()) for f, _ in FACTORIES]
+    f"{k}={'fn' if callable(v) else v}" for k, v in f.items())
+    for f, _ in FACTORIES]
 
 
 def _trajectories(name_or_cfg, optax_opt, clip=None, every_k=1, steps=8):
@@ -378,7 +459,8 @@ def _trajectories(name_or_cfg, optax_opt, clip=None, every_k=1, steps=8):
     state = tx.init(jp)
     update = jax.jit(lambda g, s, p: tx.update(g, s, p))
     tp = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in params]
-    opt = loop.Optimizer(tp, name_or_cfg, lambda count: 1e-2, clip, every_k)
+    opt = loop.Optimizer(tp, name_or_cfg, loop.make_schedule(1e-2, None),
+                         clip, every_k)
     out = []
     for s in range(steps):
         grads = _tree(100 + s)
@@ -417,16 +499,21 @@ def test_radam_scalars_round_as_optax():
 
 
 def test_optimizer_options_left_out_or_unknown():
+    """Every optax 0.2.6 factory and option is taken now: the dtype and
+    mask options and every other factory build and step. An
+    unknown keyword raises ``TypeError`` and an unknown factory
+    ``ValueError``, as optax and JAX's trainer do."""
     params = [torch.nn.Parameter(torch.zeros(2))]
     for opt in ("fromage", {"name": "lion", "mu_dtype": "bfloat16"},
                 {"name": "adamw", "mask": None},
                 {"name": "sgd", "accumulator_dtype": "float32"}):
-        with pytest.raises(NotImplementedError, match="other optax"):
-            loop.Optimizer(params, opt, lambda c: 1e-3)
+        loop.Optimizer(params, opt, lambda c: 1e-3).step([torch.ones(2)])
     for opt in ({"name": "adamax", "momentum": 0.9},
                 {"name": "rmsprop", "b1": 0.9}):
         with pytest.raises(TypeError, match="unexpected keyword"):
             loop.Optimizer(params, opt, lambda c: 1e-3)
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        loop.Optimizer(params, "adamz", lambda c: 1e-3)
     with pytest.raises(TypeError):
         optax.rmsprop(1e-3, b1=0.9)
     cfg = {"name": "cosine", "decay_steps": 4, "warmup_steps": 2}
@@ -452,6 +539,143 @@ def test_optimizer_state_round_trips():
             opt.step([torch.full((3,), 0.1 * (s + 1))])
         runs.append(params[0].detach().clone())
     assert torch.equal(*runs)
+
+
+NEW_FACTORIES = sorted(
+    set(optax_rules.FACTORIES) - {"adam", "adamw", "nadam", "radam",
+                                  "adabelief", "lion", "rmsprop", "adagrad"}
+    - set(optax_rules.NEEDS_VALUE))
+
+
+@pytest.mark.parametrize("name", NEW_FACTORIES)
+def test_new_factories_state_round_trips(tmp_path, name):
+    """A factory's state saved in a checkpoint (``save_single``, read back
+    with ``weights_only``) gives a fresh optimizer the same next updates
+    as the one that kept going; noisy_sgd's generator state included."""
+    from snn_for_object_detection_tpu_torch.train.checkpoint import (
+        load_single,
+        save_single,
+    )
+
+    p0 = [torch.randn(3, 4, generator=torch.Generator().manual_seed(0)),
+          torch.randn(5, generator=torch.Generator().manual_seed(1))]
+    runs = []
+    for restore in (False, True):
+        params = [torch.nn.Parameter(p.clone()) for p in p0]
+
+        def make():
+            return loop.Optimizer(params, name, loop.make_schedule(1e-2, None))
+
+        opt = make()
+        for s in range(6):
+            if restore and s == 3:
+                save_single(str(tmp_path / name), {"opt": opt.state_dict()})
+                opt = make()
+                opt.load_state_dict(load_single(str(tmp_path / name))["opt"])
+            opt.step([torch.full(p.shape, 0.1 * (s + 1) * (-1) ** s)
+                      for p in params])
+        runs.append([p.detach().clone() for p in params])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["lbfgs", "polyak_sgd"])
+def test_factories_that_need_the_loss_value_fail_in_both(name):
+    """``lbfgs`` and ``polyak_sgd`` need the loss value in their update,
+    which JAX's trainer does not pass (``optimizer.update(grads,
+    opt_state, params)`` under ``MultiSteps(chain(clip, ...))``): both
+    packages raise ``TypeError`` at the first step."""
+    jm = type("M", (), {"learning_rate": 1e-3})()
+    tx = JTrainer(optimizer=name, gradient_clip_norm=1.0)._make_optimizer(jm)
+    tx = optax.MultiSteps(optax.chain(optax.clip_by_global_norm(1.0), tx), 1)
+    jp = [jnp.ones(3)]
+    with pytest.raises(TypeError, match="value"):
+        tx.update(jp, tx.init(jp), jp)
+    params = [torch.nn.Parameter(torch.ones(3))]
+    opt = loop.Optimizer(params, name, loop.make_schedule(1e-3, None), 1.0)
+    with pytest.raises(TypeError, match="value"):
+        opt.step([torch.ones(3)])
+    assert torch.equal(params[0], torch.ones(3))
+
+
+# a conv kernel wide enough to be factored (3x3x128x256 HWIO: both of its
+# two largest dims reach min_dim_size_to_factor), one whose two largest
+# dims tie, and a bias
+CONV_SHAPES = ((3, 3, 128, 256), (3, 3, 128, 128), (256,))
+
+
+@pytest.mark.parametrize("name,optax_opt", [
+    ("adafactor", optax.adafactor(1e-2)),
+    ({"name": "adafactor", "momentum": 0.9},
+     optax.adafactor(1e-2, momentum=0.9)),
+    ("sm3", optax.sm3(1e-2)),
+], ids=["adafactor", "adafactor-momentum", "sm3"])
+def test_factored_factories_on_conv_kernels(name, optax_opt):
+    """adafactor and sm3 on conv kernels: JAX's HWIO leaves and the
+    port's OIHW parameters (``models/convert.py``'s transpose), 8 steps
+    within rtol 1e-3, alone and under ``MultiSteps(chain(clip, ...),
+    2)``; adafactor factors over the dims JAX picks (O and I, also when
+    they tie)."""
+    assert optax_rules.factored_dims((256, 128, 3, 3), True, 128) == (1, 0)
+    assert optax_rules.factored_dims((128, 128, 3, 3), True, 128) == (1, 0)
+    assert optax_rules.factored_dims((64, 128, 3, 3), True, 128) is None
+
+    def oihw(a):
+        return a.transpose(3, 2, 0, 1) if a.ndim == 4 else a
+
+    rng = np.random.default_rng(0)
+    p0 = [rng.standard_normal(s).astype(np.float32) * 0.1
+          for s in CONV_SHAPES]
+    grads = [[rng.standard_normal(s).astype(np.float32) for s in CONV_SHAPES]
+             for _ in range(8)]
+    for clip, every_k in ((None, 1), (0.5, 2)):
+        tx = optax_opt
+        if clip:
+            tx = optax.chain(optax.clip_by_global_norm(clip), tx)
+        if every_k > 1:
+            tx = optax.MultiSteps(tx, every_k_schedule=every_k)
+        jp = [jnp.asarray(p) for p in p0]
+        state = tx.init(jp)
+        update = jax.jit(tx.update)
+        tp = [torch.nn.Parameter(torch.from_numpy(oihw(p).copy()))
+              for p in p0]
+        opt = loop.Optimizer(tp, name, loop.make_schedule(1e-2, None), clip,
+                             every_k)
+        for g in grads:
+            upd, state = update([jnp.asarray(x) for x in g], state, jp)
+            jp = optax.apply_updates(jp, upd)
+            opt.step([torch.from_numpy(oihw(x).copy()) for x in g])
+            for a, b in zip(tp, jp):
+                np.testing.assert_allclose(a.detach().numpy(),
+                                           oihw(np.asarray(b)), rtol=1e-3,
+                                           atol=1e-5)
+
+
+def test_noisy_sgd_noise_law():
+    """``noisy_sgd`` with ``eta > 0``: its noise comes from a
+    ``torch.Generator`` seeded by ``seed`` (JAX's from a JAX key: the same
+    law, not the same draws). On zero gradients at lr 1 each step adds
+    noise of variance ``eta / (1 + t) ** gamma`` (t from 0), mean 0; the
+    same seed draws the same noise."""
+    eta, gamma, n = 0.3, 0.55, 200_000
+    runs = []
+    for _ in range(2):
+        p = torch.nn.Parameter(torch.zeros(n))
+        opt = loop.Optimizer([p], {"name": "noisy_sgd", "eta": eta,
+                                   "gamma": gamma, "seed": 7},
+                             loop.make_schedule(1.0, None))
+        steps = []
+        for t in range(5):
+            before = p.detach().clone()
+            opt.step([torch.zeros(n)])
+            steps.append((p.detach() - before).double())
+        runs.append(steps)
+    for t, d in enumerate(runs[0]):
+        want = eta / (1 + t) ** gamma
+        # the sample variance of n normals: relative sd sqrt(2 / n) = 0.3%
+        assert abs(float(d.var()) / want - 1) < 0.015, (t, float(d.var()))
+        assert abs(float(d.mean())) < 5 * (want / n) ** 0.5
+        assert torch.equal(d, runs[1][t])
 
 
 # ---- summary, anchors ----

@@ -710,12 +710,18 @@ def test_mesh_and_prefetch_are_taken(tmp_path, kwargs):
 
 
 def test_optimizer_options_left_out_raise():
+    """No optax factory or option is left out any more (``fromage`` and
+    ``mu_dtype`` run); what raises is what fails under JAX's trainer
+    too: a factory whose update needs the loss value, at its first step,
+    and an unknown factory."""
     params = [torch.nn.Parameter(torch.zeros(2))]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loop.Optimizer(params, "fromage", lambda c: 1e-3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loop.Optimizer(params, {"name": "adam", "mu_dtype": "bfloat16"},
-                       lambda c: 1e-3)
+    loop.Optimizer(params, "fromage", lambda c: 1e-3).step([torch.ones(2)])
+    loop.Optimizer(params, {"name": "adam", "mu_dtype": "bfloat16"},
+                   lambda c: 1e-3).step([torch.ones(2)])
+    with pytest.raises(TypeError, match="value"):
+        loop.Optimizer(params, "lbfgs", lambda c: 1e-3).step([torch.ones(2)])
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        loop.Optimizer(params, "adamz", lambda c: 1e-3)
     # a live reshape in one process of one device: one device or none
     # (tests/test_torch_spatial_layers.py holds the rest)
     with pytest.raises(ValueError, match=r"in \[1, 1\], got 2"):
