@@ -100,7 +100,15 @@ Phases (any failure raises and the script exits non-zero):
    per-step ``SODa.step`` (the same function on cuDNN and the cell
    kernel); the witness over 16 event frames of each of 3 seeds (the
    kernel no further from the exact-sum run than the plain version, on
-   every seed); at most 36 phases (the convs' dependency depth);
+   every seed), and the witness at width: on the same seeds the plain
+   version with its conv sums reordered (taps last to first; K in four
+   slices) must pass it and with the /8 downsample's first 16-channel
+   K-chunk dropped must fail it, on every seed; with a 3 x 3 bottleneck
+   at /16 reading its bottom padding row from the row above its verdict
+   is printed (``witness_variants``, the four variants of
+   ``tests/test_torch_megakernel.py``'s witness test, on the untrained
+   net here and on the trained net in [12]); at most 36 phases (the
+   convs' dependency depth);
    ``predict`` and ``to_model_state``. Prints kernel, plain and
    ``SODa.step`` ms per frame, ``predict`` split into step and detect,
    the grid, phases and barriers, the bound, and the device time of each
@@ -155,7 +163,8 @@ Phases (any failure raises and the script exits non-zero):
    [7]'s gates (fused against the fused schedule on the plain versions,
    at fp32 against the unfused path, spike agreement >= 0.99 a cell, the
    witness) and [8]'s (megakernel against its plain version and
-   ``SODa.step``, LI relative L2, the witness), untimed, both dtype
+   ``SODa.step``, LI relative L2, the witness and the witness at
+   width), untimed, both dtype
    configurations, each printed beside the untrained net's; the relative
    L2 distance between the three train schedules' first-step gradients
    (fp32, cuDNN off); ``python -m snn_for_object_detection_tpu_torch
@@ -201,7 +210,8 @@ Phases (any failure raises and the script exits non-zero):
    (``VggSNN(neuron="alif" | "sli")`` and a net with Synapse, ConvLSTM,
    ``Pool(3, stride=2)`` and a bilinear Up): one eval and one train step
    each, timed; (e) ``YoloSNN(scale="s")``: a train and an eval step,
-   then its B=1 megakernel with [8]'s gates and the witness.
+   then its B=1 megakernel with [8]'s gates and the witness, on seeded
+   weights and on the weights after 3 ``Trainer.fit`` steps.
 15. the last inference options: (a) every kernel's e4m3-state instance
    (``float8_e4m3fn``, stored as JAX stores it: NaN with the value's sign
    past 464) against its plain version, x fp32 and bf16, on inputs where
@@ -1568,56 +1578,148 @@ def row_label(fields, row):
             + (f" split {f['split']}" if f["split"] > 1 else ""))
 
 
-def megakernel_witness(torch, cuda_kernels, mk, tag, dev):
+def witness_variants(torch, plan):
+    """The four conv sums of ``tests/test_torch_megakernel.py``'s witness
+    test, for the plan's convs (``_conv_taps``' signature), each with
+    whether it is a legitimate reordering and whether its verdict is
+    gated: the taps summed last to first; K (tap by tap, channel by
+    channel) in 4 in-order slices summed alone, then in order; and two
+    faults: the /8 downsample (the third stride-2 conv) loses its first
+    16-channel K-chunk; the second 3 x 3 stride-1 conv after the /16
+    downsample reads its bottom padding row from the row above. The
+    second fault's verdict is printed, not gated: at GEN1 width it moves
+    the run no further than the bf16 and e4m3 kernels' own sum orders do,
+    or (on the trained net) not at all, so the witness passes it on most
+    seeds (ROADMAP, Queue 3). A fault finds its conv by its place in the
+    frame's conv order (its calls counted modulo the plan's convs: a run
+    is whole frames), since several convs share a shape."""
+    import torch.nn.functional as F
+
+    convs = [op for op in plan.ops if op.kind == "conv"]
+    downs = [i for i, op in enumerate(convs) if op.stride == 2]
+    drop_at = downs[2]
+    pad_at = [i for i in range(downs[3] + 1, len(convs))
+              if convs[i].k == 3 and convs[i].stride == 1][1]
+    drop_calls, pad_calls = (itertools.cycle(range(len(convs)))
+                             for _ in range(2))
+
+    def taps(x, k, stride, out_hw, fill_bottom=False):
+        ho, wo = out_hw
+        pad = k // 2
+        x = F.pad(x.float(), (0, 0, pad, pad, pad, pad))
+        if fill_bottom:  # the bottom padding row read from the row above
+            x[-1] = x[-2]
+        return [x[dy:dy + (ho - 1) * stride + 1:stride,
+                  dx:dx + (wo - 1) * stride + 1:stride].reshape(ho * wo, -1)
+                for dy in range(k) for dx in range(k)]
+
+    def in_order(patches, w, out_hw, order):
+        acc = None
+        for t in order:
+            m = patches[t] @ w[t].float()
+            acc = m if acc is None else acc + m
+        return acc.reshape(*out_hw, -1)
+
+    def reverse_taps(x, w, k, stride, out_hw, exact=False):
+        return in_order(taps(x, k, stride, out_hw), w, out_hw,
+                        reversed(range(k * k)))
+
+    def k_in_4_slices(x, w, k, stride, out_hw, exact=False):
+        a = torch.cat(taps(x, k, stride, out_hw), dim=1)
+        b = w.float().reshape(-1, w.shape[-1])
+        acc = torch.zeros(a.shape[0], b.shape[1], device=a.device)
+        for s in range(4):
+            lo, hi = s * a.shape[1] // 4, (s + 1) * a.shape[1] // 4
+            acc = acc + a[:, lo:hi] @ b[lo:hi]
+        return acc.reshape(*out_hw, -1)
+
+    def chunk_dropped(x, w, k, stride, out_hw, exact=False):
+        if next(drop_calls) == drop_at:
+            w = w.clone()
+            w[0, :16] = 0
+        return in_order(taps(x, k, stride, out_hw), w, out_hw, range(k * k))
+
+    def bottom_pad_from_above(x, w, k, stride, out_hw, exact=False):
+        return in_order(taps(x, k, stride, out_hw,
+                             fill_bottom=next(pad_calls) == pad_at),
+                        w, out_hw, range(k * k))
+
+    return {"reverse_taps": (reverse_taps, True, True),
+            "k_in_4_slices": (k_in_4_slices, True, True),
+            "chunk_dropped": (chunk_dropped, False, True),
+            "bottom_pad_from_above": (bottom_pad_from_above, False, False)}
+
+
+def megakernel_witness(torch, cuda_kernels, mk, tag, dev, variants=False):
     """The witness of [8]: over 16 seeded event frames from the zero
     state, for each of three seeds, the kernel must be no further from
     the exact-sum run (conv sums in float64, rounded once) than the plain
     version is (``megakernel.witness_passes``). Prints each seed's
-    distances; returns the seeds where the kernel fails."""
-    from snn_for_object_detection_tpu_torch.ops.megakernel import (
-        plan_cells,
-        run_distance,
-        streaming_megakernel_reference,
-        witness_passes,
-    )
+    distances. With ``variants``, the plain version with each of
+    ``witness_variants``' conv sums in turn (``megakernel._conv_taps``
+    patched, restored after each) on the same seeds. Returns the seeds
+    where the kernel fails and the ``(variant, seed)`` pairs of the gated
+    variants where the witness did not tell a reordering (passes) from a
+    fault (fails)."""
+    from snn_for_object_detection_tpu_torch.ops import megakernel as M
 
     plan = mk.plan
     runs = {
         "kernel": lambda x, s: cuda_kernels.streaming_megakernel(plan, x, s),
-        "plain": lambda x, s: streaming_megakernel_reference(plan, x, s),
-        "exact": lambda x, s: streaming_megakernel_reference(
+        "plain": lambda x, s: M.streaming_megakernel_reference(plan, x, s),
+        "exact": lambda x, s: M.streaming_megakernel_reference(
             plan, x, s, exact_sums=True),
     }
-    failed = []
+    conv_sums = witness_variants(torch, plan) if variants else {}
+
+    def run(fn, frames):
+        state, preds = mk._flat_state(None), []
+        for x in frames:
+            cls, box, state = fn(x, state)
+            preds += [cls, box]
+        return preds, M.plan_cells(plan, state)
+
+    failed, wrong = [], []
     for seed in MK_WITNESS_SEEDS:
         rng = np.random.default_rng(100 + seed)
         frames = torch.from_numpy(
             (rng.random((MK_FRAMES, *IN_HW, 2)) < EVENT_DENSITY)
             .astype(np.uint8)).to(dev)
-        out = {}
-        for name, fn in runs.items():
-            state, preds = mk._flat_state(None), []
-            for x in frames:
-                cls, box, state = fn(x, state)
-                preds += [cls, box]
-            out[name] = (preds, plan_cells(plan, state))
-        kernel = run_distance(*out["kernel"], *out["exact"])
-        plain = run_distance(*out["plain"], *out["exact"])
-        ok = witness_passes(kernel, plain)
+        out = {name: run(fn, frames) for name, fn in runs.items()}
+        kernel = M.run_distance(*out["kernel"], *out["exact"])
+        plain = M.run_distance(*out["plain"], *out["exact"])
+        ok = M.witness_passes(kernel, plain)
         print(f"  {tag}: witness, seed {seed}: distance from the exact-sum "
               f"run: kernel: {kernel}; plain version: {plain}; "
               f"{'passes' if ok else 'FAILS'}", flush=True)
         if not ok:
             failed.append(seed)
+        for name, (fn, legit, gated) in conv_sums.items():
+            conv_taps = M._conv_taps
+            M._conv_taps = fn
+            try:
+                got = M.run_distance(*run(runs["plain"], frames),
+                                     *out["exact"])
+            finally:
+                M._conv_taps = conv_taps
+            passes = M.witness_passes(got, plain)
+            verdict = ("" if passes == legit else " (WRONG VERDICT)" if gated
+                       else " (not gated: ROADMAP Queue 3)")
+            print(f"  {tag}: witness at width, seed {seed}, {name} ("
+                  f"{'a reordering' if legit else 'a fault'}): {got}; "
+                  f"{'passes' if passes else 'fails'}{verdict}", flush=True)
+            if passes != legit and gated:
+                wrong.append((name, seed))
         del out
     torch.cuda.empty_cache()
-    return failed
+    return failed, wrong
 
 
 def phase_megakernel(torch, cuda_kernels, TinyYolo, batch, dev,
                      weights=None, timed=True, net="untrained",
                      pairs=(("float32", "float32"),
-                            ("bfloat16", "float8_e5m2")), prepare=None):
+                            ("bfloat16", "float8_e5m2")), prepare=None,
+                     variants=False):
     """Phase 8: the B=1 streaming megakernel on TinyYolo GEN1, in both
     dtype configurations, through ``StreamingMegakernel.step``: one
     launch per frame and nothing else; the final state against the plain
@@ -1627,8 +1729,11 @@ def phase_megakernel(torch, cuda_kernels, TinyYolo, batch, dev,
     ``weights`` and ``pairs`` as in ``phase_fused_path``; ``prepare``
     turns the built model into the one to run ([15]: its int8 form, which
     the megakernel dequantizes at build time while ``SODa.step`` runs
-    int8 convs: another function, so not compared). Returns (launches,
-    fp32 row of the kernels line)."""
+    int8 convs: another function, so not compared); ``variants``: the
+    witness must also pass each legitimate reordering of the plain
+    version's conv sums and fail the gated fault, on every seed
+    (``witness_variants``). Returns (launches, fp32 row of the kernels
+    line)."""
     from snn_for_object_detection_tpu_torch.ops.megakernel import (
         StreamingMegakernel,
         streaming_megakernel_reference,
@@ -1683,7 +1788,12 @@ def phase_megakernel(torch, cuda_kernels, TinyYolo, batch, dev,
               f"error max {max(li_rel):.4f}, share outside rtol 1e-4 / two "
               f"ulps max {max(li_out):.4f}; max abs err {err:.3g}",
               flush=True)
-        failed = megakernel_witness(torch, cuda_kernels, mk, tag, dev)
+        failed, wrong = megakernel_witness(torch, cuda_kernels, mk, tag,
+                                           dev, variants)
+        if variants:
+            AGREEMENTS[net, f"[8] {tag} witness at width"] = not wrong
+            check(not wrong, f"{tag}: the witness did not tell the "
+                  f"reorderings from the faults at (variant, seed) {wrong}")
         AGREEMENTS[net, f"[8] {tag} vs plain"] = min(agree)
         AGREEMENTS[net, f"[8] {tag} LI relative L2"] = max(li_rel)
         AGREEMENTS[net, f"[8] {tag} witness"] = not failed
@@ -2058,9 +2168,12 @@ def fit_schedule(torch, cuda_kernels, TinyYolo, Trainer, batches, dev, xd,
     configuration at full GEN1 width: ``backward_launches`` a step and
     no spiking conv kernel; finite losses; the weights and the running
     stats moved. Then one train step from r = TRAIN_START timed (CUDA
-    events, median of 3), its peak memory, and the device idle share of
-    one more step under ``torch.profiler``. Returns the fit's launches
-    and the step's numbers."""
+    events, median of 3; of 1 on the host-bound per-step and hybrid
+    schedules, whose steps take seconds of host time and vary more
+    between runs than between reps), its peak memory, and the device
+    idle share of one more step under ``torch.profiler`` (on those two
+    schedules at fp32 states only: depth cuts, PR 20). Returns the fit's
+    launches and the step's numbers."""
     from snn_for_object_detection_tpu_torch.models import compile as C
 
     out_root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -2141,27 +2254,33 @@ def fit_schedule(torch, cuda_kernels, TinyYolo, Trainer, batches, dev, xd,
     torch.cuda.reset_peak_memory_stats()
     # no warm-up call: the fit's steps just ran this step's kernels and
     # allocations (its last one from r = TRAIN_START)
-    step_ms = cuda_time_ms(step, reps=3, warmup=0)
+    host_bound = schedule is not True
+    reps = 1 if host_bound else 3
+    step_ms = cuda_time_ms(step, reps=reps, warmup=0)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    kernels, busy, wall = profiled(torch, step)
-    by_kind = kind_ms(kernels)
-    bwd_n = sum(kernel_kind(e.name) == "cell backward kernel"
-                for e in kernels)
-    idle = max(0.0, 1 - busy / wall)
+    if host_bound and sd != "float32":
+        idle, profile = None, "not profiled at these states"
+    else:
+        kernels, busy, wall = profiled(torch, step)
+        by_kind = kind_ms(kernels)
+        bwd_n = sum(kernel_kind(e.name) == "cell backward kernel"
+                    for e in kernels)
+        idle = max(0.0, 1 - busy / wall)
+        profile = (
+            f"one step under the profiler: device busy {busy:.1f} of "
+            f"{wall:.1f} ms, idle share {idle:.3f}; {bwd_n} cell backward "
+            f"kernels {by_kind.get('cell backward kernel', 0):.2f} ms; "
+            f"device ms by kind: " + ", ".join(
+                f"{k} {v:.1f}" for k, v in sorted(
+                    by_kind.items(), key=lambda kv: -kv[1])[:6]))
     print(f"  {tag}: fit {TRAIN_STEPS} steps in {fit_s:.1f} s, starts "
           f"{starts}, losses {[round(v, 4) for v in losses]}; "
           f"launches {n['temporal_cell_seq']} forward (by sequence length "
           f"{by_len}; remat recomputes them), {n['temporal_cell_seq_bwd']} "
           f"backward; train step from r={TRAIN_START} {step_ms:.1f} ms (CUDA "
-          f"events, median of 3), {STEPS * BATCH / (step_ms / 1e3):.0f}"
-          f" frames/s, peak memory {peak_gb:.2f} GB; one step under "
-          f"the profiler: device busy {busy:.1f} of {wall:.1f} ms, "
-          f"idle share {idle:.3f}; {bwd_n} cell "
-          f"backward kernels {by_kind.get('cell backward kernel', 0):.2f}"
-          f" ms; device ms by kind: " + ", ".join(
-              f"{k} {v:.1f}" for k, v in sorted(
-                  by_kind.items(), key=lambda kv: -kv[1])[:6]),
-          flush=True)
+          f"events, median of {reps}), "
+          f"{STEPS * BATCH / (step_ms / 1e3):.0f} frames/s, peak memory "
+          f"{peak_gb:.2f} GB; {profile}", flush=True)
     TRAIN_STEP_TIMES[xd, sd, schedule] = (step_ms, peak_gb, idle)
     del model, trainer, w0, s0
     torch.cuda.empty_cache()
@@ -2447,7 +2566,10 @@ def phase_cli(torch, cuda_kernels, smi):
         def step():
             run.trainer.train_step(run.model, X, lab, r)
 
-        step_ms = cuda_time_ms(step, reps=3, warmup=1)
+        # the per-step step takes seconds of host time: timed once (a
+        # depth cut, PR 20)
+        reps = 1 if "per-step" in tag else 3
+        step_ms = cuda_time_ms(step, reps=reps, warmup=1)
 
         def fed_step():
             Xb, labb = next(loader)
@@ -2470,7 +2592,7 @@ def phase_cli(torch, cuda_kernels, smi):
               f"{CLI_TRAIN_BATCHES} over {len(gaps)} steps; median "
               f"{fit_median:.1f}, each {[round(g, 1) for g in gaps]}), "
               f"train_step on an in-memory batch from r={r} "
-              f"{step_ms:.1f} ms (CUDA events, median of 3), gap "
+              f"{step_ms:.1f} ms (CUDA events, median of {reps}), gap "
               f"{fit_ms - step_ms:.1f} ms; one step fed by the loader "
               f"under the profiler: busy {busy:.1f} of {wall:.1f} ms, "
               f"idle share {1 - busy / wall:.3f} (an in-memory "
@@ -2566,7 +2688,8 @@ def phase_trained_net(torch, cuda_kernels, C, TinyYolo, Trainer, batches,
     phase_fused_path(torch, cuda_kernels, C, TinyYolo, Trainer, batches, dev,
                      weights=weights, timed=False, net="trained")
     phase_megakernel(torch, cuda_kernels, TinyYolo, batches[0], dev,
-                     weights=weights, timed=False, net="trained")
+                     weights=weights, timed=False, net="trained",
+                     variants=True)
 
     X = torch.as_tensor(batches[0][0], device=dev)
     lab = torch.as_tensor(batches[0][1], device=dev)
@@ -2808,8 +2931,9 @@ def phase_hybrid_auto_1mpx(torch, cuda_kernels, TinyYolo, Trainer, batches,
     plain_cell_grads(torch, cuda_kernels, TinyYolo, ("hybrid",), X, lab, dev)
     for (xd, sd, sched), (ms, gb, idle) in sorted(
             TRAIN_STEP_TIMES.items(), key=lambda kv: str(kv[0])):
+        idle = "not profiled" if idle is None else f"{idle:.3f}"
         print(f"  train step {xd}/{sd} {SCHEDULE_NAMES[sched]}: {ms:.1f} ms, "
-              f"peak {gb:.2f} GB, idle share {idle:.3f} [{smi}]", flush=True)
+              f"peak {gb:.2f} GB, idle share {idle} [{smi}]", flush=True)
     print(f"  hybrid at GEN1 in {time.perf_counter() - t0:.1f} s", flush=True)
 
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -3429,6 +3553,19 @@ def zoo_plain_cells(torch, cuda_kernels, C, batch, dev):
     return rows
 
 
+def slot_agreements(plan, got, want):
+    """Two megakernel states' flat slots compared: the spike agreement
+    (v == 0) of each LIF cell and the relative L2 distance of each head
+    (LI) slot."""
+    agree, li_rel = [], []
+    for g, w, slot in zip(got, want, plan.slots):
+        if "head" in slot.path[0]:
+            li_rel.append(relative_l2(g, w))
+        elif slot.field == 0:
+            agree.append(spike_agreement(g == 0, w == 0))
+    return agree, li_rel
+
+
 def zoo_yolo(torch, cuda_kernels, batch, dev):
     """[14] (e): ``YoloSNN(scale="s")`` at GEN1 (B=4, T=42, fp32): one
     train step and one eval step, time-batched, finite. Then the B=1
@@ -3440,7 +3577,10 @@ def zoo_yolo(torch, cuda_kernels, batch, dev):
     BatchNorm gain 8, 24 LIF cells deep, the order of the convs' sums
     flips spikes that add up over the frames); the witness on
     MK_WITNESS_SEEDS, MK_FRAMES frames each; per-frame ms of the kernel,
-    its plain version and ``SODa.step`` beside the bound."""
+    its plain version and ``SODa.step`` beside the bound. Then the same
+    megakernel after TRAIN_STEPS ``Trainer.fit`` steps: its agreement
+    after MK_FRAMES frames printed, the witness gated
+    (``yolo_megakernel_after_fit``)."""
     from snn_for_object_detection_tpu_torch.models import YoloSNN
     from snn_for_object_detection_tpu_torch.models.compile import Cell
     from snn_for_object_detection_tpu_torch.ops.megakernel import (
@@ -3495,12 +3635,8 @@ def zoo_yolo(torch, cuda_kernels, batch, dev):
             preds, ss = model.step(frames[t][None], runs["step"][0])
         runs["step"] = (ss, list(preds))
         if t in (0, MK_FRAMES - 1):
-            agree, li_rel = [], []
-            for g, w, slot in zip(mk._flat_state(state), plain, plan.slots):
-                if "head" in slot.path[0]:
-                    li_rel.append(relative_l2(g, w))
-                elif slot.field == 0:
-                    agree.append(spike_agreement(g == 0, w == 0))
+            agree, li_rel = slot_agreements(plan, mk._flat_state(state),
+                                            plain)
             agree_s, _ = spike_agreements(((cls_p, box_p), state),
                                           (tuple(preds), ss))
             agreement[t + 1] = (min(agree), max(li_rel), min(agree_s),
@@ -3515,9 +3651,13 @@ def zoo_yolo(torch, cuda_kernels, batch, dev):
           f"[14] (e) megakernel, one frame: agreement with the plain "
           f"version {one[0]}, LI relative L2 {one[1]}, with SODa.step "
           f"{one[2]}")
-    failed = megakernel_witness(torch, cuda_kernels, mk, "(e) YoloSNN", dev)
+    failed, _ = megakernel_witness(torch, cuda_kernels, mk, "(e) YoloSNN",
+                                   dev)
     check(not failed, f"[14] (e): the megakernel is further from the "
           f"exact-sum run than the plain version on seeds {failed}")
+    fit_s, fit_many, fit_failed = yolo_megakernel_after_fit(
+        torch, cuda_kernels, YoloSNN, StreamingMegakernel,
+        streaming_megakernel_reference, Trainer, batch, frames, dev)
     st = mk._flat_state(runs["kernel"][0])
     ms = per_frame_ms(lambda: cuda_kernels.streaming_megakernel(
         plan, frames[0], st))
@@ -3539,9 +3679,54 @@ def zoo_yolo(torch, cuda_kernels, batch, dev):
           f"{2 * macs / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
           f"{phases} phases, {len(plan.slots)} state "
           f"slots", flush=True)
+    print(f"  (e) megakernel after {TRAIN_STEPS} Trainer.fit steps "
+          f"({fit_s:.1f} s with the witness): after {MK_FRAMES} frames, vs "
+          f"the plain version: spike agreement min {fit_many[0]:.6f}, LI "
+          f"relative L2 max {fit_many[1]:.4f}; witness "
+          f"{'FAILS on seeds ' + str(fit_failed) if fit_failed else 'passes'}",
+          flush=True)
+    check(not fit_failed, f"[14] (e) after {TRAIN_STEPS} fit steps: the "
+          f"megakernel is further from the exact-sum run than the plain "
+          f"version on seeds {fit_failed}")
     del model, mk, plan
     torch.cuda.empty_cache()
     return MK_FRAMES
+
+
+def yolo_megakernel_after_fit(torch, cuda_kernels, YoloSNN,
+                              StreamingMegakernel,
+                              streaming_megakernel_reference, Trainer, batch,
+                              frames, dev):
+    """[14] (e) on trained weights: YoloSNN(s) from [14] (e)'s seeded
+    weights after TRAIN_STEPS ``Trainer.fit`` steps, time-batched, on
+    ``batch``; its megakernel against the plain version after MK_FRAMES
+    of ``frames`` (spike agreement min a LIF cell, LI relative L2 max),
+    and the witness on MK_WITNESS_SEEDS, MK_FRAMES frames each. Returns
+    the seconds, the two agreements and the seeds where the witness
+    fails."""
+    t0 = time.perf_counter()
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke_yolo_fit")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    model = build_model(functools.partial(YoloSNN, scale=YOLO_SCALE),
+                        "float32", "float32", dev)
+    Trainer(max_epochs=1, limit_train_batches=TRAIN_STEPS,
+            check_val_every_n_epoch=10 ** 6, log_every_n_steps=1,
+            out_dir=out_dir, seed=0, time_batched=True).fit(
+        model, _Batches([batch]))
+    mk = StreamingMegakernel(model)
+    plan = mk.plan
+    state, plain = None, mk._flat_state(None)
+    for t in range(MK_FRAMES):
+        _, state = mk.step(frames[t], state)
+        _, _, plain = streaming_megakernel_reference(plan, frames[t], plain)
+    agree, li_rel = slot_agreements(plan, mk._flat_state(state), plain)
+    failed, _ = megakernel_witness(
+        torch, cuda_kernels, mk, f"(e) YoloSNN after {TRAIN_STEPS} fit steps",
+        dev)
+    del model, mk, plan, state, plain
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t0, (min(agree), max(li_rel)), failed
 
 
 def phase_zoo(torch, cuda_kernels, C, neurons, smi, batches, dev):
@@ -4471,7 +4656,7 @@ def phase_options(torch, cuda_kernels, C, neurons, TinyYolo, Trainer,
 # weights; (b) two ranks on the one card (gloo on CUDA tensors), and its
 # gates against (a)'s one-rank step; (d) mesh serving; (e) the loader-fed
 # steps profiled at each prefetch depth
-DP_STEPS, DP_RANKS, DP_TIMED = 2, 2, 3
+DP_STEPS, DP_RANKS, DP_TIMED = 2, 2, 1  # timed reps: a depth cut, PR 20
 DP_LOSS_RTOL, DP_GRAD_L2, DP_STATS_RTOL = 1e-4, 0.02, 1e-4
 DP_FRAMES, DP_FEED_STEPS, DP_FEED_START = 16, 3, 3
 DP_ENGINE_WINDOW = 4  # (d): the streams' warm-up, so 12 frames detect
@@ -6097,7 +6282,7 @@ def main(argv) -> int:
         if 8 in only:
             print("[8] megakernel", flush=True)
             phase_megakernel(torch, cuda_kernels, TinyYolo, batches[0],
-                             "cuda")
+                             "cuda", variants=True)
         if 10 in only:
             print("[10] train", flush=True)
             phase_cell_backward(torch, cuda_kernels, "cuda")
@@ -6197,7 +6382,7 @@ def main(argv) -> int:
     print(f"[8] megakernel: TinyYolo GEN1 {IN_HW} at B=1, {MK_FRAMES} frames "
           f"through StreamingMegakernel.step", flush=True)
     mk_launches, mk_row = phase_megakernel(torch, cuda_kernels, TinyYolo,
-                                           batches[0], "cuda")
+                                           batches[0], "cuda", variants=True)
     t0 = phase_seconds(8, t0)
     print(f"[9] engine: StreamingEngine on TinyYolo GEN1, capacity "
           f"{ENGINE_CAPACITY}, {ENGINE_STREAMS} streams, {ENGINE_STEPS} steps",

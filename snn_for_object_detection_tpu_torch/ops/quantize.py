@@ -115,7 +115,8 @@ def calibrate(model, sequences: Iterable[Any],
         state = model.init_state(X.shape[1])
         for t in range(X.shape[0]):
             ctx = C.Ctx(calibrate=True)
-            _, state = model.step(X[t], state, ctx)
+            with torch.inference_mode():  # no autograd graph to keep
+                _, state = model.step(X[t], state, ctx)
             for conv, amax in ctx.absmax.items():
                 path = paths[conv]
                 ranges[path] = max(ranges.get(path, 0.0), float(amax))

@@ -772,10 +772,17 @@ class Trainer:
         grid, the loss's counts over ``data``). Before each schedule the
         ranks agree over the grid that every rank placed its copy; a
         schedule out of memory on any rank is disqualified on all
-        (:meth:`_merge_timings`). An out-of-memory error that strikes one
-        rank alone inside the step leaves the others waiting in its next
-        collective: as JAX's probe, this one assumes that a failure
-        surfaces on every rank alike (ROADMAP, Queue 3)."""
+        (:meth:`_merge_timings`). As JAX's probe, this one assumes that a
+        failure inside the step surfaces on every rank alike: nothing
+        agrees on it beforehand. When it strikes one rank alone between
+        two collectives of the step, that rank goes on to the ranks' next
+        comparison of notes while the others wait in the step's next
+        collective; both collectives fail when the group times out (or
+        when a peer's process ends), and every rank then raises
+        ``RuntimeError`` naming the schedules that failed on it, the
+        step's own collective error included: no rank pins a schedule.
+        (``tests/test_torch_spatial_layers.py``, a rank that fails inside
+        the grid's step.)"""
         mode = "train" if train else "eval"
         device = X.device
         on_card = device.type == "cuda"
@@ -788,6 +795,23 @@ class Trainer:
         batch_group = group if grid else None
         loss_group = self._data_peers if grid else None
         errors: Dict[Any, str] = {}
+        results: Dict[Any, Dict[str, Any]] = {}
+
+        def compared(notes_of, when):
+            """``notes_of()``, a comparison of notes over ``group``; when
+            its collective fails, a ``RuntimeError`` that names the
+            schedules out of the running on this rank and why."""
+            try:
+                return notes_of()
+            except RuntimeError as e:  # a peer left, or the group timed out
+                why = [f"{s!r}: {r['oom']}" for s, r in results.items()
+                       if r["oom"]]
+                why += [f"{s!r}: {err}" for s, err in errors.items()]
+                raise RuntimeError(
+                    f"time_batched='auto': the ranks could not compare "
+                    f"notes {when} ({type(e).__name__}: {str(e)[:200]}); "
+                    f"schedules out of the running on rank "
+                    f"{dist.rank(group)}: {'; '.join(why) or 'none'}") from e
 
         def step_fn(probe, schedule):
             params = list(probe.parameters())
@@ -806,15 +830,15 @@ class Trainer:
                                    labels0, group=loss_group)
             return step
 
-        results: Dict[Any, Dict[str, Any]] = {}
         for schedule in SCHEDULES:
             probe, oom = None, None
             try:
                 probe = copy.deepcopy(model)
             except torch.OutOfMemoryError as e:
                 oom = f"{type(e).__name__}: {e}"[:200]
-            if grid and not all(dist.allgather_pickle(probe is not None,
-                                                      group)):
+            if grid and not all(compared(
+                    lambda: dist.allgather_pickle(probe is not None, group),
+                    f"before schedule {schedule!r}")):
                 probe = None
                 oom = oom or "another rank could not place its copy"
             if probe is not None:
@@ -852,7 +876,9 @@ class Trainer:
             _say(f"[trainer] schedule {schedule!r}: {seconds * 1e3:.0f} "
                  f"ms/step" + (f", peak {peak:.2f} GB" if on_card else ""))
         if group is not None:
-            results = self._merge_timings(results, errors, group)
+            results = self._merge_timings(compared(
+                lambda: dist.allgather_pickle((results, errors), group),
+                "after the last schedule"))
         self.schedule_timings[mode] = results
         timed = {s: r["ms"] for s, r in results.items() if r["ms"] is not None}
         if not timed:
@@ -866,20 +892,20 @@ class Trainer:
         return best
 
     @staticmethod
-    def _merge_timings(results, errors, group):
-        """Every rank's measurement of the schedules, folded alike on
+    def _merge_timings(gathered):
+        """Every rank's measurement of the schedules (``gathered``: each
+        rank's ``(results, errors)`` in rank order), folded alike on
         every rank (else the ranks would pin different schedules and
         their collectives hang): a schedule out of memory on any rank is
         disqualified on all, the others take the sum of the ranks' ms
         and the largest peak. An error other than out of memory on any
         rank raises on every rank."""
-        gathered = dist.allgather_pickle((results, errors), group)
         for r, (_, errs) in enumerate(gathered):
             for schedule, err in errs.items():
                 raise RuntimeError(f"time_batched='auto': schedule "
                                    f"{schedule!r} failed on rank {r}: {err}")
         merged = {}
-        for schedule in results:
+        for schedule in gathered[0][0]:
             runs = [res[schedule] for res, _ in gathered]
             oom = next((run["oom"] for run in runs if run["oom"]), None)
             if oom is not None:

@@ -21,7 +21,36 @@ A narrow TinyYolo with JAX-layout weights drawn by numpy (BatchNorm gain
 - the fused schedule runs an int8 conv's triple layer by layer, as JAX's
   does (the same fused calls in both), and training raises ``TypeError``
   in both.
+
+Then the trained net at full width (GEN1 240x304, 4,228,544 params,
+JAX's ``nets/tiny_yolo_synth`` and the port's ``nets/tiny_yolo_synth_
+torch``, bf16 states as trained, time window 0) on the same synthetic
+GEN1 batch (the port's loader on ``data/synthetic.py``'s recordings,
+drawn from seed 0 with numpy; one batch of B=2 at the checkpoint's 12
+steps: at 10 both packages' fp32 nets find one box, their int8 nets
+none, and the mAP comparison would hold only zeros), each package's own
+``calibrate`` -> ``quantize`` -> ``Trainer.test``, in this order:
+
+- every conv's absmax within rtol 1e-6 (XLA's and oneDNN's sums of the
+  analog inputs differ in their last bit), the spike inputs' exactly;
+- ``quantize`` from either package's absmax gives JAX's ``w_q``,
+  ``w_scale`` and ``x_scale`` bit for bit;
+- the port's int8 class scores, as its test ran them, against JAX's
+  ``forward`` of the same int8 parameters (its quantization of the
+  port's absmax: an absmax an ulp off moves an int8 rounding, which the
+  trained net turns into flipped spikes) within
+  ``test_quantized_forward_matches_jax``'s bound (rtol 1e-4, atol 1e-5).
+  Both Trainers run the per-step schedule, their default: at bf16
+  states JAX's own time-batched int8 forward leaves this bound against
+  its per-step one in a few scores, where the port's two schedules give
+  the same bits;
+- the fp32 and the int8 mAP of the two packages within rtol 1e-5, atol
+  1e-6 (their losses within the trained net's bf16 bars, rtol 2e-2,
+  atol 1e-3): the port's int8 net loses no more than JAX's.
 """
+
+import itertools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -29,16 +58,29 @@ import numpy as np
 import pytest
 import torch
 
+from snn_for_object_detection_tpu.models.tiny_yolo import TinyYolo as JTiny
 from snn_for_object_detection_tpu.ops import pallas_kernels as jpk
 from snn_for_object_detection_tpu.ops import quantize as JQ
 from snn_for_object_detection_tpu.ops.megakernel import (
     StreamingMegakernel as JMegakernel,
+)
+from snn_for_object_detection_tpu.train import Trainer as JTrainer
+from snn_for_object_detection_tpu.train.checkpoint import (
+    load_single as jax_load_single,
+)
+from snn_for_object_detection_tpu_torch.data import PropheseeDataModule
+from snn_for_object_detection_tpu_torch.data.synthetic import (
+    make_synthetic_dataset,
 )
 from snn_for_object_detection_tpu_torch.models.convert import (
     _flatten,
     load_jax_params,
     model_params,
 )
+from snn_for_object_detection_tpu_torch.models.tiny_yolo import (
+    TinyYolo as PTiny,
+)
+from snn_for_object_detection_tpu_torch.train.checkpoint import load_single
 from snn_for_object_detection_tpu_torch.ops import cuda_kernels
 from snn_for_object_detection_tpu_torch.ops import quantize as Q
 from snn_for_object_detection_tpu_torch.ops.megakernel import (
@@ -245,3 +287,139 @@ def test_int8_conv_sums_are_exact():
     with pytest.raises(TypeError, match="int8"):
         Q.int8_conv(torch.from_numpy(x).float(), torch.from_numpy(w), 1,
                     (1, 1, 1, 1))
+
+
+# ---- the trained net at full width ----
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GEN1_HW = (240, 304)
+PTQ_T, PTQ_B, PTQ_BATCHES = 12, 2, 1
+MAP_TOL = dict(rtol=1e-5, atol=1e-6)
+LOSS_TOL = dict(rtol=2e-2, atol=1e-3)  # the trained net's bf16 bars
+
+
+class _Batches:
+    """JAX's ``Trainer.test`` takes a data module: these batches."""
+    batch_size = PTQ_B
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def test_loader(self):
+        return iter(self.batches)
+
+
+@pytest.fixture(scope="module")
+def trained_ptq(tmp_path_factory):
+    """Both packages' int8 PTQ of the trained net on the same batch."""
+    tmp = tmp_path_factory.mktemp("ptq")
+    root = make_synthetic_dataset(str(tmp / "data"), records_per_split=1,
+                                  duration_ms=1200)
+    loader = PropheseeDataModule(
+        data_dir=root, dataset="gen1", batch_size=PTQ_B, num_workers=1,
+        num_load_file=1, num_steps=PTQ_T, time_step=16, time_shift=6,
+        one_label=True, max_labels=64).test_loader()
+    batches = [(np.asarray(x), np.asarray(lab))
+               for x, lab in itertools.islice(loader, PTQ_BATCHES)]
+    loader.close()
+    restored = jax_load_single(os.path.join(REPO, "nets", "tiny_yolo_synth",
+                                            "model"))
+    params, stats = restored["params"], restored["stats"]
+    jm = JTiny(num_classes=2, in_hw=GEN1_HW, time_window=0,
+               state_dtype="bfloat16")
+    payload = load_single(os.path.join(REPO, "nets", "tiny_yolo_synth_torch",
+                                       "model"))
+    pm = PTiny(num_classes=2, in_hw=GEN1_HW, time_window=0,
+               state_dtype="bfloat16", device="cpu")
+    with torch.no_grad():
+        for name, value in payload["params"].items():
+            pm.get_parameter(name).copy_(value)
+        for name, value in payload["stats"].items():
+            pm.get_buffer(name).copy_(value)
+
+    out = {"j_abs": JQ.calibrate(jm, params, stats,
+                                 [jnp.asarray(x) for x, _ in batches]),
+           "abs": Q.calibrate(pm, [x for x, _ in batches])}
+    # quantize from either package's absmax, in both
+    for src in ("j_abs", "abs"):
+        out["j_q", src] = JQ.quantize(params, out[src])
+        out["q", src] = Q.quantize(pm, out[src])
+    # the port's class scores of the first batch, from its own test
+    eval_preds, seen = Trainer._eval_preds, []
+
+    def recording(*args, **kwargs):
+        seen.append(eval_preds(*args, **kwargs))
+        return seen[-1]
+
+    for tag, p, m in (("fp32", params, pm),
+                      ("int8", out["j_q", "j_abs"], out["q", "abs"])):
+        out["jax", tag] = JTrainer(out_dir=str(tmp / "jax"), seed=0,
+                                   limit_test_batches=PTQ_BATCHES).test(
+            jm, _Batches(batches), p, stats)
+        Q.CALLS.update(int_mm=0, plain=0)
+        Trainer._eval_preds = staticmethod(recording)
+        try:
+            out["port", tag] = Trainer(seed=0, limit_test_batches=PTQ_BATCHES
+                                       ).test(m, iter(batches))
+        finally:
+            Trainer._eval_preds = staticmethod(eval_preds)
+        out["calls", tag] = dict(Q.CALLS)
+    out["cls"] = seen[PTQ_BATCHES][0]
+    # JAX's int8 net of the port's absmax: the same parameters
+    (out["j_cls"], _), _, _ = jax.jit(lambda x: jm.forward(
+        out["j_q", "abs"], stats, x))(jnp.asarray(batches[0][0]))
+    print("\n[trained net PTQ, CPU] " + "; ".join(
+        f"{pkg} {tag}: map {out[pkg, tag]['map']:.4f}, map_50 "
+        f"{out[pkg, tag]['map_50']:.4f}, loss {out[pkg, tag]['test_loss']:.6f}"
+        for pkg in ("jax", "port") for tag in ("fp32", "int8")))
+    return out
+
+
+def test_trained_net_calibrate_matches_jax(trained_ptq):
+    j_abs, absmax = trained_ptq["j_abs"], trained_ptq["abs"]
+    assert sorted(absmax) == sorted(j_abs) and len(absmax) == 42
+    for path, a in absmax.items():
+        if j_abs[path] in (0.0, 1.0):  # silent or binary spike inputs
+            assert a == j_abs[path], path
+        np.testing.assert_allclose(a, j_abs[path], rtol=1e-6, err_msg=path)
+    assert sum(a > 1.0 for a in absmax.values()) > 0  # analog inputs too
+
+
+@pytest.mark.parametrize("src", ["j_abs", "abs"])
+def test_trained_net_quantize_matches_jax_bit_for_bit(trained_ptq, src):
+    """From JAX's absmax, and from the port's."""
+    want = _flatten(jax.device_get(trained_ptq["j_q", src]))
+    got = _flatten(model_params(trained_ptq["q", src]))
+    assert sorted(got) == sorted(want)
+    n_q = 0
+    for name, w in want.items():
+        assert got[name].dtype == w.dtype, name
+        np.testing.assert_array_equal(got[name], w, err_msg=name)
+        n_q += name.endswith(".w_q")
+    assert n_q == sum(a > 0 for a in trained_ptq[src].values()) > 30
+
+
+def test_trained_net_int8_class_scores_match_jax(trained_ptq):
+    """The port's int8 net as its test ran it (per step, from start 0)
+    against JAX's ``forward`` of the same int8 parameters."""
+    cls, j_cls = trained_ptq["cls"], np.asarray(trained_ptq["j_cls"])
+    assert float(np.abs(j_cls).max()) > 1.0  # a trained net's logits
+    np.testing.assert_allclose(cls.numpy(), j_cls, **PRED_TOL)
+
+
+def test_trained_net_int8_map_matches_jax(trained_ptq):
+    """Each package's own calibration, quantization and test: the port's
+    fp32 and int8 metrics are JAX's, so its int8 mAP is no lower."""
+    for tag in ("fp32", "int8"):
+        want, got = trained_ptq["jax", tag], trained_ptq["port", tag]
+        assert got.keys() == want.keys()
+        for k in want:
+            tol = LOSS_TOL if k == "test_loss" else MAP_TOL
+            np.testing.assert_allclose(got[k], want[k], err_msg=f"{tag} {k}",
+                                       **tol)
+    assert trained_ptq["port", "int8"]["map"] >= \
+        trained_ptq["jax", "int8"]["map"] - MAP_TOL["atol"]
+    for tag in ("fp32", "int8"):  # both nets detect
+        assert trained_ptq["jax", tag]["map"] > 0
+    assert trained_ptq["calls", "fp32"]["plain"] == 0
+    assert trained_ptq["calls", "int8"]["plain"] > 0

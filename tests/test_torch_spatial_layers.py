@@ -43,6 +43,10 @@ no reference), from the same numpy-drawn weights in JAX's layout:
 - ``time_batched="auto"`` on a 2-rank grid pins one schedule a mode on
   every rank, and a schedule out of memory on one rank (placing its
   copy of the model, or after the timed step) is disqualified on both;
+  when rank 1 raises inside the first schedule's step, between two
+  collectives (at its second halo fetch), out of memory or otherwise,
+  both ranks end within the group's timeout (20 s here) plus a margin,
+  each with an error that names the schedule, and neither pins one;
 - ``StreamingEngine`` on a one-process ``(data 2, space 2)`` mesh of
   CPU devices against the engine on the two data devices alone.
 """
@@ -89,6 +93,9 @@ STATE_TOL = dict(rtol=1e-4, atol=1e-4)
 FUSED_TRIPLES = 5  # MicroSODa: the stem, two neck convs, two head stems
 SMALL_HW = (32, 40)  # the Trainer's grids: maps of 16, 8 and 4 rows
 AUTO_FAILS = (None, "placing", "timing")  # "auto": where rank 1 runs out
+# "auto": what rank 1 raises inside the step; the group's timeout there
+STEP_FAILS = {"oom": torch.OutOfMemoryError, "error": RuntimeError}
+STEP_FAIL_TIMEOUT_S, STEP_FAIL_MARGIN_S = 20, 15
 
 
 def leaf_weights(leaf):
@@ -132,6 +139,13 @@ def grids(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("spatial_layers")
     X, lab = batch(400, HW)
     Xs, labs = batch(401, SMALL_HW)
+    _, (sparams, sstats) = micro_weights(SMALL_HW)
+    # these ranks wait for the group's timeout: they start first
+    failing = {kind: start_ranks(
+        [("grid_auto_rank_fails", dict(params=sparams, stats=sstats,
+                                       in_hw=SMALL_HW, X=Xs, labels=labs,
+                                       error=error))], 2, tmp,
+        timeout_s=STEP_FAIL_TIMEOUT_S) for kind, error in STEP_FAILS.items()}
     leaf_jobs = []
     for leaf in LEAVES:
         _, (params, stats) = leaf_weights(leaf)
@@ -150,7 +164,6 @@ def grids(tmp_path_factory):
     jf, (fparams, fstats) = micro_weights(HW, fuse_seq=True)
     eval_jobs.append(("grid_eval", dict(params=fparams, stats=fstats,
                                         in_hw=HW, X=X, fuse=True)))
-    _, (sparams, sstats) = micro_weights(SMALL_HW)
     ranks = {
         4: start_ranks(leaf_jobs + eval_jobs + [
             ("trainer_grid", dict(params=sparams, stats=sstats,
@@ -183,6 +196,9 @@ def grids(tmp_path_factory):
     out["trainer"] = [r[base] for r in got[4]]
     for i, fail in enumerate(AUTO_FAILS):
         out["auto", fail] = [r[base + i] for r in got[2]]
+    for kind, run in failing.items():
+        # the ranks' closing barrier fails on the broken group
+        out["auto fails", kind] = [r[0] for r in run.results(ended_ok=False)]
     return out
 
 
@@ -446,6 +462,31 @@ def test_auto_on_grid_disqualifies_a_schedule_out_of_memory_on_one_rank(
             why = "could not place" if fail == "placing" else "forced"
             assert hybrid["ms"] is None and why in hybrid["oom"]
             assert got["schedules"][mode] in (False, True)
+
+
+@pytest.mark.parametrize("kind", sorted(STEP_FAILS))
+def test_auto_on_grid_ends_every_rank_when_one_fails_inside_the_step(
+        grids, kind):
+    """Rank 1 raises inside the first schedule's (per-step) train step,
+    after its first halo exchange: it goes on to the ranks' comparison of
+    notes before the next schedule while rank 0 waits in the step's next
+    collective, so both collectives fail with the group's timeout. Each
+    rank then raises an error naming the schedule that failed on it (rank
+    1's own error, rank 0's collective error), within the timeout plus a
+    margin; neither pins a schedule (there is nothing to agree on
+    beforehand: JAX's probe assumes that failures surface on every rank
+    alike, train/loop.py:541-545)."""
+    runs = grids["auto fails", kind]
+    for rank, got in enumerate(runs):
+        err = got["error"]
+        assert err is not None and err.startswith(
+            "RuntimeError: time_batched='auto': the ranks could not compare "
+            "notes before schedule 'hybrid'"), err
+        assert f"schedules out of the running on rank {rank}: False: " in err
+        assert got["seconds"] <= STEP_FAIL_TIMEOUT_S + STEP_FAIL_MARGIN_S
+        assert got["schedules"] == {}
+    assert (f"False: {STEP_FAILS[kind].__name__}: forced on this rank "
+            "between two exchanges") in runs[1]["error"]
 
 
 # ---- the engine ----

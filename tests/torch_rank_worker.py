@@ -25,7 +25,7 @@ TIMEOUT_S = 600
 class Ranks:
     """``world`` rank processes running ``jobs``."""
 
-    def __init__(self, jobs, world, tmp):
+    def __init__(self, jobs, world, tmp, timeout_s=None):
         self.dir = os.path.join(str(tmp), f"ranks_{world}_{os.getpid()}_"
                                 f"{id(self)}")
         os.makedirs(self.dir)
@@ -38,13 +38,17 @@ class Ranks:
         self.procs = [
             subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), self.dir,
-                 str(r), str(world)],
+                 str(r), str(world)]
+                + ([] if timeout_s is None else [str(timeout_s)]),
                 cwd=REPO, env=env, stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True)
             for r in range(world)]
 
-    def results(self):
-        """Every rank's results (a list a rank, one entry a job)."""
+    def results(self, ended_ok=True):
+        """Every rank's results (a list a rank, one entry a job).
+        ``ended_ok=False``: for jobs that leave the group broken, so that
+        the ranks' closing barrier fails: every rank must have saved its
+        results, whatever its exit code."""
         outs = []
         try:
             for p in self.procs:
@@ -55,16 +59,22 @@ class Ranks:
                 if p.poll() is None:
                     p.kill()
         for r, (p, out) in enumerate(zip(self.procs, outs)):
-            assert p.returncode == 0, f"rank {r} failed:\n{out[-6000:]}"
+            assert p.returncode == 0 or not ended_ok, \
+                f"rank {r} failed:\n{out[-6000:]}"
         got = []
-        for r in range(self.world):
-            with open(os.path.join(self.dir, f"rank{r}.pkl"), "rb") as f:
+        for r, out in enumerate(outs):
+            path = os.path.join(self.dir, f"rank{r}.pkl")
+            assert os.path.exists(path), f"rank {r} saved nothing:\n" \
+                f"{out[-6000:]}"
+            with open(path, "rb") as f:
                 got.append(pickle.load(f))
         return got
 
 
-def start_ranks(jobs, world, tmp) -> Ranks:
-    return Ranks(jobs, world, tmp)
+def start_ranks(jobs, world, tmp, timeout_s=None) -> Ranks:
+    """``timeout_s``: the process group's timeout (``distributed.
+    initialize``'s default when ``None``)."""
+    return Ranks(jobs, world, tmp, timeout_s)
 
 
 # ---- what a rank runs ----
@@ -832,7 +842,51 @@ def case_grid_auto(params, stats, in_hw, X, labels, fail=None):
             "timings": trainer.schedule_timings}
 
 
-def main(job_dir, rank, world):
+def case_grid_auto_rank_fails(params, stats, in_hw, X, labels, error):
+    """``time_batched="auto"`` on a ``make_mesh(spatial=world)`` grid
+    where rank 1 raises ``error`` (a class) inside the first schedule's
+    measured train step, between two collectives: at its second halo
+    fetch, after the first exchanged its rows. Returns this rank's error
+    (``"<type>: <message>"``, or ``None``), the seconds from the start of
+    the train step to it, and the schedules pinned."""
+    import time
+
+    from snn_for_object_detection_tpu_torch.models import compile as C
+    from snn_for_object_detection_tpu_torch.parallel import (
+        distributed,
+        make_mesh,
+    )
+    from snn_for_object_detection_tpu_torch.train import loop
+
+    mesh = make_mesh(spatial=distributed.world_size())
+    x, y = _grid_rows(mesh, X, labels)
+    model = port_model(params, stats, in_hw, 0)
+    trainer = loop.Trainer(mesh=mesh, time_batched="auto",
+                           prefetch_batches=0)
+    trainer.configure(model)
+    fetch, calls = C.fetch_rows, []
+
+    def failing(*args, **kwargs):
+        calls.append(1)
+        if len(calls) == 2:
+            raise error("forced on this rank between two exchanges")
+        return fetch(*args, **kwargs)
+
+    if distributed.rank() == 1:
+        C.fetch_rows = failing
+    t0 = time.perf_counter()
+    try:
+        trainer.train_step(model, x, y, 0)
+        err = None
+    except Exception as e:  # the outcome under test, whatever it is
+        err = f"{type(e).__name__}: {e}"
+    finally:
+        C.fetch_rows = fetch
+    return {"error": err, "seconds": time.perf_counter() - t0,
+            "schedules": dict(trainer._auto_schedule)}
+
+
+def main(job_dir, rank, world, timeout_s=None):
     import torch
 
     torch.set_num_threads(1)
@@ -840,7 +894,9 @@ def main(job_dir, rank, world):
 
     distributed.initialize(f"file://{os.path.join(job_dir, 'store')}",
                            num_processes=world, process_id=rank,
-                           device="cpu")
+                           device="cpu",
+                           **({} if timeout_s is None
+                              else {"timeout_s": timeout_s}))
     with open(os.path.join(job_dir, "jobs.pkl"), "rb") as f:
         jobs = pickle.load(f)
     results = [globals()[f"case_{case}"](**kwargs) for case, kwargs in jobs]
@@ -851,7 +907,8 @@ def main(job_dir, rank, world):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))
+    main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]),
+         *map(float, sys.argv[4:5]))
 
 
 def __getattr__(name):
