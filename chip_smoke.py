@@ -11,6 +11,9 @@
     python3 chip_smoke.py --only 12,13 # [1], the trained net, hybrid,
                                        # "auto" and 1Mpx
     python3 chip_smoke.py --only 14    # [1] and the model zoo
+    python3 chip_smoke.py --only 8,15  # [1], the megakernel and the last
+                                       # inference options (the exact-sum
+                                       # gate at fp32, bf16/e5m2, e4m3)
     python3 chip_smoke.py --only 15    # [1] and the last inference options
     python3 chip_smoke.py --only 16    # [1], data parallel, mesh serving
     python3 chip_smoke.py --only 17    # [1], training extras, plotter,
@@ -105,10 +108,17 @@ Phases (any failure raises and the script exits non-zero):
    slices) must pass it and with the /8 downsample's first 16-channel
    K-chunk dropped must fail it, on every seed; with a 3 x 3 bottleneck
    at /16 reading its bottom padding row from the row above its verdict
-   is printed (``witness_variants``, the four variants of
-   ``tests/test_torch_megakernel.py``'s witness test, on the untrained
-   net here and on the trained net in [12]); at most 36 phases (the
-   convs' dependency depth);
+   is printed, since at GEN1 width the witness passes it on most seeds
+   (``megakernel.witness_variants``, on the untrained net here and on
+   the trained net in [12]); then the exact-sum gate
+   (``megakernel_exact_gate``, here and with e4m3 states in [15] (b)):
+   for 2 seeds the plan made exact (``megakernel.make_exact``: integer
+   conv weights, power-of-two Norm gains, every LIF op spiking at 5-95%
+   over 16 event frames), where the kernel must equal its plain version
+   bit for bit in every state slot after every frame, both reorderings
+   must too and both faults, the padding fault included, must differ,
+   on inputs that are nonzero where each fault breaks; at most 36 phases
+   (the convs' dependency depth);
    ``predict`` and ``to_model_state``. Prints kernel, plain and
    ``SODa.step`` ms per frame, ``predict`` split into step and detect,
    the grid, phases and barriers, the bound, and the device time of each
@@ -222,8 +232,9 @@ Phases (any failure raises and the script exits non-zero):
    frame, the last three with integer weights so that every sum is exact
    in any order: every output bit-equal (one-byte states as uint8 views,
    NaN positions and signs included); ms against the bound; (b) TinyYolo
-   with bf16 activations and e4m3 states through [7]'s and [8]'s gates,
-   its eval step's ms beside e5m2 states', and 3 ``Trainer.fit`` steps
+   with bf16 activations and e4m3 states through [7]'s and [8]'s gates
+   (the exact-sum gate included), its eval step's ms beside e5m2
+   states', and 3 ``Trainer.fit`` steps
    (time-batched) against the plain cell's; (c) ``s2d_stem=True`` with
    the stem's weights on a 2^-12 grid (exact sums): per-step and
    time-batched eval bit-equal to the plain stem, a train step's
@@ -232,7 +243,8 @@ Phases (any failure raises and the script exits non-zero):
    records of [T, ...], the last equal to the returned state, 22 x T cell
    launches and no plain cell, the backbone's recording sequence form a
    step at a time, and ``spike_stats`` of the trained net; (e) int8 PTQ
-   of the trained net: ``calibrate`` (4 batches), ``quantize``, the int8
+   of the trained net: ``calibrate`` (4 batches from one loader worker;
+   a second calibration on a fresh loader bit-equal), ``quantize``, the int8
    convs (``torch._int_mm``) bit-equal to their float64 plain version,
    ``Trainer.test`` per-step and time-batched (mAP, agreement with the fp
    net, eval ms), ``StreamingEngine.update_weights`` with the int8
@@ -1528,6 +1540,7 @@ def phase_fused_path(torch, cuda_kernels, C, TinyYolo, Trainer, batches,
 
 MK_FRAMES = 16  # [8]: frames of the B=1 megakernel run
 MK_WITNESS_SEEDS = (0, 1, 2)  # [8]: seeds of the witness's event frames
+MK_EXACT_SEEDS = (0, 1)  # [8]: seeds of the exact-sum gate's weights, frames
 MK_MAX_PHASES = 36  # [8]: the convs' dependency depth in TinyYolo GEN1
 ENGINE_CAPACITY, ENGINE_STREAMS, ENGINE_STEPS = 8, 6, 24  # [9]
 
@@ -1578,89 +1591,20 @@ def row_label(fields, row):
             + (f" split {f['split']}" if f["split"] > 1 else ""))
 
 
-def witness_variants(torch, plan):
-    """The four conv sums of ``tests/test_torch_megakernel.py``'s witness
-    test, for the plan's convs (``_conv_taps``' signature), each with
-    whether it is a legitimate reordering and whether its verdict is
-    gated: the taps summed last to first; K (tap by tap, channel by
-    channel) in 4 in-order slices summed alone, then in order; and two
-    faults: the /8 downsample (the third stride-2 conv) loses its first
-    16-channel K-chunk; the second 3 x 3 stride-1 conv after the /16
-    downsample reads its bottom padding row from the row above. The
-    second fault's verdict is printed, not gated: at GEN1 width it moves
-    the run no further than the bf16 and e4m3 kernels' own sum orders do,
-    or (on the trained net) not at all, so the witness passes it on most
-    seeds (ROADMAP, Queue 3). A fault finds its conv by its place in the
-    frame's conv order (its calls counted modulo the plan's convs: a run
-    is whole frames), since several convs share a shape."""
-    import torch.nn.functional as F
-
-    convs = [op for op in plan.ops if op.kind == "conv"]
-    downs = [i for i, op in enumerate(convs) if op.stride == 2]
-    drop_at = downs[2]
-    pad_at = [i for i in range(downs[3] + 1, len(convs))
-              if convs[i].k == 3 and convs[i].stride == 1][1]
-    drop_calls, pad_calls = (itertools.cycle(range(len(convs)))
-                             for _ in range(2))
-
-    def taps(x, k, stride, out_hw, fill_bottom=False):
-        ho, wo = out_hw
-        pad = k // 2
-        x = F.pad(x.float(), (0, 0, pad, pad, pad, pad))
-        if fill_bottom:  # the bottom padding row read from the row above
-            x[-1] = x[-2]
-        return [x[dy:dy + (ho - 1) * stride + 1:stride,
-                  dx:dx + (wo - 1) * stride + 1:stride].reshape(ho * wo, -1)
-                for dy in range(k) for dx in range(k)]
-
-    def in_order(patches, w, out_hw, order):
-        acc = None
-        for t in order:
-            m = patches[t] @ w[t].float()
-            acc = m if acc is None else acc + m
-        return acc.reshape(*out_hw, -1)
-
-    def reverse_taps(x, w, k, stride, out_hw, exact=False):
-        return in_order(taps(x, k, stride, out_hw), w, out_hw,
-                        reversed(range(k * k)))
-
-    def k_in_4_slices(x, w, k, stride, out_hw, exact=False):
-        a = torch.cat(taps(x, k, stride, out_hw), dim=1)
-        b = w.float().reshape(-1, w.shape[-1])
-        acc = torch.zeros(a.shape[0], b.shape[1], device=a.device)
-        for s in range(4):
-            lo, hi = s * a.shape[1] // 4, (s + 1) * a.shape[1] // 4
-            acc = acc + a[:, lo:hi] @ b[lo:hi]
-        return acc.reshape(*out_hw, -1)
-
-    def chunk_dropped(x, w, k, stride, out_hw, exact=False):
-        if next(drop_calls) == drop_at:
-            w = w.clone()
-            w[0, :16] = 0
-        return in_order(taps(x, k, stride, out_hw), w, out_hw, range(k * k))
-
-    def bottom_pad_from_above(x, w, k, stride, out_hw, exact=False):
-        return in_order(taps(x, k, stride, out_hw,
-                             fill_bottom=next(pad_calls) == pad_at),
-                        w, out_hw, range(k * k))
-
-    return {"reverse_taps": (reverse_taps, True, True),
-            "k_in_4_slices": (k_in_4_slices, True, True),
-            "chunk_dropped": (chunk_dropped, False, True),
-            "bottom_pad_from_above": (bottom_pad_from_above, False, False)}
-
-
 def megakernel_witness(torch, cuda_kernels, mk, tag, dev, variants=False):
     """The witness of [8]: over 16 seeded event frames from the zero
     state, for each of three seeds, the kernel must be no further from
     the exact-sum run (conv sums in float64, rounded once) than the plain
     version is (``megakernel.witness_passes``). Prints each seed's
     distances. With ``variants``, the plain version with each of
-    ``witness_variants``' conv sums in turn (``megakernel._conv_taps``
-    patched, restored after each) on the same seeds. Returns the seeds
-    where the kernel fails and the ``(variant, seed)`` pairs of the gated
-    variants where the witness did not tell a reordering (passes) from a
-    fault (fails)."""
+    ``megakernel.witness_variants``' conv sums in turn
+    (``megakernel._conv_taps`` patched, restored after each) on the same
+    seeds. Returns the seeds where the kernel fails and the ``(variant,
+    seed)`` pairs where the witness did not tell a reordering (passes)
+    from the dropped K-chunk (fails). The padding fault's verdict is
+    printed, not gated here: at GEN1 width it moves the run no further
+    than the bf16 and e4m3 kernels' own sum orders do, or (on the trained
+    net) not at all; ``megakernel_exact_gate`` refuses it."""
     from snn_for_object_detection_tpu_torch.ops import megakernel as M
 
     plan = mk.plan
@@ -1670,7 +1614,7 @@ def megakernel_witness(torch, cuda_kernels, mk, tag, dev, variants=False):
         "exact": lambda x, s: M.streaming_megakernel_reference(
             plan, x, s, exact_sums=True),
     }
-    conv_sums = witness_variants(torch, plan) if variants else {}
+    conv_sums = M.witness_variants(plan) if variants else {}
 
     def run(fn, frames):
         state, preds = mk._flat_state(None), []
@@ -1681,10 +1625,7 @@ def megakernel_witness(torch, cuda_kernels, mk, tag, dev, variants=False):
 
     failed, wrong = [], []
     for seed in MK_WITNESS_SEEDS:
-        rng = np.random.default_rng(100 + seed)
-        frames = torch.from_numpy(
-            (rng.random((MK_FRAMES, *IN_HW, 2)) < EVENT_DENSITY)
-            .astype(np.uint8)).to(dev)
+        frames = event_frames(torch, 100 + seed, dev)
         out = {name: run(fn, frames) for name, fn in runs.items()}
         kernel = M.run_distance(*out["kernel"], *out["exact"])
         plain = M.run_distance(*out["plain"], *out["exact"])
@@ -1694,32 +1635,149 @@ def megakernel_witness(torch, cuda_kernels, mk, tag, dev, variants=False):
               f"{'passes' if ok else 'FAILS'}", flush=True)
         if not ok:
             failed.append(seed)
-        for name, (fn, legit, gated) in conv_sums.items():
+        for name, variant in conv_sums.items():
             conv_taps = M._conv_taps
-            M._conv_taps = fn
+            M._conv_taps = variant.conv_taps
             try:
                 got = M.run_distance(*run(runs["plain"], frames),
                                      *out["exact"])
             finally:
                 M._conv_taps = conv_taps
             passes = M.witness_passes(got, plain)
-            verdict = ("" if passes == legit else " (WRONG VERDICT)" if gated
-                       else " (not gated: ROADMAP Queue 3)")
+            gated = name != "bottom_pad_from_above"
+            verdict = ("" if passes == variant.reordering
+                       else " (WRONG VERDICT)" if gated
+                       else " (not gated here: the exact-sum gate decides)")
             print(f"  {tag}: witness at width, seed {seed}, {name} ("
-                  f"{'a reordering' if legit else 'a fault'}): {got}; "
-                  f"{'passes' if passes else 'fails'}{verdict}", flush=True)
-            if passes != legit and gated:
+                  f"{'a reordering' if variant.reordering else 'a fault'}"
+                  f"): {got}; {'passes' if passes else 'fails'}{verdict}",
+                  flush=True)
+            if passes != variant.reordering and gated:
                 wrong.append((name, seed))
         del out
     torch.cuda.empty_cache()
     return failed, wrong
 
 
+def event_frames(torch, seed, dev):
+    """MK_FRAMES seeded Bernoulli(EVENT_DENSITY) event frames, ``[T, H, W,
+    2]`` uint8 on ``dev``."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.random((MK_FRAMES, *IN_HW, 2))
+                             < EVENT_DENSITY).astype(np.uint8)).to(dev)
+
+
+def megakernel_exact_gate(torch, cuda_kernels, plan, tag, dev):
+    """[8]'s exact-sum gate: for each of MK_EXACT_SEEDS, the plan made
+    exact (``megakernel.make_exact``: integer conv weights from the seed,
+    Norms with a power-of-two k and the bias that makes every LIF op spike
+    at a rate in ``EXACT_RATE`` over the frames) on MK_FRAMES seeded event
+    frames. Every conv sum that reads integers is then exact in any order
+    (its bound below 2^24 is printed and gated), so
+    ``cuda_kernels.streaming_megakernel`` must equal
+    ``streaming_megakernel_reference`` bit for bit in every state slot
+    after every frame from the zero state; the predictions, which the
+    head's box / cls convs sum from tanh outputs, are compared and not
+    gated. Then the plain version with each of ``witness_variants``' conv
+    sums patched in: both reorderings must be bit-equal to it after every
+    frame, and both faults must differ, each on a seed where its inputs
+    on the rows or channels it breaks are nonzero (the padding fault's
+    conv gets a nonzero bottom input row in at least one frame; the
+    dropped K-chunk's 16 channels are nonzero): counts printed and gated.
+    The plan's weights are restored at the end."""
+    from snn_for_object_detection_tpu_torch.ops import megakernel as M
+
+    saved = plan.weight_buf.clone()
+    heads = tuple(n for n, op in enumerate(plan.ops)
+                  if plan.buffers[op.dst].space == "preds")
+    variants = M.witness_variants(plan)
+
+    def run(fn, frames):
+        state = [torch.zeros(s.shape, dtype=s.dtype, device=dev)
+                 for s in plan.slots]
+        for x in frames:
+            cls, box, state = fn(x, state)
+            yield cls, box, state
+
+    try:
+        for seed in MK_EXACT_SEEDS:
+            frames = event_frames(torch, 200 + seed, dev)
+            t0 = time.perf_counter()
+            report = M.make_exact(plan, frames, seed)
+            rates = [r for _, r in report.rates]
+            print(f"  {tag}: exact-sum gate, seed {seed}: make_exact in "
+                  f"{time.perf_counter() - t0:.1f} s: spike rates of the "
+                  f"{len(rates)} LIF ops over {MK_FRAMES} frames "
+                  f"{min(rates):.4f}-{max(rates):.4f}; largest bound on a "
+                  f"conv's sums {report.largest_sum:.0f} (< 2^24); convs "
+                  f"reading non-integers {report.inexact} (the heads' box "
+                  f"/ cls: {heads})", flush=True)
+            lo, hi = M.EXACT_RATE
+            check(lo <= min(rates) and max(rates) <= hi,
+                  f"{tag}: spike rates {rates} outside {M.EXACT_RATE}")
+            check(report.largest_sum < M.EXACT_LIMIT,
+                  f"{tag}: a conv's sums reach {report.largest_sum}")
+            check(report.inexact == heads, f"{tag}: convs reading "
+                  f"non-integers {report.inexact}, want {heads}")
+            reference = (lambda x, s: M.streaming_megakernel_reference(
+                plan, x, s))
+            plain = list(run(reference, frames))
+            pred_diff, differ = 0.0, 0
+            for (cls, box, got), (pc, pb, want) in zip(run(
+                    lambda x, s: cuda_kernels.streaming_megakernel(plan, x, s),
+                    frames), plain):
+                differ += sum(not bits_equal(g, w) for g, w in zip(got, want))
+                pred_diff = max(pred_diff, max_abs_err(cls, pc),
+                                max_abs_err(box, pb))
+            torch.cuda.synchronize()
+            n_slots = len(plan.slots) * MK_FRAMES
+            print(f"  {tag}: exact-sum gate, seed {seed}: kernel against the "
+                  f"plain version: {n_slots - differ} of {n_slots} state "
+                  f"slots x frames bit-equal; predictions max |diff| "
+                  f"{pred_diff:.3g} (not gated: the box / cls convs sum "
+                  f"tanh outputs)", flush=True)
+            check(differ == 0, f"{tag}: {differ} state slots x frames of the "
+                  f"kernel differ from the plain version under exact sums")
+            for name, variant in variants.items():
+                variant.seen.clear()
+                conv_taps = M._conv_taps
+                M._conv_taps = variant.conv_taps
+                try:
+                    differ = sum(
+                        not bits_equal(g, w)
+                        for (_, _, got), (_, _, want) in zip(
+                            run(reference, frames), plain)
+                        for g, w in zip(got, want))
+                finally:
+                    M._conv_taps = conv_taps
+                same = differ == 0
+                seen = ("" if variant.reordering else
+                        f"; nonzero inputs on its broken rows / channels "
+                        f"{sum(variant.seen)} over "
+                        f"{sum(n > 0 for n in variant.seen)} of "
+                        f"{len(variant.seen)} frames")
+                ok = same == variant.reordering
+                print(f"  {tag}: exact-sum gate, seed {seed}, {name} ("
+                      f"{'a reordering' if variant.reordering else 'a fault'}"
+                      f"): {differ} state slots x frames differ from the "
+                      f"plain version{seen}; "
+                      f"{'right' if ok else 'WRONG VERDICT'}", flush=True)
+                check(ok, f"{tag}: exact-sum gate, {name}: {differ} slots x "
+                      f"frames differ")
+                check(variant.reordering or any(n > 0 for n in variant.seen),
+                      f"{tag}: {name}: its conv saw only zeros where it "
+                      f"breaks ({variant.seen})")
+            del plain
+    finally:
+        plan.weight_buf.copy_(saved)
+        torch.cuda.empty_cache()
+
+
 def phase_megakernel(torch, cuda_kernels, TinyYolo, batch, dev,
                      weights=None, timed=True, net="untrained",
                      pairs=(("float32", "float32"),
                             ("bfloat16", "float8_e5m2")), prepare=None,
-                     variants=False):
+                     variants=False, exact=False):
     """Phase 8: the B=1 streaming megakernel on TinyYolo GEN1, in both
     dtype configurations, through ``StreamingMegakernel.step``: one
     launch per frame and nothing else; the final state against the plain
@@ -1731,9 +1789,10 @@ def phase_megakernel(torch, cuda_kernels, TinyYolo, batch, dev,
     the megakernel dequantizes at build time while ``SODa.step`` runs
     int8 convs: another function, so not compared); ``variants``: the
     witness must also pass each legitimate reordering of the plain
-    version's conv sums and fail the gated fault, on every seed
-    (``witness_variants``). Returns (launches, fp32 row of the kernels
-    line)."""
+    version's conv sums and fail the dropped K-chunk, on every seed
+    (``megakernel.witness_variants``); ``exact``: then
+    ``megakernel_exact_gate`` on the plan. Returns (launches, fp32 row of
+    the kernels line)."""
     from snn_for_object_detection_tpu_torch.ops.megakernel import (
         StreamingMegakernel,
         streaming_megakernel_reference,
@@ -1803,6 +1862,8 @@ def phase_megakernel(torch, cuda_kernels, TinyYolo, batch, dev,
               f"error {li_rel} (limit {li_limit})")
         check(not failed, f"{tag}: the kernel is further from the "
               f"exact-sum run than the plain version on seeds {failed}")
+        if exact:
+            megakernel_exact_gate(torch, cuda_kernels, plan, tag, dev)
 
         if xd == "float32" and prepare is None:
             # the same function per step (cuDNN, cell)
@@ -4181,7 +4242,8 @@ def options_e4m3_model(torch, cuda_kernels, C, TinyYolo, Trainer, batches,
     another order, every state bit-equal unfused); the megakernel over
     MK_FRAMES frames against its plain version ([8]'s 0.99 per LIF cell
     and NaN agreement >= 0.99 a slot on the first frame, the witness over
-    all of them, as [14] (e)); the eval step's ms beside e5m2
+    all of them, as [14] (e)), then [8]'s exact-sum gate on its plan
+    (``megakernel_exact_gate``); the eval step's ms beside e5m2
     states'; TRAIN_STEPS ``Trainer.fit`` steps, time-batched, on the
     kernels and on the plain cell: every loss NaN where the plain run's
     is, the finite ones within rtol 1e-3."""
@@ -4295,7 +4357,10 @@ def options_e4m3_model(torch, cuda_kernels, C, TinyYolo, Trainer, batches,
           f"{nan_share(*out['kernel'][2]):.4f}; witness, distance from the "
           f"exact-sum run: kernel {kernel}, plain version {plainw}: "
           f"{'passes' if ok else 'FAILS'}", flush=True)
-    del model, mk, out, first
+    del out, first
+    megakernel_exact_gate(torch, cuda_kernels, plan,
+                          f"megakernel bfloat16/{E4M3}", dev)
+    del model, mk, plan
     times = {}
     for sd in ("float8_e5m2", E4M3):
         model = build_model(TinyYolo, "bfloat16", sd, dev)
@@ -4480,8 +4545,9 @@ def options_int8(torch, cuda_kernels, TinyYolo, Trainer, smi, dev):
     """[15] (e): int8 PTQ on the trained net: ``python -m
     snn_for_object_detection_tpu_torch test`` with its config and
     checkpoint on a synthetic GEN1 set (as [12]; B=4, T=12, bf16 states)
-    restores the fp32 net; ``calibrate`` on PTQ_BATCHES of its test
-    batches and ``quantize``; every int8 conv of the first
+    restores the fp32 net (one loader worker, so the batches come in one
+    order); ``calibrate`` on PTQ_BATCHES of its test batches, bit-equal to
+    a second ``calibrate`` on a fresh loader's, and ``quantize``; every int8 conv of the first
     PTQ_CHECKED_STEPS per-step frames bit-equal to its float64 plain
     version; ``Trainer.test`` time-batched and per-step on those batches
     (mAP of both nets, the int8 net's class agreement with the fp net);
@@ -4510,17 +4576,30 @@ def options_int8(torch, cuda_kernels, TinyYolo, Trainer, smi, dev):
     run = cli.main([
         "test", "--config", os.path.join(net, "config.yaml"),
         f"--data.init_args.data_dir={data_dir}",
+        # one worker: the batches in the recordings' order, not the
+        # threads' race, so the phase repeats from call to call
+        "--data.init_args.num_workers=1",
         f"--trainer.limit_test_batches={PTQ_BATCHES}",
         f"--ckpt_path={os.path.join(net, 'model')}",
         f"--trainer.out_dir={os.path.join(root, 'out')}"])
     model = run.model
-    loader = iter(run.data.test_loader())
-    batches = list(itertools.islice(loader, PTQ_BATCHES))
-    getattr(loader, "close", lambda: None)()
+
+    def test_batches():
+        loader = iter(run.data.test_loader())
+        got = list(itertools.islice(loader, PTQ_BATCHES))
+        getattr(loader, "close", lambda: None)()
+        return got
+
+    batches = test_batches()
     check(len(batches) == PTQ_BATCHES, f"{len(batches)} synthetic batches")
     t0 = time.perf_counter()
     absmax = Q.calibrate(model, [x for x, _ in batches])
     cal_s = time.perf_counter() - t0
+    again = Q.calibrate(model, [x for x, _ in test_batches()])
+    same = sum(again.get(k) == v for k, v in absmax.items())
+    print(f"  calibrate again from a fresh loader: {same} of {len(absmax)} "
+          f"absmax values bit-equal", flush=True)
+    check(again == absmax, "two calibrations from two fresh loaders differ")
     qmodel = Q.quantize(model, absmax)
     convs = [m for m in qmodel.modules() if hasattr(m, "quantized")]
     n_q = sum(m.quantized for m in convs)
@@ -6282,7 +6361,7 @@ def main(argv) -> int:
         if 8 in only:
             print("[8] megakernel", flush=True)
             phase_megakernel(torch, cuda_kernels, TinyYolo, batches[0],
-                             "cuda", variants=True)
+                             "cuda", variants=True, exact=True)
         if 10 in only:
             print("[10] train", flush=True)
             phase_cell_backward(torch, cuda_kernels, "cuda")
@@ -6382,7 +6461,8 @@ def main(argv) -> int:
     print(f"[8] megakernel: TinyYolo GEN1 {IN_HW} at B=1, {MK_FRAMES} frames "
           f"through StreamingMegakernel.step", flush=True)
     mk_launches, mk_row = phase_megakernel(torch, cuda_kernels, TinyYolo,
-                                           batches[0], "cuda", variants=True)
+                                           batches[0], "cuda", variants=True,
+                                           exact=True)
     t0 = phase_seconds(8, t0)
     print(f"[9] engine: StreamingEngine on TinyYolo GEN1, capacity "
           f"{ENGINE_CAPACITY}, {ENGINE_STREAMS} streams, {ENGINE_STEPS} steps",

@@ -58,7 +58,9 @@ menu raise :class:`UnsupportedLayer`; callers use ``SODa.predict``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+import itertools
+import math
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -121,6 +123,7 @@ class Op:
     slots: Tuple[int, int] = (-1, -1)
     act: Optional[str] = None
     pool: str = "M"
+    path: Tuple[str, ...] = ()  # of a conv, its layer in the model
 
     @property
     def inputs(self) -> List[int]:
@@ -337,7 +340,7 @@ def _emit_block(b: Plan, block: C.Block, src: int, path, taps) -> int:
                     k * k, c, cout)
                 dst = b.add_buffer("ws", (*layer.out_hw, cout))
                 op = Op("conv", y, dst, k=k, stride=layer.stride,
-                        w=b.add_weight(taps_w))
+                        w=b.add_weight(taps_w), path=lpath)
                 li = _absorb_chain(b, op, layers, li + 1, bpath)
                 b.add_op(op)
                 y = dst
@@ -490,6 +493,69 @@ def _conv_taps(x: torch.Tensor, w: torch.Tensor, k: int, stride: int,
     return acc.reshape(ho, wo, -1).float()
 
 
+def conv_weight(plan: Plan, op: Op) -> torch.Tensor:
+    """A conv op's ``[k*k, Cin, Cout]`` taps: a view of the plan's
+    weight buffer."""
+    c = plan.buffers[op.src].shape[2]
+    cout = plan.buffers[op.dst].shape[2]
+    return plan.weight(op.w, op.k * op.k * c * cout).reshape(
+        op.k * op.k, c, cout)
+
+
+def _op_value(plan: Plan, op: Op, src: torch.Tensor, s_in, s_out
+              ) -> torch.Tensor:
+    """The output of a non-conv op on one frame's ``src`` (before a
+    Residual sum)."""
+    cdt = plan.compute_dtype
+    out_hw = plan.buffers[op.dst].shape[:2]
+    if op.kind == "ew":
+        return _epilogue(plan, op, src.float(), s_in, s_out)
+    if op.kind == "pool":
+        (oh, ow), k = out_hw, op.k
+        yr = src.reshape(oh, k, ow, k, src.shape[-1])
+        if op.pool == "M":
+            return yr.amax(dim=(1, 3))
+        y = yr.float().sum(dim=(1, 3))
+        return (y / (k * k) if op.pool == "A" else y).to(cdt)
+    if op.kind == "up":
+        return src.repeat_interleave(op.k, 0).repeat_interleave(op.k, 1)
+    return src  # add, copy
+
+
+class _Values:
+    """The values of a plan's buffers in a walk of its ops: the frame
+    (``x``, ``lead + [H, W, Cin]``), each workspace root buffer (``lead +
+    [H, W, C]``, written whole or a channel slice at a time) and the fp32
+    prediction buffer; ``lead`` is ``()`` for one frame, ``(T,)`` for T
+    frames walked op by op (:func:`make_exact`)."""
+
+    def __init__(self, plan: Plan, x: torch.Tensor, lead=()):
+        self.plan, self.lead = plan, tuple(lead)
+        self.roots: Dict[int, torch.Tensor] = {0: x.to(plan.compute_dtype)}
+        self.preds = torch.zeros(self.lead + (plan.preds_numel,),
+                                 dtype=torch.float32, device=x.device)
+
+    def read(self, buf: int) -> torch.Tensor:
+        root, off = self.plan.locate(buf)
+        return self.roots[root][..., off:off + self.plan.buffers[buf].shape[2]]
+
+    def write(self, buf: int, value: torch.Tensor) -> None:
+        b = self.plan.buffers[buf]
+        if b.space == "preds":
+            self.preds[..., b.offset:b.offset + b.numel] = value.reshape(
+                self.lead + (-1,))
+            return
+        root, off = self.plan.locate(buf)
+        if root == buf:  # the whole buffer: written once
+            self.roots[root] = value
+            return
+        if root not in self.roots:
+            self.roots[root] = torch.zeros(
+                self.lead + self.plan.buffers[root].shape,
+                dtype=self.plan.compute_dtype, device=value.device)
+        self.roots[root][..., off:off + b.shape[2]] = value
+
+
 def streaming_megakernel_reference(plan: Plan, x: torch.Tensor,
                                    state_vals: List[torch.Tensor],
                                    exact_sums: bool = False):
@@ -502,57 +568,20 @@ def streaming_megakernel_reference(plan: Plan, x: torch.Tensor,
     fp32 (``_conv_taps``); everything after the sum rounds where the
     plain version does. The run then differs from the plain version only
     in the conv sums: the reference of the witness (``run_distance``)."""
-    cdt = plan.compute_dtype
-    roots: Dict[int, torch.Tensor] = {0: x.to(cdt)}
-    preds = torch.zeros(plan.preds_numel, dtype=torch.float32,
-                        device=x.device)
+    vals = _Values(plan, x)
     s_out = list(state_vals)
-
-    def read(buf: int) -> torch.Tensor:
-        root, off = plan.locate(buf)
-        return roots[root][..., off:off + plan.buffers[buf].shape[2]]
-
-    def write(buf: int, value: torch.Tensor) -> None:
-        b = plan.buffers[buf]
-        if b.space == "preds":
-            preds[b.offset:b.offset + b.numel] = value.reshape(-1)
-            return
-        root, off = plan.locate(buf)
-        if root == buf:  # the whole buffer: written once
-            roots[root] = value
-            return
-        if root not in roots:
-            roots[root] = torch.zeros(plan.buffers[root].shape, dtype=cdt,
-                                      device=x.device)
-        roots[root][..., off:off + b.shape[2]] = value
-
     for op in plan.ops:
-        src = read(op.src)
-        out_hw = plan.buffers[op.dst].shape[:2]
+        src = vals.read(op.src)
         if op.kind == "conv":
-            c = src.shape[-1]
-            cout = plan.buffers[op.dst].shape[2]
-            w = plan.weight(op.w, op.k * op.k * c * cout).reshape(
-                op.k * op.k, c, cout)
-            acc = _conv_taps(src, w, op.k, op.stride, out_hw, exact_sums)
+            acc = _conv_taps(src, conv_weight(plan, op), op.k, op.stride,
+                             plan.buffers[op.dst].shape[:2], exact_sums)
             y = _epilogue(plan, op, acc, state_vals, s_out)
-        elif op.kind == "ew":
-            y = _epilogue(plan, op, src.float(), state_vals, s_out)
-        elif op.kind == "pool":
-            (oh, ow), k = out_hw, op.k
-            yr = src.reshape(oh, k, ow, k, src.shape[-1])
-            if op.pool == "M":
-                y = yr.amax(dim=(1, 3))
-            else:
-                y = yr.float().sum(dim=(1, 3))
-                y = (y / (k * k) if op.pool == "A" else y).to(cdt)
-        elif op.kind == "up":
-            y = src.repeat_interleave(op.k, 0).repeat_interleave(op.k, 1)
-        else:  # add, copy
-            y = src
+        else:
+            y = _op_value(plan, op, src, state_vals, s_out)
         if op.res >= 0:  # a Residual sum: add, or a conv / ew epilogue's
-            y = y + read(op.res)
-        write(op.dst, y)
+            y = y + vals.read(op.res)
+        vals.write(op.dst, y)
+    preds = vals.preds
     a = plan.num_anchors
     cls = preds[:a * (plan.num_classes + 1)].reshape(1, a, -1)
     box = preds[a * (plan.num_classes + 1):].reshape(1, a, 4)
@@ -652,6 +681,234 @@ def model_cells(model, state):
         for part in ("base", "box", "cls"):
             walk(head[part], state[f"head{idx}"][part])
     return cells
+
+
+# ---- exact weights: every conv sum exact, every build bit-equal ----
+
+# make_exact's integer conv weights lie in [-EXACT_WEIGHT, EXACT_WEIGHT],
+# a share EXACT_DENSITY of them drawn, the rest 0 (TinyYolo's chains of
+# 1 x 1 convs without a cell grow their sums by the fan-in times the
+# weight a conv); a conv whose inputs are integers then sums integers,
+# exact in fp32 below EXACT_LIMIT. Its Norms are set so that every LIF
+# op spikes at a rate inside EXACT_RATE over the frames (bisecting the
+# bias towards half).
+EXACT_WEIGHT, EXACT_DENSITY = 2, 0.25
+EXACT_LIMIT = 2.0 ** 24
+EXACT_RATE = (0.05, 0.95)
+_BIAS_RANGE, _BIAS_STEPS, _SEARCH_POSITIONS = 64.0, 14, 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class ExactPlan:
+    """What :func:`make_exact` measured over its frames. ``rates``:
+    ``(op index, share of spikes over neurons and frames)`` of every LIF
+    op; ``largest_sum``: over the convs that read integers, the largest
+    sum of ``|x| * |w|`` over an output's inputs, which no partial sum in
+    any order exceeds; ``inexact``: the convs that read non-integers
+    (their sums round)."""
+
+    rates: Tuple[Tuple[int, float], ...]
+    largest_sum: float
+    inexact: Tuple[int, ...]
+
+
+def _set_affine(plan: Plan, op: Op, acc: List[torch.Tensor], state):
+    """Give ``op``'s Norm ``k`` a power of two with ``k * std(sums)`` in
+    (0.5, 1] (1 for silent sums) and, in front of a LIF cell, the bias
+    that brings the spike rate over the frames closest above one half
+    (``b = 0`` elsewhere), searched on at most _SEARCH_POSITIONS
+    positions of the map. ``acc``: the op's conv sums, a frame each;
+    ``state``: its cell's slots at the first frame."""
+    c = acc[0].shape[-1]
+    k_w, b_w = plan.weight(op.norm[0], c), plan.weight(op.norm[1], c)
+    spread = float(torch.stack(acc).std())
+    k_w.fill_(2.0 ** math.floor(-math.log2(spread)) if spread > 0 else 1.0)
+    b_w.zero_()
+    if op.cell != "lif":
+        return
+    step = -(-acc[0][..., 0].numel() // _SEARCH_POSITIONS)
+    acc = [a.reshape(-1, c)[::step] for a in acc]
+    state = {n: v.reshape(-1, c)[::step] for n, v in state.items()}
+
+    def rate(bias: float) -> float:
+        b_w.fill_(bias)
+        return float(torch.stack(_epilogues(plan, op, acc, state)[0])
+                     .ne(0).float().mean())
+
+    lo, hi = -_BIAS_RANGE, _BIAS_RANGE
+    for _ in range(_BIAS_STEPS):
+        mid = (lo + hi) / 2
+        lo, hi = (mid, hi) if rate(mid) < 0.5 else (lo, mid)
+    b_w.fill_(hi)
+
+
+def _epilogues(plan: Plan, op: Op, acc: List[torch.Tensor], state):
+    """``_epilogue`` over the frames of ``acc`` from ``state`` (a dict
+    of ``op``'s slots): ``(outputs, final state)``."""
+    ys = []
+    for a in acc:
+        new = dict(state)
+        ys.append(_epilogue(plan, op, a, state, new))
+        state = new
+    return ys, state
+
+
+def make_exact(plan: Plan, frames: torch.Tensor, seed: int = 0
+               ) -> ExactPlan:
+    """Make a built plan's arithmetic exact, in place, for ``frames``
+    (``[T, H, W, Cin]`` integer-valued events) from the zero state.
+
+    Every conv weight becomes an integer in ``[-EXACT_WEIGHT,
+    EXACT_WEIGHT]`` (a share ``EXACT_DENSITY`` drawn, the rest 0) from a
+    ``torch.Generator`` seeded with ``seed``, and every Norm an affine
+    ``(k, b)`` with ``k`` a power of two (``_set_affine``), chosen from
+    the frames walked op by op (the
+    plain version's arithmetic, with each op over all T frames before the
+    next). A conv fed by the frame, by spikes or by sums of them then sums
+    integers below ``EXACT_LIMIT`` (``largest_sum`` says how far below),
+    exact in fp32 in any order, on FFMA or on tensor cores; the Norm's
+    product by ``k`` is exact, so a kernel and the plain version round
+    the same values through the same epilogue and every state slot must
+    be bit-equal after every frame. Only convs that read non-integers
+    (TinyYolo's head box / cls convs, after a tanh) sum inexactly
+    (``inexact``). The rates are the ones these frames give."""
+    dev = plan.weight_buf.device
+    gen = torch.Generator().manual_seed(seed)
+    t_count = frames.shape[0]
+    vals = _Values(plan, frames.to(dev), lead=(t_count,))
+    last = {}  # each root buffer's last op: dropped after it
+    for n, op in enumerate(plan.ops):
+        for b in op.inputs + [op.dst]:
+            last[plan.locate(b)[0]] = n
+    rates, inexact, largest = [], [], 0.0
+    with torch.no_grad():
+        for n, op in enumerate(plan.ops):
+            src = vals.read(op.src)
+            state = {s: torch.zeros(plan.slots[s].shape,
+                                    dtype=plan.slots[s].dtype, device=dev)
+                     for s in op.slots if s >= 0}
+            if op.kind == "conv":
+                w = conv_weight(plan, op)
+                keep = torch.rand(tuple(w.shape), generator=gen)
+                w.copy_(torch.randint(-EXACT_WEIGHT, EXACT_WEIGHT + 1,
+                                      tuple(w.shape), generator=gen)
+                        * (keep < EXACT_DENSITY))
+                out_hw = plan.buffers[op.dst].shape[:2]
+                if bool((src == src.float().round()).all()):
+                    for s in src:  # |x| * |w| bounds every partial sum
+                        largest = max(largest, float(_conv_taps(
+                            s.abs(), w.abs(), op.k, op.stride,
+                            out_hw).amax()))
+                else:
+                    inexact.append(n)
+                acc = [_conv_taps(s, w, op.k, op.stride, out_hw)
+                       for s in src]
+            elif op.kind == "ew":
+                acc = [s.float() for s in src]
+            if op.kind in ("conv", "ew"):
+                if op.norm is not None:
+                    _set_affine(plan, op, acc, state)
+                ys, _ = _epilogues(plan, op, acc, state)
+            else:  # pool, up, add, copy: no state
+                ys = [_op_value(plan, op, s, None, None) for s in src]
+            y = torch.stack(ys)
+            if op.cell == "lif":
+                rates.append((n, float(y.ne(0).float().mean())))
+            if op.res >= 0:
+                y = y + vals.read(op.res)
+            vals.write(op.dst, y)
+            for root in [r for r, m in last.items() if m == n]:
+                vals.roots.pop(root, None)
+    return ExactPlan(tuple(rates), largest, tuple(inexact))
+
+
+@dataclasses.dataclass
+class ConvSumVariant:
+    """Another conv sum for the plain version, with ``_conv_taps``'
+    signature (patched in as ``megakernel._conv_taps``): a legitimate
+    reordering, or a fault. At each call of the conv a fault breaks, it
+    appends to ``seen`` the count of nonzero inputs on the rows or
+    channels it breaks: where they are all zero the fault changes
+    nothing, and a gate that it changes the run would not be tried."""
+
+    conv_taps: Callable
+    reordering: bool
+    seen: List[int] = dataclasses.field(default_factory=list)
+
+
+def witness_variants(plan: Plan) -> Dict[str, ConvSumVariant]:
+    """Four conv sums for a plan with four stride-2 convs or more (GEN1
+    TinyYolo): the taps summed last to first; K (tap by tap, channel by
+    channel) in 4 in-order slices summed alone, then in order; and two
+    faults: the third stride-2 conv (the /8 downsample) loses the first
+    16-channel K-chunk of its first tap; the second 3 x 3 stride-1 conv
+    after the fourth stride-2 conv (the /16 downsample) reads its bottom
+    padding row from its bottom input row. A fault finds its conv by its
+    place in the frame's conv order (its calls counted modulo the plan's
+    convs: a run is whole frames), since several convs share a shape."""
+    convs = [op for op in plan.ops if op.kind == "conv"]
+    downs = [i for i, op in enumerate(convs) if op.stride == 2]
+    drop_at = downs[2]
+    pad_at = [i for i in range(downs[3] + 1, len(convs))
+              if convs[i].k == 3 and convs[i].stride == 1][1]
+    drop_calls, pad_calls = (itertools.cycle(range(len(convs)))
+                             for _ in range(2))
+
+    def taps(x, k, stride, out_hw, fill_bottom=False):
+        ho, wo = out_hw
+        pad = k // 2
+        x = F.pad(x.float(), (0, 0, pad, pad, pad, pad))
+        if fill_bottom:  # the bottom padding row read from the row above
+            x[-1] = x[-2]
+        return [x[dy:dy + (ho - 1) * stride + 1:stride,
+                  dx:dx + (wo - 1) * stride + 1:stride].reshape(ho * wo, -1)
+                for dy in range(k) for dx in range(k)]
+
+    def in_order(patches, w, out_hw, order):
+        acc = None
+        for t in order:
+            m = patches[t] @ w[t].float()
+            acc = m if acc is None else acc + m
+        return acc.reshape(*out_hw, -1)
+
+    def reverse_taps(x, w, k, stride, out_hw, exact=False):
+        return in_order(taps(x, k, stride, out_hw), w, out_hw,
+                        reversed(range(k * k)))
+
+    def k_in_4_slices(x, w, k, stride, out_hw, exact=False):
+        a = torch.cat(taps(x, k, stride, out_hw), dim=1)
+        b = w.float().reshape(-1, w.shape[-1])
+        acc = torch.zeros(a.shape[0], b.shape[1], device=a.device)
+        for s in range(4):
+            lo, hi = s * a.shape[1] // 4, (s + 1) * a.shape[1] // 4
+            acc = acc + a[:, lo:hi] @ b[lo:hi]
+        return acc.reshape(*out_hw, -1)
+
+    def chunk_dropped(x, w, k, stride, out_hw, exact=False):
+        patches = taps(x, k, stride, out_hw)
+        if next(drop_calls) == drop_at:
+            variants["chunk_dropped"].seen.append(
+                int(patches[0][:, :16].count_nonzero()))
+            w = w.clone()
+            w[0, :16] = 0
+        return in_order(patches, w, out_hw, range(k * k))
+
+    def bottom_pad_from_above(x, w, k, stride, out_hw, exact=False):
+        fault = next(pad_calls) == pad_at
+        if fault:
+            variants["bottom_pad_from_above"].seen.append(
+                int(x[-1].count_nonzero()))
+        return in_order(taps(x, k, stride, out_hw, fill_bottom=fault),
+                        w, out_hw, range(k * k))
+
+    variants = {
+        "reverse_taps": ConvSumVariant(reverse_taps, True),
+        "k_in_4_slices": ConvSumVariant(k_in_4_slices, True),
+        "chunk_dropped": ConvSumVariant(chunk_dropped, False),
+        "bottom_pad_from_above": ConvSumVariant(bottom_pad_from_above,
+                                                False),
+    }
+    return variants
 
 
 # ---- the user-facing step ----
