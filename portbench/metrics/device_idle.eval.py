@@ -1,0 +1,7 @@
+"""The share of the profiled eval steps' time in which no device op ran."""
+
+from portbench.lib import readers
+
+
+def read(rec):
+    return readers.device_idle(rec, "eval")
